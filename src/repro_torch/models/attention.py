@@ -1,0 +1,111 @@
+"""Attention: chunked causal GQA (the algorithm's reference), cached decode,
+and naive causal attention.
+
+Layout conventions (as in the JAX package)
+  q        [B, S, Hq, Dh]
+  k, v     [B, S, Hk, Dh]       (GQA: Hq = Hk * G)
+  cache    k/v  [B, Smax, Hk, Dh] (rope pre-applied to cached K)
+
+Prefill in the port goes through ``kernels.ops.flash_attention`` (the Hopper
+kernel on the card). ``chunked_causal_attention`` is the port of the JAX
+model path's blockwise online softmax, kept as a CPU reference for it; note
+that it rounds p to v's dtype before P.V where the kernel keeps f32.
+Decode attention is plain PyTorch: the JAX package has no kernel there.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.ref import attention_ref
+
+NEG_INF = -1e30
+
+
+def _split_gqa(q: torch.Tensor, num_kv: int) -> torch.Tensor:
+    """[B, S, Hq, D] -> [B, S, Hk, G, D]."""
+    b, s, hq, d = q.shape
+    return q.reshape(b, s, num_kv, hq // num_kv, d)
+
+
+def _merge_gqa(o: torch.Tensor) -> torch.Tensor:
+    b, s, hk, g, d = o.shape
+    return o.reshape(b, s, hk * g, d)
+
+
+def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                             block_q: int = 1024, block_kv: int = 1024,
+                             softcap: float = 0.0) -> torch.Tensor:
+    """Exact causal attention, computed block by block with online softmax."""
+    b, s, hq, dh = q.shape
+    hk = k.shape[2]
+    g = hq // hk
+    scale = dh ** -0.5
+
+    block_q = min(block_q, s)
+    block_kv = min(block_kv, s)
+    if s % block_q or s % block_kv:
+        blk = math.gcd(s, math.gcd(block_q, block_kv))
+        block_q = block_kv = max(blk, 1)
+    nq = s // block_q
+
+    qg = _split_gqa(q, hk).float()                           # [b,s,hk,g,dh]
+    out_blocks = []
+    for i in range(nq):
+        q_i = qg[:, i * block_q:(i + 1) * block_q]
+        # blocks 0 .. the one holding the block's LAST query row (the JAX
+        # code stops at its first row's, which drops keys when block_q > block_kv)
+        n_pref = ((i + 1) * block_q - 1) // block_kv + 1
+        m = torch.full((b, hk, g, block_q), NEG_INF, device=q.device)
+        l = torch.zeros((b, hk, g, block_q), device=q.device)
+        acc = torch.zeros((b, hk, g, block_q, dh), device=q.device)
+        q_pos = i * block_q + torch.arange(block_q, device=q.device)
+        for j in range(n_pref):
+            k_j = k[:, j * block_kv:(j + 1) * block_kv]
+            v_j = v[:, j * block_kv:(j + 1) * block_kv]
+            sblk = torch.einsum("bqhgd,bkhd->bhgqk", q_i, k_j.float()) * scale
+            if softcap > 0:
+                sblk = softcap * torch.tanh(sblk / softcap)
+            k_pos = j * block_kv + torch.arange(block_kv, device=q.device)
+            mask = q_pos[:, None] >= k_pos[None, :]
+            sblk = sblk.masked_fill(~mask, NEG_INF)
+            m_new = torch.maximum(m, sblk.amax(dim=-1))
+            p = torch.exp(sblk - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p.to(v_j.dtype).float(), v_j.float())
+            m = m_new
+        o_i = acc / torch.clamp(l[..., None], min=1e-37)      # [b,hk,g,bq,dh]
+        out_blocks.append(o_i.permute(0, 3, 1, 2, 4))         # [b,bq,hk,g,dh]
+    o = torch.cat(out_blocks, dim=1)
+    return _merge_gqa(o).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     pos: int, *, softcap: float = 0.0) -> torch.Tensor:
+    """One new token against the cache.
+
+    q [B, Hq, Dh] (rope applied at pos); k/v cache [B, Smax, Hk, Dh] with the
+    new token already written at ``pos``. Returns [B, Hq, Dh] in q's dtype.
+    """
+    b, smax, hk, dh = k_cache.shape
+    hq = q.shape[1]
+    g = hq // hk
+    qg = q.reshape(b, hk, g, dh)
+    s = torch.einsum("bhgd,bshd->bhgs", qg.float(), k_cache.float()) * dh ** -0.5
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    valid = torch.arange(smax, device=q.device) <= pos
+    s = s.masked_fill(~valid, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype).float(), v_cache.float())
+    return o.reshape(b, hq, dh).to(q.dtype)
+
+
+def naive_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                           window: int = 0, softcap: float = 0.0) -> torch.Tensor:
+    """Materialised-scores causal attention (a test oracle): the plain version
+    with P rounded to v's dtype, as the JAX model path does."""
+    return attention_ref(q, k, v, softcap=softcap, window=window, p_dtype=v.dtype)

@@ -1,0 +1,167 @@
+"""Basic layers: norms, rotary embeddings, MLPs, embedding/unembedding.
+
+Each layer is an ``nn.Module`` holding its parameters under the names of the
+JAX package's param dicts, with matrices in the ``[in, out]`` orientation of
+its ``einsum("...d,de->...e")``. Mixed precision as there: parameters live in
+``param_dtype``; norms and logits run in f32; matmuls run in the activation
+dtype. ``reset_parameters(generator)`` draws the same distributions as the
+JAX ``init_*`` functions (not the same numbers).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.config.base import MLP_GELU, MLP_RELU2, MLP_SWIGLU, ModelConfig
+from repro_torch.device import dtype_of
+
+
+def normal_(p: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    """Fills p with N(0, std^2) drawn on the generator's device."""
+    draw = torch.randn(p.shape, generator=generator, device=generator.device,
+                       dtype=torch.float32)
+    with torch.no_grad():
+        p.copy_(draw * std)
+
+
+# ---------------------------------------------------------------------------
+# Normalization
+# ---------------------------------------------------------------------------
+
+class Norm(nn.Module):
+    """RMSNorm / LayerNorm computed in f32, cast back to the input dtype."""
+
+    def __init__(self, cfg: ModelConfig, dim: int = 0, device=None):
+        super().__init__()
+        d = dim or cfg.d_model
+        pd = dtype_of(cfg.param_dtype)
+        self.kind, self.eps = cfg.norm, cfg.norm_eps
+        self.scale = nn.Parameter(torch.ones(d, dtype=pd, device=device))
+        if cfg.norm == "layernorm":
+            self.bias = nn.Parameter(torch.zeros(d, dtype=pd, device=device))
+        else:
+            self.bias = None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if self.kind == "rmsnorm":
+            var = xf.square().mean(dim=-1, keepdim=True)
+            y = xf * torch.rsqrt(var + self.eps)
+        else:
+            mu = xf.mean(dim=-1, keepdim=True)
+            var = (xf - mu).square().mean(dim=-1, keepdim=True)
+            y = (xf - mu) * torch.rsqrt(var + self.eps)
+        y = y * self.scale.float()
+        if self.bias is not None:
+            y = y + self.bias.float()
+        return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """Inverse frequencies theta^(-i/half) as f32, computed in f64 and rounded
+    once (within 1 ulp of the JAX package's f32 pow): the angles reach
+    positions x freq, so a freq error of k ulps moves a late position's
+    rotation by k ulps of its angle."""
+    half = head_dim // 2
+    exponent = torch.arange(0, half, dtype=torch.float64, device=device) / half
+    return (1.0 / theta ** exponent).float()
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Split-half RoPE. x: [..., S, H, D]; positions: [..., S]."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, device=x.device)                # [d/2]
+    ang = positions[..., :, None].float() * freqs                # [..., S, d/2]
+    cos = torch.cos(ang)[..., :, None, :]                        # [..., S, 1, d/2]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    """SwiGLU (w_gate, w_up, w_down) or a 2-matrix relu2 / gelu MLP."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, device=None):
+        super().__init__()
+        if kind not in (MLP_SWIGLU, MLP_RELU2, MLP_GELU):
+            raise ValueError(f"unknown mlp kind {kind!r}")
+        d, f = cfg.d_model, cfg.d_ff
+        pd = dtype_of(cfg.param_dtype)
+        self.kind = kind
+        if kind == MLP_SWIGLU:
+            self.w_gate = nn.Parameter(torch.empty(d, f, dtype=pd, device=device))
+        self.w_up = nn.Parameter(torch.empty(d, f, dtype=pd, device=device))
+        self.w_down = nn.Parameter(torch.empty(f, d, dtype=pd, device=device))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        d, f = self.w_down.shape[1], self.w_down.shape[0]
+        if self.kind == MLP_SWIGLU:
+            normal_(self.w_gate, d ** -0.5, generator)
+        normal_(self.w_up, d ** -0.5, generator)
+        normal_(self.w_down, f ** -0.5, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.kind == MLP_SWIGLU:
+            h = F.silu(x @ self.w_gate) * (x @ self.w_up)
+        elif self.kind == MLP_RELU2:
+            h = F.relu(x @ self.w_up).square()
+        else:
+            h = F.gelu(x @ self.w_up, approximate="tanh")  # jax.nn.gelu's default
+        return h @ self.w_down
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+class Embed(nn.Module):
+    """Token table ``tok`` [V, d]; ``unembed`` [d, V] only when not tied."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        if not cfg.embed_inputs:
+            raise NotImplementedError(
+                "precomputed-embedding inputs (embed_inputs=False) come with "
+                "the slice that ports musicgen-large / internvl2-2b")
+        pd = dtype_of(cfg.param_dtype)
+        self.cfg = cfg
+        self.tok = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model,
+                                            dtype=pd, device=device))
+        if cfg.tie_embeddings:
+            self.unembed = None
+        else:
+            self.unembed = nn.Parameter(torch.empty(cfg.d_model, cfg.vocab_size,
+                                                    dtype=pd, device=device))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        normal_(self.tok, 0.02, generator)
+        if self.unembed is not None:
+            normal_(self.unembed, self.cfg.d_model ** -0.5, generator)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.tok[tokens].to(dtype_of(self.cfg.act_dtype))
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Logits in f32 (loss-side numerics); tied: x @ tok.T."""
+        w = self.tok.T if self.unembed is None else self.unembed
+        logits = x.float() @ w.float()
+        c = self.cfg.logit_softcap
+        if c > 0:
+            logits = c * torch.tanh(logits / c)
+        return logits

@@ -1,0 +1,182 @@
+"""Block-typed decoder-only transformer: the (attn, swiglu|relu2|gelu) family.
+
+The JAX package stacks each pattern position's layers and scans them; the
+port keeps one ``Block`` module per layer in order (layer g*len(pattern)+i is
+group g's pattern position i, then the remainder), which is the order that
+``convert.params_from_jax`` unstacks the scanned groups into.
+
+Modes: ``prefill`` runs the whole prompt and returns per-layer KV caches of
+``max_len``; ``decode`` runs one token against those caches and updates them
+in place. Prefill attention goes through ``kernels.ops.flash_attention``.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.config.base import (
+    ATTN, LOCAL_ATTN, MLP_MOE, MLP_NONE, RGLRU, SSD, ModelConfig,
+)
+from repro_torch.device import dtype_of
+from repro_torch.kernels.ops import flash_attention
+from repro_torch.models.attention import decode_attention
+from repro_torch.models.layers import MLP, Norm, apply_rope, normal_
+
+Cache = dict  # {"k": [B, Smax, Hk, hd], "v": [B, Smax, Hk, hd]}
+
+_LATER_MIXERS = {
+    SSD: "slice 2 (mamba2-370m serving with the ssd_scan kernel)",
+    RGLRU: "slice 3 (recurrentgemma-2b serving with the rglru_scan kernel)",
+    LOCAL_ATTN: "slice 3 (recurrentgemma-2b, local attention at head_dim 256)",
+}
+
+
+# ---------------------------------------------------------------------------
+# Attention sub-block
+# ---------------------------------------------------------------------------
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        hq, hk = cfg.num_heads, cfg.num_kv_heads
+        pd = dtype_of(cfg.param_dtype)
+        self.cfg = cfg
+        self.wq = nn.Parameter(torch.empty(d, hq * hd, dtype=pd, device=device))
+        self.wk = nn.Parameter(torch.empty(d, hk * hd, dtype=pd, device=device))
+        self.wv = nn.Parameter(torch.empty(d, hk * hd, dtype=pd, device=device))
+        self.wo = nn.Parameter(torch.empty(hq * hd, d, dtype=pd, device=device))
+        if cfg.qkv_bias:
+            self.bq = nn.Parameter(torch.zeros(hq * hd, dtype=pd, device=device))
+            self.bk = nn.Parameter(torch.zeros(hk * hd, dtype=pd, device=device))
+            self.bv = nn.Parameter(torch.zeros(hk * hd, dtype=pd, device=device))
+        else:
+            self.bq = self.bk = self.bv = None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        d = self.cfg.d_model
+        for w in (self.wq, self.wk, self.wv):
+            normal_(w, d ** -0.5, generator)
+        normal_(self.wo, self.wo.shape[0] ** -0.5, generator)
+        if self.bq is not None:
+            with torch.no_grad():
+                for bias in (self.bq, self.bk, self.bv):
+                    bias.zero_()
+
+    def _qkv(self, x: torch.Tensor):
+        cfg = self.cfg
+        hd = cfg.resolved_head_dim
+        q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
+        if self.bq is not None:
+            q, k, v = q + self.bq, k + self.bk, v + self.bv
+        shp = x.shape[:-1]
+        return (q.reshape(*shp, cfg.num_heads, hd),
+                k.reshape(*shp, cfg.num_kv_heads, hd),
+                v.reshape(*shp, cfg.num_kv_heads, hd))
+
+    def forward(self, x: torch.Tensor, *, mode: str, cache: Optional[Cache],
+                pos: Optional[int], max_len: int = 0) -> Tuple[torch.Tensor, Cache]:
+        theta = self.cfg.rope_theta
+        b, s, _ = x.shape
+        if mode == "decode":
+            q, k, v = self._qkv(x[:, 0])                         # [B,H,hd]
+            positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+            q = apply_rope(q[:, None], positions, theta)[:, 0]
+            k = apply_rope(k[:, None], positions, theta)[:, 0]
+            # The cache was preallocated at max_len (by prefill or init_cache)
+            # and is updated in place here, where the JAX package returns an
+            # updated copy of it.
+            cache["k"][:, pos] = k.to(cache["k"].dtype)
+            cache["v"][:, pos] = v.to(cache["v"].dtype)
+            o = decode_attention(q, cache["k"], cache["v"], pos)[:, None]
+        elif mode == "prefill":
+            if max_len < s:
+                raise ValueError(f"max_len {max_len} < prompt length {s}")
+            q, k, v = self._qkv(x)
+            positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+            q = apply_rope(q, positions, theta)
+            k = apply_rope(k, positions, theta)
+            o = flash_attention(q, k, v)
+            cache = init_attn_cache(self.cfg, b, max_len, k.dtype, x.device)
+            cache["k"][:, :s] = k
+            cache["v"][:, :s] = v
+        else:
+            raise ValueError(f"unknown mode {mode!r}; the port serves "
+                             f"(prefill, decode) only")
+        o = o.reshape(b, o.shape[1], -1)
+        return o @ self.wo, cache
+
+
+def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
+                    dtype: torch.dtype, device=None) -> Cache:
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# One block = mixer + optional MLP, pre-norm residual
+# ---------------------------------------------------------------------------
+
+class Block(nn.Module):
+    def __init__(self, cfg: ModelConfig, mixer: str, mlp: str, device=None):
+        super().__init__()
+        if mixer in _LATER_MIXERS:
+            raise NotImplementedError(
+                f"mixer {mixer!r} is not ported yet; it comes with {_LATER_MIXERS[mixer]}")
+        if mixer != ATTN:
+            raise ValueError(f"unknown mixer {mixer!r}")
+        if mlp == MLP_MOE:
+            raise NotImplementedError(
+                "the MoE MLP is not ported yet; it comes with a slice after slice 3")
+        self.norm1 = Norm(cfg, device=device)
+        self.attn = Attention(cfg, device=device)
+        if mlp != MLP_NONE:
+            self.norm2 = Norm(cfg, device=device)
+            self.mlp = MLP(cfg, mlp, device=device)
+        else:
+            self.norm2 = self.mlp = None
+
+    def forward(self, x: torch.Tensor, *, mode: str, cache: Optional[Cache],
+                pos: Optional[int], max_len: int = 0) -> Tuple[torch.Tensor, Cache]:
+        mx, new_cache = self.attn(self.norm1(x), mode=mode, cache=cache, pos=pos,
+                                  max_len=max_len)
+        x = x + mx
+        if self.mlp is not None:
+            x = x + self.mlp(self.norm2(x))
+        return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# The backbone
+# ---------------------------------------------------------------------------
+
+class Backbone(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        if cfg.decode_k_time_minor:
+            raise NotImplementedError(
+                "the time-minor K cache (decode_k_time_minor) comes with a later slice")
+        self.layers = nn.ModuleList(
+            Block(cfg, mixer, mlp, device=device) for mixer, mlp in cfg.layer_blocks())
+        self.final_norm = Norm(cfg, device=device)
+
+    def forward(self, x: torch.Tensor, *, mode: str,
+                caches: Optional[List[Cache]] = None, pos: Optional[int] = None,
+                max_len: int = 0) -> Tuple[torch.Tensor, List[Cache]]:
+        """Runs all layers. Returns (hidden after the final norm, caches)."""
+        new_caches = []
+        for i, layer in enumerate(self.layers):
+            x, c = layer(x, mode=mode, cache=None if caches is None else caches[i],
+                         pos=pos, max_len=max_len)
+            new_caches.append(c)
+        return self.final_norm(x), new_caches
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype,
+                device=None) -> List[Cache]:
+    """One zeroed KV cache per layer, in layer order."""
+    return [init_attn_cache(cfg, batch, max_len, dtype, device)
+            for _ in cfg.layer_blocks()]

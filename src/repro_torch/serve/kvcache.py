@@ -1,0 +1,20 @@
+"""KV-cache utilities for serving: allocation and size.
+
+One cache per layer, ``{"k", "v"}`` of [B, Smax, Hk, hd]. Sharding specs come
+with the port's ``parallel`` slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.config.base import ModelConfig
+from repro_torch.models.transformer import init_caches
+
+__all__ = ["cache_bytes", "init_caches"]
+
+
+def cache_bytes(model: ModelConfig, batch: int, max_len: int,
+                dtype: torch.dtype = torch.bfloat16) -> int:
+    """Bytes of the model's caches (shapes on the meta device; no allocation)."""
+    caches = init_caches(model, batch, max_len, dtype, device="meta")
+    return sum(t.numel() * t.element_size() for c in caches for t in c.values())

@@ -1,0 +1,136 @@
+"""The port's qwen1.5-0.5b serving path against the JAX model (CPU, f32).
+
+Weights come from the JAX init and go across through numpy
+(``repro_torch.convert.params_from_jax``); prompts are made with numpy.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.config import get_model_config as jax_get_model_config
+from repro.models import build_model as jax_build_model
+from repro.serve.decode import greedy_generate as jax_greedy_generate
+from repro.serve.kvcache import cache_bytes as jax_cache_bytes
+from repro_torch.config import get_model_config
+from repro_torch.convert import params_from_jax
+from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.models import build_model
+from repro_torch.serve import cache_bytes, greedy_generate
+
+ARCH = "qwen1.5-0.5b"
+PREFILL_TOL = 1e-4   # f32 logits, port vs JAX
+DECODE_TOL = 1e-4    # f32 logits of each decode step, port vs JAX
+CONSIST_TOL = 5e-4   # port decode vs port prefill (tests/test_decode_consistency.py)
+
+
+def _f32_cfg(mod):
+    return dataclasses.replace(mod(ARCH, smoke=True), act_dtype="float32",
+                               param_dtype="float32")
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """(JAX model, JAX params, port model) with the same f32 weights."""
+    jcfg = _f32_cfg(jax_get_model_config)
+    jmodel = jax_build_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    cfg = _f32_cfg(get_model_config)
+    model = build_model(cfg, device="cpu")
+    model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jparams), cfg))
+    return jmodel, jparams, model
+
+
+def _tokens(b, s, vocab, seed=0):
+    return np.random.default_rng(seed).integers(0, vocab, size=(b, s)).astype(np.int32)
+
+
+def test_configs_copied_verbatim():
+    for smoke in (False, True):
+        mine = dataclasses.asdict(get_model_config(ARCH, smoke=smoke))
+        ref = dataclasses.asdict(jax_get_model_config(ARCH, smoke=smoke))
+        assert mine == ref
+
+
+def test_prefill_logits_match_jax(pair):
+    jmodel, jparams, model = pair
+    toks = _tokens(2, 48, model.cfg.vocab_size)
+    _, jl = jmodel.prefill(jparams, jnp.asarray(toks), max_len=52)
+    launches = flash_attention_fwd.launches
+    _, tl = model.prefill(torch.from_numpy(toks).long(), max_len=52)
+    assert flash_attention_fwd.launches == launches  # CPU: the plain version
+    assert tl.dtype == torch.float32 and tl.shape == (2, model.cfg.vocab_size)
+    err = np.abs(tl.numpy() - np.asarray(jl)).max()
+    assert err <= PREFILL_TOL, err
+
+
+def test_decode_steps_match_jax(pair):
+    jmodel, jparams, model = pair
+    s0, t = 40, 4
+    toks = _tokens(2, s0 + t, model.cfg.vocab_size, seed=1)
+    jc, _ = jmodel.prefill(jparams, jnp.asarray(toks[:, :s0]), max_len=s0 + t)
+    tc, _ = model.prefill(torch.from_numpy(toks[:, :s0]).long(), max_len=s0 + t)
+    for i in range(t):
+        jc, jl = jmodel.decode_step(jparams, jc, jnp.asarray(toks[:, s0 + i]),
+                                    jnp.int32(s0 + i))
+        tc, tl = model.decode_step(tc, torch.from_numpy(toks[:, s0 + i]).long(), s0 + i)
+        err = np.abs(tl.numpy() - np.asarray(jl)).max()
+        assert err <= DECODE_TOL, (i, err)
+
+
+def test_greedy_tokens_match_jax(pair):
+    jmodel, jparams, model = pair
+    toks = _tokens(2, 32, model.cfg.vocab_size, seed=2)
+    jt = np.asarray(jax_greedy_generate(jmodel, jparams, jnp.asarray(toks), max_new=8))
+    tt = greedy_generate(model, torch.from_numpy(toks).long(), max_new=8)
+    assert tt.shape == (2, 8)
+    np.testing.assert_array_equal(tt.numpy(), jt)
+
+
+def test_port_decode_matches_port_prefill(pair):
+    _, _, model = pair
+    s0, t = 48, 4
+    toks = torch.from_numpy(_tokens(2, s0 + t, model.cfg.vocab_size, seed=3)).long()
+    caches, lg = model.prefill(toks[:, :s0], max_len=s0 + t)
+    for i in range(t):
+        caches, lg = model.decode_step(caches, toks[:, s0 + i], s0 + i)
+    _, lg_full = model.prefill(toks, max_len=s0 + t)
+    err = float((lg - lg_full).abs().max())
+    assert err < CONSIST_TOL, err
+
+
+def test_bf16_tree_converts_bit_exactly():
+    jcfg = jax_get_model_config(ARCH, smoke=True)
+    jparams = jax_build_model(jcfg).init(jax.random.PRNGKey(5))
+    tree = jax.tree.map(np.asarray, jparams)
+    cfg = get_model_config(ARCH, smoke=True)
+    sd = params_from_jax(tree, cfg)
+    model = build_model(cfg, device="cpu")
+    model.load_state_dict(sd)
+    assert set(sd) == set(model.state_dict())
+    wq = tree["backbone"]["groups"][0]["attn"]["wq"]            # [n_groups, d, e]
+    assert wq.dtype.name == "bfloat16"
+    for g in range(cfg.num_layers):
+        got = model.backbone.layers[g].attn.wq.detach()
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_array_equal(got.view(torch.int16).numpy().view(np.uint16),
+                                      wq[g].view(np.uint16))
+    tok = model.embed.tok.detach().view(torch.int16).numpy().view(np.uint16)
+    np.testing.assert_array_equal(tok, tree["embed"]["tok"].view(np.uint16))
+
+
+def test_full_param_count_on_meta():
+    cfg = get_model_config(ARCH)
+    model = build_model(cfg, device="meta")
+    assert sum(p.numel() for p in model.parameters()) == cfg.param_count()
+    assert model.embed.unembed is None                      # tied embeddings
+
+
+@pytest.mark.parametrize("smoke", [True, False])
+def test_cache_bytes_match_jax(smoke):
+    cfg = get_model_config(ARCH, smoke=smoke)
+    jcfg = jax_get_model_config(ARCH, smoke=smoke)
+    assert cache_bytes(cfg, 4, 544) == jax_cache_bytes(jcfg, 4, 544)
