@@ -3,6 +3,6 @@
 Kernel sources live in ``csrc/`` and are built by ``build`` at first use;
 importing this package builds and loads nothing.
 """
-from repro_torch.kernels.ops import flash_attention
+from repro_torch.kernels.ops import flash_attention, ssd_scan
 
-__all__ = ["flash_attention"]
+__all__ = ["flash_attention", "ssd_scan"]

@@ -1,12 +1,14 @@
 """Plain PyTorch versions of the port's kernels (the correctness ground truth).
 
-Direct formulations (materialised scores): slow, obviously correct. The CPU
-path of every kernel wrapper runs these, and the card's checks hold each
-kernel against them on the same inputs.
+Direct formulations (materialised scores, step-by-step recurrences): slow,
+obviously correct. The card's checks hold each kernel against them on the
+same inputs. The CPU path of flash attention runs ``attention_ref``; that of
+the SSD scan runs the chunked algorithm in f32 (``ops.ssd_scan_plain``),
+since the recurrence here is one step at a time.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -40,3 +42,30 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         p = p.to(p_dtype).float()
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return o.reshape(b, s, hq, d).to(q.dtype)
+
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+            C: torch.Tensor, init_state: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Step-by-step SSD recurrence (O(S) sequential), all in f32.
+
+    x [b,s,h,p]; dt [b,s,h]; A [h] (<0); B,C [b,s,g,n]; init_state [b,h,n,p].
+    h_t = h_{t-1} * exp(dt_t A) + dt_t * B_t (x) x_t ;  y_t = C_t . h_t
+    Returns (y [b,s,h,p] in x's dtype, final state [b,h,n,p] f32).
+    """
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    Bh = B.float().repeat_interleave(rep, dim=2)
+    Ch = C.float().repeat_interleave(rep, dim=2)
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    state = (torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+             if init_state is None else init_state.float())
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dtf[:, t] * Af)[..., None, None]
+        upd = (dtf[:, t, :, None] * Bh[:, t])[..., :, None] * xf[:, t, :, None, :]
+        state = state * decay + upd
+        ys.append(torch.einsum("bhn,bhnp->bhp", Ch[:, t], state))
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros((b, 0, h, p))
+    return y.to(x.dtype), state

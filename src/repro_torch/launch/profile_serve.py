@@ -1,15 +1,18 @@
-"""Where serving time goes on the card, for ``launch.serve``'s default workload.
+"""Where serving time goes on the card, for one arch's default workload.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-        [--trace-dir DIR]
+        [--arch mamba2-370m] [--trace-dir DIR]
 
-The workload is the one ``python -m repro_torch.launch.serve`` runs with no
-arguments (qwen1.5-0.5b, batch 4, prompt 512, 32 new tokens, cache of
-prompt + 32): its prefill, and its 31 greedy decode steps after the first
-token. Each phase runs once unprofiled (host clock after a synchronise: wall time)
-and once under ``torch.profiler`` (kernel time by name, kernel count). The
-device's idle share is 1 - kernel time / wall time. Prints one JSON line.
-Needs a GPU.
+The workload is the one ``python -m repro_torch.launch.serve --arch ARCH``
+runs with no other arguments (``launch.serve.WORKLOADS``; qwen1.5-0.5b by
+default: batch 4, prompt 512, 32 new tokens, cache of prompt + 32): its
+prefill, and its greedy decode steps after the first token. Each phase runs
+once unprofiled (host clock after a synchronise: wall time) and once under
+``torch.profiler`` (kernel time by name, kernel count). Each decode run
+starts from its own copy of the prefill's caches, as ``launch.serve``'s
+decode starts from a fresh prefill: an SSD state accumulates, so a second
+run from the same caches would decode from another state. The device's
+idle share is 1 - kernel time / wall time. Prints one JSON line. Needs a GPU.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import argparse
 import json
 import time
 from pathlib import Path
+from typing import Any, Callable, Optional
 
 import torch
 from torch.autograd import DeviceType
@@ -27,15 +31,20 @@ from repro_torch.launch import serve as launch_serve
 from repro_torch.serve.decode import greedy_decode
 
 
-def measure(fn, dev: torch.device, trace: Path = None, top: int = 12) -> dict:
-    """Wall time of fn() unprofiled, then kernel time and count under the profiler."""
+def measure(fn: Callable[[Any], Any], dev: torch.device, trace: Optional[Path] = None,
+            setup: Callable[[], Any] = lambda: None, top: int = 12) -> dict:
+    """Wall time of fn(setup()) unprofiled, then kernel time and count under the
+    profiler; ``setup`` runs before each, outside the clock and the profile."""
+    arg = setup()
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    fn()
+    fn(arg)
     torch.cuda.synchronize(dev)
     wall_ms = (time.perf_counter() - t0) * 1e3
+    arg = setup()
+    torch.cuda.synchronize(dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+        fn(arg)
         torch.cuda.synchronize(dev)
     if trace is not None:
         trace.parent.mkdir(parents=True, exist_ok=True)
@@ -54,28 +63,32 @@ def measure(fn, dev: torch.device, trace: Path = None, top: int = 12) -> dict:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default=launch_serve.ARCH, choices=sorted(launch_serve.WORKLOADS))
     ap.add_argument("--trace-dir", default="")
     args = ap.parse_args(argv)
 
     dev = resolve_device("cuda")
-    model = launch_serve.build(launch_serve.ARCH, device=dev)
-    prompt = launch_serve.random_prompt(model, launch_serve.BATCH, launch_serve.PROMPT_LEN)
-    s, max_new = launch_serve.PROMPT_LEN, launch_serve.MAX_NEW
-    steps = max_new - 1
-    launch_serve.serve(model, prompt, max_new)               # warm-up
+    work = launch_serve.WORKLOADS[args.arch]
+    model = launch_serve.build(args.arch, device=dev)
+    prompt = launch_serve.random_prompt(model, work.batch, work.prompt_len)
+    s, steps = work.prompt_len, work.max_new - 1
+    max_len = s + work.max_new
+    launch_serve.serve(model, prompt, work.max_new)          # warm-up
     trace_dir = Path(args.trace_dir) if args.trace_dir else None
 
-    prefill = measure(lambda: model.prefill(prompt, max_len=s + max_new), dev,
+    prefill = measure(lambda _: model.prefill(prompt, max_len=max_len), dev,
                       trace_dir / "prefill.json" if trace_dir else None)
-    caches, logits = model.prefill(prompt, max_len=s + max_new)
+    caches, logits = model.prefill(prompt, max_len=max_len)
     token = torch.argmax(logits, dim=-1)
-    # Each run decodes from the end of the prompt, so both rewrite the same
-    # cache rows, as launch.serve's decode does.
-    decode = measure(lambda: greedy_decode(model, caches, token, s, steps), dev,
-                     trace_dir / "decode.json" if trace_dir else None)
+
+    def fresh_caches():
+        return [{k: t.clone() for k, t in c.items()} for c in caches]
+
+    decode = measure(lambda c: greedy_decode(model, c, token, s, steps), dev,
+                     trace_dir / "decode.json" if trace_dir else None, setup=fresh_caches)
     decode["per_step_wall_ms"] = decode["wall_ms"] / steps
     decode["launches_per_step"] = decode["kernel_launches"] / steps
-    out = {"arch": launch_serve.ARCH, "batch": launch_serve.BATCH, "prompt_len": s,
+    out = {"arch": args.arch, "batch": work.batch, "prompt_len": s,
            "decode_steps": steps, "device": torch.cuda.get_device_name(dev),
            "prefill": prefill, "decode": decode}
     print(json.dumps(out))

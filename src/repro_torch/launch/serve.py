@@ -1,16 +1,20 @@
 """Serving entry point: prefill a batch of random prompts, decode greedily.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
-        --batch 4 --prompt-len 512 --max-new 32 [--device cpu] [--smoke]
+    PYTHONPATH=src python -m repro_torch.launch.serve [--arch mamba2-370m] \
+        [--batch 4] [--prompt-len 2048] [--max-new 32] [--device cpu] [--smoke]
 
-Runs on the GPU unless ``--device cpu`` is given; without a GPU it raises.
-Weights are random, drawn from seed 0; prompts from seed 1.
+Each arch has a default workload (``WORKLOADS``): qwen1.5-0.5b batch 4,
+prompt 512, 32 new tokens; mamba2-370m batch 4, prompt 2048 (16 chunks of
+128 carried in order, the long-prompt regime an SSM is chosen for), 32 new
+tokens. Runs on the GPU unless ``--device cpu`` is given; without a GPU it
+raises. Weights are random, drawn from seed 0; prompts from seed 1.
 """
 from __future__ import annotations
 
 import argparse
 import time
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 
@@ -19,8 +23,19 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import Model, build_model
 from repro_torch.serve.decode import greedy_decode
 
-# The default workload, which launch.profile_serve profiles as it is.
-ARCH, BATCH, PROMPT_LEN, MAX_NEW = "qwen1.5-0.5b", 4, 512, 32
+
+class Workload(NamedTuple):
+    batch: int
+    prompt_len: int
+    max_new: int
+
+
+# Each arch's default workload, which launch.profile_serve profiles as it is.
+WORKLOADS = {
+    "qwen1.5-0.5b": Workload(batch=4, prompt_len=512, max_new=32),
+    "mamba2-370m": Workload(batch=4, prompt_len=2048, max_new=32),
+}
+ARCH = "qwen1.5-0.5b"
 
 
 @dataclass
@@ -83,14 +98,17 @@ def serve(model: Model, prompt: torch.Tensor, max_new: int) -> ServeResult:
 
 def main(argv=None) -> ServeResult:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default=ARCH)
+    ap.add_argument("--arch", default=ARCH, choices=sorted(WORKLOADS))
     ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--batch", type=int, default=BATCH)
-    ap.add_argument("--prompt-len", type=int, default=PROMPT_LEN)
-    ap.add_argument("--max-new", type=int, default=MAX_NEW)
+    ap.add_argument("--batch", type=int, help="default: the arch's workload")
+    ap.add_argument("--prompt-len", type=int, help="default: the arch's workload")
+    ap.add_argument("--max-new", type=int, help="default: the arch's workload")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda raises when no GPU is visible")
     args = ap.parse_args(argv)
+    for key, default in WORKLOADS[args.arch]._asdict().items():
+        if getattr(args, key) is None:
+            setattr(args, key, default)
 
     model = build(args.arch, smoke=args.smoke, device=args.device)
     prompt = random_prompt(model, args.batch, args.prompt_len)

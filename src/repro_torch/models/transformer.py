@@ -1,13 +1,17 @@
-"""Block-typed decoder-only transformer: the (attn, swiglu|relu2|gelu) family.
+"""Block-typed decoder-only backbone: mixer in {attn, ssd}, mlp in
+{swiglu, relu2, gelu, none}.
 
 The JAX package stacks each pattern position's layers and scans them; the
 port keeps one ``Block`` module per layer in order (layer g*len(pattern)+i is
 group g's pattern position i, then the remainder), which is the order that
 ``convert.params_from_jax`` unstacks the scanned groups into.
 
-Modes: ``prefill`` runs the whole prompt and returns per-layer KV caches of
-``max_len``; ``decode`` runs one token against those caches and updates them
-in place. Prefill attention goes through ``kernels.ops.flash_attention``.
+Modes: ``prefill`` runs the whole prompt and returns one cache per layer (K/V
+of ``max_len`` for attention, the conv windows and the state for SSD, which
+ignores ``max_len``); ``decode`` runs one token against those caches and
+updates them in place (SSD ignores ``pos``). Prefill attention goes through
+``kernels.ops.flash_attention``, the prefill SSD scan through
+``kernels.ops.ssd_scan``.
 """
 from __future__ import annotations
 
@@ -23,11 +27,14 @@ from repro_torch.device import dtype_of
 from repro_torch.kernels.ops import flash_attention
 from repro_torch.models.attention import decode_attention
 from repro_torch.models.layers import MLP, Norm, apply_rope, normal_
+from repro_torch.models.ssm import SSD as SSDMixer
+from repro_torch.models.ssm import init_ssd_cache
 
-Cache = dict  # {"k": [B, Smax, Hk, hd], "v": [B, Smax, Hk, hd]}
+# attention: {"k": [B, Smax, Hk, hd], "v": [B, Smax, Hk, hd]};
+# SSD: {"conv_x": [B, K-1, d_in], "conv_bc": [B, K-1, 2gn], "ssm": [B, h, n, p] f32}
+Cache = dict
 
 _LATER_MIXERS = {
-    SSD: "slice 2 (mamba2-370m serving with the ssd_scan kernel)",
     RGLRU: "slice 3 (recurrentgemma-2b serving with the rglru_scan kernel)",
     LOCAL_ATTN: "slice 3 (recurrentgemma-2b, local attention at head_dim 256)",
 }
@@ -126,13 +133,14 @@ class Block(nn.Module):
         if mixer in _LATER_MIXERS:
             raise NotImplementedError(
                 f"mixer {mixer!r} is not ported yet; it comes with {_LATER_MIXERS[mixer]}")
-        if mixer != ATTN:
+        if mixer not in (ATTN, SSD):
             raise ValueError(f"unknown mixer {mixer!r}")
         if mlp == MLP_MOE:
             raise NotImplementedError(
                 "the MoE MLP is not ported yet; it comes with a slice after slice 3")
         self.norm1 = Norm(cfg, device=device)
-        self.attn = Attention(cfg, device=device)
+        self.attn = Attention(cfg, device=device) if mixer == ATTN else None
+        self.ssd = SSDMixer(cfg, device=device) if mixer == SSD else None
         if mlp != MLP_NONE:
             self.norm2 = Norm(cfg, device=device)
             self.mlp = MLP(cfg, mlp, device=device)
@@ -141,8 +149,11 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, *, mode: str, cache: Optional[Cache],
                 pos: Optional[int], max_len: int = 0) -> Tuple[torch.Tensor, Cache]:
-        mx, new_cache = self.attn(self.norm1(x), mode=mode, cache=cache, pos=pos,
-                                  max_len=max_len)
+        h = self.norm1(x)
+        if self.attn is not None:
+            mx, new_cache = self.attn(h, mode=mode, cache=cache, pos=pos, max_len=max_len)
+        else:
+            mx, new_cache = self.ssd(h, mode=mode, cache=cache)
         x = x + mx
         if self.mlp is not None:
             x = x + self.mlp(self.norm2(x))
@@ -177,6 +188,7 @@ class Backbone(nn.Module):
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype,
                 device=None) -> List[Cache]:
-    """One zeroed KV cache per layer, in layer order."""
-    return [init_attn_cache(cfg, batch, max_len, dtype, device)
-            for _ in cfg.layer_blocks()]
+    """One zeroed cache per layer, in layer order (an SSD layer's ignores max_len)."""
+    return [init_ssd_cache(cfg, batch, dtype, device) if mixer == SSD
+            else init_attn_cache(cfg, batch, max_len, dtype, device)
+            for mixer, _ in cfg.layer_blocks()]

@@ -1,7 +1,7 @@
 """Serving: prefill, then a batched greedy decode loop.
 
-The caches are allocated once, at ``max_len``, by prefill, and every decode
-step writes its token's K and V into them in place.
+The caches are allocated once by prefill (K/V at ``max_len``, SSD state at
+its fixed size), and every decode step updates them in place.
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
-"""KV-cache utilities for serving: allocation and size.
+"""Cache utilities for serving: allocation and size.
 
-One cache per layer, ``{"k", "v"}`` of [B, Smax, Hk, hd]. Sharding specs come
-with the port's ``parallel`` slice.
+One cache per layer: ``{"k", "v"}`` of [B, Smax, Hk, hd] for attention,
+``{"conv_x", "conv_bc", "ssm"}`` (the conv windows and the f32 state) for SSD.
+Sharding specs come with the port's ``parallel`` slice.
 """
 from __future__ import annotations
 

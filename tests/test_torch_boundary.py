@@ -41,7 +41,9 @@ def test_no_import_statement_names_jax_or_repro():
 
 @pytest.mark.parametrize("entry,argv", [
     ("serve", ["--smoke", "--batch", "1", "--prompt-len", "8", "--max-new", "2"]),
+    ("serve", ["--arch", "mamba2-370m", "--smoke"]),
     ("profile_serve", []),
+    ("profile_serve", ["--arch", "mamba2-370m"]),
 ])
 def test_entry_points_raise_without_gpu(entry, argv):
     if torch.cuda.is_available():
@@ -61,15 +63,16 @@ def test_build_model_defaults_to_cuda():
         build_model(get_model_config("qwen1.5-0.5b", smoke=True))
 
 
-def test_serve_on_cpu_when_asked():
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "mamba2-370m"])
+def test_serve_on_cpu_when_asked(arch):
     from repro_torch.launch import serve
-    res = serve.main(["--smoke", "--device", "cpu", "--batch", "2",
+    res = serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
                       "--prompt-len", "16", "--max-new", "3"])
     assert res.tokens.shape == (2, 3)
     assert torch.isfinite(res.prefill_logits).all() and torch.isfinite(res.logits).all()
 
 
-@pytest.mark.parametrize("arch,slice_name", [("mamba2-370m", "slice 2"),
+@pytest.mark.parametrize("arch,slice_name", [("musicgen-large", "after slice 3"),
                                              ("recurrentgemma-2b", "slice 3"),
                                              ("deepseek-67b", "after slice 3")])
 def test_archs_not_ported_name_their_slice(arch, slice_name):

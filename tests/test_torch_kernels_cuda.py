@@ -14,12 +14,19 @@ import torch
 from repro_torch.config import get_model_config
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_fwd
-from repro_torch.kernels.ref import attention_ref
+from repro_torch.kernels.ref import attention_ref, ssd_ref
+from repro_torch.kernels.ssd_scan import ssd_scan_fwd
 from repro_torch.models import build_model
 
 # (atol, rtol) against the plain version computed in f32 on the same input
 # values: f32 sums in another order; bf16 adds one output rounding.
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 1e-2)}
+# SSD scan, max abs error / max |reference| against the step-by-step oracle in
+# f32 on the same input values: y in f32 as tests/test_kernels.py holds the
+# Pallas kernel (1e-4); y in bf16 adds one output rounding (2^-9 of |y|); the
+# final state is f32 either way.
+SSD_REL_TOL = {"float32": 1e-4, "bfloat16": 8e-3}
+STATE_REL_TOL = 1e-4
 
 
 @pytest.fixture
@@ -73,3 +80,72 @@ def test_smoke_prefill_on_card_matches_cpu(cuda_sm90):
     assert flash_attention_fwd.launches - before == cfg.num_layers
     _, lc = cpu.prefill(toks, max_len=104)
     torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+
+
+def _ssd_inputs(b, s, h, p, g, n, dtype, dev, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x = randn(b, s, h, p).to(dtype)
+    dt = torch.nn.functional.softplus(randn(b, s, h))
+    A = -torch.exp(randn(h) * 0.5)
+    B, C = (randn(b, s, g, n) * 0.3).to(dtype), (randn(b, s, g, n) * 0.3).to(dtype)
+    return x, dt, A, B, C
+
+
+def _rel(out, ref):
+    return float((out.float() - ref).abs().max()) / (float(ref.abs().max()) + 1e-6)
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
+    (4, 2048, 32, 64, 1, 128, 128),    # mamba2-370m serving shape
+    (2, 1000, 8, 64, 1, 128, 128),     # ragged S
+    (2, 300, 8, 64, 2, 128, 128),      # two groups
+    (2, 500, 8, 64, 1, 128, 64),       # chunk 64
+    (2, 300, 4, 32, 1, 16, 32),        # mamba2 smoke shape
+    (1, 77, 4, 16, 1, 8, 128),         # p 16, n 8, one short chunk
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_matches_plain_version(cuda_sm90, b, s, h, p, g, n, chunk, dtype):
+    x, dt, A, B, C = _ssd_inputs(b, s, h, p, g, n, getattr(torch, dtype), cuda_sm90)
+    before = ssd_scan_fwd.launches
+    y, state = ops.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan_fwd.launches == before + 1
+    assert y.dtype == x.dtype and y.shape == x.shape
+    assert state.dtype == torch.float32 and state.shape == (b, h, n, p)
+    y_ref, state_ref = ssd_ref(x.float(), dt, A, B.float(), C.float())
+    assert _rel(y, y_ref) <= SSD_REL_TOL[dtype]
+    assert _rel(state, state_ref) <= STATE_REL_TOL
+
+
+def test_ssd_scan_reads_strided_inputs(cuda_sm90):
+    """B and C as column slices of one [b, s, 2n] conv output, as the block gives them."""
+    x, dt, A, _, _ = _ssd_inputs(2, 200, 8, 64, 1, 64, torch.float32, cuda_sm90, seed=1)
+    bc = torch.randn((2, 200, 128), device=cuda_sm90,
+                     generator=torch.Generator(device=cuda_sm90).manual_seed(2)) * 0.3
+    B, C = (t.reshape(2, 200, 1, 64) for t in bc.split(64, dim=-1))
+    y, state = ops.ssd_scan(x, dt, A, B, C, chunk=128)
+    y_ref, state_ref = ssd_ref(x, dt, A, B, C)
+    assert _rel(y, y_ref) <= SSD_REL_TOL["float32"]
+    assert _rel(state, state_ref) <= STATE_REL_TOL
+
+
+def test_mamba2_smoke_prefill_on_card_matches_cpu(cuda_sm90):
+    """f32 mamba2 smoke model: the card's kernel path against the CPU's plain path."""
+    cfg = dataclasses.replace(get_model_config("mamba2-370m", smoke=True),
+                              act_dtype="float32", param_dtype="float32")
+    gpu = build_model(cfg, device=cuda_sm90)
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    toks = torch.randint(0, cfg.vocab_size, (2, 100),
+                         generator=torch.Generator().manual_seed(0))
+    before = ssd_scan_fwd.launches
+    caches, lg = gpu.prefill(toks.to(cuda_sm90), max_len=104)
+    assert ssd_scan_fwd.launches - before == cfg.num_layers
+    cpu_caches, lc = cpu.prefill(toks, max_len=104)
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(caches[-1]["ssm"].cpu(), cpu_caches[-1]["ssm"],
+                               atol=1e-4, rtol=1e-4)

@@ -1,4 +1,5 @@
-"""The port's qwen1.5-0.5b serving path against the JAX model (CPU, f32).
+"""The port's serving path against the JAX model (CPU, f32), for each ported
+arch: qwen1.5-0.5b (attention) and mamba2-370m (SSD).
 
 Weights come from the JAX init and go across through numpy
 (``repro_torch.convert.params_from_jax``); prompts are made with numpy.
@@ -18,27 +19,28 @@ from repro.serve.kvcache import cache_bytes as jax_cache_bytes
 from repro_torch.config import get_model_config
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.ssd_scan import ssd_scan_fwd
 from repro_torch.models import build_model
 from repro_torch.serve import cache_bytes, greedy_generate
 
-ARCH = "qwen1.5-0.5b"
+ARCHS = ["qwen1.5-0.5b", "mamba2-370m"]
 PREFILL_TOL = 1e-4   # f32 logits, port vs JAX
 DECODE_TOL = 1e-4    # f32 logits of each decode step, port vs JAX
 CONSIST_TOL = 5e-4   # port decode vs port prefill (tests/test_decode_consistency.py)
 
 
-def _f32_cfg(mod):
-    return dataclasses.replace(mod(ARCH, smoke=True), act_dtype="float32",
+def _f32_cfg(mod, arch):
+    return dataclasses.replace(mod(arch, smoke=True), act_dtype="float32",
                                param_dtype="float32")
 
 
-@pytest.fixture(scope="module")
-def pair():
+@pytest.fixture(scope="module", params=ARCHS)
+def pair(request):
     """(JAX model, JAX params, port model) with the same f32 weights."""
-    jcfg = _f32_cfg(jax_get_model_config)
+    jcfg = _f32_cfg(jax_get_model_config, request.param)
     jmodel = jax_build_model(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(0))
-    cfg = _f32_cfg(get_model_config)
+    cfg = _f32_cfg(get_model_config, request.param)
     model = build_model(cfg, device="cpu")
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jparams), cfg))
     return jmodel, jparams, model
@@ -48,10 +50,11 @@ def _tokens(b, s, vocab, seed=0):
     return np.random.default_rng(seed).integers(0, vocab, size=(b, s)).astype(np.int32)
 
 
-def test_configs_copied_verbatim():
+@pytest.mark.parametrize("arch", ARCHS)
+def test_configs_copied_verbatim(arch):
     for smoke in (False, True):
-        mine = dataclasses.asdict(get_model_config(ARCH, smoke=smoke))
-        ref = dataclasses.asdict(jax_get_model_config(ARCH, smoke=smoke))
+        mine = dataclasses.asdict(get_model_config(arch, smoke=smoke))
+        ref = dataclasses.asdict(jax_get_model_config(arch, smoke=smoke))
         assert mine == ref
 
 
@@ -59,9 +62,10 @@ def test_prefill_logits_match_jax(pair):
     jmodel, jparams, model = pair
     toks = _tokens(2, 48, model.cfg.vocab_size)
     _, jl = jmodel.prefill(jparams, jnp.asarray(toks), max_len=52)
-    launches = flash_attention_fwd.launches
+    launches = flash_attention_fwd.launches, ssd_scan_fwd.launches
     _, tl = model.prefill(torch.from_numpy(toks).long(), max_len=52)
-    assert flash_attention_fwd.launches == launches  # CPU: the plain version
+    # CPU: the plain versions
+    assert (flash_attention_fwd.launches, ssd_scan_fwd.launches) == launches
     assert tl.dtype == torch.float32 and tl.shape == (2, model.cfg.vocab_size)
     err = np.abs(tl.numpy() - np.asarray(jl)).max()
     assert err <= PREFILL_TOL, err
@@ -102,35 +106,53 @@ def test_port_decode_matches_port_prefill(pair):
     assert err < CONSIST_TOL, err
 
 
-def test_bf16_tree_converts_bit_exactly():
-    jcfg = jax_get_model_config(ARCH, smoke=True)
+@pytest.mark.parametrize("arch,leaf", [("qwen1.5-0.5b", ("attn", "wq")),
+                                       ("mamba2-370m", ("ssd", "w_x"))])
+def test_bf16_tree_converts_bit_exactly(arch, leaf):
+    jcfg = jax_get_model_config(arch, smoke=True)
     jparams = jax_build_model(jcfg).init(jax.random.PRNGKey(5))
     tree = jax.tree.map(np.asarray, jparams)
-    cfg = get_model_config(ARCH, smoke=True)
+    cfg = get_model_config(arch, smoke=True)
     sd = params_from_jax(tree, cfg)
     model = build_model(cfg, device="cpu")
     model.load_state_dict(sd)
     assert set(sd) == set(model.state_dict())
-    wq = tree["backbone"]["groups"][0]["attn"]["wq"]            # [n_groups, d, e]
-    assert wq.dtype.name == "bfloat16"
+    w = tree["backbone"]["groups"][0][leaf[0]][leaf[1]]        # [n_groups, d, e]
+    assert w.dtype.name == "bfloat16"
     for g in range(cfg.num_layers):
-        got = model.backbone.layers[g].attn.wq.detach()
+        got = getattr(getattr(model.backbone.layers[g], leaf[0]), leaf[1]).detach()
         assert got.dtype == torch.bfloat16
         np.testing.assert_array_equal(got.view(torch.int16).numpy().view(np.uint16),
-                                      wq[g].view(np.uint16))
+                                      w[g].view(np.uint16))
     tok = model.embed.tok.detach().view(torch.int16).numpy().view(np.uint16)
     np.testing.assert_array_equal(tok, tree["embed"]["tok"].view(np.uint16))
+    if leaf[0] == "ssd":                                     # f32 leaves stay f32
+        a_log = tree["backbone"]["groups"][0]["ssd"]["A_log"]
+        assert a_log.dtype == np.float32
+        np.testing.assert_array_equal(model.backbone.layers[1].ssd.A_log.detach().numpy(),
+                                      a_log[1])
 
 
-def test_full_param_count_on_meta():
-    cfg = get_model_config(ARCH)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_full_param_count_on_meta(arch):
+    """The port's parameters against the JAX init's leaves (shapes only). For
+    qwen that is also the analytic ``cfg.param_count()``; for mamba2 the
+    analytic count misses the conv biases and counts a second norm that a
+    block without an MLP does not have."""
+    cfg = get_model_config(arch)
     model = build_model(cfg, device="meta")
-    assert sum(p.numel() for p in model.parameters()) == cfg.param_count()
+    jshapes = jax.eval_shape(jax_build_model(jax_get_model_config(arch)).init,
+                             jax.random.PRNGKey(0))
+    n_jax = sum(int(np.prod(s.shape)) for s in jax.tree.leaves(jshapes))
+    assert sum(p.numel() for p in model.parameters()) == n_jax
+    if arch == "qwen1.5-0.5b":
+        assert n_jax == cfg.param_count()
     assert model.embed.unembed is None                      # tied embeddings
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("smoke", [True, False])
-def test_cache_bytes_match_jax(smoke):
-    cfg = get_model_config(ARCH, smoke=smoke)
-    jcfg = jax_get_model_config(ARCH, smoke=smoke)
+def test_cache_bytes_match_jax(arch, smoke):
+    cfg = get_model_config(arch, smoke=smoke)
+    jcfg = jax_get_model_config(arch, smoke=smoke)
     assert cache_bytes(cfg, 4, 544) == jax_cache_bytes(jcfg, 4, 544)
