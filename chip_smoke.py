@@ -12,10 +12,17 @@ and builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
 3. kernels: each kernel against its plain PyTorch version on the card, f32
    and bf16. Flash attention at the serving shape, a GQA shape and ragged S,
    with and without softcap; then kernel, plain version, library call and
-   bound timed at S=512 and S=4096. The SSD scan (y and final state) against
-   the step-by-step oracle at the mamba2 serving shape, ragged S=1000, two
-   groups, chunk 64 and the smoke shape; then kernel, plain version and bound
-   timed at the serving shape;
+   bound timed at S=512 and S=4096. Windowed flash attention against
+   ``attention_ref(window=)`` at recurrentgemma-2b's serving shape (B=4,
+   S=4096, Hq=10, Hk=1, D=256, W=2048), ragged S=1000 with W=100, W=1 and
+   W >= S (which must equal causal); then timed there, with SDPA on the band
+   as a boolean mask as the library call. The SSD scan (y and final state)
+   against the step-by-step oracle at the mamba2 serving shape, ragged
+   S=1000, two groups, chunk 64 and the smoke shape; then kernel, plain
+   version and bound timed at the serving shape. The RG-LRU scan against the
+   step-by-step oracle at the recurrentgemma-2b serving shape [4, 4096, 2560],
+   ragged S=1000 with W=200 and the three shapes of tests/test_kernels.py;
+   then timed at the serving shape;
 4. serve qwen1.5-0.5b at full width, bf16, random weights from a seed, through
    ``repro_torch.launch.serve`` (its default workload: batch 4, prompt 512, 32
    new tokens); the flash kernel's launch count over that run must be one per
@@ -29,7 +36,14 @@ and builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    third), on the logits and on the first layer's final SSD state, with the
    controls "state not carried across chunks", which must fail it, and "xdt
    and C B^T L rounded to bf16" (the JAX model path's rounding), which is
-   read.
+   read;
+6. serve recurrentgemma-2b the same way (its default workload: batch 4,
+   prompt 4096, two windows of its local attention, 32 new tokens): one
+   flash launch per local-attention layer (8) and one RG-LRU launch per
+   RG-LRU layer (18) per prefill, and the card-vs-CPU check at B=1, S=300 on
+   the logits and on the first layer's final RG-LRU state, with the control
+   "recurrence restarted every 256 steps" (the TPU kernel's state carry
+   across sequence blocks dropped), which must fail it.
 
 Each serving path runs with every kernel's launch count set to 0 just before
 it and read just after. The last three lines are the card's ``name,
@@ -47,12 +61,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-QWEN, MAMBA = "qwen1.5-0.5b", "mamba2-370m"
+QWEN, MAMBA, RG = "qwen1.5-0.5b", "mamba2-370m", "recurrentgemma-2b"
 # launch.serve's default workload of each arch: (batch, prompt_len, max_new)
-WORKLOADS = {QWEN: (4, 512, 32), MAMBA: (4, 2048, 32)}
+WORKLOADS = {QWEN: (4, 512, 32), MAMBA: (4, 2048, 32), RG: (4, 4096, 32)}
 # (num_layers, d_model, vocab_size) at the published widths
-FULL_WIDTH = {QWEN: (24, 1024, 151936), MAMBA: (48, 1024, 50280)}
+FULL_WIDTH = {QWEN: (24, 1024, 151936), MAMBA: (48, 1024, 50280), RG: (26, 2560, 256000)}
 PEAK_FLOPS_BF16 = 989e12   # H100 SXM dense bf16 tensor-core peak
+PEAK_FLOPS_F32 = 67e12     # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 # (atol, rtol) of flash attention against the plain version computed in f32
 # on the same input values: f32 sums in another order; bf16 adds one output
@@ -64,6 +79,13 @@ KERNEL_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 1e-2)}
 # the final state is f32 either way.
 SSD_TOL = {"float32": 1e-4, "bfloat16": 8e-3}
 STATE_TOL = 1e-4
+# RG-LRU scan, max abs error against the step-by-step oracle in f32 on the
+# same input values (tests/test_kernels.py holds the Pallas kernel to 1e-5).
+RGLRU_TOL = 1e-5
+# (b, s, hq, hk, d, window) of windowed flash attention at recurrentgemma-2b's
+# serving shape, and (b, s, w) of its RG-LRU scan
+WINDOWED_SERVING = (4, 4096, 10, 1, 256, 2048)
+RGLRU_SERVING = (4, 4096, 2560)
 # (b, s, h, p, g, n, chunk) of the SSD scan at the mamba2-370m serving shape
 SSD_SERVING = (4, 2048, 32, 64, 1, 128, 128)
 # Card (bf16 activations, kernels) vs CPU (f32, plain path) prefill of the
@@ -76,10 +98,16 @@ SSD_SERVING = (4, 2048, 32, 64, 1, 128, 128)
 # logits barely see a state that is not carried across chunks, while the
 # first layer's state, where bf16 has rounded least, does. The control
 # "state not carried" must read above one of the limits.
+# recurrentgemma-2b, the (softcapped) logits and the first layer's final
+# RG-LRU state: sound runs read 4.7e-2 and 5.4e-3; a recurrence restarted
+# every 256 steps (the TPU kernel's carry across sequence blocks dropped)
+# reads 1.37 and 0.84 and must read above one of the limits.
 # Phase 3 is the gate for each kernel's precision.
 CARD_VS_CPU_TOL = {QWEN: {"logits": 3e-2},
-                   MAMBA: {"logits": 1e-1, "layer-0 state": 5e-2}}
-REF_LEN = {QWEN: 128, MAMBA: 300}   # prompt of the card-vs-CPU check, B=1
+                   MAMBA: {"logits": 1e-1, "layer-0 state": 5e-2},
+                   RG: {"logits": 1e-1, "layer-0 state": 2e-2}}
+REF_LEN = {QWEN: 128, MAMBA: 300, RG: 300}   # prompt of the card-vs-CPU check, B=1
+STATE_KEY = {MAMBA: "ssm", RG: "h"}          # the first layer's cache entry read
 
 
 def fail(msg: str) -> None:
@@ -116,18 +144,30 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float):
-    """(least time in ms, what bounds it): operations at the bf16 peak or bytes
-    at the memory rate, whichever takes longer."""
-    t_ops, t_bytes = flops / PEAK_FLOPS_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_FLOPS_BF16):
+    """(least time in ms, what bounds it): operations at the peak of their
+    type (bf16 unless said) or bytes at the memory rate, whichever takes longer."""
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def attention_bound_ms(b: int, s: int, h: int, d: int, itemsize: int):
+def attention_bound_ms(b: int, s: int, hq: int, hk: int, d: int, itemsize: int,
+                       window: int = 0):
     """Least time for causal attention on these inputs: its operations (QK^T and
-    P.V over the S(S+1)/2 causal pairs) and its bytes (q, k, v read once, o
+    P.V over the (query, key) pairs in the causal band: S(S+1)/2, or with a
+    window W < S, W(W+1)/2 + (S-W)W) and its bytes (q, k, v read once, o
     written once)."""
-    return bound(4.0 * b * h * d * (s * (s + 1) / 2), 4.0 * b * s * h * d * itemsize)
+    w = window if 0 < window < s else s
+    pairs = w * (w + 1) / 2 + (s - w) * w
+    return bound(4.0 * b * hq * d * pairs, 2.0 * b * s * (hq + hk) * d * itemsize)
+
+
+def rglru_bound_ms(b: int, s: int, w: int, itemsize: int):
+    """Least time for the RG-LRU recurrence on these inputs: a multiply and an
+    add an element in f32, and its bytes (a and b read once in their dtype, h
+    written once in f32)."""
+    n = b * s * w
+    return bound(2.0 * n, n * (2 * itemsize + 4), PEAK_FLOPS_F32)
 
 
 def ssd_bound_ms(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
@@ -143,18 +183,33 @@ def ssd_bound_ms(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
     return bound(flops, nbytes)
 
 
-def reset_counts() -> None:
+def _wrappers() -> dict:
     from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.rglru_scan import rglru_scan_fwd
     from repro_torch.kernels.ssd_scan import ssd_scan_fwd
-    flash_attention_fwd.launches = 0
-    ssd_scan_fwd.launches = 0
+    return {"flash_attention": flash_attention_fwd, "ssd_scan": ssd_scan_fwd,
+            "rglru_scan": rglru_scan_fwd}
+
+
+def reset_counts() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def read_counts() -> dict:
-    from repro_torch.kernels.flash_attention import flash_attention_fwd
-    from repro_torch.kernels.ssd_scan import ssd_scan_fwd
-    return {"flash_attention": flash_attention_fwd.launches,
-            "ssd_scan": ssd_scan_fwd.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def top_kernel(torch, fn) -> str:
+    """Name of the CUDA kernel that takes most of one call's device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return max(kernels, key=lambda e: e.self_device_time_total).key[:120] if kernels else "?"
 
 
 def phase_flash(torch, card: str) -> dict:
@@ -201,6 +256,33 @@ def phase_flash(torch, card: str) -> dict:
         checks.append({"case": f"{name} {dtype} softcap={softcap}", "max_abs_err": err,
                        "atol": atol, "rtol": rtol})
 
+    b, s, hq, hk, d, w = WINDOWED_SERVING
+    windowed_cases = [  # name, B, S, Hq, Hk, D, window
+        ("windowed serving", b, s, hq, hk, d, w),
+        ("windowed ragged", 2, 1000, hq, hk, d, 100),
+        ("windowed W=1", 2, 300, 4, 2, 64, 1),
+        ("windowed W>=S", 2, 300, hq, hk, d, 300),
+    ]
+    for name, b, s, hq, hk, d, w in windowed_cases:
+        for dtype in ("float32", "bfloat16"):
+            q, k, v = inputs(b, s, hq, hk, d, getattr(torch, dtype))
+            out = ops.flash_attention(q, k, v, window=w)
+            torch.cuda.synchronize()
+            ref = attention_ref(q.float(), k.float(), v.float(), window=w)
+            atol, rtol = KERNEL_TOL[dtype]
+            diff = (out.float() - ref).abs()
+            err = float(diff.max())
+            ok = bool((diff <= atol + rtol * ref.abs()).all()) and out.dtype == q.dtype
+            if w >= s:   # the window covers every key: causal attention exactly
+                ok = ok and bool(torch.equal(out, ops.flash_attention(q, k, v)))
+            del ref, diff
+            print(f"  flash_attention {name:16s} B={b} S={s} Hq={hq} Hk={hk} D={d} W={w} "
+                  f"{dtype:8s}: max_abs_err={err:.3e} (tolerance |err| <= {atol:g} + "
+                  f"{rtol:g}|ref|) {'ok' if ok else 'FAIL'}", flush=True)
+            check(ok, f"windowed flash_attention disagrees with attention_ref at {name} {dtype}")
+            checks.append({"case": f"{name} {dtype} window={w}", "max_abs_err": err,
+                           "atol": atol, "rtol": rtol})
+
     timings = {}
     for s in (prompt_len, 4096):
         b, h, d = batch, 16, 64
@@ -211,13 +293,35 @@ def phase_flash(torch, card: str) -> dict:
         plain_ms = time_ms(torch, lambda: attention_ref(q, k, v), max(iters // 5, 2))
         library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True), iters)
-        bound_ms, bound_by = attention_bound_ms(b, s, h, d, 2)
+        bound_ms, bound_by = attention_bound_ms(b, s, h, h, d, 2)
         timings[s] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by}
         print(f"  flash_attention B={b} S={s} H={h} D={d} bf16: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} "
               f"ms ({bound_by}) [{card}]", flush=True)
-    return {"checks": checks, "timings": timings}
+
+    b, s, hq, hk, d, w = WINDOWED_SERVING
+    q, k, v = inputs(b, s, hq, hk, d, torch.bfloat16)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    i = torch.arange(s, device=dev)
+    band = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < w)   # True: attend
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band, enable_gqa=True)
+
+    ms = time_ms(torch, lambda: flash_attention_fwd(q, k, v, window=w), 10)
+    plain_ms = time_ms(torch, lambda: attention_ref(q, k, v, window=w), 2)
+    library_ms = time_ms(torch, library, 10)
+    library_kernel = top_kernel(torch, library)
+    bound_ms, bound_by = attention_bound_ms(b, s, hq, hk, d, 2, window=w)
+    windowed = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "library_kernel": library_kernel, "bound_ms": bound_ms, "bound_by": bound_by,
+                "shape": f"B={b} S={s} Hq={hq} Hk={hk} D={d} W={w} bf16"}
+    print(f"  flash_attention windowed B={b} S={s} Hq={hq} Hk={hk} D={d} W={w} bf16: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa (band mask, enable_gqa) "
+          f"{library_ms:.4f} ms [{library_kernel}], bound {bound_ms:.4f} ms ({bound_by}) "
+          f"[{card}]", flush=True)
+    return {"checks": checks, "timings": timings, "windowed": windowed}
 
 
 def phase_ssd(torch, card: str) -> dict:
@@ -282,15 +386,72 @@ def phase_ssd(torch, card: str) -> dict:
     return {"checks": checks, "timing": timing}
 
 
+def phase_rglru(torch, card: str) -> dict:
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import rglru_ref
+    from repro_torch.kernels.rglru_scan import rglru_scan_fwd
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def inputs(b, s, w, dtype):
+        """a = sigmoid(N(0,1)) * 0.2 + 0.79 and b ~ N(0,1), as tests/test_kernels.py."""
+        a = torch.sigmoid(torch.randn((b, s, w), generator=gen, device=dev)) * 0.2 + 0.79
+        return a.to(dtype), torch.randn((b, s, w), generator=gen, device=dev).to(dtype)
+
+    cases = [  # name, (b, s, w)
+        ("serving shape", RGLRU_SERVING),
+        ("ragged S=1000", (2, 1000, 200)),
+        ("kernel test 1", (2, 128, 256)),
+        ("kernel test 2", (1, 300, 64)),
+        ("kernel test 3", (3, 64, 512)),
+    ]
+    checks = []
+    for name, (b, s, w) in cases:
+        for dtype in ("float32", "bfloat16"):
+            a, x = inputs(b, s, w, getattr(torch, dtype))
+            h = ops.rglru_recurrence(a, x)
+            torch.cuda.synchronize()
+            err = float((h - rglru_ref(a, x)).abs().max())
+            ok = err <= RGLRU_TOL and h.dtype == torch.float32 and tuple(h.shape) == (b, s, w)
+            print(f"  rglru_scan {name:14s} b={b} s={s} w={w} {dtype:8s}: max_abs_err={err:.3e} "
+                  f"(tolerance {RGLRU_TOL:g}) {'ok' if ok else 'FAIL'}", flush=True)
+            check(ok, f"rglru_scan disagrees with rglru_ref at {name} {dtype}")
+            checks.append({"case": f"{name} {dtype}", "max_abs_err": err, "atol": RGLRU_TOL})
+
+    b, s, w = RGLRU_SERVING
+    a, x = inputs(b, s, w, torch.float32)      # the model's gates are f32
+    ms = time_ms(torch, lambda: rglru_scan_fwd(a, x), 20)
+    plain_ms = time_ms(torch, lambda: rglru_ref(a, x), 2)
+    bound_ms, bound_by = rglru_bound_ms(b, s, w, 4)
+    timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+              "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"  rglru_scan b={b} s={s} w={w} f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"library none, bound {bound_ms:.4f} ms ({bound_by}) [{card}]", flush=True)
+    return {"checks": checks, "timing": timing}
+
+
+def cpu_f32_copy(torch, model):
+    """The same weights in f32 on the CPU, copied parameter by parameter into
+    a model made on ``meta`` (no second whole copy of the state dict)."""
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(model.cfg, act_dtype="float32", param_dtype="float32")
+    cpu_model = build_model(cfg, device="meta").to_empty(device="cpu")
+    dst = cpu_model.state_dict()
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            dst[name].copy_(t)
+    return cpu_model
+
+
 def phase_serve(torch, card: str, arch: str, planted: dict, must_fail: str) -> dict:
     """Serves ``arch`` at full width through launch.serve and checks it.
 
     ``planted`` maps a fault's name to (module, attribute, replacement): the
     card-vs-CPU logits check is read again with each in place of the kernel's
     op, and the reading of ``must_fail`` must exceed the limit."""
-    from repro_torch.config.base import ATTN, SSD
+    from repro_torch.config.base import ATTN, LOCAL_ATTN, RGLRU, SSD
     from repro_torch.launch import serve as launch_serve
-    from repro_torch.models import build_model
 
     batch, prompt_len, max_new = WORKLOADS[arch]
     check(tuple(launch_serve.WORKLOADS[arch]) == WORKLOADS[arch],
@@ -300,7 +461,8 @@ def phase_serve(torch, card: str, arch: str, planted: dict, must_fail: str) -> d
     check((cfg.num_layers, cfg.d_model, cfg.vocab_size) == FULL_WIDTH[arch],
           f"{arch} is not at full width: {cfg}")
     mixers = [mixer for mixer, _ in cfg.layer_blocks()]
-    expected = {"flash_attention": mixers.count(ATTN), "ssd_scan": mixers.count(SSD)}
+    expected = {"flash_attention": mixers.count(ATTN) + mixers.count(LOCAL_ATTN),
+                "ssd_scan": mixers.count(SSD), "rglru_scan": mixers.count(RGLRU)}
     prompt = launch_serve.random_prompt(model, batch, prompt_len)
     launch_serve.serve(model, prompt, 2)     # warm-up: cuBLAS handles, allocator
 
@@ -326,18 +488,16 @@ def phase_serve(torch, card: str, arch: str, planted: dict, must_fail: str) -> d
     reset_counts()
     card_out = model.prefill(small, max_len=ref_len)
     check(read_counts() == expected, "reference prefill missed the kernels")
-    cpu_cfg = dataclasses.replace(cfg, act_dtype="float32", param_dtype="float32")
-    cpu_model = build_model(cpu_cfg, device="meta").to_empty(device="cpu")
-    cpu_model.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()})
+    cpu_model = cpu_f32_copy(torch, model)
     cpu_caches, cpu_logits = cpu_model.prefill(small.cpu(), max_len=ref_len)
     del cpu_model
     refs = {"logits": cpu_logits}
     if "layer-0 state" in limits:
-        refs["layer-0 state"] = cpu_caches[0]["ssm"]
+        refs["layer-0 state"] = cpu_caches[0][STATE_KEY[arch]]
 
     def readings_of(out) -> dict:
         caches, logits = out
-        got = {"logits": logits, "layer-0 state": caches[0].get("ssm")}
+        got = {"logits": logits, "layer-0 state": caches[0].get(STATE_KEY.get(arch))}
         return {k: float((got[k].cpu() - ref).abs().max()) / float(ref.abs().max())
                 for k, ref in refs.items()}
 
@@ -403,6 +563,19 @@ def mamba_faults(torch) -> dict:
             "xdt and C B^T L rounded to bf16": (ssm, "ssd_scan", model_path_rounding)}
 
 
+def rglru_faults(torch) -> dict:
+    from repro_torch.kernels.ops import rglru_recurrence
+    from repro_torch.models import rglru
+
+    def restarted(a, b):
+        """The recurrence from a zero state at every 256th step: the TPU
+        kernel's carry across sequence blocks dropped."""
+        return torch.cat([rglru_recurrence(a[:, i:i + 256], b[:, i:i + 256])
+                          for i in range(0, a.shape[1], 256)], dim=1)
+
+    return {"recurrence restarted every 256 steps": (rglru, "rglru_recurrence", restarted)}
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run chip_smoke.py from a checkout")
@@ -418,14 +591,14 @@ def main() -> None:
     card = smi_line()
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
-    print(f"[1/5] card: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
+    print(f"[1/6] card: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{name}, compute capability {cap[0]}.{cap[1]}", flush=True)
     check(cap == (9, 0), f"needs compute capability 9.0 (sm_90a), found {cap}")
 
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build(build.sources())
-    print(f"[2/5] build: {len(logs)} of {len(build.sources())} kernel sources compiled "
+    print(f"[2/6] build: {len(logs)} of {len(build.sources())} kernel sources compiled "
           f"in {time.perf_counter() - t0:.1f} s into {build.BUILD_DIR}", flush=True)
     for src, log in logs.items():
         for line in log.splitlines():
@@ -433,17 +606,19 @@ def main() -> None:
                 print(f"  {src}: {line.strip()}")
 
     t0 = time.perf_counter()
-    print("[3/5] kernels against their plain versions", flush=True)
+    print("[3/6] kernels against their plain versions", flush=True)
     flash = phase_flash(torch, card)
     ssd = phase_ssd(torch, card)
+    scan = phase_rglru(torch, card)
     print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     served = {}
     for i, (arch, faults, must_fail) in enumerate((
             (QWEN, qwen_faults(torch), "causal mask dropped"),
-            (MAMBA, mamba_faults(torch), "state not carried across chunks")), start=4):
+            (MAMBA, mamba_faults(torch), "state not carried across chunks"),
+            (RG, rglru_faults(torch), "recurrence restarted every 256 steps")), start=4):
         t0 = time.perf_counter()
-        print(f"[{i}/5] serve {arch} at full width", flush=True)
+        print(f"[{i}/6] serve {arch} at full width", flush=True)
         served[arch] = phase_serve(torch, card, arch, faults, must_fail)
         print(f"  ({time.perf_counter() - t0:.1f} s; total "
               f"{time.perf_counter() - t_start:.1f} s)", flush=True)
@@ -454,27 +629,44 @@ def main() -> None:
     qb, qs, _ = WORKLOADS[QWEN]
     flash_main = flash["timings"][qs]
     b, s, h, p, g, n, chunk = SSD_SERVING
+
+    def launches(kernel):
+        by_arch = {arch: r["launches"][kernel] for arch, r in served.items()
+                   if r["launches"][kernel]}
+        return {"launches": sum(by_arch.values()), "launches_by_arch": by_arch}
+
     record = {"kernels": [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:81",
-        "launches": served[QWEN]["launches"]["flash_attention"],
+        **launches("flash_attention"),
         "max_abs_err": worst(flash["checks"], "serving shape bfloat16"),
         "ms": flash_main["ms"], "plain_ms": flash_main["plain_ms"],
         "bound_ms": flash_main["bound_ms"], "bound_by": flash_main["bound_by"],
         "library_ms": flash_main["library_ms"],
         "shape": f"B={qb} S={qs} H=16 D=64 bf16",
         "s4096": flash["timings"][4096],
+        "windowed_d256": {**flash["windowed"], "max_abs_err": worst(
+            flash["checks"], "windowed serving bfloat16")},
         "checks": flash["checks"],
     }, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:71",
-        "launches": served[MAMBA]["launches"]["ssd_scan"],
+        **launches("ssd_scan"),
         "max_abs_err": worst(ssd["checks"], "serving shape bfloat16"),
         **ssd["timing"],
         "shape": f"b={b} s={s} h={h} p={p} g={g} n={n} L={chunk} bf16",
         "checks": ssd["checks"],
+    }, {
+        "name": "rglru_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:42",
+        **launches("rglru_scan"),
+        "max_abs_err": worst(scan["checks"], ""),
+        **scan["timing"],
+        "shape": "b={} s={} w={} f32".format(*RGLRU_SERVING),
+        "checks": scan["checks"],
     }]}
     print(json.dumps({"serve": served}))
     print(smi_line())

@@ -17,12 +17,11 @@ _SMOKE: Dict[str, ModelConfig] = {}
 _ARCH_MODULES = {
     "qwen1.5-0.5b": "repro_torch.configs.qwen1_5_0_5b",
     "mamba2-370m": "repro_torch.configs.mamba2_370m",
+    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
 }
 
 # Archs of the JAX package that later slices of the port bring.
 _LATER = {
-    "recurrentgemma-2b": ("slice 3 (recurrentgemma-2b serving with the "
-                          "rglru_scan kernel and local attention)"),
     "musicgen-large": "a slice after slice 3",
     "internlm2-1.8b": "a slice after slice 3",
     "nemotron-4-340b": "a slice after slice 3",

@@ -7,7 +7,10 @@ caller) and returns a state dict for ``Model.load_state_dict``:
 * each leaf of ``backbone.groups[i]`` carries a leading ``n_groups`` axis
   (the JAX backbone scans stacked groups); it is unstacked so that group g's
   pattern position i becomes layer ``g * len(pattern) + i``, and the
-  ``rem`` blocks follow;
+  ``rem`` blocks follow (recurrentgemma-2b's 26 layers: 8 groups of
+  (RG-LRU, RG-LRU, local attention), then RG-LRU layers 24 and 25);
+* each leaf keeps its dtype: the f32 leaves of a bf16 model (SSD's
+  ``A_log``, ``D``, ``dt_bias``; RG-LRU's ``b_a``, ``b_i``, ``lam``) stay f32;
 * bfloat16 arrays arrive with the ``ml_dtypes`` dtype, which
   ``torch.from_numpy`` refuses; their bits go across through uint16;
 * matrices keep the JAX ``[in, out]`` orientation, which the port's layers

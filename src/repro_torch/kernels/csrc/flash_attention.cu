@@ -3,7 +3,9 @@
 // Replaces the TPU kernel `flash_attention_fwd` (body `_fwd_kernel`) of
 // src/repro/kernels/flash_attention.py and computes what it computes:
 //   s = (q . k) * D^-0.5, then softcap * tanh(s / softcap) when softcap > 0;
-//   causal mask (key position > query position -> -1e30);
+//   causal mask (key position > query position -> -1e30); with a window
+//   W > 0 also keys at W or more positions before the query (query t attends
+//   [t-W+1, t], as ref.attention_ref(window=W); the TPU kernel has no window);
 //   online softmax with running max m, sum l and accumulator in f32;
 //   P.V in f32 (the TPU kernel casts v to f32 before the product);
 //   o = acc / max(l, 1e-30), stored in q's dtype.
@@ -20,13 +22,21 @@
 // stays in registers. The kernel reads the public [B, S, H, D] layout
 // through its strides (no transposed copies), masks the ragged tail itself
 // (any S works; rows past S are zero-filled and never stored), and heavier
-// query tiles (more key tiles under the diagonal) are launched first.
+// query tiles (more key tiles under the diagonal) are launched first. With
+// a window the key-tile loop starts at the tile holding the band's first key
+// of the query tile's first row, and the band is masked inside the tiles
+// that straddle its edges; a masked score's probability is 0, so a row that
+// has no key in the band within a tile adds nothing to l or acc. The window
+// adds no shared memory, and it is a separate instantiation: without one
+// (window 0) the kernel is the causal kernel as it was, with no extra work.
 // Rows of Q and K in shared memory are padded to D + 1 floats, so the
 // column walks of the score product touch 16 distinct banks.
 //
 // What bounds it. At the serving shape (B=4, S=512, H=16, D=64, bf16) the
 // function moves 16.8 MB and does 2.2 GFLOP, so the card's bound is bytes
-// (about 5 us at 3.35 TB/s); at S=4096 it is operations. This kernel does
+// (about 5 us at 3.35 TB/s); at S=4096 it is operations, and so it is at
+// recurrentgemma-2b's windowed shape (B=4, S=4096, Hq=10, Hk=1, D=256,
+// W=2048: 2.58e11 FLOP over the band, 184.5 MB; 0.261 ms). This kernel does
 // its arithmetic as scalar f32 FMAs on the CUDA cores (67 TFLOP/s, not the
 // 989 of the bf16 tensor cores) and its inner loops issue one shared-memory
 // load per two FMAs, so it sits far above that bound. That is the price of
@@ -60,6 +70,7 @@ struct Args {
   int64_t v_sb, v_ss, v_sh;
   int64_t o_sb, o_ss, o_sh;
   float scale, softcap;
+  int window;  // 0: none
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -73,7 +84,7 @@ constexpr size_t smem_bytes() {
                           size_t(BK) * D + size_t(BQ) * (BK + 1));
 }
 
-template <typename T, int D>
+template <typename T, int D, bool WINDOWED>
 __global__ void __launch_bounds__(THREADS) fa_fwd_kernel(const Args a) {
   constexpr int LD = D + 1;   // padded row of qs / ks
   constexpr int LDP = BK + 1;  // padded row of ps
@@ -112,9 +123,11 @@ __global__ void __launch_bounds__(THREADS) fa_fwd_kernel(const Args a) {
     for (int c = 0; c < DN; ++c) acc[i][c] = 0.f;
   }
 
-  // key tiles 0 .. the one holding the tile's last valid query row
+  // key tiles from the one holding the band's first key of row q0 (0 without
+  // a window) to the one holding the tile's last valid query row
+  const int kt0 = WINDOWED ? max(0, q0 - a.window + 1) / BK : 0;
   const int n_kv = (min(q0 + BQ, a.s) - 1) / BK + 1;
-  for (int kt = 0; kt < n_kv; ++kt) {
+  for (int kt = kt0; kt < n_kv; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's ks / vs / ps are consumed
     for (int e = tid; e < BK * D; e += THREADS) {
@@ -151,7 +164,8 @@ __global__ void __launch_bounds__(THREADS) fa_fwd_kernel(const Args a) {
       for (int j = 0; j < CN; ++j) {
         float x = sc[i][j] * a.scale;
         if (a.softcap > 0.f) x = a.softcap * tanhf(x / a.softcap);
-        if (k0 + tx + 16 * j > qpos) x = NEG_INF;
+        const int kpos = k0 + tx + 16 * j;
+        if (kpos > qpos || (WINDOWED && qpos - kpos >= a.window)) x = NEG_INF;
         sc[i][j] = x;
         mx = fmaxf(mx, x);
       }
@@ -164,7 +178,7 @@ __global__ void __launch_bounds__(THREADS) fa_fwd_kernel(const Args a) {
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < CN; ++j) {
-        const float p = expf(sc[i][j] - m_new);
+        const float p = (WINDOWED && sc[i][j] == NEG_INF) ? 0.f : expf(sc[i][j] - m_new);
         ps[(ty + 16 * i) * LDP + tx + 16 * j] = p;
         rs += p;
       }
@@ -203,7 +217,7 @@ __global__ void __launch_bounds__(THREADS) fa_fwd_kernel(const Args a) {
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool WINDOWED>
 cudaError_t launch(const Args& a, int batch, int device, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   // The shared-memory limit is raised once per device for each instantiation,
@@ -212,25 +226,31 @@ cudaError_t launch(const Args& a, int batch, int device, cudaStream_t stream) {
   if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
   if (!smem_set[device].load(std::memory_order_acquire)) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fa_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+        fa_fwd_kernel<T, D, WINDOWED>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return err;
     smem_set[device].store(true, std::memory_order_release);
   }
   const dim3 grid((a.s + BQ - 1) / BQ, a.hq, batch);
-  fa_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(a);
+  fa_fwd_kernel<T, D, WINDOWED><<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool WINDOWED>
 cudaError_t launch_d(const Args& a, int batch, int d, int device, cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16>(a, batch, device, stream);
-    case 32: return launch<T, 32>(a, batch, device, stream);
-    case 64: return launch<T, 64>(a, batch, device, stream);
-    case 128: return launch<T, 128>(a, batch, device, stream);
-    case 256: return launch<T, 256>(a, batch, device, stream);
+    case 16: return launch<T, 16, WINDOWED>(a, batch, device, stream);
+    case 32: return launch<T, 32, WINDOWED>(a, batch, device, stream);
+    case 64: return launch<T, 64, WINDOWED>(a, batch, device, stream);
+    case 128: return launch<T, 128, WINDOWED>(a, batch, device, stream);
+    case 256: return launch<T, 256, WINDOWED>(a, batch, device, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <typename T>
+cudaError_t launch_w(const Args& a, int batch, int d, int device, cudaStream_t stream) {
+  return a.window > 0 ? launch_d<T, true>(a, batch, d, device, stream)
+                      : launch_d<T, false>(a, batch, d, device, stream);
 }
 
 }  // namespace
@@ -240,7 +260,8 @@ extern "C" {
 // device: the caller's current CUDA device (the one the tensors and the
 // stream belong to); this function does not change the current device.
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the last dim
-// of q, k, v and o is contiguous. Returns the CUDA error code of the launch.
+// of q, k, v and o is contiguous. window: 0 for none, else W > 0 (query t
+// attends keys [t-W+1, t]). Returns the CUDA error code of the launch.
 int repro_flash_attention_fwd(int device, void* stream, int dtype,
                               const void* q, const void* k, const void* v, void* o,
                               int batch, int s, int hq, int hk, int d,
@@ -248,15 +269,15 @@ int repro_flash_attention_fwd(int device, void* stream, int dtype,
                               int64_t k_sb, int64_t k_ss, int64_t k_sh,
                               int64_t v_sb, int64_t v_ss, int64_t v_sh,
                               int64_t o_sb, int64_t o_ss, int64_t o_sh,
-                              float scale, float softcap) {
+                              float scale, float softcap, int window) {
   const Args a{q, k, v, o, s, hq, hk,
                q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
-               scale, softcap};
+               scale, softcap, window};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return int(launch_d<float>(a, batch, d, device, st));
-    case 1: return int(launch_d<__nv_bfloat16>(a, batch, d, device, st));
+    case 0: return int(launch_w<float>(a, batch, d, device, st));
+    case 1: return int(launch_w<__nv_bfloat16>(a, batch, d, device, st));
     default: return int(cudaErrorInvalidValue);
   }
 }

@@ -2,10 +2,12 @@
 
 The CUDA counterpart of the TPU kernel ``flash_attention_fwd`` of
 ``repro.kernels.flash_attention``: causal GQA attention with an f32 online
-softmax, optional tanh softcap, any sequence length. It takes q [B,S,Hq,D]
-and k, v [B,S,Hk,D] in the public layout (strides, no transposed copies),
-float32 or bfloat16, D in {16, 32, 64, 128, 256}, and returns [B,S,Hq,D] in q's
-dtype. Forward only: it raises if an input requires grad.
+softmax, optional tanh softcap, optional sliding window (query t attends
+keys [t-W+1, t], as ``attention_ref(window=W)``; the TPU kernel has none),
+any sequence length. It takes q [B,S,Hq,D] and k, v [B,S,Hk,D] in the
+public layout (strides, no transposed copies), float32 or bfloat16, D in
+{16, 32, 64, 128, 256}, and returns [B,S,Hq,D] in q's dtype. Forward only:
+it raises if an input requires grad.
 
 ``flash_attention_fwd.launches`` counts the kernel's launches.
 """
@@ -21,7 +23,7 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
              + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-             + [ctypes.c_int64] * 12 + [ctypes.c_float] * 2)
+             + [ctypes.c_int64] * 12 + [ctypes.c_float] * 2 + [ctypes.c_int])
 
 
 def _library() -> ctypes.CDLL:
@@ -32,8 +34,11 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 window: int = 0) -> None:
     """Raises on anything the kernel does not take (device aside)."""
+    if window < 0:
+        raise ValueError(f"window {window} < 0 (0 means none)")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"expected q [B,S,Hq,D] and k, v [B,S,Hk,D]; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -55,9 +60,11 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        softcap: float = 0.0) -> torch.Tensor:
-    """Launches the CUDA kernel on q's device and PyTorch's current stream."""
-    check_inputs(q, k, v)
+                        softcap: float = 0.0, window: int = 0) -> torch.Tensor:
+    """Launches the CUDA kernel on q's device and PyTorch's current stream.
+
+    ``window`` W > 0 restricts query t to keys [t-W+1, t]; 0 means none."""
+    check_inputs(q, k, v, window)
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention_fwd needs q, k, v on one CUDA device; "
                          f"got {q.device}, {k.device}, {v.device}")
@@ -73,7 +80,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             b, s, hq, k.shape[2], d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-            d ** -0.5, float(softcap))
+            d ** -0.5, float(softcap), int(window))
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"{build.error_string(lib, err)} (cuda error {err})")

@@ -11,7 +11,8 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention_fwd
-from repro_torch.kernels.ref import attention_ref
+from repro_torch.kernels.ref import attention_ref, rglru_ref
+from repro_torch.kernels.rglru_scan import rglru_scan_fwd
 from repro_torch.kernels.ssd_scan import ssd_scan_fwd
 
 
@@ -20,11 +21,13 @@ def _all_cpu(*ts: torch.Tensor) -> bool:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    softcap: float = 0.0) -> torch.Tensor:
-    """Causal GQA attention. q [B,S,Hq,D]; k,v [B,S,Hk,D] -> [B,S,Hq,D]."""
+                    softcap: float = 0.0, window: int = 0) -> torch.Tensor:
+    """Causal GQA attention. q [B,S,Hq,D]; k,v [B,S,Hk,D] -> [B,S,Hq,D].
+
+    With ``window`` W > 0, query t attends keys [t-W+1, t] only."""
     if _all_cpu(q, k, v):
-        return attention_ref(q, k, v, softcap=softcap)
-    return flash_attention_fwd(q, k, v, softcap=softcap)
+        return attention_ref(q, k, v, softcap=softcap, window=window)
+    return flash_attention_fwd(q, k, v, softcap=softcap, window=window)
 
 
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
@@ -43,3 +46,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor
     if _all_cpu(x, dt, A, B, C):
         return ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
     return ssd_scan_fwd(x, dt, A, B, C, chunk=chunk)
+
+
+def rglru_recurrence(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Diagonal recurrence h_t = a_t h_{t-1} + b_t from h = 0. a, b [B,S,W]
+    -> h [B,S,W] f32."""
+    if _all_cpu(a, b):
+        return rglru_ref(a, b)
+    return rglru_scan_fwd(a, b)

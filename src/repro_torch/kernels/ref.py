@@ -2,9 +2,10 @@
 
 Direct formulations (materialised scores, step-by-step recurrences): slow,
 obviously correct. The card's checks hold each kernel against them on the
-same inputs. The CPU path of flash attention runs ``attention_ref``; that of
-the SSD scan runs the chunked algorithm in f32 (``ops.ssd_scan_plain``),
-since the recurrence here is one step at a time.
+same inputs. The CPU path of flash attention runs ``attention_ref`` and that
+of the RG-LRU scan ``rglru_ref``; that of the SSD scan runs the chunked
+algorithm in f32 (``ops.ssd_scan_plain``), since the recurrence here is one
+step at a time.
 """
 from __future__ import annotations
 
@@ -69,3 +70,17 @@ def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
         ys.append(torch.einsum("bhn,bhnp->bhp", Ch[:, t], state))
     y = torch.stack(ys, dim=1) if ys else xf.new_zeros((b, 0, h, p))
     return y.to(x.dtype), state
+
+
+def rglru_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Step-by-step diagonal linear recurrence h_t = a_t h_{t-1} + b_t.
+
+    a, b: [B, S, W] (precomputed gates, any float dtype). Returns h [B, S, W]
+    in f32, from h_{-1} = 0."""
+    af, bf = a.float(), b.float()
+    h = af.new_zeros((a.shape[0], a.shape[2]))
+    hs = []
+    for t in range(a.shape[1]):
+        h = af[:, t] * h + bf[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1) if hs else torch.zeros_like(af)

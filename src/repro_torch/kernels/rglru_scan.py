@@ -1,0 +1,70 @@
+"""Hopper RG-LRU scan (forward): wrapper around csrc/rglru_scan.cu.
+
+The CUDA counterpart of the TPU kernel ``rglru_scan_pallas`` of
+``repro.kernels.rglru_scan`` together with its wrapper
+``ops.rglru_recurrence``: the diagonal linear recurrence
+h_t = a_t * h_{t-1} + b_t from a zero state, in f32. It takes a and b
+[B, S, W] in the public layout (strides, no copies), both float32 or both
+bfloat16, any S and W; and returns h [B, S, W] float32. Forward only: it
+raises if an input requires grad.
+
+``rglru_scan_fwd.launches`` counts the kernel's launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+             + [ctypes.c_int] * 3 + [ctypes.c_int64] * 6)
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.load("rglru_scan")
+    fn = lib.repro_rglru_scan_fwd
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def check_inputs(a: torch.Tensor, b: torch.Tensor) -> None:
+    """Raises on anything the kernel does not take (device aside)."""
+    if a.dim() != 3 or a.shape != b.shape:
+        raise ValueError(f"expected a, b [B,S,W] of one shape; got "
+                         f"{tuple(a.shape)}, {tuple(b.shape)}")
+    if a.dtype not in _DTYPES or b.dtype != a.dtype:
+        raise TypeError(f"dtypes {a.dtype}, {b.dtype}: expected both float32 or "
+                        f"both bfloat16")
+    if a.requires_grad or b.requires_grad:
+        raise RuntimeError("rglru_scan_fwd is forward-only; its autograd Function "
+                           "comes with the training slice")
+
+
+def rglru_scan_fwd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Launches the CUDA kernel on a's device and PyTorch's current stream."""
+    check_inputs(a, b)
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"rglru_scan_fwd needs a, b on one CUDA device; "
+                         f"got {a.device}, {b.device}")
+    bb, s, w = a.shape
+    h = torch.empty((bb, s, w), dtype=torch.float32, device=a.device)
+    if h.numel() == 0:
+        return h
+    lib = _library()
+    with torch.cuda.device(a.device):   # the kernel launches on the current device
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = lib.repro_rglru_scan_fwd(stream, _DTYPES[a.dtype], a.data_ptr(),
+                                       b.data_ptr(), h.data_ptr(), bb, s, w,
+                                       *a.stride(), *b.stride())
+    if err:
+        raise RuntimeError(f"rglru_scan kernel launch failed: "
+                           f"{build.error_string(lib, err)} (cuda error {err})")
+    rglru_scan_fwd.launches += 1
+    return h
+
+
+rglru_scan_fwd.launches = 0

@@ -10,8 +10,9 @@ prefill, and its greedy decode steps after the first token. Each phase runs
 once unprofiled (host clock after a synchronise: wall time) and once under
 ``torch.profiler`` (kernel time by name, kernel count). Each decode run
 starts from its own copy of the prefill's caches, as ``launch.serve``'s
-decode starts from a fresh prefill: an SSD state accumulates, so a second
-run from the same caches would decode from another state. The device's
+decode starts from a fresh prefill: an SSD or RG-LRU state accumulates and a
+local layer's ring is overwritten, so a second run from the same caches
+would decode from another state. The device's
 idle share is 1 - kernel time / wall time. Prints one JSON line. Needs a GPU.
 """
 from __future__ import annotations

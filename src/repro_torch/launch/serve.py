@@ -6,6 +6,8 @@
 Each arch has a default workload (``WORKLOADS``): qwen1.5-0.5b batch 4,
 prompt 512, 32 new tokens; mamba2-370m batch 4, prompt 2048 (16 chunks of
 128 carried in order, the long-prompt regime an SSM is chosen for), 32 new
+tokens; recurrentgemma-2b batch 4, prompt 4096 (two windows of its local
+attention, so the band is real, and the decode steps wrap the ring), 32 new
 tokens. Runs on the GPU unless ``--device cpu`` is given; without a GPU it
 raises. Weights are random, drawn from seed 0; prompts from seed 1.
 """
@@ -34,6 +36,7 @@ class Workload(NamedTuple):
 WORKLOADS = {
     "qwen1.5-0.5b": Workload(batch=4, prompt_len=512, max_new=32),
     "mamba2-370m": Workload(batch=4, prompt_len=2048, max_new=32),
+    "recurrentgemma-2b": Workload(batch=4, prompt_len=4096, max_new=32),
 }
 ARCH = "qwen1.5-0.5b"
 

@@ -1,16 +1,20 @@
-"""Attention: chunked causal GQA (the algorithm's reference), cached decode,
-and naive causal attention.
+"""Attention: chunked causal GQA (the algorithm's reference), sliding-window
+local attention, cached decode (global and ring), and naive causal attention.
 
 Layout conventions (as in the JAX package)
   q        [B, S, Hq, Dh]
   k, v     [B, S, Hk, Dh]       (GQA: Hq = Hk * G)
   cache    k/v  [B, Smax, Hk, Dh] (rope pre-applied to cached K)
+  ring     k/v  [B, W, Hk, Dh]    (local attention: position p in slot p % W)
 
 Prefill in the port goes through ``kernels.ops.flash_attention`` (the Hopper
-kernel on the card). ``chunked_causal_attention`` is the port of the JAX
-model path's blockwise online softmax, kept as a CPU reference for it; note
-that it rounds p to v's dtype before P.V where the kernel keeps f32.
-Decode attention is plain PyTorch: the JAX package has no kernel there.
+kernel on the card), local attention with its ``window``: the JAX package
+computes ``local_attention`` outside Pallas, banded block by block, and its
+kernel oracle ``attention_ref`` defines the same window. ``chunked_causal_attention``
+is the port of the JAX model path's blockwise online softmax, kept as a CPU
+reference for it; note that it rounds p to v's dtype before P.V where the
+kernel keeps f32. Decode attention is plain PyTorch: the JAX package has no
+kernel there.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import math
 
 import torch
 
+from repro_torch.kernels.ops import flash_attention
 from repro_torch.kernels.ref import attention_ref
 
 NEG_INF = -1e30
@@ -83,13 +88,17 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     return _merge_gqa(o).to(q.dtype)
 
 
-def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     pos: int, *, softcap: float = 0.0) -> torch.Tensor:
-    """One new token against the cache.
+def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int, softcap: float = 0.0) -> torch.Tensor:
+    """Exact sliding-window causal attention: position t attends [t-W+1, t],
+    at every S (the JAX package falls back to causal attention for S <= W,
+    which is the same band)."""
+    return flash_attention(q, k, v, softcap=softcap, window=window)
 
-    q [B, Hq, Dh] (rope applied at pos); k/v cache [B, Smax, Hk, Dh] with the
-    new token already written at ``pos``. Returns [B, Hq, Dh] in q's dtype.
-    """
+
+def _attend_one(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                valid: torch.Tensor, softcap: float) -> torch.Tensor:
+    """q [B, Hq, Dh] against the cache rows where ``valid`` [Smax] holds."""
     b, smax, hk, dh = k_cache.shape
     hq = q.shape[1]
     g = hq // hk
@@ -97,11 +106,33 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     s = torch.einsum("bhgd,bshd->bhgs", qg.float(), k_cache.float()) * dh ** -0.5
     if softcap > 0:
         s = softcap * torch.tanh(s / softcap)
-    valid = torch.arange(smax, device=q.device) <= pos
     s = s.masked_fill(~valid, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype).float(), v_cache.float())
     return o.reshape(b, hq, dh).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     pos: int, *, softcap: float = 0.0) -> torch.Tensor:
+    """One new token against the cache.
+
+    q [B, Hq, Dh] (rope applied at pos); k/v cache [B, Smax, Hk, Dh] with the
+    new token already written at ``pos``. Returns [B, Hq, Dh] in q's dtype.
+    """
+    valid = torch.arange(k_cache.shape[1], device=q.device) <= pos
+    return _attend_one(q, k_cache, v_cache, valid, softcap)
+
+
+def decode_local_attention(q: torch.Tensor, k_ring: torch.Tensor, v_ring: torch.Tensor,
+                           pos: int, *, softcap: float = 0.0) -> torch.Tensor:
+    """One new token against a ring of the last W positions.
+
+    q [B, Hq, Dh] (rope applied at pos); k/v ring [B, W, Hk, Dh] with slot
+    j holding position pos - ((pos - j) mod W) and the new token already
+    written at slot pos % W. Returns [B, Hq, Dh] in q's dtype."""
+    w = k_ring.shape[1]
+    valid = pos - torch.remainder(pos - torch.arange(w, device=q.device), w) >= 0
+    return _attend_one(q, k_ring, v_ring, valid, softcap)
 
 
 def naive_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

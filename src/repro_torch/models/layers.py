@@ -65,6 +65,19 @@ class Norm(nn.Module):
 
 
 # ---------------------------------------------------------------------------
+# Causal conv state (SSD and RG-LRU blocks)
+# ---------------------------------------------------------------------------
+
+def conv_window(t: torch.Tensor, width: int) -> torch.Tensor:
+    """The last ``width`` steps of t [B,S,Ch], left-padded with zeros when
+    S < width (a causal conv's own padding), as a new tensor: the conv state
+    that a prefill leaves for decode."""
+    if t.shape[1] < width:
+        t = F.pad(t, (0, 0, width - t.shape[1], 0))
+    return t[:, t.shape[1] - width:].clone()
+
+
+# ---------------------------------------------------------------------------
 # Rotary position embedding
 # ---------------------------------------------------------------------------
 

@@ -24,7 +24,7 @@ from torch import nn
 from repro_torch.config.base import ModelConfig
 from repro_torch.device import dtype_of
 from repro_torch.kernels.ops import ssd_scan
-from repro_torch.models.layers import normal_
+from repro_torch.models.layers import conv_window, normal_
 
 SsdCache = dict  # {"conv_x" [B,K-1,d_in], "conv_bc" [B,K-1,2gn], "ssm" [B,h,n,p] f32}
 
@@ -146,14 +146,6 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.T
     return F.silu(out + b[None, None, :])
 
 
-def _conv_window(t: torch.Tensor, width: int) -> torch.Tensor:
-    """The last ``width`` steps of t [B,S,Ch], left-padded with zeros when
-    S < width (the causal conv's own padding), as a new tensor."""
-    if t.shape[1] < width:
-        t = F.pad(t, (0, 0, width - t.shape[1], 0))
-    return t[:, t.shape[1] - width:].clone()
-
-
 def _gated_rms_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """mamba2's RMSNormGated, norm(y * silu(z)), in f32, cast back to y's dtype."""
     gated = (y * F.silu(z.float()).to(y.dtype)).float()
@@ -249,7 +241,7 @@ class SSD(nn.Module):
             y = y.float() + self.D[None, None, :, None] * x_.float()
             y = y.reshape(b, s, d_in).to(x.dtype)
             k = cfg.ssm_conv
-            cache = {"conv_x": _conv_window(xr, k - 1), "conv_bc": _conv_window(bc, k - 1),
+            cache = {"conv_x": conv_window(xr, k - 1), "conv_bc": conv_window(bc, k - 1),
                      "ssm": final_state}
         else:
             raise ValueError(f"unknown mode {mode!r}; the port serves "

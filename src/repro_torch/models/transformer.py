@@ -1,5 +1,5 @@
-"""Block-typed decoder-only backbone: mixer in {attn, ssd}, mlp in
-{swiglu, relu2, gelu, none}.
+"""Block-typed decoder-only backbone: mixer in {attn, local_attn, ssd, rglru},
+mlp in {swiglu, relu2, gelu, none}.
 
 The JAX package stacks each pattern position's layers and scans them; the
 port keeps one ``Block`` module per layer in order (layer g*len(pattern)+i is
@@ -7,11 +7,14 @@ group g's pattern position i, then the remainder), which is the order that
 ``convert.params_from_jax`` unstacks the scanned groups into.
 
 Modes: ``prefill`` runs the whole prompt and returns one cache per layer (K/V
-of ``max_len`` for attention, the conv windows and the state for SSD, which
-ignores ``max_len``); ``decode`` runs one token against those caches and
-updates them in place (SSD ignores ``pos``). Prefill attention goes through
-``kernels.ops.flash_attention``, the prefill SSD scan through
-``kernels.ops.ssd_scan``.
+of ``max_len`` for attention, a ring of the last ``local_window`` K/V for
+local attention, the conv windows and the state for SSD and RG-LRU; all but
+global attention ignore ``max_len``); ``decode`` runs one token against
+those caches and updates them in place (SSD and RG-LRU ignore ``pos``).
+Prefill attention goes through ``kernels.ops.flash_attention`` (local
+attention with its window), the prefill SSD scan through
+``kernels.ops.ssd_scan``, the prefill RG-LRU recurrence through
+``kernels.ops.rglru_recurrence``.
 """
 from __future__ import annotations
 
@@ -25,19 +28,20 @@ from repro_torch.config.base import (
 )
 from repro_torch.device import dtype_of
 from repro_torch.kernels.ops import flash_attention
-from repro_torch.models.attention import decode_attention
+from repro_torch.models.attention import (
+    decode_attention, decode_local_attention, local_attention,
+)
 from repro_torch.models.layers import MLP, Norm, apply_rope, normal_
+from repro_torch.models.rglru import RGLRU as RGLRUMixer
+from repro_torch.models.rglru import init_rglru_cache
 from repro_torch.models.ssm import SSD as SSDMixer
 from repro_torch.models.ssm import init_ssd_cache
 
-# attention: {"k": [B, Smax, Hk, hd], "v": [B, Smax, Hk, hd]};
-# SSD: {"conv_x": [B, K-1, d_in], "conv_bc": [B, K-1, 2gn], "ssm": [B, h, n, p] f32}
+# attention: {"k": [B, Smax, Hk, hd], "v": [B, Smax, Hk, hd]} (Smax = local_window
+# for local attention, a ring: position p in slot p % W);
+# SSD: {"conv_x": [B, K-1, d_in], "conv_bc": [B, K-1, 2gn], "ssm": [B, h, n, p] f32};
+# RG-LRU: {"conv": [B, K-1, W], "h": [B, W] f32}
 Cache = dict
-
-_LATER_MIXERS = {
-    RGLRU: "slice 3 (recurrentgemma-2b serving with the rglru_scan kernel)",
-    LOCAL_ATTN: "slice 3 (recurrentgemma-2b, local attention at head_dim 256)",
-}
 
 
 # ---------------------------------------------------------------------------
@@ -45,12 +49,15 @@ _LATER_MIXERS = {
 # ---------------------------------------------------------------------------
 
 class Attention(nn.Module):
-    def __init__(self, cfg: ModelConfig, device=None):
+    """Global causal (``mixer=ATTN``) or sliding-window (``LOCAL_ATTN``) attention."""
+
+    def __init__(self, cfg: ModelConfig, mixer: str = ATTN, device=None):
         super().__init__()
         d, hd = cfg.d_model, cfg.resolved_head_dim
         hq, hk = cfg.num_heads, cfg.num_kv_heads
         pd = dtype_of(cfg.param_dtype)
         self.cfg = cfg
+        self.mixer = mixer
         self.wq = nn.Parameter(torch.empty(d, hq * hd, dtype=pd, device=device))
         self.wk = nn.Parameter(torch.empty(d, hk * hd, dtype=pd, device=device))
         self.wv = nn.Parameter(torch.empty(d, hk * hd, dtype=pd, device=device))
@@ -92,23 +99,35 @@ class Attention(nn.Module):
             positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
             q = apply_rope(q[:, None], positions, theta)[:, 0]
             k = apply_rope(k[:, None], positions, theta)[:, 0]
-            # The cache was preallocated at max_len (by prefill or init_cache)
-            # and is updated in place here, where the JAX package returns an
-            # updated copy of it.
-            cache["k"][:, pos] = k.to(cache["k"].dtype)
-            cache["v"][:, pos] = v.to(cache["v"].dtype)
-            o = decode_attention(q, cache["k"], cache["v"], pos)[:, None]
+            # The cache was preallocated at max_len, or at the window for a
+            # ring (by prefill or init_cache), and is updated in place here,
+            # where the JAX package returns an updated copy of it.
+            local = self.mixer == LOCAL_ATTN
+            slot = pos % cache["k"].shape[1] if local else pos
+            cache["k"][:, slot] = k.to(cache["k"].dtype)
+            cache["v"][:, slot] = v.to(cache["v"].dtype)
+            attend = decode_local_attention if local else decode_attention
+            o = attend(q, cache["k"], cache["v"], pos)[:, None]
         elif mode == "prefill":
-            if max_len < s:
+            if self.mixer == ATTN and max_len < s:
                 raise ValueError(f"max_len {max_len} < prompt length {s}")
             q, k, v = self._qkv(x)
             positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
             q = apply_rope(q, positions, theta)
             k = apply_rope(k, positions, theta)
-            o = flash_attention(q, k, v)
-            cache = init_attn_cache(self.cfg, b, max_len, k.dtype, x.device)
-            cache["k"][:, :s] = k
-            cache["v"][:, :s] = v
+            cache = init_attn_cache(self.cfg, b, max_len, k.dtype, x.device, self.mixer)
+            if self.mixer == LOCAL_ATTN:
+                w = self.cfg.local_window
+                o = local_attention(q, k, v, window=w)
+                # the last W positions, position p in slot p % W (zeros past
+                # s when s < W), the layout of the JAX package's roll
+                n = min(s, w)
+                cache["k"][:, :n] = torch.roll(k[:, s - n:], s % w, 1)
+                cache["v"][:, :n] = torch.roll(v[:, s - n:], s % w, 1)
+            else:
+                o = flash_attention(q, k, v)
+                cache["k"][:, :s] = k
+                cache["v"][:, :s] = v
         else:
             raise ValueError(f"unknown mode {mode!r}; the port serves "
                              f"(prefill, decode) only")
@@ -117,8 +136,10 @@ class Attention(nn.Module):
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
-                    dtype: torch.dtype, device=None) -> Cache:
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+                    dtype: torch.dtype, device=None, mixer: str = ATTN) -> Cache:
+    """Zeroed K/V of ``max_len`` rows, or of ``local_window`` for a local layer."""
+    length = cfg.local_window if mixer == LOCAL_ATTN else max_len
+    shape = (batch, length, cfg.num_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -130,17 +151,16 @@ def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
 class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, mixer: str, mlp: str, device=None):
         super().__init__()
-        if mixer in _LATER_MIXERS:
-            raise NotImplementedError(
-                f"mixer {mixer!r} is not ported yet; it comes with {_LATER_MIXERS[mixer]}")
-        if mixer not in (ATTN, SSD):
+        if mixer not in (ATTN, LOCAL_ATTN, SSD, RGLRU):
             raise ValueError(f"unknown mixer {mixer!r}")
         if mlp == MLP_MOE:
             raise NotImplementedError(
                 "the MoE MLP is not ported yet; it comes with a slice after slice 3")
         self.norm1 = Norm(cfg, device=device)
-        self.attn = Attention(cfg, device=device) if mixer == ATTN else None
+        self.attn = (Attention(cfg, mixer, device=device)
+                     if mixer in (ATTN, LOCAL_ATTN) else None)
         self.ssd = SSDMixer(cfg, device=device) if mixer == SSD else None
+        self.rglru = RGLRUMixer(cfg, device=device) if mixer == RGLRU else None
         if mlp != MLP_NONE:
             self.norm2 = Norm(cfg, device=device)
             self.mlp = MLP(cfg, mlp, device=device)
@@ -152,8 +172,10 @@ class Block(nn.Module):
         h = self.norm1(x)
         if self.attn is not None:
             mx, new_cache = self.attn(h, mode=mode, cache=cache, pos=pos, max_len=max_len)
-        else:
+        elif self.ssd is not None:
             mx, new_cache = self.ssd(h, mode=mode, cache=cache)
+        else:
+            mx, new_cache = self.rglru(h, mode=mode, cache=cache)
         x = x + mx
         if self.mlp is not None:
             x = x + self.mlp(self.norm2(x))
@@ -188,7 +210,12 @@ class Backbone(nn.Module):
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype,
                 device=None) -> List[Cache]:
-    """One zeroed cache per layer, in layer order (an SSD layer's ignores max_len)."""
-    return [init_ssd_cache(cfg, batch, dtype, device) if mixer == SSD
-            else init_attn_cache(cfg, batch, max_len, dtype, device)
-            for mixer, _ in cfg.layer_blocks()]
+    """One zeroed cache per layer, in layer order (only a global attention
+    layer's depends on max_len)."""
+    def one(mixer: str) -> Cache:
+        if mixer == SSD:
+            return init_ssd_cache(cfg, batch, dtype, device)
+        if mixer == RGLRU:
+            return init_rglru_cache(cfg, batch, dtype, device)
+        return init_attn_cache(cfg, batch, max_len, dtype, device, mixer)
+    return [one(mixer) for mixer, _ in cfg.layer_blocks()]

@@ -1,7 +1,8 @@
 """Serving: prefill, then a batched greedy decode loop.
 
-The caches are allocated once by prefill (K/V at ``max_len``, SSD state at
-its fixed size), and every decode step updates them in place.
+The caches are allocated once by prefill (K/V at ``max_len``, a local
+layer's ring at its window, SSD and RG-LRU states at their fixed sizes), and
+every decode step updates them in place.
 """
 from __future__ import annotations
 

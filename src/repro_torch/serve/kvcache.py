@@ -1,7 +1,10 @@
 """Cache utilities for serving: allocation and size.
 
-One cache per layer: ``{"k", "v"}`` of [B, Smax, Hk, hd] for attention,
-``{"conv_x", "conv_bc", "ssm"}`` (the conv windows and the f32 state) for SSD.
+One cache per layer: ``{"k", "v"}`` of [B, Smax, Hk, hd] for attention (of
+[B, W, Hk, hd], a ring of the last ``local_window`` positions, for local
+attention), ``{"conv_x", "conv_bc", "ssm"}`` (the conv windows and the f32
+state) for SSD, ``{"conv", "h"}`` (the conv window and the f32 state) for
+RG-LRU.
 Sharding specs come with the port's ``parallel`` slice.
 """
 from __future__ import annotations

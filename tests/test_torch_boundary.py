@@ -42,8 +42,10 @@ def test_no_import_statement_names_jax_or_repro():
 @pytest.mark.parametrize("entry,argv", [
     ("serve", ["--smoke", "--batch", "1", "--prompt-len", "8", "--max-new", "2"]),
     ("serve", ["--arch", "mamba2-370m", "--smoke"]),
+    ("serve", ["--arch", "recurrentgemma-2b", "--smoke"]),
     ("profile_serve", []),
     ("profile_serve", ["--arch", "mamba2-370m"]),
+    ("profile_serve", ["--arch", "recurrentgemma-2b"]),
 ])
 def test_entry_points_raise_without_gpu(entry, argv):
     if torch.cuda.is_available():
@@ -63,7 +65,7 @@ def test_build_model_defaults_to_cuda():
         build_model(get_model_config("qwen1.5-0.5b", smoke=True))
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "mamba2-370m", "recurrentgemma-2b"])
 def test_serve_on_cpu_when_asked(arch):
     from repro_torch.launch import serve
     res = serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
@@ -73,7 +75,7 @@ def test_serve_on_cpu_when_asked(arch):
 
 
 @pytest.mark.parametrize("arch,slice_name", [("musicgen-large", "after slice 3"),
-                                             ("recurrentgemma-2b", "slice 3"),
+                                             ("granite-moe-1b-a400m", "after slice 3"),
                                              ("deepseek-67b", "after slice 3")])
 def test_archs_not_ported_name_their_slice(arch, slice_name):
     from repro_torch.config import get_model_config

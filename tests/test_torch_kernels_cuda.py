@@ -14,7 +14,8 @@ import torch
 from repro_torch.config import get_model_config
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_fwd
-from repro_torch.kernels.ref import attention_ref, ssd_ref
+from repro_torch.kernels.ref import attention_ref, rglru_ref, ssd_ref
+from repro_torch.kernels.rglru_scan import rglru_scan_fwd
 from repro_torch.kernels.ssd_scan import ssd_scan_fwd
 from repro_torch.models import build_model
 
@@ -27,6 +28,9 @@ TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 1e-2)}
 # final state is f32 either way.
 SSD_REL_TOL = {"float32": 1e-4, "bfloat16": 8e-3}
 STATE_REL_TOL = 1e-4
+# RG-LRU scan, max abs error against the step-by-step oracle in f32 on the same
+# input values (tests/test_kernels.py holds the Pallas kernel to 1e-5).
+RGLRU_TOL = 1e-5
 
 
 @pytest.fixture
@@ -55,6 +59,66 @@ def test_flash_attention_matches_plain_version(cuda_sm90, b, s, hq, hk, d, dtype
     ref = attention_ref(q.float(), k.float(), v.float(), softcap=softcap)
     atol, rtol = TOL[dtype]
     torch.testing.assert_close(out.float(), ref, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("b,s,hq,hk,d,window", [
+    (2, 700, 10, 1, 256, 100),     # recurrentgemma's GQA 10:1 at D=256, W not a multiple of 64
+    (1, 1000, 10, 1, 256, 333),
+    (2, 300, 4, 2, 64, 1),         # each query sees itself only
+    (1, 200, 4, 2, 128, 64),       # W a multiple of the tile
+    (2, 130, 4, 1, 32, 500),       # W >= S: causal
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_windowed_flash_attention_matches_plain_version(cuda_sm90, b, s, hq, hk, d, window,
+                                                        dtype):
+    gen = torch.Generator(device=cuda_sm90).manual_seed(3)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device=cuda_sm90)
+               .to(getattr(torch, dtype)) for h in (hq, hk, hk))
+    before = flash_attention_fwd.launches
+    out = ops.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    ref = attention_ref(q.float(), k.float(), v.float(), window=window)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref, atol=atol, rtol=rtol)
+    if window >= s:
+        causal = ops.flash_attention(q, k, v)
+        assert torch.equal(out, causal)
+
+
+def _rglru_inputs(b, s, w, dtype, dev, seed=0):
+    """a = sigmoid(N(0,1)) * 0.2 + 0.79 and b ~ N(0,1), as tests/test_kernels.py."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.sigmoid(torch.randn((b, s, w), generator=gen, device=dev)) * 0.2 + 0.79
+    x = torch.randn((b, s, w), generator=gen, device=dev)
+    return a.to(dtype), x.to(dtype)
+
+
+@pytest.mark.parametrize("b,s,w", [
+    (4, 4096, 2560),     # recurrentgemma-2b serving shape
+    (2, 1000, 200),      # ragged S and W
+    (2, 128, 256), (1, 300, 64), (3, 64, 512),   # tests/test_kernels.py's shapes
+    (1, 5, 33),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rglru_scan_matches_plain_version(cuda_sm90, b, s, w, dtype):
+    a, x = _rglru_inputs(b, s, w, getattr(torch, dtype), cuda_sm90)
+    before = rglru_scan_fwd.launches
+    h = ops.rglru_recurrence(a, x)
+    torch.cuda.synchronize()
+    assert rglru_scan_fwd.launches == before + 1
+    assert h.dtype == torch.float32 and h.shape == (b, s, w)
+    assert float((h - rglru_ref(a, x)).abs().max()) <= RGLRU_TOL
+
+
+def test_rglru_scan_reads_strided_inputs(cuda_sm90):
+    """a and b as slices of wider tensors, with a step along S of 2 rows, and
+    in a layout with S minor."""
+    a, x = _rglru_inputs(2, 600, 96, torch.float32, cuda_sm90, seed=1)
+    for sa, sx in ((a[:, ::2, 16:80], x[:, 1::2, 8:72]),
+                   (a.transpose(1, 2).contiguous().transpose(1, 2), x)):
+        h = ops.rglru_recurrence(sa, sx)
+        assert float((h - rglru_ref(sa, sx)).abs().max()) <= RGLRU_TOL
 
 
 def test_flash_attention_reads_strided_inputs(cuda_sm90):
@@ -149,3 +213,23 @@ def test_mamba2_smoke_prefill_on_card_matches_cpu(cuda_sm90):
     torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(caches[-1]["ssm"].cpu(), cpu_caches[-1]["ssm"],
                                atol=1e-4, rtol=1e-4)
+
+
+def test_recurrentgemma_smoke_prefill_on_card_matches_cpu(cuda_sm90):
+    """f32 recurrentgemma smoke model (window 16, prompt 100: the band is
+    real and ragged): the card's kernel path against the CPU's plain path,
+    on the logits, the first layer's RG-LRU state and the local layer's ring."""
+    cfg = dataclasses.replace(get_model_config("recurrentgemma-2b", smoke=True),
+                              act_dtype="float32", param_dtype="float32")
+    gpu = build_model(cfg, device=cuda_sm90)
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    toks = torch.randint(0, cfg.vocab_size, (2, 100),
+                         generator=torch.Generator().manual_seed(0))
+    before = flash_attention_fwd.launches, rglru_scan_fwd.launches
+    caches, lg = gpu.prefill(toks.to(cuda_sm90), max_len=104)
+    assert (flash_attention_fwd.launches - before[0], rglru_scan_fwd.launches - before[1]) == (1, 2)
+    cpu_caches, lc = cpu.prefill(toks, max_len=104)
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(caches[0]["h"].cpu(), cpu_caches[0]["h"], atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(caches[2]["k"].cpu(), cpu_caches[2]["k"], atol=1e-4, rtol=1e-4)
