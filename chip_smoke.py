@@ -8,7 +8,10 @@ and builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
 ``build/kernels`` at first use. Phases, each of which fails the run:
 
 1. card: ``nvidia-smi`` name and power limit; requires compute capability 9.0;
-2. build: every kernel source, one nvcc each, all started together;
+2. build: every kernel source, one nvcc each, all started together, with
+   each instantiation's registers and spills; then ``cuobjdump -sass`` of the
+   flash library, which fails the run unless every bf16 instantiation of the
+   flash kernel issues ``HGMMA`` (Hopper's wgmma: the tensor cores);
 3. kernels: each kernel against its plain PyTorch version on the card, f32
    and bf16. Flash attention at the serving shape, a GQA shape and ragged S,
    with and without softcap; then kernel, plain version, library call and
@@ -28,8 +31,9 @@ and builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    new tokens); the flash kernel's launch count over that run must be one per
    attention layer, and the card's prefill logits must agree with the same
    weights' f32 prefill on the CPU (plain path) at B=1, S=128. As a control,
-   the same check is read with faults planted in place of the kernel (P
-   rounded to bf16; causal mask dropped), and the dropped mask must fail it;
+   the same check is read with the plain path in place of the kernel, with
+   P rounded to bf16 (as the bf16 kernel rounds it; read for comparison)
+   and with the causal mask dropped, which must fail it;
 5. serve mamba2-370m the same way (its default workload: batch 4, prompt
    2048, 32 new tokens): one SSD-scan launch per SSD layer (48) per prefill,
    and the card-vs-CPU check at B=1, S=300 (two chunks of 128 and a ragged
@@ -91,8 +95,9 @@ SSD_SERVING = (4, 2048, 32, 64, 1, 128, 128)
 # Card (bf16 activations, kernels) vs CPU (f32, plain path) prefill of the
 # same weights (see PERF.md), each reading relative to the largest value of
 # its reference: bf16 rounds the residual stream at every layer.
-# qwen, the last position's logits: sound runs read 1.6e-2 to 1.7e-2; a
-# dropped causal mask must read above the limit.
+# qwen, the last position's logits: sound runs read 1.6e-2 to 1.7e-2
+# (1.653e-2 since the bf16 kernel rounds P to bf16); a dropped causal mask
+# must read above the limit.
 # mamba2, the logits and the first layer's final SSD state: the SSD part of a
 # random-weight block is small beside its D * x skip, so the last position's
 # logits barely see a state that is not carried across chunks, while the
@@ -181,6 +186,28 @@ def ssd_bound_ms(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
     nbytes = (2 * b * s * h * p * itemsize + 2 * b * s * g * n * itemsize
               + 4 * (b * s * h + h) + 4 * b * h * n * p)
     return bound(flops, nbytes)
+
+
+def tensor_core_instr() -> dict:
+    """HGMMA count in the SASS of each bf16 flash instantiation, keyed
+    "D=<d> windowed=<0|1>", from ``cuobjdump -sass`` of the built library."""
+    import re
+
+    from repro_torch.kernels import build
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    out = subprocess.run([str(cuobjdump), "-sass", str(build.library_path("flash_attention"))],
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()[-2000:]}")
+    counts, current = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            name = re.search(r"fa_fwd_bf16_kernelILi(\d+)ELb([01])E", line)
+            current = f"D={name.group(1)} windowed={name.group(2)}" if name else None
+            if current:
+                counts[current] = 0
+        elif current and "HGMMA" in line:
+            counts[current] += 1
+    return counts
 
 
 def _wrappers() -> dict:
@@ -602,8 +629,13 @@ def main() -> None:
           f"in {time.perf_counter() - t0:.1f} s into {build.BUILD_DIR}", flush=True)
     for src, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers", "spill", "warning")):
                 print(f"  {src}: {line.strip()}")
+    hgmma = tensor_core_instr()
+    print(f"  flash_attention SASS, HGMMA instructions per bf16 instantiation: {hgmma}",
+          flush=True)
+    check(len(hgmma) == 10 and all(hgmma.values()),
+          f"a bf16 flash instantiation runs no HGMMA (tensor cores): {hgmma}")
 
     t0 = time.perf_counter()
     print("[3/6] kernels against their plain versions", flush=True)
@@ -648,6 +680,7 @@ def main() -> None:
         "s4096": flash["timings"][4096],
         "windowed_d256": {**flash["windowed"], "max_abs_err": worst(
             flash["checks"], "windowed serving bfloat16")},
+        "tensor_core_instr": {"instruction": "HGMMA", "per_bf16_instantiation": hgmma},
         "checks": flash["checks"],
     }, {
         "name": "ssd_scan", "route": "cuda",

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own into ``build/kernels/<name>-<hash>.so`` at the repository root, at first
-use. The hash covers the source and the flags, so a changed source rebuilds
-and an unchanged one is loaded as it is. Nothing here runs at import time.
+use. The hash covers the source, every header under ``csrc/`` and the flags,
+so a changed source or header rebuilds and an unchanged one is loaded as it
+is. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -41,8 +42,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -7,41 +7,65 @@
 //   W > 0 also keys at W or more positions before the query (query t attends
 //   [t-W+1, t], as ref.attention_ref(window=W); the TPU kernel has no window);
 //   online softmax with running max m, sum l and accumulator in f32;
-//   P.V in f32 (the TPU kernel casts v to f32 before the product);
 //   o = acc / max(l, 1e-30), stored in q's dtype.
-// GQA: query head h reads kv head h / (Hq / Hk).
+// GQA: query head h reads kv head h / (Hq / Hk). Both kernels read the
+// public [B, S, H, D] layout through its strides (no transposed copies),
+// mask the ragged tail themselves (any S), launch the heaviest query tiles
+// first, and, with a window, start the key-tile loop at the tile holding the
+// band's first key of the block's first query row. The window is a template
+// parameter, so without one (window 0) no band test is compiled in.
 //
-// Design. One block of 256 threads per (query tile of 64 rows, query head,
-// batch row). The block keeps its query tile in shared memory and walks the
-// key/value tiles from 0 up to the diagonal in a loop, staging each 64-row
-// tile in shared memory as f32; there is no sequential grid axis and nothing
-// crosses blocks. Thread (ty, tx) of the 16 x 16 grid owns query rows
-// ty + 16 i (i < 4), score columns tx + 16 j (j < 4) and output columns
-// tx + 16 c (c < D / 16), so the row max and row sum of the online softmax
-// are reduced with four shuffles inside a half warp and the rescale factor
-// stays in registers. The kernel reads the public [B, S, H, D] layout
-// through its strides (no transposed copies), masks the ragged tail itself
-// (any S works; rows past S are zero-filled and never stored), and heavier
-// query tiles (more key tiles under the diagonal) are launched first. With
-// a window the key-tile loop starts at the tile holding the band's first key
-// of the query tile's first row, and the band is masked inside the tiles
-// that straddle its edges; a masked score's probability is 0, so a row that
-// has no key in the band within a tile adds nothing to l or acc. The window
-// adds no shared memory, and it is a separate instantiation: without one
-// (window 0) the kernel is the causal kernel as it was, with no extra work.
-// Rows of Q and K in shared memory are padded to D + 1 floats, so the
-// column walks of the score product touch 16 distinct banks.
+// What bounds it on the H100. At qwen1.5-0.5b's serving shape (B=4, S=512,
+// H=16, D=64, bf16) the function moves 16.8 MB and does 2.2 GFLOP: bytes
+// bound it (about 5 us at 3.35 TB/s), and at that size launch and pipeline
+// latency dominate. At S=4096 it is operations (0.139 ms at 989 TFLOP/s),
+// and so it is in recurrentgemma-2b's band (B=4, S=4096, Hq=10, Hk=1,
+// D=256, W=2048: 2.58e11 FLOP, 184.5 MB; 0.261 ms). So the products must
+// run on the bf16 tensor cores, and the loads must hide behind them.
 //
-// What bounds it. At the serving shape (B=4, S=512, H=16, D=64, bf16) the
-// function moves 16.8 MB and does 2.2 GFLOP, so the card's bound is bytes
-// (about 5 us at 3.35 TB/s); at S=4096 it is operations, and so it is at
-// recurrentgemma-2b's windowed shape (B=4, S=4096, Hq=10, Hk=1, D=256,
-// W=2048: 2.58e11 FLOP over the band, 184.5 MB; 0.261 ms). This kernel does
-// its arithmetic as scalar f32 FMAs on the CUDA cores (67 TFLOP/s, not the
-// 989 of the bf16 tensor cores) and its inner loops issue one shared-memory
-// load per two FMAs, so it sits far above that bound. That is the price of
-// a first kernel that is right in f32 as the TPU kernel is; moving QK^T to
-// mma/wgmma, and loading tiles with cp.async/TMA, is later work.
+// bf16: the tensor-core kernel (fa_fwd_bf16_kernel). A block of two
+// consumer warpgroups (256 threads) owns 128 query rows of one (batch,
+// query head), 64 rows a warpgroup, and walks key/value tiles of 64 rows.
+//   - Q is loaded once into shared memory; K and V go through a ring of two
+//     stages, loaded with 16-byte cp.async copies by all threads, so the
+//     next tile is in flight while the current one is computed. Rows past S
+//     and head-dim columns past D are zero-filled by the copy (src-size 0):
+//     in the tensor-core P.V, 0 x NaN would still be NaN.
+//   - Every tile lies in shared memory in the 128-byte-swizzled layout that
+//     wgmma's descriptors read: column blocks of 64 elements, each row of a
+//     block 128 bytes, 16-byte chunk c of row r stored at chunk c ^ (r % 8).
+//     Q and K are read K-major (along D); V is the same bytes read MN-major
+//     (transposed B), so one loader serves all three.
+//   - S = Q K^T: wgmma.mma_async m64n64k16, A = Q and B = K from shared
+//     memory, f32 accumulators, D/16 K-steps. O += P V: m64n64k16 with P
+//     taken from the score registers, rounded to bf16 (A in registers: the
+//     score accumulator's layout is the A fragment's), and V from shared
+//     memory, one instruction per 64 columns of D and per 16 keys.
+//   - The online softmax stays in f32 registers: the scale multiplies the
+//     scores before the softcap; m in log2 units (ex2.approx); each thread keeps
+//     a partial l of its 16 columns, summed across its row's four lanes at
+//     the end. Only tiles that straddle the diagonal or an edge of the band
+//     evaluate the position mask; a masked probability is exactly 0, also
+//     in a row whose first visited tile lies wholly outside its band (m is
+//     still -1e30 there). A warpgroup skips a tile that holds no key of its
+//     rows' bands, which is exact: such a tile adds p = 0 and rescales by 1.
+//     With W >= S the windowed instantiation walks the same tiles in the
+//     same order with the same arithmetic as the causal one, so the two are
+//     bit-equal.
+//   Precision: P is rounded to bf16 before P.V, as FA2 and FA3 do and as the
+//   JAX model path does (src/repro/models/attention.py); the TPU kernel
+//   keeps P in f32 (it casts v to f32). l sums the f32 probabilities.
+//   Shared memory: Q 128 x D and two stages of K and V 64 x D, bf16, with D
+//   padded to 64: 192 KB at D=256 (one block an SM), 48 KB at D <= 64.
+//   Row starts must lie on 16 bytes: the wrapper checks the pointers and the
+//   strides and raises otherwise.
+//
+// float32: the scalar kernel (fa_fwd_kernel), unchanged from the first
+// port: its 1e-5 gate cannot be held by bf16 or TF32 tensor cores, and only
+// tests and checks use f32 on the card (the model serves in bf16). One block
+// of 256 threads per (64 query rows, query head, batch row); each 64-row K/V
+// tile is staged in shared memory as f32 (rows padded to D + 1 floats); both
+// products are scalar FMAs; P.V in f32, as the TPU kernel does it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,11 +76,6 @@
 namespace {
 
 constexpr int MAX_DEVICES = 64;
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // key rows per shared-memory tile
-constexpr int THREADS = 256;  // a 16 x 16 grid of threads
-constexpr int RN = BQ / 16;   // query rows per thread
-constexpr int CN = BK / 16;   // score columns per thread
 constexpr float NEG_INF = -1e30f;
 
 struct Args {
@@ -73,10 +92,15 @@ struct Args {
   int window;  // 0: none
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+// ---------------------------------------------------------------------------
+// float32: the scalar kernel
+// ---------------------------------------------------------------------------
+
+constexpr int BQ = 64;        // query rows per block
+constexpr int BK = 64;        // key rows per shared-memory tile
+constexpr int THREADS = 256;  // a 16 x 16 grid of threads
+constexpr int RN = BQ / 16;   // query rows per thread
+constexpr int CN = BK / 16;   // score columns per thread
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -84,7 +108,7 @@ constexpr size_t smem_bytes() {
                           size_t(BK) * D + size_t(BQ) * (BK + 1));
 }
 
-template <typename T, int D, bool WINDOWED>
+template <int D, bool WINDOWED>
 __global__ void __launch_bounds__(THREADS) fa_fwd_kernel(const Args a) {
   constexpr int LD = D + 1;   // padded row of qs / ks
   constexpr int LDP = BK + 1;  // padded row of ps
@@ -104,14 +128,14 @@ __global__ void __launch_bounds__(THREADS) fa_fwd_kernel(const Args a) {
   const int tx = tid & 15;
   const int q0 = qt * BQ;
 
-  const T* qg = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* kg = static_cast<const T*>(a.k) + b * a.k_sb + hkv * a.k_sh;
-  const T* vg = static_cast<const T*>(a.v) + b * a.v_sb + hkv * a.v_sh;
-  T* og = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh;
+  const float* qg = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* kg = static_cast<const float*>(a.k) + b * a.k_sb + hkv * a.k_sh;
+  const float* vg = static_cast<const float*>(a.v) + b * a.v_sb + hkv * a.v_sh;
+  float* og = static_cast<float*>(a.o) + b * a.o_sb + h * a.o_sh;
 
   for (int e = tid; e < BQ * D; e += THREADS) {
     const int r = e / D, c = e % D, s = q0 + r;
-    qs[r * LD + c] = s < a.s ? to_f32(qg[s * a.q_ss + c]) : 0.f;
+    qs[r * LD + c] = s < a.s ? qg[s * a.q_ss + c] : 0.f;
   }
 
   float m[RN], l[RN], acc[RN][DN];
@@ -133,8 +157,8 @@ __global__ void __launch_bounds__(THREADS) fa_fwd_kernel(const Args a) {
     for (int e = tid; e < BK * D; e += THREADS) {
       const int r = e / D, c = e % D, s = k0 + r;
       const bool in = s < a.s;
-      ks[r * LD + c] = in ? to_f32(kg[s * a.k_ss + c]) : 0.f;
-      vs[r * D + c] = in ? to_f32(vg[s * a.v_ss + c]) : 0.f;
+      ks[r * LD + c] = in ? kg[s * a.k_ss + c] : 0.f;
+      vs[r * D + c] = in ? vg[s * a.v_ss + c] : 0.f;
     }
     __syncthreads();
 
@@ -212,45 +236,387 @@ __global__ void __launch_bounds__(THREADS) fa_fwd_kernel(const Args a) {
     if (s < a.s) {
       const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
-      for (int c = 0; c < DN; ++c) store(og + s * a.o_ss + tx + 16 * c, acc[i][c] / denom);
+      for (int c = 0; c < DN; ++c) og[s * a.o_ss + tx + 16 * c] = acc[i][c] / denom;
     }
   }
 }
 
-template <typename T, int D, bool WINDOWED>
-cudaError_t launch(const Args& a, int batch, int device, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  // The shared-memory limit is raised once per device for each instantiation,
-  // not on every launch (prefill is host-bound: each runtime call counts).
-  static std::atomic<bool> smem_set[MAX_DEVICES];
-  if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (!smem_set[device].load(std::memory_order_acquire)) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fa_fwd_kernel<T, D, WINDOWED>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (err != cudaSuccess) return err;
-    smem_set[device].store(true, std::memory_order_release);
+// ---------------------------------------------------------------------------
+// bfloat16: the tensor-core kernel
+// ---------------------------------------------------------------------------
+
+constexpr int TC_WG = 2;              // consumer warpgroups per block
+constexpr int TC_THREADS = 128 * TC_WG;
+constexpr int TC_BQ = 64 * TC_WG;     // query rows per block, 64 a warpgroup
+constexpr int TC_BK = 64;             // key rows per tile, one m64n64 score product
+                                      // (128 lowers occupancy: slower at D=64)
+constexpr int TC_STAGES = 2;          // K/V ring (the loop's `& 1` and `^ 1` assume two)
+constexpr float LOG2E = 1.4426950408889634f;
+
+// shared-memory width of a row: D padded to the 64-element swizzle atom
+template <int D>
+__host__ __device__ constexpr int padded_d() { return D < 64 ? 64 : D; }
+
+template <int D>
+constexpr size_t tc_smem_bytes() {
+  // Q, then the stages' K and V, plus slack to align the base on 1024 bytes
+  return size_t(2) * padded_d<D>() * (TC_BQ + 2 * TC_STAGES * TC_BK) + 1024;
+}
+
+// 2^x in one MUFU instruction (exp2f adds a range fix-up around it); tiny
+// results flush to 0, which a probability can take
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte copy to shared memory; src_bytes 0 writes zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// makes this thread's shared-memory writes visible to wgmma (async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving accesses of an accumulator across wgmma
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, all in 16-byte units
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
+         (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (uint64_t(1) << 62);
+}
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 64] += A[64 x 16] B[16 x 64], A in registers (bf16 pairs), B
+// MN-major (transposed) in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ROWS rows from row0 of a [S, D] slice (row stride `ss` elements) into the
+// swizzled layout at `dst`: column block j of 64 elements at j * ROWS * 128
+// bytes, row r at r * 128 within it, chunk c at (c ^ (r % 8)) * 16. Rows at
+// or past S and columns at or past D are zero-filled.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src, int64_t ss,
+                                          int row0, int s_len, int tid) {
+  constexpr int CPR = padded_d<D>() / 8;  // 16-byte chunks a row
+#pragma unroll 4
+  for (int e = tid; e < ROWS * CPR; e += TC_THREADS) {
+    const int r = e / CPR, c = e % CPR;
+    const int pos = row0 + r;
+    const bool in = pos < s_len && c * 8 < D;
+    const __nv_bfloat16* g = in ? src + pos * ss + c * 8 : src;
+    cp_async16(dst + (c >> 3) * (ROWS * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4), g,
+               in ? 16 : 0);
   }
+}
+
+template <int D, bool WINDOWED>
+__global__ void __launch_bounds__(TC_THREADS, 1) fa_fwd_bf16_kernel(const Args a) {
+  constexpr int DP = padded_d<D>();
+  constexpr int NB = DP / 64;                 // 64-column slices of O
+  constexpr uint32_t Q_BYTES = TC_BQ * DP * 2;
+  constexpr uint32_t KV_BYTES = TC_BK * DP * 2;
+  extern __shared__ uint8_t smem_raw[];
+  // Q, then the K/V stages, from a 1024-byte boundary (the swizzle's period)
+  const uint32_t qs = (smem_addr(smem_raw) + 1023) & ~1023u;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hkv = h / (a.hq / a.hk);
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int q0 = qt * TC_BQ;
+  const int wq0 = q0 + 64 * wg;                       // the warpgroup's first row
+  const int wq1 = min(wq0 + 63, a.s - 1);             // and its last valid row
+  const int row = wq0 + 16 * warp + (lane >> 2);      // this thread's rows: row, row + 8
+  const int col = 2 * (lane & 3);                     // and columns 8 n + col + {0, 1}
+
+  using bf16 = __nv_bfloat16;
+  const bf16* qg = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const bf16* kg = static_cast<const bf16*>(a.k) + b * a.k_sb + hkv * a.k_sh;
+  const bf16* vg = static_cast<const bf16*>(a.v) + b * a.v_sb + hkv * a.v_sh;
+  bf16* og = static_cast<bf16*>(a.o) + b * a.o_sb + h * a.o_sh;
+
+  // key tiles from the one holding the band's first key of row q0 (0 without
+  // a window) to the one holding the block's last valid query row
+  const int kt0 = WINDOWED ? max(0, q0 - a.window + 1) / TC_BK : 0;
+  const int n_kv = (min(q0 + TC_BQ, a.s) - 1) / TC_BK + 1;
+
+  load_tile<D, TC_BQ>(qs, qg, a.q_ss, q0, a.s, tid);
+  load_tile<D, TC_BK>(qs + Q_BYTES, kg, a.k_ss, kt0 * TC_BK, a.s, tid);
+  load_tile<D, TC_BK>(qs + Q_BYTES + KV_BYTES, vg, a.v_ss, kt0 * TC_BK, a.s, tid);
+  cp_async_commit();
+
+  // Q K-major: this warpgroup's 64 rows, 8-row groups 1024 bytes apart
+  const uint64_t q_desc = sw128_desc(qs + wg * 64 * 128, 16, 1024);
+  float o[NB][32];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[nb][i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  const float qk_scale = a.softcap > 0.f ? a.scale : a.scale * LOG2E;
+
+  for (int kt = kt0; kt < n_kv; ++kt) {
+    const int st = (kt - kt0) & 1;
+    const uint32_t ks = qs + Q_BYTES + st * 2 * KV_BYTES;
+    const uint32_t vs = ks + KV_BYTES;
+    if (kt + 1 < n_kv) {  // the next tile into the other stage, in flight meanwhile
+      const uint32_t nks = qs + Q_BYTES + (st ^ 1) * 2 * KV_BYTES;
+      load_tile<D, TC_BK>(nks, kg, a.k_ss, (kt + 1) * TC_BK, a.s, tid);
+      load_tile<D, TC_BK>(nks + KV_BYTES, vg, a.v_ss, (kt + 1) * TC_BK, a.s, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();  // this stage (and Q) landed for every thread
+
+    const int k0 = kt * TC_BK;
+    // a tile with no key in the band of any of this warpgroup's rows adds
+    // p = 0 and rescales by 1: skipping it is exact
+    const bool active = wq0 < a.s && k0 <= wq1 &&
+                        !(WINDOWED && wq0 - (k0 + TC_BK - 1) >= a.window);
+    if (active) {
+      const bool masked = k0 + TC_BK - 1 > wq0 || (WINDOWED && wq1 - k0 >= a.window);
+      float sc[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+      // S = Q K^T over D / 16 K-steps: 32 bytes (2 units of the descriptor)
+      // along a row within a column block, then the next column block
+      const uint64_t k_desc = sw128_desc(ks, 16, 1024);
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(sc, q_desc + (kk >> 2) * (TC_BQ * 128 / 16) + (kk & 3) * 2,
+                 k_desc + (kk >> 2) * (TC_BK * 128 / 16) + (kk & 3) * 2, kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+
+      // online softmax; sc[4 n + 2 i + j] is row row + 8 i, column 8 n + col + j
+      float corr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int qpos = row + 8 * i;
+        float mx = NEG_INF;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            float x = sc[4 * n + 2 * i + j] * qk_scale;
+            if (a.softcap > 0.f) x = a.softcap * tanhf(x / a.softcap) * LOG2E;
+            if (masked) {
+              const int kpos = k0 + 8 * n + col + j;
+              if (kpos > qpos || (WINDOWED && qpos - kpos >= a.window)) x = NEG_INF;
+            }
+            sc[4 * n + 2 * i + j] = x;
+            mx = fmaxf(mx, x);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[i], mx);
+        corr[i] = fast_exp2(m[i] - m_new);
+        float rs = 0.f;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const float x = sc[4 * n + 2 * i + j];
+            const float p = x == NEG_INF ? 0.f : fast_exp2(x - m_new);
+            sc[4 * n + 2 * i + j] = p;
+            rs += p;
+          }
+        l[i] = l[i] * corr[i] + rs;  // this thread's 16 columns; summed at the end
+        m[i] = m_new;
+      }
+
+      // P in bf16 as the A fragments of the 4 K-steps of P V: the score
+      // accumulator of columns 16 kk .. 16 kk + 15 is that fragment's layout
+      uint32_t pa[TC_BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < TC_BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) o[nb][e] *= corr[(e >> 1) & 1];
+        fence_regs(o[nb]);
+      }
+      // O += P V: V MN-major, 16 keys (2048 bytes) a K-step, 64 columns a slice
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TC_BK / 16; ++kk)
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+          wgmma_rs(o[nb], pa[kk],
+                   sw128_desc(vs + nb * (TC_BK * 128) + kk * 2048, TC_BK * 128, 1024));
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) fence_regs(o[nb]);
+    }
+    __syncthreads();  // both warpgroups are done with this stage before it is reloaded
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float lt = l[i];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const int s = row + 8 * i;
+    if (s < a.s) {
+      const float denom = fmaxf(lt, 1e-30f);
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int c = 64 * nb + 8 * n + col;
+          if (c < D)
+            *reinterpret_cast<uint32_t*>(og + s * a.o_ss + c) =
+                pack_bf16(o[nb][4 * n + 2 * i] / denom, o[nb][4 * n + 2 * i + 1] / denom);
+        }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+// Raises a kernel's shared-memory limit once per device, not on every launch
+// (prefill is host-bound: each runtime call counts).
+template <typename Kernel>
+cudaError_t set_smem_once(std::atomic<bool> (&done)[MAX_DEVICES], Kernel kernel, int device,
+                          size_t smem) {
+  if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!done[device].load(std::memory_order_acquire)) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return err;
+    done[device].store(true, std::memory_order_release);
+  }
+  return cudaSuccess;
+}
+
+template <int D, bool WINDOWED>
+cudaError_t launch_f32(const Args& a, int batch, int device, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<D>();
+  static std::atomic<bool> smem_set[MAX_DEVICES];
+  const cudaError_t err = set_smem_once(smem_set, fa_fwd_kernel<D, WINDOWED>, device, smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((a.s + BQ - 1) / BQ, a.hq, batch);
-  fa_fwd_kernel<T, D, WINDOWED><<<grid, THREADS, smem, stream>>>(a);
+  fa_fwd_kernel<D, WINDOWED><<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, bool WINDOWED>
+template <int D, bool WINDOWED>
+cudaError_t launch_bf16(const Args& a, int batch, int device, cudaStream_t stream) {
+  constexpr size_t smem = tc_smem_bytes<D>();
+  static std::atomic<bool> smem_set[MAX_DEVICES];
+  const cudaError_t err = set_smem_once(smem_set, fa_fwd_bf16_kernel<D, WINDOWED>, device, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.s + TC_BQ - 1) / TC_BQ, a.hq, batch);
+  fa_fwd_bf16_kernel<D, WINDOWED><<<grid, TC_THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool BF16, int D, bool WINDOWED>
+cudaError_t launch(const Args& a, int batch, int device, cudaStream_t stream) {
+  return BF16 ? launch_bf16<D, WINDOWED>(a, batch, device, stream)
+              : launch_f32<D, WINDOWED>(a, batch, device, stream);
+}
+
+template <bool BF16, bool WINDOWED>
 cudaError_t launch_d(const Args& a, int batch, int d, int device, cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16, WINDOWED>(a, batch, device, stream);
-    case 32: return launch<T, 32, WINDOWED>(a, batch, device, stream);
-    case 64: return launch<T, 64, WINDOWED>(a, batch, device, stream);
-    case 128: return launch<T, 128, WINDOWED>(a, batch, device, stream);
-    case 256: return launch<T, 256, WINDOWED>(a, batch, device, stream);
+    case 16: return launch<BF16, 16, WINDOWED>(a, batch, device, stream);
+    case 32: return launch<BF16, 32, WINDOWED>(a, batch, device, stream);
+    case 64: return launch<BF16, 64, WINDOWED>(a, batch, device, stream);
+    case 128: return launch<BF16, 128, WINDOWED>(a, batch, device, stream);
+    case 256: return launch<BF16, 256, WINDOWED>(a, batch, device, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
+template <bool BF16>
 cudaError_t launch_w(const Args& a, int batch, int d, int device, cudaStream_t stream) {
-  return a.window > 0 ? launch_d<T, true>(a, batch, d, device, stream)
-                      : launch_d<T, false>(a, batch, d, device, stream);
+  return a.window > 0 ? launch_d<BF16, true>(a, batch, d, device, stream)
+                      : launch_d<BF16, false>(a, batch, d, device, stream);
 }
 
 }  // namespace
@@ -259,9 +625,11 @@ extern "C" {
 
 // device: the caller's current CUDA device (the one the tensors and the
 // stream belong to); this function does not change the current device.
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the last dim
-// of q, k, v and o is contiguous. window: 0 for none, else W > 0 (query t
-// attends keys [t-W+1, t]). Returns the CUDA error code of the launch.
+// dtype: 0 = float32 (scalar kernel), 1 = bfloat16 (tensor-core kernel; the
+// pointers on 16 bytes and the batch, sequence and head strides multiples
+// of 8). Strides are in elements; the last dim of q, k, v and o is
+// contiguous. window: 0 for none, else W > 0 (query t attends keys
+// [t-W+1, t]). Returns the CUDA error code of the launch.
 int repro_flash_attention_fwd(int device, void* stream, int dtype,
                               const void* q, const void* k, const void* v, void* o,
                               int batch, int s, int hq, int hk, int d,
@@ -276,8 +644,8 @@ int repro_flash_attention_fwd(int device, void* stream, int dtype,
                scale, softcap, window};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return int(launch_w<float>(a, batch, d, device, st));
-    case 1: return int(launch_w<__nv_bfloat16>(a, batch, d, device, st));
+    case 0: return int(launch_w<false>(a, batch, d, device, st));
+    case 1: return int(launch_w<true>(a, batch, d, device, st));
     default: return int(cudaErrorInvalidValue);
   }
 }

@@ -9,6 +9,12 @@ public layout (strides, no transposed copies), float32 or bfloat16, D in
 {16, 32, 64, 128, 256}, and returns [B,S,Hq,D] in q's dtype. Forward only:
 it raises if an input requires grad.
 
+bfloat16 runs on the tensor cores (wgmma) and rounds the probabilities P to
+bf16 before P.V, as the JAX model path does; its 16-byte copies need each
+tensor's start on 16 bytes and its batch, sequence and head strides in
+multiples of 8 elements, which ``check_inputs`` demands. float32 runs the
+scalar kernel, with P in f32 as the TPU kernel keeps it.
+
 ``flash_attention_fwd.launches`` counts the kernel's launches.
 """
 from __future__ import annotations
@@ -54,6 +60,13 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"float32 or all bfloat16")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("the last dim of q, k and v must be contiguous")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+                raise ValueError(
+                    f"bf16 {name} must start on 16 bytes with batch, sequence and "
+                    f"head strides in multiples of 8 elements; got address "
+                    f"{t.data_ptr():#x}, strides {t.stride()}")
     if q.requires_grad or k.requires_grad or v.requires_grad:
         raise RuntimeError("flash_attention_fwd is forward-only; its autograd "
                            "Function comes with the training slice")

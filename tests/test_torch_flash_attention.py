@@ -142,7 +142,7 @@ def test_wrapper_refuses_cpu_tensors():
 
 
 @pytest.mark.parametrize("case", ["head_dim", "dtype", "mixed_dtype", "stride",
-                                  "gqa", "grad", "shape"])
+                                  "gqa", "grad", "shape", "misaligned"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(case):
     (_, _, _), (q, k, v) = _qkv(1, 16, 4, 2, 64, "float32", seed=10)
     err = ValueError
@@ -158,6 +158,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
         q = q[:, :, :3]
     elif case == "grad":
         q, err = q.requires_grad_(True), RuntimeError
+    elif case == "misaligned":   # bf16 views 3 elements into their buffers
+        aligned = [t.bfloat16() for t in (q, k, v)]
+        check_inputs(*aligned)   # the same values on 16 bytes pass
+        q, k, v = (torch.zeros(t.numel() + 3, dtype=t.dtype)[3:].view(t.shape).copy_(t)
+                   for t in aligned)
     else:
         k = k[:, :8]
         v = v[:, :8]

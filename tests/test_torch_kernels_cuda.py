@@ -121,13 +121,34 @@ def test_rglru_scan_reads_strided_inputs(cuda_sm90):
         assert float((h - rglru_ref(sa, sx)).abs().max()) <= RGLRU_TOL
 
 
-def test_flash_attention_reads_strided_inputs(cuda_sm90):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_reads_strided_inputs(cuda_sm90, dtype):
     """q, k, v as column slices of one fused [B, S, 3H, D] projection."""
     gen = torch.Generator(device=cuda_sm90).manual_seed(1)
-    qkv = torch.randn((2, 200, 12, 64), generator=gen, device=cuda_sm90)
+    qkv = torch.randn((2, 200, 12, 64), generator=gen, device=cuda_sm90).to(getattr(torch, dtype))
     q, k, v = qkv[:, :, :4], qkv[:, :, 4:8], qkv[:, :, 8:]
     out = ops.flash_attention(q, k, v)
-    torch.testing.assert_close(out, attention_ref(q, k, v), atol=1e-5, rtol=1e-5)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(out.float(), attention_ref(q.float(), k.float(), v.float()),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 191, 257])
+@pytest.mark.parametrize("window", [0, 1, 64, 65, 130])
+@pytest.mark.parametrize("d,hq,hk", [(64, 4, 2), (256, 10, 1)])
+def test_flash_attention_at_tile_boundaries(cuda_sm90, s, window, d, hq, hk):
+    """bf16 (tensor cores: 128 query rows a block, 64 a warpgroup, key tiles
+    of 64) at lengths and windows on either side of those tiles."""
+    gen = torch.Generator(device=cuda_sm90).manual_seed(s * 1000 + window)
+    q, k, v = (torch.randn((2, s, h, d), generator=gen, device=cuda_sm90).bfloat16()
+               for h in (hq, hk, hk))
+    out = ops.flash_attention(q, k, v, window=window)
+    atol, rtol = TOL["bfloat16"]
+    torch.testing.assert_close(out.float(), attention_ref(q.float(), k.float(), v.float(),
+                                                          window=window),
+                               atol=atol, rtol=rtol)
+    if window >= s:
+        assert torch.equal(out, ops.flash_attention(q, k, v))
 
 
 def test_smoke_prefill_on_card_matches_cpu(cuda_sm90):
