@@ -73,7 +73,11 @@
 
 #include <atomic>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int MAX_DEVICES = 64;
 constexpr float NEG_INF = -1e30f;
@@ -263,120 +267,6 @@ constexpr size_t tc_smem_bytes() {
   return size_t(2) * padded_d<D>() * (TC_BQ + 2 * TC_STAGES * TC_BK) + 1024;
 }
 
-// 2^x in one MUFU instruction (exp2f adds a range fix-up around it); tiny
-// results flush to 0, which a probability can take
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte copy to shared memory; src_bytes 0 writes zeros
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// makes this thread's shared-memory writes visible to wgmma (async proxy)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps the compiler from moving accesses of an accumulator across wgmma
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
-         (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (uint64_t(1) << 62);
-}
-
-// d[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d[64 x 64] += A[64 x 16] B[16 x 64], A in registers (bf16 pairs), B
-// MN-major (transposed) in shared memory
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// ROWS rows from row0 of a [S, D] slice (row stride `ss` elements) into the
-// swizzled layout at `dst`: column block j of 64 elements at j * ROWS * 128
-// bytes, row r at r * 128 within it, chunk c at (c ^ (r % 8)) * 16. Rows at
-// or past S and columns at or past D are zero-filled.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src, int64_t ss,
-                                          int row0, int s_len, int tid) {
-  constexpr int CPR = padded_d<D>() / 8;  // 16-byte chunks a row
-#pragma unroll 4
-  for (int e = tid; e < ROWS * CPR; e += TC_THREADS) {
-    const int r = e / CPR, c = e % CPR;
-    const int pos = row0 + r;
-    const bool in = pos < s_len && c * 8 < D;
-    const __nv_bfloat16* g = in ? src + pos * ss + c * 8 : src;
-    cp_async16(dst + (c >> 3) * (ROWS * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4), g,
-               in ? 16 : 0);
-  }
-}
-
 template <int D, bool WINDOWED>
 __global__ void __launch_bounds__(TC_THREADS, 1) fa_fwd_bf16_kernel(const Args a) {
   constexpr int DP = padded_d<D>();
@@ -412,9 +302,9 @@ __global__ void __launch_bounds__(TC_THREADS, 1) fa_fwd_bf16_kernel(const Args a
   const int kt0 = WINDOWED ? max(0, q0 - a.window + 1) / TC_BK : 0;
   const int n_kv = (min(q0 + TC_BQ, a.s) - 1) / TC_BK + 1;
 
-  load_tile<D, TC_BQ>(qs, qg, a.q_ss, q0, a.s, tid);
-  load_tile<D, TC_BK>(qs + Q_BYTES, kg, a.k_ss, kt0 * TC_BK, a.s, tid);
-  load_tile<D, TC_BK>(qs + Q_BYTES + KV_BYTES, vg, a.v_ss, kt0 * TC_BK, a.s, tid);
+  load_tile<DP, TC_BQ, TC_THREADS>(qs, qg, a.q_ss, q0, a.s, D, tid);
+  load_tile<DP, TC_BK, TC_THREADS>(qs + Q_BYTES, kg, a.k_ss, kt0 * TC_BK, a.s, D, tid);
+  load_tile<DP, TC_BK, TC_THREADS>(qs + Q_BYTES + KV_BYTES, vg, a.v_ss, kt0 * TC_BK, a.s, D, tid);
   cp_async_commit();
 
   // Q K-major: this warpgroup's 64 rows, 8-row groups 1024 bytes apart
@@ -433,8 +323,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1) fa_fwd_bf16_kernel(const Args a
     const uint32_t vs = ks + KV_BYTES;
     if (kt + 1 < n_kv) {  // the next tile into the other stage, in flight meanwhile
       const uint32_t nks = qs + Q_BYTES + (st ^ 1) * 2 * KV_BYTES;
-      load_tile<D, TC_BK>(nks, kg, a.k_ss, (kt + 1) * TC_BK, a.s, tid);
-      load_tile<D, TC_BK>(nks + KV_BYTES, vg, a.v_ss, (kt + 1) * TC_BK, a.s, tid);
+      load_tile<DP, TC_BK, TC_THREADS>(nks, kg, a.k_ss, (kt + 1) * TC_BK, a.s, D, tid);
+      load_tile<DP, TC_BK, TC_THREADS>(nks + KV_BYTES, vg, a.v_ss, (kt + 1) * TC_BK, a.s, D, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {

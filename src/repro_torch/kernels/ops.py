@@ -6,7 +6,7 @@ to the plain version.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -31,11 +31,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
-                   C: torch.Tensor, *, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's plain version: ``ssd_chunked`` computed in f32, y cast to x's dtype."""
+                   C: torch.Tensor, *, chunk: int, round_to: Optional[torch.dtype] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's plain version: ``ssd_chunked`` computed in f32, y cast to x's dtype.
+
+    With ``round_to``, xdt and C B^T * L are rounded to that dtype before the
+    intra-chunk product, as the bf16 kernel rounds them (``round_to=
+    torch.bfloat16``); the state path stays in f32."""
     from repro_torch.models.ssm import ssd_chunked   # models.ssm imports this module
     y, state = ssd_chunked(x.float(), dt.float(), A.float(), B.float(), C.float(),
-                           chunk=chunk)
+                           chunk=chunk, round_to=round_to)
     return y.to(x.dtype), state
 
 

@@ -8,7 +8,12 @@ h_t = a_t * h_{t-1} + b_t from a zero state, in f32. It takes a and b
 bfloat16, any S and W; and returns h [B, S, W] float32. Forward only: it
 raises if an input requires grad.
 
-``rglru_scan_fwd.launches`` counts the kernel's launches.
+The sequence is split into chunks of ``CHUNK`` steps: one kernel computes
+each chunk's aggregate, a second folds the carry into each chunk and walks
+it again (``ref.rglru_chunked_ref(a, b, CHUNK)`` is the same arithmetic).
+
+``rglru_scan_fwd.launches`` counts the wrapper's calls that launched (two
+kernels each; one where S fits in one chunk).
 """
 from __future__ import annotations
 
@@ -18,9 +23,10 @@ import torch
 
 from repro_torch.kernels import build
 
+CHUNK = 256    # steps a thread walks: 16 times the first port's threads at S=4096
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
-             + [ctypes.c_int] * 3 + [ctypes.c_int64] * 6)
+_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+             + [ctypes.c_int] * 4 + [ctypes.c_int64] * 6)
 
 
 def _library() -> ctypes.CDLL:
@@ -54,12 +60,14 @@ def rglru_scan_fwd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     h = torch.empty((bb, s, w), dtype=torch.float32, device=a.device)
     if h.numel() == 0:
         return h
+    # each chunk's product of a and h at its end, from h = 0
+    agg = torch.empty((bb, -(-s // CHUNK), 2, w), dtype=torch.float32, device=a.device)
     lib = _library()
-    with torch.cuda.device(a.device):   # the kernel launches on the current device
+    with torch.cuda.device(a.device):   # the kernels launch on the current device
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = lib.repro_rglru_scan_fwd(stream, _DTYPES[a.dtype], a.data_ptr(),
-                                       b.data_ptr(), h.data_ptr(), bb, s, w,
-                                       *a.stride(), *b.stride())
+                                       b.data_ptr(), h.data_ptr(), agg.data_ptr(),
+                                       bb, s, w, CHUNK, *a.stride(), *b.stride())
     if err:
         raise RuntimeError(f"rglru_scan kernel launch failed: "
                            f"{build.error_string(lib, err)} (cuda error {err})")

@@ -2,11 +2,20 @@
 
 The CUDA counterpart of the TPU kernel ``ssd_scan_chunked`` of
 ``repro.kernels.ssd_scan`` together with its wrapper ``ops.ssd_scan``: the
-Mamba2 SSD scan, all arithmetic in f32, chunk by chunk with the state carried
-in order. It takes x [b,s,h,p], dt [b,s,h] f32, A [h] f32 and B, C [b,s,g,n]
-in the public layout (strides, no padded or repeated copies), x, B and C all
-float32 or all bfloat16, any s; and returns (y [b,s,h,p] in x's dtype, the
-final state [b,h,n,p] f32). Forward only: it raises if an input requires grad.
+Mamba2 SSD scan, chunk by chunk with the state carried in order. It takes
+x [b,s,h,p], dt [b,s,h] f32, A [h] f32 and B, C [b,s,g,n] in the public
+layout (strides, no padded or repeated copies), x, B and C all float32 or all
+bfloat16, any s; and returns (y [b,s,h,p] in x's dtype, the final state
+[b,h,n,p] f32). Forward only: it raises if an input requires grad.
+
+bfloat16 runs on the tensor cores (wgmma): xdt and C B^T * L are rounded to
+bf16 before the intra-chunk product, as the JAX model path rounds them
+(``ops.ssd_scan_plain(round_to=torch.bfloat16)`` is the same arithmetic),
+while the state keeps f32 precision through a hi/lo bf16 split. Its 16-byte
+copies need x, B and C to start on 16 bytes with batch, sequence and
+head/group strides in multiples of 8 elements, which ``check_inputs``
+demands. float32 runs the scalar kernel, all arithmetic in f32, as the TPU
+kernel computes it.
 
 ``ssd_scan_fwd.launches`` counts the kernel's launches.
 """
@@ -61,6 +70,13 @@ def check_inputs(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Te
         raise TypeError(f"dt and A must be float32; got {dt.dtype}, {A.dtype}")
     if any(t.stride(-1) != 1 for t in (x, B, C, A)):
         raise ValueError("the last dim of x, B, C and A must be contiguous")
+    if x.dtype == torch.bfloat16:
+        for name, t in (("x", x), ("B", B), ("C", C)):
+            if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+                raise ValueError(
+                    f"bf16 {name} must start on 16 bytes with batch, sequence and "
+                    f"head/group strides in multiples of 8 elements; got address "
+                    f"{t.data_ptr():#x}, strides {t.stride()}")
     if any(t.requires_grad for t in (x, dt, A, B, C)):
         raise RuntimeError("ssd_scan_fwd is forward-only; its autograd Function "
                            "comes with the training slice")

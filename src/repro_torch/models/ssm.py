@@ -50,12 +50,15 @@ def _pad_seq(a: torch.Tensor, pad: int) -> torch.Tensor:
 
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
-                C: torch.Tensor, *, chunk: int, init_state: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                C: torch.Tensor, *, chunk: int, init_state: Optional[torch.Tensor] = None,
+                round_to: Optional[torch.dtype] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y [B,S,h,p] in x's dtype, final_state [B,h,n,p] f32). Decays in f32.
 
     As in the JAX package, ``x * dt`` and ``C B^T * L`` are rounded to x's
-    dtype before the intra-chunk product; in f32 that rounds nothing.
+    dtype before the intra-chunk product; in f32 that rounds nothing. With
+    ``round_to`` they are also rounded to that dtype there (only there: the
+    per-chunk states take ``x * dt`` in x's dtype), as the bf16 SSD kernel
+    rounds them.
     """
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
@@ -65,7 +68,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Ten
         # invariant, so the final state is exact; padded outputs are sliced off.
         pad = chunk - s % chunk
         y, fin = ssd_chunked(_pad_seq(x, pad), _pad_seq(dt, pad), A, _pad_seq(B, pad),
-                             _pad_seq(C, pad), chunk=chunk, init_state=init_state)
+                             _pad_seq(C, pad), chunk=chunk, init_state=init_state,
+                             round_to=round_to)
         return y[:, :s], fin
     nc = s // chunk
     rep = h // g
@@ -83,7 +87,10 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Ten
     # 1) intra-chunk (quadratic within chunk)
     L = torch.exp(_segsum(dAc.movedim(3, 2)))                 # [b,c,h,l,l]
     Sqk = torch.einsum("bclhn,bckhn->bchlk", Ch, Bh)
-    y_diag = torch.einsum("bchlk,bckhp->bclhp", (Sqk * L).to(x.dtype), xc)
+    p_mat, xd = (Sqk * L).to(x.dtype), xc
+    if round_to is not None:
+        p_mat, xd = p_mat.to(round_to).to(x.dtype), xc.to(round_to).to(x.dtype)
+    y_diag = torch.einsum("bchlk,bckhp->bclhp", p_mat, xd)
 
     # 2) per-chunk terminal states
     decay_to_end = torch.exp(dAcs[:, :, -1:, :] - dAcs)       # [b,c,l,h]

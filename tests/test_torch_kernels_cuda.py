@@ -14,7 +14,8 @@ import torch
 from repro_torch.config import get_model_config
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_fwd
-from repro_torch.kernels.ref import attention_ref, rglru_ref, ssd_ref
+from repro_torch.kernels.ref import attention_ref, rglru_chunked_ref, rglru_ref, ssd_ref
+from repro_torch.kernels.rglru_scan import CHUNK as RGLRU_CHUNK
 from repro_torch.kernels.rglru_scan import rglru_scan_fwd
 from repro_torch.kernels.ssd_scan import ssd_scan_fwd
 from repro_torch.models import build_model
@@ -28,6 +29,12 @@ TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 1e-2)}
 # final state is f32 either way.
 SSD_REL_TOL = {"float32": 1e-4, "bfloat16": 8e-3}
 STATE_REL_TOL = 1e-4
+# The bf16 SSD kernel's y against its plain version with the same roundings
+# (ops.ssd_scan_plain(round_to=bf16), y left in f32), max abs error / max
+# |reference|: the kernel's one output rounding (2^-9 of |y|), plus the
+# products C B^T * L that another f32 summation order (of C B^T and of the
+# cumsum) rounds to the neighbouring bf16 value (read up to 3.6e-3 at n=8).
+SSD_ROUNDED_REL_TOL = 5e-3
 # RG-LRU scan, max abs error against the step-by-step oracle in f32 on the same
 # input values (tests/test_kernels.py holds the Pallas kernel to 1e-5).
 RGLRU_TOL = 1e-5
@@ -254,3 +261,87 @@ def test_recurrentgemma_smoke_prefill_on_card_matches_cpu(cuda_sm90):
     torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(caches[0]["h"].cpu(), cpu_caches[0]["h"], atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(caches[2]["k"].cpu(), cpu_caches[2]["k"], atol=1e-4, rtol=1e-4)
+
+
+def _check_ssd_bf16(x, dt, A, B, C, chunk):
+    """The bf16 kernel against the f32 oracle (the unchanged gates) and
+    against the plain version with its roundings (the tighter gate)."""
+    b, s, h, p = x.shape
+    before = ssd_scan_fwd.launches
+    y, state = ops.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan_fwd.launches == before + 1
+    assert y.dtype == torch.bfloat16 and y.shape == x.shape
+    assert state.dtype == torch.float32 and state.shape == (b, h, B.shape[3], p)
+    y_ref, state_ref = ssd_ref(x.float(), dt, A, B.float(), C.float())
+    assert _rel(y, y_ref) <= SSD_REL_TOL["bfloat16"]
+    assert _rel(state, state_ref) <= STATE_REL_TOL
+    y_rnd, state_rnd = ops.ssd_scan_plain(x.float(), dt, A, B, C, chunk=chunk,
+                                          round_to=torch.bfloat16)
+    assert _rel(y, y_rnd) <= SSD_ROUNDED_REL_TOL
+    assert _rel(state, state_rnd) <= STATE_REL_TOL
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
+    (4, 2048, 32, 64, 1, 128, 128),    # mamba2-370m serving shape
+    (2, 1, 4, 64, 1, 128, 128),        # S around the 128-row chunk
+    (2, 127, 4, 64, 1, 128, 128),
+    (2, 128, 4, 64, 1, 128, 128),
+    (2, 129, 4, 64, 1, 128, 128),
+    (1, 2049, 4, 64, 1, 128, 128),
+    (2, 300, 4, 64, 1, 8, 128),        # n padded to a K-step of 16
+    (2, 300, 4, 64, 1, 16, 128),
+    (2, 300, 4, 64, 1, 64, 128),       # state rows in one warpgroup
+    (1, 2048, 4, 64, 1, 128, 32),      # 64 chunks of 32 carried in order
+    (2, 500, 4, 64, 1, 128, 64),
+    (2, 300, 4, 16, 1, 128, 128),      # p padded to the 64-column tile
+    (2, 300, 4, 32, 1, 64, 128),
+    (1, 200, 2, 128, 1, 128, 128),     # two tiles of p
+    (2, 300, 8, 64, 2, 128, 128),      # two groups
+])
+def test_ssd_scan_bf16_matches_rounded_plain_version(cuda_sm90, b, s, h, p, g, n, chunk):
+    """bf16 (tensor cores: 128-row chunks, 64 rows a warpgroup, 64 columns of
+    p a block) at lengths, state sizes, chunks and widths around those tiles."""
+    _check_ssd_bf16(*_ssd_inputs(b, s, h, p, g, n, torch.bfloat16, cuda_sm90, seed=s + n),
+                    chunk)
+
+
+def test_ssd_scan_bf16_reads_strided_inputs(cuda_sm90):
+    """bf16 B and C as column slices of one [b, s, 2n] conv output (C at an
+    offset of n = 128 elements, 256 bytes), as the block gives them."""
+    x, dt, A, _, _ = _ssd_inputs(2, 300, 8, 64, 1, 128, torch.bfloat16, cuda_sm90, seed=4)
+    bc = (torch.randn((2, 300, 256), device=cuda_sm90,
+                      generator=torch.Generator(device=cuda_sm90).manual_seed(5)) * 0.3
+          ).bfloat16()
+    B, C = (t.reshape(2, 300, 1, 128) for t in bc.split(128, dim=-1))
+    _check_ssd_bf16(x, dt, A, B, C, 128)
+
+
+def test_ssd_scan_bf16_refuses_misaligned_inputs(cuda_sm90):
+    """A bf16 view whose rows do not start on 16 bytes raises; it is never copied."""
+    x, dt, A, _, _ = _ssd_inputs(1, 64, 4, 64, 1, 64, torch.bfloat16, cuda_sm90, seed=6)
+    bc = torch.zeros((1, 64, 136), device=cuda_sm90, dtype=torch.bfloat16)
+    B, C = bc[..., 4:68].reshape(1, 64, 1, 64), bc[..., 68:132].reshape(1, 64, 1, 64)
+    before = ssd_scan_fwd.launches
+    with pytest.raises(ValueError, match="16 bytes"):
+        ops.ssd_scan(x, dt, A, B, C, chunk=128)
+    assert ssd_scan_fwd.launches == before
+
+
+@pytest.mark.parametrize("s", [1, RGLRU_CHUNK - 1, RGLRU_CHUNK, RGLRU_CHUNK + 1,
+                               3 * RGLRU_CHUNK + 5])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("strided", [False, True])
+def test_rglru_scan_at_chunk_boundaries(cuda_sm90, s, dtype, strided):
+    """S on either side of the kernel's chunk of steps: within 1e-5 of the
+    step-by-step recurrence, and bit-equal to the plain version with the
+    kernel's association (rglru_chunked_ref)."""
+    a, x = _rglru_inputs(2, 2 * s, 160, getattr(torch, dtype), cuda_sm90, seed=s)
+    a, x = (a[:, ::2, 16:144], x[:, 1::2, 8:136]) if strided else (a[:, :s, :128], x[:, :s, :128])
+    before = rglru_scan_fwd.launches
+    h = ops.rglru_recurrence(a, x)
+    torch.cuda.synchronize()
+    assert rglru_scan_fwd.launches == before + 1
+    assert h.dtype == torch.float32 and h.shape == (2, s, 128)
+    assert float((h - rglru_ref(a, x)).abs().max()) <= RGLRU_TOL
+    assert torch.equal(h, rglru_chunked_ref(a, x, RGLRU_CHUNK))

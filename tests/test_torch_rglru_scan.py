@@ -17,7 +17,7 @@ import torch
 from repro.kernels import rglru_recurrence as jax_rglru_recurrence
 from repro.kernels.ref import rglru_ref as jax_rglru_ref
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import rglru_ref
+from repro_torch.kernels.ref import rglru_chunked_ref, rglru_ref
 from repro_torch.kernels.rglru_scan import check_inputs, rglru_scan_fwd
 
 TOL = 1e-5   # max abs error, f32 h (tests/test_kernels.py holds the Pallas kernel to it)
@@ -57,9 +57,25 @@ def test_matches_pallas_kernel_and_oracle(b, s, w, bs, bw, dtype):
     assert torch.equal(rglru_ref(a, x), h)
 
 
+@pytest.mark.parametrize("chunk,s", [(1, 300), (7, 300), (7, 5), (64, 300), (64, 50),
+                                     (256, 300), (256, 200)])
+def test_chunked_plain_matches_pallas_kernel_and_oracle(chunk, s):
+    """The CUDA kernel's association (chunk aggregates, a folded carry, the
+    chunk walked again) against the step-by-step oracle and the Pallas kernel,
+    with S not a multiple of the chunk and S shorter than it."""
+    (ja, jb), (a, x) = _inputs(2, s, 64, seed=5 + chunk)
+    h = rglru_chunked_ref(a, x, chunk)
+    assert h.dtype == torch.float32 and h.shape == (2, s, 64)
+    assert float((h - rglru_ref(a, x)).abs().max()) <= TOL
+    assert _err(h, jax_rglru_recurrence(ja, jb)) <= TOL
+    if s <= chunk:                  # one chunk: the step-by-step order itself
+        assert torch.equal(h, rglru_ref(a, x))
+
+
 def test_zero_length_and_first_step():
     (_, _), (a, x) = _inputs(2, 6, 8, seed=1)
     assert rglru_ref(a[:, :0], x[:, :0]).shape == (2, 0, 8)
+    assert rglru_chunked_ref(a[:, :0], x[:, :0], 4).shape == (2, 0, 8)
     h = ops.rglru_recurrence(a, x)
     torch.testing.assert_close(h[:, 0], x[:, 0], atol=0, rtol=0)      # from h = 0
     torch.testing.assert_close(h[:, 1], a[:, 1] * x[:, 0] + x[:, 1], atol=0, rtol=0)

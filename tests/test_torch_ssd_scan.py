@@ -24,6 +24,17 @@ from repro_torch.models.ssm import ssd_chunked
 
 REL_TOL = 1e-4      # max abs error / max |reference|, f32 (as tests/test_kernels.py)
 BF16_REL_TOL = 8e-3  # bf16 output: one rounding (2^-9 of |y| <= max |y|) plus f32 sums
+# Two plain versions with the same bf16 roundings of xdt and C B^T * L, y in
+# f32: another f32 summation order rounds a few products C B^T * L to the
+# neighbouring bf16 value (read up to 7.7e-5); the roundings themselves move
+# y by 2.6e-3 to 7.1e-3 on these shapes, so this bound sees one dropped.
+ROUNDED_REL_TOL = 1e-3
+# The rounded plain version against the JAX model path in bf16, which also
+# rounds y_diag and y to bf16 (two roundings of 2^-9 of |y|; read up to
+# 3.8e-3) and takes the bf16 xdt into its per-chunk states (2^-9 a term; the
+# state read up to 3.3e-3), where the plain version keeps them in f32.
+MODEL_PATH_Y_TOL = 6e-3
+MODEL_PATH_STATE_TOL = 5e-3
 
 # (b, s, h, p, g, n, chunk): test_ssd_scan_sweep's grid, plus ragged S
 SHAPES = [
@@ -54,7 +65,7 @@ def _inputs(b, s, h, p, g, n, seed=0, dtype="float32"):
 
 
 def _rel(t, j):
-    ref = np.asarray(j.astype(jnp.float32))
+    ref = j.float().numpy() if isinstance(j, torch.Tensor) else np.asarray(j.astype(jnp.float32))
     return float(np.abs(t.float().numpy() - ref).max()) / (float(np.abs(ref).max()) + 1e-6)
 
 
@@ -114,6 +125,42 @@ def test_bf16_inputs_match_pallas_kernel():
     assert _rel(state, jstate) < REL_TOL
 
 
+@pytest.mark.parametrize("b,s,h,p,g,n,ck", SHAPES)
+def test_rounded_plain_matches_model_path_in_bf16(b, s, h, p, g, n, ck):
+    """ssd_scan_plain(round_to=bf16), the bf16 kernel's arithmetic, against the
+    JAX model path's ssd_chunked run in bf16, which rounds xdt and C B^T * L
+    the same way. dt is given as bf16 values, so the model path's
+    x * bf16(dt) is the kernel's x * dt."""
+    (jx, _, jA, jB, jC), (x, dt, A, B, C) = _inputs(b, s, h, p, g, n, seed=9, dtype="bfloat16")
+    dt = dt.bfloat16().float()
+    y, state = ops.ssd_scan_plain(x.float(), dt, A, B, C, chunk=ck, round_to=torch.bfloat16)
+    assert y.dtype == torch.float32 and state.dtype == torch.float32
+    jy, jstate = jax_ssd_chunked(jx, jnp.asarray(dt.numpy()), jA, jB, jC, chunk=ck)
+    assert _rel(y, jy) < MODEL_PATH_Y_TOL
+    assert _rel(state, jstate) < MODEL_PATH_STATE_TOL
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,ck", SHAPES)
+def test_rounded_plain_matches_rounded_oracle(b, s, h, p, g, n, ck):
+    """The chunked plain version with the bf16 kernel's roundings against the
+    step-by-step oracle with the same roundings, and the roundings are there."""
+    _, (x, dt, A, B, C) = _inputs(b, s, h, p, g, n, seed=10, dtype="bfloat16")
+    y, state = ops.ssd_scan_plain(x.float(), dt, A, B, C, chunk=ck, round_to=torch.bfloat16)
+    y_ref, state_ref = ssd_ref(x.float(), dt, A, B.float(), C.float(),
+                               round_to=torch.bfloat16, chunk=ck)
+    assert _rel(y, y_ref) < ROUNDED_REL_TOL
+    assert _rel(state, state_ref) < REL_TOL
+    y_f32, state_f32 = ops.ssd_scan_plain(x.float(), dt, A, B, C, chunk=ck)
+    assert _rel(y, y_f32) > ROUNDED_REL_TOL
+    assert torch.equal(state, state_f32)     # the state path is not rounded
+
+
+def test_rounded_oracle_needs_a_chunk():
+    _, (x, dt, A, B, C) = _inputs(1, 16, 2, 16, 1, 8, seed=11)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_ref(x, dt, A, B, C, round_to=torch.bfloat16)
+
+
 def test_cpu_never_launches_the_kernel():
     _, targs = _inputs(1, 64, 2, 16, 1, 8, seed=6)
     before = ssd_scan_fwd.launches
@@ -129,7 +176,8 @@ def test_wrapper_refuses_cpu_tensors():
 
 
 @pytest.mark.parametrize("case", ["head_dim", "state", "chunk", "dtype", "mixed_dtype",
-                                  "dt_dtype", "stride", "groups", "grad", "shape"])
+                                  "dt_dtype", "stride", "groups", "grad", "shape",
+                                  "misaligned"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(case):
     _, (x, dt, A, B, C) = _inputs(1, 16, 4, 32, 2, 16, seed=8)
     chunk, err = 8, ValueError
@@ -151,6 +199,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
         B = C = torch.zeros((1, 16, 3, 16))
     elif case == "grad":
         x, err = x.requires_grad_(True), RuntimeError
+    elif case == "misaligned":    # bf16 B whose rows start 8 bytes off 16
+        bc = torch.zeros((1, 16, 2, 24), dtype=torch.bfloat16)
+        x, B, C = x.bfloat16(), bc[..., 4:20], C.bfloat16()
     else:
         dt = dt[:, :8]
     with pytest.raises(err):
