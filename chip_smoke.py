@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port on one NVIDIA Hopper GPU: build, check, serve.
+"""Drive the PyTorch port on one NVIDIA Hopper GPU: build, check, serve, train.
 
     python3 chip_smoke.py
 
@@ -11,18 +11,20 @@ and builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
 2. build: every kernel source, one nvcc each, all started together, with
    each instantiation's registers and spills; then ``cuobjdump -sass`` of the
    flash and SSD libraries, which fails the run unless every bf16
-   instantiation of the flash kernel and of the SSD-scan kernel issues
-   ``HGMMA`` (Hopper's wgmma: the tensor cores), and the f32 SSD
-   instantiations none (the scalar kernel);
+   instantiation of the flash kernel (D = 16 ... 256, D = 192 included) and
+   of the SSD-scan kernel issues ``HGMMA`` (Hopper's wgmma: the tensor
+   cores), and the f32 SSD instantiations none (the scalar kernel);
 3. kernels: each kernel against its plain PyTorch version on the card, f32
-   and bf16. Flash attention at the serving shape, a GQA shape and ragged S,
-   with and without softcap; then kernel, plain version, library call and
+   and bf16. Flash attention at the serving shape, qwen's training shape
+   (B=8, S=2048, H=16, D=64), a GQA shape and ragged S,
+   with and without softcap, and at head dims 8 (zero-padded to the D=16
+   instantiation) and 192; then kernel, plain version, library call and
    bound timed at S=512 and S=4096. Windowed flash attention against
    ``attention_ref(window=)`` at recurrentgemma-2b's serving shape (B=4,
-   S=4096, Hq=10, Hk=1, D=256, W=2048), ragged S=1000 with W=100, W=1 and
-   W >= S (which must equal causal); then timed there, with SDPA on the band
-   as a boolean mask as the library call. The SSD scan (y and final state)
-   against the step-by-step oracle at the mamba2 serving shape, ragged
+   S=4096, Hq=10, Hk=1, D=256, W=2048), ragged S=1000 with W=100, W=1, W >= S
+   (which must equal causal) and D=192; then timed there, with SDPA on the
+   band as a boolean mask as the library call. The SSD scan (y and final
+   state) against the step-by-step oracle at the mamba2 serving shape, ragged
    S=1000, two groups, chunk 64 and the smoke shape, and in bf16 also against
    its plain version with the same roundings (``ssd_scan_plain(round_to=)``);
    then kernel, plain version and bound timed at the serving shape. The
@@ -30,7 +32,12 @@ and builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    recurrentgemma-2b serving shape [4, 4096, 2560], ragged S=1000 with W=200
    and the three shapes of tests/test_kernels.py, and bit for bit against
    ``rglru_chunked_ref``, its arithmetic in plain PyTorch; then timed at the
-   serving shape;
+   serving shape. Then each op's autograd Function: the grads of every input
+   against autograd through the kernel's plain version, f32 and bf16, at
+   qwen's attention shapes (serving B=4, S=512 and training B=8, S=2048;
+   H=16, D=64), recurrentgemma's windowed
+   one, mamba2's SSD serving shape and the RG-LRU at [4, 4096, 2560], S=1
+   and ragged S=1000; and each Function's forward and forward+backward timed;
 4. serve qwen1.5-0.5b at full width, bf16, random weights from a seed, through
    ``repro_torch.launch.serve`` (its default workload: batch 4, prompt 512, 32
    new tokens); the flash kernel's launch count over that run must be one per
@@ -52,16 +59,36 @@ and builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    RG-LRU layer (18) per prefill, and the card-vs-CPU check at B=1, S=300 on
    the logits and on the first layer's final RG-LRU state, with the control
    "recurrence restarted every 256 steps" (the TPU kernel's state carry
-   across sequence blocks dropped), which must fail it.
+   across sequence blocks dropped), which must fail it;
+7-9. train qwen1.5-0.5b, mamba2-370m and recurrentgemma-2b at full width
+   through ``repro_torch.launch.train`` (each arch's default workload: batch
+   8 x 2048 tokens for 5 steps, 4 x 2048 for 3, 1 x 4096 for 3; bf16, AdamW,
+   remat "block"): every step's loss and grad norm finite, the loss after the
+   last step (on step 1's batch) below step 1's, no restart, and the
+   kernels' launches per step as the remat policy makes them (a kernel in a
+   rematerialised group runs twice, in the forward and in the recompute; the
+   RG-LRU backward runs the kernel once more). qwen's trained state is
+   saved as a checkpoint under ``build/``, restored and compared bit for
+   bit. Then the card's loss and grads at B=1 (the serving checks' length)
+   against the same weights' f32 loss and grads on the CPU (plain path):
+   the loss, ``embed.tok``, the first layer's mixer input projection and the
+   last layer's MLP (mamba2: mixer) output projection, with the card in bf16
+   (its training dtype) and in f32 (the same weights cast up). Planted
+   faults in the backward must each fail the check: "flash backward without
+   the causal mask" (qwen), "SSD backward with dA dropped" (mamba2, read on
+   the first layer's ``A_log`` too) and "RG-LRU backward with a_t in place of
+   a_{t+1}" (recurrentgemma).
 
-Each serving path runs with every kernel's launch count set to 0 just before
-it and read just after. The last three lines are the card's ``name,
-power.limit``, the kernels' JSON record, and ``{"ok": true, "device": {...}}``.
+Each serving and training path runs with every kernel's launch count set to
+0 just before it and read just after. The last lines are the serving and
+training JSON records, the card's ``name, power.limit``, the kernels' JSON
+record, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -123,6 +150,35 @@ CARD_VS_CPU_TOL = {QWEN: {"logits": 3e-2},
                    RG: {"logits": 1e-1, "layer-0 state": 2e-2}}
 REF_LEN = {QWEN: 128, MAMBA: 300, RG: 300}   # prompt of the card-vs-CPU check, B=1
 STATE_KEY = {MAMBA: "ssm", RG: "h"}          # the first layer's cache entry read
+# Each autograd Function's grads against autograd through the kernel's plain
+# version on the same inputs, max abs error / max |reference grad|. f32: the
+# same function in other summation orders. bf16: both sides round the grads
+# to bf16, and the backward's recompute rounds as the JAX model path does (P
+# to bf16 before P.V; xdt and C B^T L to bf16) where the plain version keeps
+# f32: a few bf16 ulps (2^-8 relative) of the largest grad.
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# Card vs CPU (f32, plain path) loss and grads of the same weights at B=1 and
+# REF_LEN, each relative to its reference (the grads: max abs error over max
+# |ref|). The readings: the loss, embed.tok, the first layer's mixer input
+# projection, the last layer's MLP output projection (mamba2: the mixer's),
+# and for mamba2 the first layer's A_log (the only leaf dA reaches). With
+# the card in bf16 every layer rounds the residual stream and the grads:
+# percent-level readings (see PERF.md). With the card in f32 the two sides
+# differ in summation order only. A planted fault in a backward must read
+# above a limit: the RG-LRU one moves the grads by a few 1e-3, under bf16's
+# rounding, so the f32 readings are the ones that catch it.
+TRAIN_READ = {
+    QWEN: ("embed.tok", "backbone.layers.0.attn.wq", "backbone.layers.23.mlp.w_down"),
+    MAMBA: ("embed.tok", "backbone.layers.0.ssd.w_x", "backbone.layers.47.ssd.w_out",
+            "backbone.layers.0.ssd.A_log"),
+    RG: ("embed.tok", "backbone.layers.0.rglru.w_x", "backbone.layers.25.mlp.w_down"),
+}
+# bf16: sound readings up to 1.39e-1 on an H100 (mamba2's A_log; qwen's
+# 3.1e-2): about twice that. f32: sound readings up to 1.5e-5; the limits
+# leave a factor near 70 and sit below the RG-LRU fault (about 5e-3 in a
+# CPU emulation at five layers).
+TRAIN_VS_CPU_TOL = {"bfloat16": {"loss": 1e-3, "grads": 3e-1},
+                    "float32": {"loss": 1e-5, "grads": 1e-3}}
 
 
 def fail(msg: str) -> None:
@@ -269,10 +325,12 @@ def phase_flash(torch, card: str) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.ref import attention_ref
+    from repro_torch.launch.train import TRAIN_WORKLOADS
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     batch, prompt_len, _ = WORKLOADS[QWEN]
+    train_batch, train_len, _ = TRAIN_WORKLOADS[QWEN]
 
     def inputs(b, s, hq, hk, d, dtype):
         return tuple(torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
@@ -282,12 +340,19 @@ def phase_flash(torch, card: str) -> dict:
         ("serving shape", batch, prompt_len, 16, 16, 64, "bfloat16", 0.0),
         ("serving shape", batch, prompt_len, 16, 16, 64, "bfloat16", 20.0),
         ("serving shape", batch, prompt_len, 16, 16, 64, "float32", 0.0),
+        ("training shape", train_batch, train_len, 16, 16, 64, "bfloat16", 0.0),
+        ("training shape", train_batch, train_len, 16, 16, 64, "float32", 0.0),
         ("gqa 8/2 d128", 2, 512, 8, 2, 128, "bfloat16", 0.0),
         ("gqa 8/2 d128", 2, 512, 8, 2, 128, "float32", 20.0),
         ("ragged S=1000", 2, 1000, 8, 2, 128, "bfloat16", 30.0),
         ("ragged S=1000", 2, 1000, 16, 16, 64, "float32", 0.0),
         ("ragged d256", 1, 300, 4, 2, 256, "bfloat16", 0.0),
         ("ragged d32", 2, 77, 6, 2, 32, "float32", 50.0),
+        ("head dim 8", 2, 300, 4, 2, 8, "bfloat16", 0.0),    # padded to D=16
+        ("head dim 8", 2, 300, 4, 2, 8, "float32", 20.0),
+        ("head dim 192", 2, 300, 4, 2, 192, "bfloat16", 0.0),
+        ("head dim 192", 2, 300, 4, 2, 192, "bfloat16", 20.0),
+        ("head dim 192", 2, 300, 4, 2, 192, "float32", 0.0),
     ]
     checks = []
     for name, b, s, hq, hk, d, dtype, softcap in cases:
@@ -313,6 +378,8 @@ def phase_flash(torch, card: str) -> dict:
         ("windowed ragged", 2, 1000, hq, hk, d, 100),
         ("windowed W=1", 2, 300, 4, 2, 64, 1),
         ("windowed W>=S", 2, 300, hq, hk, d, 300),
+        ("windowed d192", 2, 300, 4, 2, 192, 100),
+        ("windowed d8", 2, 300, 4, 2, 8, 100),
     ]
     for name, b, s, hq, hk, d, w in windowed_cases:
         for dtype in ("float32", "bfloat16"):
@@ -495,18 +562,120 @@ def phase_rglru(torch, card: str) -> dict:
           f"library none, bound {bound_ms:.4f} ms ({bound_by}) [{card}]", flush=True)
     return {"checks": checks, "timing": timing}
 
+def phase_grads(torch, card: str) -> dict:
+    """Each op's autograd Function on the card: the grads of every input against
+    autograd through the kernel's plain version on the same inputs, f32 and
+    bf16; then the Function's forward and forward+backward timed in the
+    dtypes the models give it (the RG-LRU gates are f32)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import attention_ref, rglru_ref
+    from repro_torch.launch.train import TRAIN_WORKLOADS
 
-def cpu_f32_copy(torch, model):
-    """The same weights in f32 on the CPU, copied parameter by parameter into
-    a model made on ``meta`` (no second whole copy of the state dict)."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def qkv(b, s, hq, hk, d):
+        return lambda dtype: tuple(randn(b, s, h, d).to(dtype) for h in (hq, hk, hk))
+
+    def ssd(b, s, h, p, g, n):
+        def make(dtype):
+            return (randn(b, s, h, p).to(dtype), torch.nn.functional.softplus(randn(b, s, h)),
+                    -torch.exp(randn(h) * 0.5), (randn(b, s, g, n) * 0.3).to(dtype),
+                    (randn(b, s, g, n) * 0.3).to(dtype))
+        return make
+
+    def gates(b, s, w):
+        return lambda dtype: ((torch.sigmoid(randn(b, s, w)) * 0.2 + 0.79).to(dtype),
+                              randn(b, s, w).to(dtype))
+
+    qb, qs, _ = WORKLOADS[QWEN]
+    tb, ts, _ = TRAIN_WORKLOADS[QWEN]   # S > the backward's 512-query blocks: several recomputed
+    _, ws, whq, whk, wd, ww = WINDOWED_SERVING
+    b, s, h, p, g, n, chunk = SSD_SERVING
+    rb, rs, rw = RGLRU_SERVING
+    functions = {   # name: (Function, plain version, [(case, inputs(dtype))], timed dtype)
+        "flash_attention": (
+            lambda *t: ops.flash_attention(*t), lambda *t: attention_ref(*t),
+            [(f"B={qb} S={qs} H=16 D=64", qkv(qb, qs, 16, 16, 64)),
+             (f"B={tb} S={ts} H=16 D=64", qkv(tb, ts, 16, 16, 64))], torch.bfloat16),
+        "flash_attention windowed": (
+            lambda *t: ops.flash_attention(*t, window=ww),
+            lambda *t: attention_ref(*t, window=ww),
+            [(f"B=1 S={ws} Hq={whq} Hk={whk} D={wd} W={ww}", qkv(1, ws, whq, whk, wd))],
+            torch.bfloat16),
+        "ssd_scan": (
+            lambda *t: ops.ssd_scan(*t, chunk=chunk)[0],
+            lambda *t: ops.ssd_scan_plain(*t, chunk=chunk)[0],
+            [(f"b={b} s={s} h={h} p={p} g={g} n={n} L={chunk}", ssd(b, s, h, p, g, n))],
+            torch.bfloat16),
+        "rglru_scan": (
+            ops.rglru_recurrence, rglru_ref,
+            [(f"b={rb} s={rs} w={rw}", gates(rb, rs, rw)), (f"b={rb} s=1 w={rw}", gates(rb, 1, rw)),
+             (f"b={rb} s=1000 w={rw}", gates(rb, 1000, rw))], torch.float32),
+    }
+
+    def leaves(inputs):
+        return [t.detach().clone().requires_grad_(True) for t in inputs]
+
+    def grads(fn, inputs, cot):
+        ls = leaves(inputs)
+        return torch.autograd.grad(fn(*ls), ls, cot)
+
+    out = {}
+    for name, (fn, plain, cases, timed_dtype) in functions.items():
+        checks = []
+        for case, make in cases:
+            for dtype in ("float32", "bfloat16"):
+                inputs = make(getattr(torch, dtype))
+                y = fn(*inputs)
+                cot = randn(*y.shape).to(y.dtype)
+                got, ref = grads(fn, inputs, cot), grads(plain, inputs, cot)
+                torch.cuda.synchronize()
+                errs = [float((a.float() - r.float()).abs().max()) / (float(r.abs().max()) or 1.0)
+                        for a, r in zip(got, ref)]
+                finite = all(bool(torch.isfinite(a).all()) for a in got)
+                ok = finite and max(errs) <= GRAD_TOL[dtype] and all(
+                    a.dtype == r.dtype for a, r in zip(got, ref))
+                print(f"  grad {name} {case} {dtype:8s}: max_abs_err/max|ref| per input "
+                      f"{', '.join(f'{e:.3e}' for e in errs)} (tolerance {GRAD_TOL[dtype]:g}) "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                check(ok, f"the {name} Function's grads disagree with its plain version "
+                          f"at {case} {dtype}")
+                checks.append({"case": f"{case} {dtype}", "rel_errs": errs,
+                               "rel_tol": GRAD_TOL[dtype]})
+                del inputs, y, cot, got, ref
+        inputs = cases[0][1](timed_dtype)
+        y = fn(*inputs)
+        cot = randn(*y.shape).to(y.dtype)
+        big = "windowed" in name or name == "ssd_scan"
+        fwd_ms = time_ms(torch, lambda: fn(*inputs), 5 if big else 20)
+        fwd_bwd_ms = time_ms(torch, lambda: grads(fn, inputs, cot), 3 if big else 10)
+        plain_fwd_bwd_ms = time_ms(torch, lambda: grads(plain, inputs, cot), 2, warmup=1)
+        out[name] = {"shape": f"{cases[0][0]} {str(timed_dtype).removeprefix('torch.')}",
+                     "fwd_ms": fwd_ms, "fwd_bwd_ms": fwd_bwd_ms, "bwd_ms": fwd_bwd_ms - fwd_ms,
+                     "plain_fwd_bwd_ms": plain_fwd_bwd_ms, "checks": checks}
+        print(f"  {name} Function {out[name]['shape']}: forward {fwd_ms:.4f} ms, forward+"
+              f"backward {fwd_bwd_ms:.4f} ms (backward {fwd_bwd_ms - fwd_ms:.4f} ms), plain "
+              f"version forward+backward {plain_fwd_bwd_ms:.4f} ms [{card}]", flush=True)
+        del inputs, y, cot
+        torch.cuda.empty_cache()
+    return out
+
+
+def f32_copy(torch, model, device="cpu"):
+    """The same weights in f32 on ``device``, copied parameter by parameter
+    into a model made on ``meta`` (no second whole copy of the state dict)."""
     from repro_torch.models import build_model
     cfg = dataclasses.replace(model.cfg, act_dtype="float32", param_dtype="float32")
-    cpu_model = build_model(cfg, device="meta").to_empty(device="cpu")
-    dst = cpu_model.state_dict()
+    copy = build_model(cfg, device="meta").to_empty(device=device)
+    dst = copy.state_dict()
     with torch.no_grad():
         for name, t in model.state_dict().items():
             dst[name].copy_(t)
-    return cpu_model
+    return copy
 
 
 def phase_serve(torch, card: str, arch: str, planted: dict, must_fail: str) -> dict:
@@ -553,7 +722,7 @@ def phase_serve(torch, card: str, arch: str, planted: dict, must_fail: str) -> d
     reset_counts()
     card_out = model.prefill(small, max_len=ref_len)
     check(read_counts() == expected, "reference prefill missed the kernels")
-    cpu_model = cpu_f32_copy(torch, model)
+    cpu_model = f32_copy(torch, model)
     cpu_caches, cpu_logits = cpu_model.prefill(small.cpu(), max_len=ref_len)
     del cpu_model
     refs = {"logits": cpu_logits}
@@ -641,6 +810,218 @@ def rglru_faults(torch) -> dict:
     return {"recurrence restarted every 256 steps": (rglru, "rglru_recurrence", restarted)}
 
 
+def train_faults(torch) -> dict:
+    """Per arch: {fault: (module, attribute, replacement)}, each a fault planted
+    in a Function's backward (the forward on the card is the kernel's)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention, ssm
+
+    def no_causal_mask(q, k, v, *, softcap=0.0, window=0):   # qwen: Hq = Hk
+        sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * q.shape[-1] ** -0.5
+        return torch.einsum("bhqk,bkhd->bqhd", sc.softmax(-1), v.float()).to(q.dtype)
+
+    ssd_chunked = ssm.ssd_chunked
+
+    def da_dropped(x, dt, A, B, C, **kwargs):
+        return ssd_chunked(x, dt, A.detach(), B, C, **kwargs)
+
+    def a_not_shifted(a, h, gh):
+        g = ops._recurrence(a.flip(1).to(gh.dtype), gh.flip(1)).flip(1)
+        h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+        return g * h_prev, g
+
+    return {
+        QWEN: {"flash backward without the causal mask":
+               (attention, "model_path_attention", no_causal_mask)},
+        MAMBA: {"SSD backward with dA dropped": (ssm, "ssd_chunked", da_dropped)},
+        RG: {"RG-LRU backward with a_t in place of a_{t+1}":
+             (ops, "rglru_reverse", a_not_shifted)},
+    }
+
+
+def expected_train_launches(cfg) -> dict:
+    """Kernel launches in one train step under remat "block": a kernel in a
+    rematerialised pattern group runs in the forward and in the recompute,
+    one in a remainder layer once; the RG-LRU backward runs its kernel once
+    more (the reverse recurrence)."""
+    from repro_torch.config.base import ATTN, LOCAL_ATTN, SSD
+    n_pat = len(cfg.block_pattern or (None,))
+    n_grouped = cfg.num_layers - cfg.num_layers % n_pat
+    out = {"flash_attention": 0, "ssd_scan": 0, "rglru_scan": 0}
+    for i, (mixer, _) in enumerate(cfg.layer_blocks()):
+        runs = 2 if i < n_grouped else 1
+        if mixer in (ATTN, LOCAL_ATTN):
+            out["flash_attention"] += runs
+        elif mixer == SSD:
+            out["ssd_scan"] += runs
+        else:
+            out["rglru_scan"] += runs + 1
+    return out
+
+
+def _bits(torch, t):
+    """The tensor's bits as an integer tensor of its width (for bitwise equality)."""
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat(tree[k], f"{prefix}{k}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def check_checkpoint(torch, model, opt_state) -> dict:
+    """Saves the trained state under build/, restores it, compares bit for bit."""
+    import shutil
+    from repro_torch.train import CheckpointManager
+    directory = ROOT / "build" / "ckpt-check"
+    shutil.rmtree(directory, ignore_errors=True)
+    state = {"params": dict(model.named_parameters()),
+             "opt": {"step": opt_state.step, "m": opt_state.m, "v": opt_state.v}}
+    mgr = CheckpointManager(str(directory), keep=1, async_save=False)
+    t0 = time.perf_counter()
+    step = int(opt_state.step)
+    mgr.save(step, state)
+    t1 = time.perf_counter()
+    got_step, restored = mgr.restore(None, state)
+    t2 = time.perf_counter()
+    pairs = list(zip(_flat(state), _flat(restored)))
+    same = got_step == step and all(
+        pa == pb and a.dtype == b.dtype and a.shape == b.shape and a.device == b.device
+        and bool(torch.equal(_bits(torch, a.detach()), _bits(torch, b))) for (pa, a), (pb, b) in pairs)
+    nbytes = sum(a.numel() * a.element_size() for (_, a), _ in pairs)
+    shutil.rmtree(directory, ignore_errors=True)
+    print(f"  checkpoint of the trained state: {len(pairs)} leaves, {nbytes / 1e9:.2f} GB, saved "
+          f"in {t1 - t0:.1f} s, restored in {t2 - t1:.1f} s, bit-equal: {same}", flush=True)
+    check(same, "the restored checkpoint differs from the saved state")
+    return {"leaves": len(pairs), "gb": nbytes / 1e9, "save_s": t1 - t0, "restore_s": t2 - t1,
+            "bit_equal": same}
+
+
+def train_readings(torch, model, batch, names, refs) -> dict:
+    """The loss and the grads of ``names`` at ``batch``, each against ``refs``
+    (loss: relative error; grads: max abs error / max |ref|)."""
+    params = dict(model.named_parameters())
+    loss, _ = model.loss_fn(batch)
+    # a fault that cuts a leaf off the graph (dA dropped) leaves it a zero grad
+    grads = torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True,
+                                materialize_grads=True)
+    out = {"loss": abs(float(loss.detach()) - refs["loss"]) / abs(refs["loss"])}
+    for n, g in zip(names, grads):
+        out[n] = float((g.float().cpu() - refs[n]).abs().max()) / float(refs[n].abs().max())
+    return out
+
+
+def over_limits(readings: dict) -> list:
+    """The readings above their limits: {precision: {name: value}}."""
+    return [f"{p} {n}" for p, r in readings.items() for n, v in r.items()
+            if v > TRAIN_VS_CPU_TOL[p]["loss" if n == "loss" else "grads"]]
+
+
+def phase_train(torch, card: str, arch: str, planted: dict) -> dict:
+    """Trains ``arch`` at full width through launch.train and checks it (see
+    the module docstring); every fault in ``planted`` must fail the card-vs-CPU
+    gradient check."""
+    from repro_torch.config.base import TrainConfig
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import SyntheticDataset
+
+    dev = torch.device("cuda", 0)
+    batch, seq, steps = launch_train.TRAIN_WORKLOADS[arch]
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    res = launch_train.main(["--arch", arch])   # no checkpoints at full width
+    launches = read_counts()
+    model, hist = res.model, res.history
+    cfg = model.cfg
+    check((cfg.num_layers, cfg.d_model, cfg.vocab_size) == FULL_WIDTH[arch],
+          f"{arch} is not at full width: {cfg}")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    per_step = {k: v / steps for k, v in launches.items()}
+    expected = expected_train_launches(cfg)
+    params = sum(p.numel() for p in model.parameters())
+    tokens = batch * seq
+    for r in hist:
+        r["model_flops_share"] = 6.0 * params * tokens / (r["ms"] / 1e3) / PEAK_FLOPS_BF16
+        print(f"  train {arch} step {r['step']}: loss {r['loss']:.4f}, grad norm "
+              f"{r['grad_norm']:.4f}, lr {r['lr']:.3e}, {r['ms']:.2f} ms, "
+              f"{r['tokens_per_s']:.0f} tokens/s, model-FLOPs share "
+              f"{r['model_flops_share']:.4f} [{card}]", flush=True)
+    check(len(hist) == steps and res.final_step == steps, f"{len(hist)} steps taken of {steps}")
+    check(res.restarts == 0, f"{res.restarts} restarts: a step failed and was replayed")
+    check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in hist),
+          "a loss or grad norm is not finite")
+    check(per_step == expected, f"kernel launches per train step {per_step}, expected {expected}")
+    data = SyntheticDataset(cfg, TrainConfig(global_batch=batch, seq_len=seq), device=dev)
+    with torch.no_grad():
+        after = float(model.loss_fn(data.batch_at(0))[0])
+    print(f"  loss on step 1's batch: {hist[0]['loss']:.4f} at step 1, {after:.4f} after step "
+          f"{steps}; launches per step {per_step}; peak memory {peak_gb:.1f} GB", flush=True)
+    check(math.isfinite(after) and after < hist[0]["loss"],
+          "the loss after the last step is not below step 1's")
+    steady = hist[1:] or hist
+    step_ms = sum(r["ms"] for r in steady) / len(steady)
+    out = {"arch": arch, "batch": batch, "seq": seq, "steps": steps, "params": params,
+           "history": hist, "loss_after_on_step1_batch": after,
+           "step_ms": step_ms, "tokens_per_s": tokens / (step_ms / 1e3),
+           "model_flops_share": 6.0 * params * tokens / (step_ms / 1e3) / PEAK_FLOPS_BF16,
+           "launches_per_step": per_step, "restarts": res.restarts, "peak_memory_gb": peak_gb}
+    if arch == QWEN:
+        out["checkpoint"] = check_checkpoint(torch, model, res.opt_state)
+    del res
+    torch.cuda.empty_cache()
+
+    # The same weights' loss and grads in f32 on the CPU (plain path).
+    names, ref_len = TRAIN_READ[arch], REF_LEN[arch]
+    toks = torch.randint(0, cfg.vocab_size, (1, ref_len + 1),
+                         generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    small = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    t0 = time.perf_counter()
+    cpu_model = f32_copy(torch, model)
+    cpu_model.remat = "none"
+    cpu_params = dict(cpu_model.named_parameters())
+    loss_c, _ = cpu_model.loss_fn({k: t.cpu() for k, t in small.items()})
+    refs = {"loss": float(loss_c.detach()), **dict(zip(names, torch.autograd.grad(
+        loss_c, [cpu_params[n] for n in names])))}
+    del cpu_model, cpu_params, loss_c
+    cpu_s = time.perf_counter() - t0
+    card_models = {"bfloat16": model, "float32": f32_copy(torch, model, dev)}
+
+    def readings() -> dict:
+        return {p: train_readings(torch, m, small, names, refs) for p, m in card_models.items()}
+
+    reset_counts()
+    sound = readings()
+    check(all(read_counts()[k] > 0 for k, v in expected.items() if v),
+          "the card-vs-CPU gradient check missed the kernels")
+    for p, r in sound.items():
+        print(f"  card {p} vs CPU f32 (B=1, S={ref_len}; CPU {cpu_s:.1f} s), relative: "
+              + ", ".join(f"{n} {v:.3e}" for n, v in r.items())
+              + f" (tolerance loss {TRAIN_VS_CPU_TOL[p]['loss']:g}, grads "
+              f"{TRAIN_VS_CPU_TOL[p]['grads']:g})", flush=True)
+    check(not over_limits(sound), f"{arch}: card grads disagree with the CPU f32 path: "
+                                  f"{over_limits(sound)}")
+    controls = {}
+    for fault, (module, attr, fn) in planted.items():
+        kept = getattr(module, attr)
+        setattr(module, attr, fn)
+        try:
+            controls[fault] = readings()
+        finally:
+            setattr(module, attr, kept)
+        caught = over_limits(controls[fault])
+        print(f"  control, {fault}: " + "; ".join(
+            f"{p} " + ", ".join(f"{n} {v:.3e}" for n, v in r.items())
+            for p, r in controls[fault].items()) + f"; over the limits: {caught}", flush=True)
+        check(bool(caught), f"the card-vs-CPU gradient check does not catch: {fault}")
+    del card_models, model
+    torch.cuda.empty_cache()
+    out.update(card_vs_cpu=sound, card_vs_cpu_tol=TRAIN_VS_CPU_TOL, planted=controls)
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run chip_smoke.py from a checkout")
@@ -656,14 +1037,14 @@ def main() -> None:
     card = smi_line()
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
-    print(f"[1/6] card: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
+    print(f"[1/9] card: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{name}, compute capability {cap[0]}.{cap[1]}", flush=True)
     check(cap == (9, 0), f"needs compute capability 9.0 (sm_90a), found {cap}")
 
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build(build.sources())
-    print(f"[2/6] build: {len(logs)} of {len(build.sources())} kernel sources compiled "
+    print(f"[2/9] build: {len(logs)} of {len(build.sources())} kernel sources compiled "
           f"in {time.perf_counter() - t0:.1f} s into {build.BUILD_DIR}", flush=True)
     for src, log in logs.items():
         for line in log.splitlines():
@@ -672,8 +1053,10 @@ def main() -> None:
     hgmma = tensor_core_instr("flash_attention", flash_instantiation)
     print(f"  flash_attention SASS, HGMMA instructions per bf16 instantiation: {hgmma}",
           flush=True)
-    check(len(hgmma) == 10 and all(hgmma.values()),
+    check(len(hgmma) == 12 and all(hgmma.values()),
           f"a bf16 flash instantiation runs no HGMMA (tensor cores): {hgmma}")
+    check(all(f"D=192 windowed={w}" in hgmma for w in (0, 1)),
+          f"no bf16 flash instantiation at D=192: {sorted(hgmma)}")
     ssd_hgmma = tensor_core_instr("ssd_scan", ssd_instantiation)
     print(f"  ssd_scan SASS, HGMMA instructions per instantiation: {ssd_hgmma}", flush=True)
     check(ssd_hgmma.get("bf16", 0) > 0,
@@ -682,10 +1065,11 @@ def main() -> None:
           f"the f32 SSD-scan instantiations are not the scalar kernel: {ssd_hgmma}")
 
     t0 = time.perf_counter()
-    print("[3/6] kernels against their plain versions", flush=True)
+    print("[3/9] kernels against their plain versions", flush=True)
     flash = phase_flash(torch, card)
     ssd = phase_ssd(torch, card)
     scan = phase_rglru(torch, card)
+    grads = phase_grads(torch, card)
     print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     served = {}
@@ -694,8 +1078,17 @@ def main() -> None:
             (MAMBA, mamba_faults(torch), "state not carried across chunks"),
             (RG, rglru_faults(torch), "recurrence restarted every 256 steps")), start=4):
         t0 = time.perf_counter()
-        print(f"[{i}/6] serve {arch} at full width", flush=True)
+        print(f"[{i}/9] serve {arch} at full width", flush=True)
         served[arch] = phase_serve(torch, card, arch, faults, must_fail)
+        print(f"  ({time.perf_counter() - t0:.1f} s; total "
+              f"{time.perf_counter() - t_start:.1f} s)", flush=True)
+        torch.cuda.empty_cache()
+
+    trained, faults = {}, train_faults(torch)
+    for i, arch in enumerate((QWEN, MAMBA, RG), start=7):
+        t0 = time.perf_counter()
+        print(f"[{i}/9] train {arch} at full width", flush=True)
+        trained[arch] = phase_train(torch, card, arch, faults[arch])
         print(f"  ({time.perf_counter() - t0:.1f} s; total "
               f"{time.perf_counter() - t_start:.1f} s)", flush=True)
 
@@ -709,7 +1102,10 @@ def main() -> None:
     def launches(kernel):
         by_arch = {arch: r["launches"][kernel] for arch, r in served.items()
                    if r["launches"][kernel]}
-        return {"launches": sum(by_arch.values()), "launches_by_arch": by_arch}
+        per_train_step = {arch: r["launches_per_step"][kernel] for arch, r in trained.items()
+                          if r["launches_per_step"][kernel]}
+        return {"launches": sum(by_arch.values()), "launches_by_arch": by_arch,
+                "launches_per_train_step": per_train_step}
 
     record = {"kernels": [{
         "name": "flash_attention", "route": "cuda",
@@ -726,6 +1122,8 @@ def main() -> None:
             flash["checks"], "windowed serving bfloat16")},
         "tensor_core_instr": {"instruction": "HGMMA", "per_bf16_instantiation": hgmma},
         "checks": flash["checks"],
+        "autograd": {"causal": grads["flash_attention"],
+                     "windowed": grads["flash_attention windowed"]},
     }, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -736,6 +1134,7 @@ def main() -> None:
         "shape": f"b={b} s={s} h={h} p={p} g={g} n={n} L={chunk} bf16",
         "tensor_core_instr": {"instruction": "HGMMA", "per_instantiation": ssd_hgmma},
         "checks": ssd["checks"],
+        "autograd": grads["ssd_scan"],
     }, {
         "name": "rglru_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
@@ -746,8 +1145,10 @@ def main() -> None:
         "shape": "b={} s={} w={} f32".format(*RGLRU_SERVING),
         "kernels_per_call": ["rglru_aggregate_kernel", "rglru_chunk_kernel"],
         "checks": scan["checks"],
+        "autograd": grads["rglru_scan"],
     }]}
     print(json.dumps({"serve": served}))
+    print(json.dumps({"train": trained}))
     print(smi_line())
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,12 +1,17 @@
 """Model configuration for the PyTorch port.
 
-A copy of ``ModelConfig`` and the block-kind constants of the JAX package's
-``config/base.py``, kept here so that the port imports nothing of that package.
-The parallel and network configurations come with the slices that use them.
+A copy of ``ModelConfig``, ``TrainConfig`` and the block-kind constants of
+the JAX package's ``config/base.py``, kept here so that the port imports
+nothing of that package. ``TrainConfig.ckpt_dir`` has no fixed default:
+checkpoints go under the checkout's ``build/ckpt/``, not to a path that
+other checkouts share. Of ``ParallelConfig`` only the fields that training
+on one device reads are here; the mesh and sharding fields, and the network
+configuration, come with the slices that use them.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 # Block kinds understood by repro_torch.models.transformer
 ATTN = "attn"            # global causal GQA attention
@@ -124,3 +129,44 @@ class ModelConfig:
                 total += self.num_experts * 3 * d * self.d_ff
         total += d  # final norm
         return total
+
+
+# ---------------------------------------------------------------------------
+# Parallelism (the fields that training on one device reads)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """The training fields of the JAX package's ``ParallelConfig``."""
+
+    remat: str = "block"          # none | block | dots; any other string means block
+    microbatches: int = 1         # gradient accumulation
+    # optimizer state dtype (bf16 for the 340B config)
+    opt_state_dtype: str = "float32"
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class TrainConfig:
+    global_batch: int = 256
+    seq_len: int = 4096
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    seed: int = 0
+    # checkpointing / fault tolerance
+    ckpt_dir: Optional[str] = None  # None: build/ckpt/<model name> in the checkout
+    ckpt_every: int = 100
+    ckpt_keep: int = 3
+    ckpt_async: bool = True
+    # straggler mitigation (simulated policy knobs)
+    step_deadline_ms: float = 0.0   # 0 = disabled
+    max_restarts: int = 3

@@ -56,7 +56,8 @@
 //   JAX model path does (src/repro/models/attention.py); the TPU kernel
 //   keeps P in f32 (it casts v to f32). l sums the f32 probabilities.
 //   Shared memory: Q 128 x D and two stages of K and V 64 x D, bf16, with D
-//   padded to 64: 192 KB at D=256 (one block an SM), 48 KB at D <= 64.
+//   padded to 64: 192 KB at D=256 (one block an SM), 144 KB at D=192 (12
+//   k-steps of 16; three 64-column slices of O), 48 KB at D <= 64.
 //   Row starts must lie on 16 bytes: the wrapper checks the pointers and the
 //   strides and raises otherwise.
 //
@@ -498,6 +499,7 @@ cudaError_t launch_d(const Args& a, int batch, int d, int device, cudaStream_t s
     case 32: return launch<BF16, 32, WINDOWED>(a, batch, device, stream);
     case 64: return launch<BF16, 64, WINDOWED>(a, batch, device, stream);
     case 128: return launch<BF16, 128, WINDOWED>(a, batch, device, stream);
+    case 192: return launch<BF16, 192, WINDOWED>(a, batch, device, stream);
     case 256: return launch<BF16, 256, WINDOWED>(a, batch, device, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -518,7 +520,8 @@ extern "C" {
 // dtype: 0 = float32 (scalar kernel), 1 = bfloat16 (tensor-core kernel; the
 // pointers on 16 bytes and the batch, sequence and head strides multiples
 // of 8). Strides are in elements; the last dim of q, k, v and o is
-// contiguous. window: 0 for none, else W > 0 (query t attends keys
+// contiguous. d: 16, 32, 64, 128, 192 or 256 (the wrapper runs D = 8 here
+// zero-padded to 16, with the true D's scale). window: 0 for none, else W > 0 (query t attends keys
 // [t-W+1, t]). Returns the CUDA error code of the launch.
 int repro_flash_attention_fwd(int device, void* stream, int dtype,
                               const void* q, const void* k, const void* v, void* o,

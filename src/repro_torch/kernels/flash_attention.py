@@ -6,26 +6,35 @@ softmax, optional tanh softcap, optional sliding window (query t attends
 keys [t-W+1, t], as ``attention_ref(window=W)``; the TPU kernel has none),
 any sequence length. It takes q [B,S,Hq,D] and k, v [B,S,Hk,D] in the
 public layout (strides, no transposed copies), float32 or bfloat16, D in
-{16, 32, 64, 128, 256}, and returns [B,S,Hq,D] in q's dtype. Forward only:
-it raises if an input requires grad.
+``HEAD_DIMS``, and returns [B,S,Hq,D] in q's dtype. The kernel is
+instantiated at D in {16, 32, 64, 128, 192, 256}; D = 8, below one k-step
+of the tensor cores, runs the D = 16 instantiation on copies zero-padded to
+16 with the scale of the true D (``pad_head_dim``), and the output is sliced
+back. This launcher is the forward alone and raises if an input requires
+grad: ``ops.flash_attention`` is the autograd Function around it.
 
 bfloat16 runs on the tensor cores (wgmma) and rounds the probabilities P to
 bf16 before P.V, as the JAX model path does; its 16-byte copies need each
 tensor's start on 16 bytes and its batch, sequence and head strides in
-multiples of 8 elements, which ``check_inputs`` demands. float32 runs the
-scalar kernel, with P in f32 as the TPU kernel keeps it.
+multiples of 8 elements, which ``check_inputs`` demands (a padded copy
+meets it by construction). float32 runs the scalar kernel, with P in f32 as
+the TPU kernel keeps it.
 
 ``flash_attention_fwd.launches`` counts the kernel's launches.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Callable
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 192, 256)   # the kernel's instantiations
+PADDED_HEAD_DIMS = {8: 16}                       # D -> the instantiation it runs
+HEAD_DIMS = tuple(sorted((*KERNEL_HEAD_DIMS, *PADDED_HEAD_DIMS)))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
              + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
@@ -60,7 +69,7 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"float32 or all bfloat16")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("the last dim of q, k and v must be contiguous")
-    if q.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16 and d not in PADDED_HEAD_DIMS:   # padded: fresh copies
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
                 raise ValueError(
@@ -68,8 +77,22 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     f"head strides in multiples of 8 elements; got address "
                     f"{t.data_ptr():#x}, strides {t.stride()}")
     if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise RuntimeError("flash_attention_fwd is forward-only; its autograd "
-                           "Function comes with the training slice")
+        raise RuntimeError("flash_attention_fwd is the forward launcher alone; "
+                           "differentiate through ops.flash_attention")
+
+
+def pad_head_dim(attend: Callable[..., torch.Tensor], q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, **kwargs) -> torch.Tensor:
+    """``attend(q, k, v, scale=, **kwargs)`` on copies of q, k, v zero-padded
+    along D to the instantiation that D runs (``PADDED_HEAD_DIMS``), with the
+    true D's scale D^-0.5; the output's padded columns are sliced off.
+
+    Zero columns add nothing to q.k, and the padded columns of v give output
+    columns that are dropped, so this is attention at the true D."""
+    d = q.shape[-1]
+    pad = PADDED_HEAD_DIMS[d] - d
+    o = attend(*(F.pad(t, (0, pad)) for t in (q, k, v)), scale=d ** -0.5, **kwargs)
+    return o[..., :d]
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -81,6 +104,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention_fwd needs q, k, v on one CUDA device; "
                          f"got {q.device}, {k.device}, {v.device}")
+    if q.shape[-1] in PADDED_HEAD_DIMS:
+        return pad_head_dim(_launch, q, k, v, softcap=softcap, window=window)
+    return _launch(q, k, v, scale=q.shape[-1] ** -0.5, softcap=softcap, window=window)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
+            softcap: float, window: int) -> torch.Tensor:
     b, s, hq, d = q.shape
     o = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
     if o.numel() == 0:
@@ -93,7 +123,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             b, s, hq, k.shape[2], d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-            d ** -0.5, float(softcap), int(window))
+            float(scale), float(softcap), int(window))
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"{build.error_string(lib, err)} (cuda error {err})")

@@ -19,18 +19,21 @@ NEG_INF = -1e30
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   softcap: float = 0.0, window: int = 0,
-                  p_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                  p_dtype: Optional[torch.dtype] = None,
+                  scale: Optional[float] = None) -> torch.Tensor:
     """Naive causal GQA attention. q [B,S,Hq,D]; k,v [B,S,Hk,D].
 
     Scores, softmax and P.V in f32; the output is cast to q's dtype. With
     ``p_dtype``, P is rounded to that dtype before P.V, as the JAX model
-    path rounds it to v's dtype (the kernel keeps it in f32).
+    path rounds it to v's dtype (the kernel keeps it in f32). ``scale``
+    multiplies the scores (default D^-0.5).
     """
     b, s, hq, d = q.shape
     hk = k.shape[2]
     g = hq // hk
     qg = q.reshape(b, s, hk, g, d)
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * d ** -0.5
+    scale = d ** -0.5 if scale is None else scale
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
     if softcap > 0:
         scores = softcap * torch.tanh(scores / softcap)
     i = torch.arange(s, device=q.device)[:, None]

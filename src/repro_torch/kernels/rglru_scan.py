@@ -5,8 +5,10 @@ The CUDA counterpart of the TPU kernel ``rglru_scan_pallas`` of
 ``ops.rglru_recurrence``: the diagonal linear recurrence
 h_t = a_t * h_{t-1} + b_t from a zero state, in f32. It takes a and b
 [B, S, W] in the public layout (strides, no copies), both float32 or both
-bfloat16, any S and W; and returns h [B, S, W] float32. Forward only: it
-raises if an input requires grad.
+bfloat16, any S and W; and returns h [B, S, W] float32. This launcher
+raises if an input requires grad: ``ops.rglru_recurrence`` is the autograd
+Function around it, whose backward runs this launcher again on the reversed
+sequence.
 
 The sequence is split into chunks of ``CHUNK`` steps: one kernel computes
 each chunk's aggregate, a second folds the carry into each chunk and walks
@@ -46,8 +48,8 @@ def check_inputs(a: torch.Tensor, b: torch.Tensor) -> None:
         raise TypeError(f"dtypes {a.dtype}, {b.dtype}: expected both float32 or "
                         f"both bfloat16")
     if a.requires_grad or b.requires_grad:
-        raise RuntimeError("rglru_scan_fwd is forward-only; its autograd Function "
-                           "comes with the training slice")
+        raise RuntimeError("rglru_scan_fwd is the launcher alone; "
+                           "differentiate through ops.rglru_recurrence")
 
 
 def rglru_scan_fwd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,8 @@ Mamba2 SSD scan, chunk by chunk with the state carried in order. It takes
 x [b,s,h,p], dt [b,s,h] f32, A [h] f32 and B, C [b,s,g,n] in the public
 layout (strides, no padded or repeated copies), x, B and C all float32 or all
 bfloat16, any s; and returns (y [b,s,h,p] in x's dtype, the final state
-[b,h,n,p] f32). Forward only: it raises if an input requires grad.
+[b,h,n,p] f32). This launcher is the forward alone and raises if an input
+requires grad: ``ops.ssd_scan`` is the autograd Function around it.
 
 bfloat16 runs on the tensor cores (wgmma): xdt and C B^T * L are rounded to
 bf16 before the intra-chunk product, as the JAX model path rounds them
@@ -78,8 +79,8 @@ def check_inputs(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Te
                     f"head/group strides in multiples of 8 elements; got address "
                     f"{t.data_ptr():#x}, strides {t.stride()}")
     if any(t.requires_grad for t in (x, dt, A, B, C)):
-        raise RuntimeError("ssd_scan_fwd is forward-only; its autograd Function "
-                           "comes with the training slice")
+        raise RuntimeError("ssd_scan_fwd is the forward launcher alone; "
+                           "differentiate through ops.ssd_scan")
 
 
 def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,

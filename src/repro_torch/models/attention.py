@@ -7,20 +7,24 @@ Layout conventions (as in the JAX package)
   cache    k/v  [B, Smax, Hk, Dh] (rope pre-applied to cached K)
   ring     k/v  [B, W, Hk, Dh]    (local attention: position p in slot p % W)
 
-Prefill in the port goes through ``kernels.ops.flash_attention`` (the Hopper
-kernel on the card), local attention with its ``window``: the JAX package
-computes ``local_attention`` outside Pallas, banded block by block, and its
-kernel oracle ``attention_ref`` defines the same window. ``chunked_causal_attention``
-is the port of the JAX model path's blockwise online softmax, kept as a CPU
-reference for it; note that it rounds p to v's dtype before P.V where the
-kernel keeps f32. Decode attention is plain PyTorch: the JAX package has no
-kernel there.
+Prefill and training in the port go through ``kernels.ops.flash_attention``
+(the Hopper kernel on the card), local attention with its ``window``: the JAX
+package computes ``local_attention`` outside Pallas, banded block by block,
+and its kernel oracle ``attention_ref`` defines the same window.
+``chunked_causal_attention`` and ``banded_local_attention`` are the ports of
+the JAX model path's blockwise online softmax and of its banded local
+attention; ``model_path_attention`` picks between them, and the flash op's
+backward takes the gradient of that recompute, as the JAX package's
+``_fa_bwd`` does. Both round p to v's dtype before P.V, where the f32 kernel
+keeps f32. Decode attention is plain PyTorch: the JAX package has no kernel
+there.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.ops import flash_attention
 from repro_torch.kernels.ref import attention_ref
@@ -94,6 +98,64 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     at every S (the JAX package falls back to causal attention for S <= W,
     which is the same band)."""
     return flash_attention(q, k, v, softcap=softcap, window=window)
+
+
+def banded_local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                           window: int, softcap: float = 0.0) -> torch.Tensor:
+    """Exact sliding-window causal attention, banded as the JAX model path
+    computes it: position t attends [t-W+1, t].
+
+    Query blocks of W; each attends its own block and the previous one,
+    masked to the exact band; the tail is zero-padded to a whole block.
+    Memory O(W^2) per block. For S <= W it is causal attention."""
+    b, s, hq, dh = q.shape
+    hk = k.shape[2]
+    g = hq // hk
+    if s <= window:
+        return chunked_causal_attention(q, k, v, block_q=min(1024, s),
+                                        block_kv=min(1024, s), softcap=softcap)
+    w = window
+    if s % w:
+        # pad the tail (causal: real queries never attend the padded keys)
+        pad = (0, 0, 0, 0, 0, w - s % w)
+        o = banded_local_attention(F.pad(q, pad), F.pad(k, pad), F.pad(v, pad),
+                                   window=window, softcap=softcap)
+        return o[:, :s]
+    nb = s // w
+    qg = _split_gqa(q, hk).reshape(b, nb, w, hk, g, dh)
+    kb = k.reshape(b, nb, w, hk, dh)
+    vb = v.reshape(b, nb, w, hk, dh)
+    # the previous block (block -1 = zeros, masked anyway)
+    k2 = torch.cat([torch.cat([torch.zeros_like(kb[:, :1]), kb[:, :-1]], dim=1), kb], dim=2)
+    v2 = torch.cat([torch.cat([torch.zeros_like(vb[:, :1]), vb[:, :-1]], dim=1), vb], dim=2)
+
+    sblk = torch.einsum("bnqhgd,bnkhd->bnhgqk", qg.float(), k2.float()) * dh ** -0.5
+    if softcap > 0:
+        sblk = softcap * torch.tanh(sblk / softcap)
+    q_pos = torch.arange(w, device=q.device)[:, None]             # within the block
+    k_pos = torch.arange(2 * w, device=q.device)[None, :] - w     # from the block's start
+    rel = q_pos - k_pos
+    band = (rel >= 0) & (rel < w)
+    first_block = torch.arange(nb, device=q.device)[:, None, None] == 0
+    valid = band[None] & ~(first_block & (k_pos[None] < 0))      # [nb, w, 2w]
+    sblk = sblk.masked_fill(~valid[:, None, None], NEG_INF)
+    p = torch.softmax(sblk, dim=-1)
+    o = torch.einsum("bnhgqk,bnkhd->bnqhgd", p.to(v2.dtype).float(), v2.float())
+    return o.reshape(b, s, hk * g, dh).to(q.dtype)
+
+
+FA_BWD_BLOCK = 512   # the block of the JAX package's flash op, whose _fa_bwd recomputes
+
+
+def model_path_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         softcap: float = 0.0, window: int = 0) -> torch.Tensor:
+    """The plain attention whose gradient the flash op's backward takes: the
+    chunked causal attention with equal blocks, or with a window the banded
+    local attention (the JAX model path's train-mode attention either way)."""
+    if window:
+        return banded_local_attention(q, k, v, window=window, softcap=softcap)
+    return chunked_causal_attention(q, k, v, block_q=FA_BWD_BLOCK, block_kv=FA_BWD_BLOCK,
+                                    softcap=softcap)
 
 
 def _attend_one(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,

@@ -9,9 +9,10 @@ Recurrence (diagonal, per channel):
 
 Full block: x -> {linear -> conv1d -> RG-LRU} gated by {linear -> GeLU},
 then output linear. The gate projections are dense, as in the JAX package
-(Griffin's are block-diagonal). Prefill sends the recurrence through
-``kernels.ops.rglru_recurrence`` (the Hopper kernel on the card, the
-step-by-step ``rglru_ref`` on the CPU), where the JAX model path runs
+(Griffin's are block-diagonal). Train and prefill send the recurrence
+through ``kernels.ops.rglru_recurrence`` (the Hopper kernel on the card, the
+step-by-step ``rglru_ref`` on the CPU; its backward is the reverse
+recurrence through the same op), where the JAX model path runs
 ``jax.lax.associative_scan``. Decode is plain PyTorch, as there.
 """
 from __future__ import annotations
@@ -125,12 +126,12 @@ class RGLRU(nn.Module):
             y = h_new.to(x.dtype)[:, None, :]
             cache["conv"].copy_(window[:, 1:])
             cache["h"].copy_(h_new)
-        elif mode == "prefill":
+        elif mode in ("train", "prefill"):
             y, h_last = rglru_scan(self, _causal_conv(xr, self.conv_w, self.conv_b))
-            cache = {"conv": conv_window(xr, self.cfg.rglru_conv - 1), "h": h_last}
+            cache = None if mode == "train" else {
+                "conv": conv_window(xr, self.cfg.rglru_conv - 1), "h": h_last}
         else:
-            raise ValueError(f"unknown mode {mode!r}; the port serves "
-                             f"(prefill, decode) only")
+            raise ValueError(f"unknown mode {mode!r}; expected train, prefill or decode")
         return (y * gate) @ self.w_out, cache
 
 

@@ -9,9 +9,10 @@ Shapes (h = heads, p = headdim, n = state, g = groups (=1 here)):
   B,C [B, S, g, n]
   state H [B, h, n, p]
 
-Prefill sends the scan through ``kernels.ops.ssd_scan`` (the Hopper kernel on
-the card, ``ssd_chunked`` in f32 on the CPU). Decode is plain PyTorch: the
-JAX package has no kernel there either.
+Train and prefill send the scan through ``kernels.ops.ssd_scan`` (the Hopper
+kernel on the card, ``ssd_chunked`` in f32 on the CPU; its backward is the
+gradient of a recompute through ``ssd_chunked``). Decode is plain PyTorch:
+the JAX package has no kernel there either.
 """
 from __future__ import annotations
 
@@ -238,7 +239,7 @@ class SSD(nn.Module):
             cache["conv_x"].copy_(win_x[:, 1:])
             cache["conv_bc"].copy_(win_bc[:, 1:])
             cache["ssm"].copy_(new_state)
-        elif mode == "prefill":
+        elif mode in ("train", "prefill"):
             cx = _causal_conv(xr, self.conv_x_w, self.conv_x_b)
             cbc = _causal_conv(bc, self.conv_bc_w, self.conv_bc_b)
             x_ = cx.reshape(b, s, nheads, hp)
@@ -248,11 +249,11 @@ class SSD(nn.Module):
             y = y.float() + self.D[None, None, :, None] * x_.float()
             y = y.reshape(b, s, d_in).to(x.dtype)
             k = cfg.ssm_conv
-            cache = {"conv_x": conv_window(xr, k - 1), "conv_bc": conv_window(bc, k - 1),
-                     "ssm": final_state}
+            cache = None if mode == "train" else {
+                "conv_x": conv_window(xr, k - 1), "conv_bc": conv_window(bc, k - 1),
+                "ssm": final_state}
         else:
-            raise ValueError(f"unknown mode {mode!r}; the port serves "
-                             f"(prefill, decode) only")
+            raise ValueError(f"unknown mode {mode!r}; expected train, prefill or decode")
         return _gated_rms_norm(y, z, self.norm_scale) @ self.w_out, cache
 
 

@@ -6,22 +6,36 @@ port keeps one ``Block`` module per layer in order (layer g*len(pattern)+i is
 group g's pattern position i, then the remainder), which is the order that
 ``convert.params_from_jax`` unstacks the scanned groups into.
 
-Modes: ``prefill`` runs the whole prompt and returns one cache per layer (K/V
-of ``max_len`` for attention, a ring of the last ``local_window`` K/V for
-local attention, the conv windows and the state for SSD and RG-LRU; all but
-global attention ignore ``max_len``); ``decode`` runs one token against
-those caches and updates them in place (SSD and RG-LRU ignore ``pos``).
-Prefill attention goes through ``kernels.ops.flash_attention`` (local
-attention with its window), the prefill SSD scan through
-``kernels.ops.ssd_scan``, the prefill RG-LRU recurrence through
-``kernels.ops.rglru_recurrence``.
+Modes: ``train`` runs the whole sequence and makes no cache; ``prefill``
+runs the whole prompt and returns one cache per layer (K/V of ``max_len``
+for attention, a ring of the last ``local_window`` K/V for local attention,
+the conv windows and the state for SSD and RG-LRU; all but global attention
+ignore ``max_len``); ``decode`` runs one token against those caches and
+updates them in place (SSD and RG-LRU ignore ``pos``). Train and prefill
+attention go through ``kernels.ops.flash_attention`` (local attention with
+its window), the SSD scan through ``kernels.ops.ssd_scan``, the RG-LRU
+recurrence through ``kernels.ops.rglru_recurrence``: autograd Functions
+around the kernels.
+
+In train mode the backbone rematerialises as the JAX package's
+``_remat_wrap`` does, with ``torch.utils.checkpoint`` in place of
+``jax.checkpoint``: ``remat="block"`` (or any string but ``none`` and
+``dots``) keeps only the input of each pattern group (one layer for qwen and
+mamba2, three for recurrentgemma; the scan body of the JAX package) and
+recomputes the group in the backward; ``dots`` keeps the outputs of the
+weight matmuls too; ``none`` keeps everything. The remainder layers are not
+rematerialised, as there.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from repro_torch.config.base import (
     ATTN, LOCAL_ATTN, MLP_MOE, MLP_NONE, RGLRU, SSD, ModelConfig,
@@ -108,29 +122,28 @@ class Attention(nn.Module):
             cache["v"][:, slot] = v.to(cache["v"].dtype)
             attend = decode_local_attention if local else decode_attention
             o = attend(q, cache["k"], cache["v"], pos)[:, None]
-        elif mode == "prefill":
-            if self.mixer == ATTN and max_len < s:
+        elif mode in ("train", "prefill"):
+            if mode == "prefill" and self.mixer == ATTN and max_len < s:
                 raise ValueError(f"max_len {max_len} < prompt length {s}")
             q, k, v = self._qkv(x)
             positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
             q = apply_rope(q, positions, theta)
             k = apply_rope(k, positions, theta)
-            cache = init_attn_cache(self.cfg, b, max_len, k.dtype, x.device, self.mixer)
-            if self.mixer == LOCAL_ATTN:
-                w = self.cfg.local_window
-                o = local_attention(q, k, v, window=w)
-                # the last W positions, position p in slot p % W (zeros past
-                # s when s < W), the layout of the JAX package's roll
-                n = min(s, w)
-                cache["k"][:, :n] = torch.roll(k[:, s - n:], s % w, 1)
-                cache["v"][:, :n] = torch.roll(v[:, s - n:], s % w, 1)
-            else:
-                o = flash_attention(q, k, v)
-                cache["k"][:, :s] = k
-                cache["v"][:, :s] = v
+            local, w = self.mixer == LOCAL_ATTN, self.cfg.local_window
+            o = local_attention(q, k, v, window=w) if local else flash_attention(q, k, v)
+            if mode == "prefill":
+                cache = init_attn_cache(self.cfg, b, max_len, k.dtype, x.device, self.mixer)
+                if local:
+                    # the last W positions, position p in slot p % W (zeros past
+                    # s when s < W), the layout of the JAX package's roll
+                    n = min(s, w)
+                    cache["k"][:, :n] = torch.roll(k[:, s - n:], s % w, 1)
+                    cache["v"][:, :n] = torch.roll(v[:, s - n:], s % w, 1)
+                else:
+                    cache["k"][:, :s] = k
+                    cache["v"][:, :s] = v
         else:
-            raise ValueError(f"unknown mode {mode!r}; the port serves "
-                             f"(prefill, decode) only")
+            raise ValueError(f"unknown mode {mode!r}; expected train, prefill or decode")
         o = o.reshape(b, o.shape[1], -1)
         return o @ self.wo, cache
 
@@ -192,20 +205,59 @@ class Backbone(nn.Module):
         if cfg.decode_k_time_minor:
             raise NotImplementedError(
                 "the time-minor K cache (decode_k_time_minor) comes with a later slice")
+        self.cfg = cfg
         self.layers = nn.ModuleList(
             Block(cfg, mixer, mlp, device=device) for mixer, mlp in cfg.layer_blocks())
         self.final_norm = Norm(cfg, device=device)
 
     def forward(self, x: torch.Tensor, *, mode: str,
                 caches: Optional[List[Cache]] = None, pos: Optional[int] = None,
-                max_len: int = 0) -> Tuple[torch.Tensor, List[Cache]]:
-        """Runs all layers. Returns (hidden after the final norm, caches)."""
+                max_len: int = 0, remat: str = "block") -> Tuple[torch.Tensor, List[Cache]]:
+        """Runs all layers. Returns (hidden after the final norm, caches);
+        in train mode the caches are None and ``remat`` applies."""
+        if mode == "train":
+            return self.final_norm(self._train(x, remat)), [None] * len(self.layers)
         new_caches = []
         for i, layer in enumerate(self.layers):
             x, c = layer(x, mode=mode, cache=None if caches is None else caches[i],
                          pos=pos, max_len=max_len)
             new_caches.append(c)
         return self.final_norm(x), new_caches
+
+    def _train(self, x: torch.Tensor, remat: str) -> torch.Tensor:
+        n_pat = len(self.cfg.block_pattern or (None,))
+        n_grouped = len(self.layers) - len(self.layers) % n_pat
+
+        def group(x: torch.Tensor, first: int) -> torch.Tensor:
+            for layer in self.layers[first:first + n_pat]:
+                x, _ = layer(x, mode="train", cache=None, pos=None)
+            return x
+
+        for first in range(0, n_grouped, n_pat):
+            if remat == "none":
+                x = group(x, first)
+            elif remat == "dots":
+                x = checkpoint(group, x, first, use_reentrant=False,
+                               context_fn=_save_matmuls)
+            else:
+                x = checkpoint(group, x, first, use_reentrant=False)
+        for layer in self.layers[n_grouped:]:   # the remainder: not rematerialised
+            x, _ = layer(x, mode="train", cache=None, pos=None)
+        return x
+
+
+# the weight matmuls: x @ w of a [B, S, d] activation is aten.mm on [B*S, d]
+# (attention's batched einsums are bmm and are recomputed), as the JAX
+# package's dots_with_no_batch_dims_saveable policy keeps dots without batch dims
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _matmul_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_save_matmuls = partial(create_selective_checkpoint_contexts, _matmul_policy)
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype,

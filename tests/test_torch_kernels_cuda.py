@@ -345,3 +345,120 @@ def test_rglru_scan_at_chunk_boundaries(cuda_sm90, s, dtype, strided):
     assert h.dtype == torch.float32 and h.shape == (2, s, 128)
     assert float((h - rglru_ref(a, x)).abs().max()) <= RGLRU_TOL
     assert torch.equal(h, rglru_chunked_ref(a, x, RGLRU_CHUNK))
+
+
+@pytest.mark.parametrize("d", [8, 192])
+@pytest.mark.parametrize("window", [0, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_head_dims_8_and_192(cuda_sm90, d, window, dtype):
+    """D=192 has its own instantiations (12 k-steps of 16); D=8 runs the
+    D=16 one on zero-padded copies with the scale 8^-0.5."""
+    gen = torch.Generator(device=cuda_sm90).manual_seed(d + window)
+    q, k, v = (torch.randn((2, 300, h, d), generator=gen, device=cuda_sm90)
+               .to(getattr(torch, dtype)) for h in (4, 2, 2))
+    before = flash_attention_fwd.launches
+    out = ops.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    ref = attention_ref(q.float(), k.float(), v.float(), window=window)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref, atol=atol, rtol=rtol)
+
+
+# Each Function's grads against autograd through its plain version on the
+# same inputs, max abs error / max |reference grad|. f32: the same function
+# in other summation orders. bf16: both sides round the grads to bf16, and
+# the backward's recompute rounds as the JAX model path does (P to bf16
+# before P.V; xdt and C B^T * L to bf16), where the plain version keeps f32:
+# a few bf16 ulps (2^-8 relative each) of the largest grad.
+GRAD_REL_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+
+
+def _grads(fn, inputs, cot):
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    return torch.autograd.grad(out, leaves, cot)
+
+
+def _check_grads(fn, plain, inputs, cot, dtype):
+    for g, ref in zip(_grads(fn, inputs, cot), _grads(plain, inputs, cot)):
+        assert g.dtype == ref.dtype and g.shape == ref.shape
+        assert bool(torch.isfinite(g).all())
+        assert _rel(g, ref.float()) <= GRAD_REL_TOL[dtype]
+
+
+@pytest.mark.parametrize("window", [0, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_grads_match_plain_version(cuda_sm90, window, dtype):
+    """Ragged S=300, GQA 4:2 at D=64: the kernel's forward, the banded or
+    chunked recompute's backward, against autograd through attention_ref."""
+    gen = torch.Generator(device=cuda_sm90).manual_seed(7)
+    q, k, v, cot = (torch.randn((2, 300, h, 64), generator=gen, device=cuda_sm90)
+                    .to(getattr(torch, dtype)) for h in (4, 2, 2, 4))
+    before = flash_attention_fwd.launches
+    _check_grads(lambda *t: ops.flash_attention(*t, window=window),
+                 lambda *t: attention_ref(*t, window=window), (q, k, v), cot, dtype)
+    assert flash_attention_fwd.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_grads_match_plain_version(cuda_sm90, dtype):
+    """Ragged S=300 (two chunks of 128 and a third of 44): grads of x, dt, A,
+    B and C through y, the final state unused (the train path)."""
+    x, dt, A, B, C = _ssd_inputs(2, 300, 8, 64, 1, 64, getattr(torch, dtype), cuda_sm90, seed=8)
+    cot = torch.randn(x.shape, device=cuda_sm90,
+                      generator=torch.Generator(device=cuda_sm90).manual_seed(9)).to(x.dtype)
+    before = ssd_scan_fwd.launches
+    _check_grads(lambda *t: ops.ssd_scan(*t, chunk=128)[0],
+                 lambda *t: ops.ssd_scan_plain(*t, chunk=128)[0], (x, dt, A, B, C), cot, dtype)
+    assert ssd_scan_fwd.launches == before + 1
+
+
+@pytest.mark.parametrize("s", [1, 300])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rglru_recurrence_grads_match_plain_version(cuda_sm90, s, dtype):
+    """The reverse recurrence runs the forward kernel on the flipped sequence:
+    two launches a forward and backward."""
+    a, x = _rglru_inputs(2, s, 200, getattr(torch, dtype), cuda_sm90, seed=s)
+    cot = torch.randn((2, s, 200), device=cuda_sm90,
+                      generator=torch.Generator(device=cuda_sm90).manual_seed(1))
+    before = rglru_scan_fwd.launches
+    _check_grads(ops.rglru_recurrence, rglru_ref, (a, x), cot, dtype)
+    assert rglru_scan_fwd.launches == before + 2
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "mamba2-370m", "recurrentgemma-2b"])
+def test_smoke_train_step_on_card_matches_cpu(cuda_sm90, arch):
+    """One f32 train step of the smoke model on the card, with the kernels,
+    against the same step on the CPU's plain path: the loss and every grad;
+    then clip and AdamW on the card from the CPU's grads against the CPU's
+    step. (Adam divides each grad element by its own RMS, so from the card's
+    own grads an element near the f32 noise may move by up to lr on one side
+    and not the other; from the same grads the two steps agree to ulps.)"""
+    from repro_torch.config import TrainConfig
+    from repro_torch.train import SyntheticDataset, adam_update, clip_by_global_norm, init_adam
+    from repro_torch.train.train_step import accumulated_grads
+    cfg = dataclasses.replace(get_model_config(arch, smoke=True),
+                              act_dtype="float32", param_dtype="float32")
+    tc = TrainConfig(global_batch=2, seq_len=100, lr=3e-3, warmup_steps=1, total_steps=2)
+    gpu = build_model(cfg, device=cuda_sm90)
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    batch = SyntheticDataset(cfg, tc).batch_at(0)
+    before = [fn.launches for fn in (flash_attention_fwd, ssd_scan_fwd, rglru_scan_fwd)]
+    mg, gg = accumulated_grads(gpu, {k: t.to(cuda_sm90) for k, t in batch.items()}, 1)
+    assert any(fn.launches > b for fn, b in
+               zip((flash_attention_fwd, ssd_scan_fwd, rglru_scan_fwd), before))
+    mc, gc = accumulated_grads(cpu, batch, 1)
+    assert abs(float(mg["loss"]) - float(mc["loss"])) <= 1e-4
+    for name, g in gc.items():
+        assert _rel(gg[name].cpu(), g) <= 1e-4, name
+
+    gg, _ = clip_by_global_norm({k: g.to(cuda_sm90) for k, g in gc.items()}, tc.grad_clip)
+    gc, _ = clip_by_global_norm(gc, tc.grad_clip)
+    pg, pc = dict(gpu.named_parameters()), dict(cpu.named_parameters())
+    adam_update(pg, gg, init_adam(pg), tc)
+    adam_update(pc, gc, init_adam(pc), tc)
+    for name, p in pg.items():
+        assert float((p.detach().cpu() - pc[name].detach()).abs().max()) <= 1e-6, name
