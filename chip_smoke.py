@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port on one NVIDIA Hopper GPU: build, check, serve, train.
+"""Drive the PyTorch port on one NVIDIA Hopper GPU: build, check, serve, train, netsim.
 
     python3 chip_smoke.py
 
@@ -78,11 +78,27 @@ and builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    the causal mask" (qwen), "SSD backward with dA dropped" (mamba2, read on
    the first layer's ``A_log`` too) and "RG-LRU backward with a_t in place of
    a_{t+1}" (recurrentgemma).
+10. the netsim Fig. 3 path (the fluid long-haul simulator and the paper's
+   four schemes, batched torch ops replayed as CUDA graphs; no kernel of its
+   own): the golden scenarios of tests/golden/generate_goldens.py (the
+   congestion cell at 100 km, 10 ms; the throughput batch at 1 and 300 km,
+   8 ms) on the card and on the CPU (eager), held to each other on the
+   Fig. 3 columns and the final state (``NETSIM_TOL``); the golden batch for
+   512 steps through CUDA graphs and through eager steps on the card, bit
+   for bit; two planted faults in the card's run, each of which must read
+   over a limit ("ring wraps at delay_pad instead of each scenario's
+   d_steps" on the batch that mixes distances, "MatchRDMA's source-OTN
+   release ignores the budget gate"); then Fig. 3b at full width through
+   ``launch.netsim``: 7 distances x 6 message sizes = 42 cells of 4 flows at
+   the paper's 220 ms (44,000 steps), one [B=42] batch per scheme, with its
+   wall time, cell-steps per second, device ms per step (CUDA events),
+   kernels per step (100 eager steps under the profiler), the device's idle
+   share (a profiled graph replay), the rows and the max speedup vs DCQCN.
 
 Each serving and training path runs with every kernel's launch count set to
-0 just before it and read just after. The last lines are the serving and
-training JSON records, the card's ``name, power.limit``, the kernels' JSON
-record, and ``{"ok": true, "device": {...}}``.
+0 just before it and read just after. The last lines are the serving,
+training and netsim JSON records, the card's ``name, power.limit``, the
+kernels' JSON record, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -179,6 +195,32 @@ TRAIN_READ = {
 # CPU emulation at five layers).
 TRAIN_VS_CPU_TOL = {"bfloat16": {"loss": 1e-3, "grads": 3e-1},
                     "float32": {"loss": 1e-5, "grads": 1e-3}}
+# Phase 10, the netsim Fig. 3 path: the golden scenarios of
+# tests/golden/generate_goldens.py, (distances km, workload builder and its
+# arguments, horizon us), and the paper's four schemes.
+NETSIM_GOLDEN = {
+    "seq": ((100.0,), "congestion_workload",
+            dict(num_inter=4, num_intra=4, burst_start_us=3_000.0,
+                 burst_len_us=4_000.0, horizon_us=10_000.0), 10_000.0),
+    "batch": ((1.0, 300.0), "throughput_workload",
+              dict(msg_size=1 << 20, concurrency=1, num_flows=4), 8_000.0),
+}
+NETSIM_SCHEMES = ("dcqcn", "pseudo_ack", "themis", "matchrdma")
+# Card (CUDA graphs) vs CPU (eager) on those scenarios, each reading the
+# largest over the cells: the Fig. 3 columns relative to the CPU's (pause
+# ratio absolute; a 100-byte floor under the buffers and 1e-4 Gbps under the
+# throughput, where a drained queue holds f32 residues of a few bytes), the
+# final sent/delivered relative to their largest value, completion times in
+# us. The card multiplies by a constant's reciprocal where the CPU divides
+# and sums in another order, an ulp a step apart; runs that sit on a hard
+# threshold part there and stay two trajectories of one system. The limits
+# are those the CPU tests hold the port to against JAX (tests/torch_parity.py).
+NETSIM_TOL = {"throughput": 1e-3, "peak_buffer": 1e-3, "mean_buffer": 1e-3,
+              "p99_buffer": 1e-3, "pause_ratio": 1e-3, "final": 1e-4,
+              "done_at_us": 5.0}
+NETSIM_FLOOR = {"throughput": 1e-4 * 1e9 / 8.0, "peak_buffer": 100.0,
+                "mean_buffer": 100.0, "p99_buffer": 100.0}
+NETSIM_GRAPH_STEPS = 512   # graph vs eager on the card, the golden batch
 
 
 def fail(msg: str) -> None:
@@ -1022,6 +1064,173 @@ def phase_train(torch, card: str, arch: str, planted: dict) -> dict:
     return out
 
 
+def netsim_golden_run(torch, name: str, scheme: str, device) -> dict:
+    """One golden scenario through ``simulate_batch``: the Fig. 3 columns of
+    its traces (per cell) and its final state, as numpy."""
+    import numpy as np
+
+    from repro_torch.config.net import NetConfig
+    from repro_torch.netsim import fluid, workload
+
+    dists, build, kw, horizon = NETSIM_GOLDEN[name]
+    final, traces = fluid.simulate_batch(
+        [NetConfig(distance_km=d) for d in dists],
+        getattr(workload, build)(**kw), scheme, horizon, device=device)
+    tr = {k: v.cpu().numpy().astype(np.float64) for k, v in traces.items()}
+    warm = int(tr["q_dst"].shape[1] * fluid.WARMUP_FRAC)
+    return {
+        "throughput": tr["thr_inter"][:, warm:].mean(1),
+        "peak_buffer": tr["q_dst"].max(1),
+        "mean_buffer": tr["q_dst"][:, warm:].mean(1),
+        "p99_buffer": np.percentile(tr["q_dst"][:, warm:], 99, axis=1),
+        "pause_ratio": tr["pause_dst"][:, warm:].mean(1),
+        **{k: getattr(final, k).cpu().numpy().astype(np.float64)
+           for k in ("sent", "delivered", "done_at_us")}}
+
+
+def netsim_readings(card: dict, cpu: dict) -> dict:
+    """Card vs CPU, one reading per NETSIM_TOL key (see there)."""
+    import numpy as np
+
+    out = {k: float((np.abs(card[k] - cpu[k]) / (np.abs(cpu[k]) + f)).max())
+           for k, f in NETSIM_FLOOR.items()}
+    out["pause_ratio"] = float(np.abs(card["pause_ratio"] - cpu["pause_ratio"]).max())
+    out["final"] = max(float(np.abs(card[k] - cpu[k]).max() / max(np.abs(cpu[k]).max(), 1.0))
+                       for k in ("sent", "delivered"))
+    fin_c, fin_p = card["done_at_us"] < 5e29, cpu["done_at_us"] < 5e29
+    out["done_at_us"] = (float(np.abs(card["done_at_us"] - cpu["done_at_us"])[fin_p].max(
+        initial=0.0)) if np.array_equal(fin_c, fin_p) else float("inf"))
+    return out
+
+
+def netsim_leaves(torch, tree, prefix: str = "") -> dict:
+    """Every tensor of a netsim result (NamedTuples, dicts, tuples) by path."""
+    if torch.is_tensor(tree):
+        return {prefix: tree}
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, tuple):
+        items = zip(getattr(tree, "_fields", range(len(tree))), tree)
+    else:
+        return {}
+    out = {}
+    for k, v in items:
+        out.update(netsim_leaves(torch, v, f"{prefix}/{k}"))
+    return out
+
+
+def over_netsim(readings: dict) -> list:
+    return sorted(k for k, v in readings.items() if v > NETSIM_TOL[k])
+
+
+def phase_netsim(torch, card: str) -> dict:
+    """The netsim Fig. 3 path on the card (phase 10): card vs CPU on the
+    golden scenarios, graph vs eager bit for bit, two planted faults, and
+    Fig. 3b at full width (7 distances x 6 message sizes = 42 cells, 4 flows
+    each, 220 ms) for the four schemes, one [B=42] batch a scheme."""
+    from repro_torch.config.net import NetConfig
+    from repro_torch.launch import netsim as launch_netsim
+    from repro_torch.netsim import fluid, workload
+    from repro_torch.netsim.schemes.base import Scheme
+    from repro_torch.netsim.schemes.matchrdma import MatchRdmaScheme
+
+    dev = torch.device("cuda")
+    out = {"card_vs_cpu_tol": NETSIM_TOL}
+
+    # 1. card (graphs) vs CPU (eager) on the golden scenarios
+    t0 = time.perf_counter()
+    cpu, cards, sound = {}, {}, {}
+    for name in NETSIM_GOLDEN:
+        for scheme in NETSIM_SCHEMES:
+            key = f"{name}/{scheme}"
+            cpu[key] = netsim_golden_run(torch, name, scheme, "cpu")
+            cards[key] = netsim_golden_run(torch, name, scheme, dev)
+            sound[key] = netsim_readings(cards[key], cpu[key])
+            print(f"  card vs CPU {key}: " + ", ".join(
+                f"{k} {v:.3e}" for k, v in sound[key].items()), flush=True)
+    bad = {k: over_netsim(v) for k, v in sound.items() if over_netsim(v)}
+    check(not bad, f"netsim card vs CPU over the limits {NETSIM_TOL}: {bad}")
+    out["card_vs_cpu"] = sound
+    print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # 2. graph vs eager on the card, bit for bit
+    dists, build, kw, _ = NETSIM_GOLDEN["batch"]
+    cfgs = [NetConfig(distance_km=d) for d in dists]
+    wl = getattr(workload, build)(**kw)
+    h = NETSIM_GRAPH_STEPS * cfgs[0].dt_us
+    equal = {}
+    for scheme in NETSIM_SCHEMES:
+        runs = [fluid.simulate_batch(cfgs, wl, scheme, h, device=dev, graph_block=g)
+                for g in (0, fluid.GRAPH_BLOCK)]
+        a, b = (netsim_leaves(torch, r) for r in runs)
+        equal[scheme] = sorted(k for k in a if not torch.equal(a[k], b[k]))
+        print(f"  graph vs eager {scheme}, {NETSIM_GRAPH_STEPS} steps: {len(a)} leaves, "
+              f"{len(equal[scheme])} differ", flush=True)
+    check(not any(equal.values()), f"CUDA graphs differ from the eager steps: {equal}")
+
+    # 3. planted faults, in the card's run only; each must read over a limit
+    controls = {}
+
+    def wrap_at_pad(t, d_steps, delay_pad):
+        return torch.remainder(t, torch.full_like(d_steps, delay_pad))
+
+    for fault, key, (owner, attr, repl) in (
+            ("ring wraps at delay_pad instead of each scenario's d_steps",
+             "batch/dcqcn", (fluid, "ring_row", wrap_at_pad)),
+            ("MatchRDMA's source-OTN release ignores the budget gate",
+             "seq/matchrdma", (MatchRdmaScheme, "src_otn_release",
+                               Scheme.src_otn_release))):
+        kept = owner.__dict__[attr]
+        setattr(owner, attr, repl)
+        try:
+            name, scheme = key.split("/")
+            planted = netsim_golden_run(torch, name, scheme, dev)
+        finally:
+            setattr(owner, attr, kept)
+        r = netsim_readings(planted, cpu[key])
+        controls[fault] = {"case": key, "readings": r, "over": over_netsim(r),
+                           "peak_buffer_mb": (planted["peak_buffer"] / 1e6).tolist(),
+                           "throughput_gbps": (planted["throughput"] * 8 / 1e9).tolist()}
+        print(f"  control, {fault} ({key}): " + ", ".join(
+            f"{k} {v:.3e}" for k, v in r.items()) + f"; peak buffer "
+            f"{controls[fault]['peak_buffer_mb']} MB, throughput "
+            f"{controls[fault]['throughput_gbps']} Gbps", flush=True)
+        check(bool(controls[fault]["over"]), f"the card-vs-CPU check does not catch: {fault}")
+    print(f"  peak buffer (seq, card), MB: " + ", ".join(
+        f"{s} {cards['seq/' + s]['peak_buffer'][0] / 1e6:.3f}" for s in NETSIM_SCHEMES),
+        flush=True)
+    out["planted"] = controls
+
+    # 4. Fig. 3b at full width, each scheme's 42 cells as one batch
+    t0 = time.perf_counter()
+    fig = launch_netsim.Figure("fig3b", dev)
+    rows = launch_netsim.fig3b_throughput(fig, full=True)
+    for r in fig.records:
+        check(r["cells"] == 42 and r["launches"] == 1,
+              f"fig3b {r['scheme']}: {r['cells']} cells in {r['launches']} launches")
+        print(f"  fig3b {r['scheme']}: {r['cells']} cells x {r['steps']} steps, wall "
+              f"{r['wall_s']:.2f} s (capture {r['capture_s']:.2f} s), "
+              f"{r['cell_steps_per_s']:.0f} cell-steps/s, device "
+              f"{r['device_ms_per_step']:.4f} ms/step, {r['kernels_per_step']:.0f} "
+              f"kernels/step; profiled graph of {r['graph_steps']} steps: "
+              f"{r['graph_kernel_ms_per_step']:.4f} ms of kernels in "
+              f"{r['graph_span_ms_per_step']:.4f} ms a step, idle "
+              f"{100 * r['idle_share']:.1f}% [{card}]", flush=True)
+    for name, _, note in rows:
+        print(f"  {name}: {note}")
+    speedup = rows[-1][2]
+    check(rows[-1][0] == "fig3b/max_speedup_vs_dcqcn", "no max-speedup row")
+    thr = [float(note[:-4]) for name, _, note in rows[:-1]]
+    check(len(thr) == 168 and all(math.isfinite(x) and x >= 0.0 for x in thr),
+          f"fig3b rows: {len(thr)} throughputs, finite and >= 0 expected")
+    print(f"  fig3b max speedup vs dcqcn: {speedup} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    out["fig3b_full"] = {"schemes": [{k: v for k, v in r.items() if k != "top_kernels"}
+                                     for r in fig.records],
+                         "max_speedup_vs_dcqcn": speedup}
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run chip_smoke.py from a checkout")
@@ -1037,14 +1246,14 @@ def main() -> None:
     card = smi_line()
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
-    print(f"[1/9] card: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
+    print(f"[1/10] card: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{name}, compute capability {cap[0]}.{cap[1]}", flush=True)
     check(cap == (9, 0), f"needs compute capability 9.0 (sm_90a), found {cap}")
 
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build(build.sources())
-    print(f"[2/9] build: {len(logs)} of {len(build.sources())} kernel sources compiled "
+    print(f"[2/10] build: {len(logs)} of {len(build.sources())} kernel sources compiled "
           f"in {time.perf_counter() - t0:.1f} s into {build.BUILD_DIR}", flush=True)
     for src, log in logs.items():
         for line in log.splitlines():
@@ -1065,7 +1274,7 @@ def main() -> None:
           f"the f32 SSD-scan instantiations are not the scalar kernel: {ssd_hgmma}")
 
     t0 = time.perf_counter()
-    print("[3/9] kernels against their plain versions", flush=True)
+    print("[3/10] kernels against their plain versions", flush=True)
     flash = phase_flash(torch, card)
     ssd = phase_ssd(torch, card)
     scan = phase_rglru(torch, card)
@@ -1078,7 +1287,7 @@ def main() -> None:
             (MAMBA, mamba_faults(torch), "state not carried across chunks"),
             (RG, rglru_faults(torch), "recurrence restarted every 256 steps")), start=4):
         t0 = time.perf_counter()
-        print(f"[{i}/9] serve {arch} at full width", flush=True)
+        print(f"[{i}/10] serve {arch} at full width", flush=True)
         served[arch] = phase_serve(torch, card, arch, faults, must_fail)
         print(f"  ({time.perf_counter() - t0:.1f} s; total "
               f"{time.perf_counter() - t_start:.1f} s)", flush=True)
@@ -1087,10 +1296,16 @@ def main() -> None:
     trained, faults = {}, train_faults(torch)
     for i, arch in enumerate((QWEN, MAMBA, RG), start=7):
         t0 = time.perf_counter()
-        print(f"[{i}/9] train {arch} at full width", flush=True)
+        print(f"[{i}/10] train {arch} at full width", flush=True)
         trained[arch] = phase_train(torch, card, arch, faults[arch])
         print(f"  ({time.perf_counter() - t0:.1f} s; total "
               f"{time.perf_counter() - t_start:.1f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    print("[10/10] netsim Fig. 3 path", flush=True)
+    netsim = phase_netsim(torch, card)
+    print(f"  ({time.perf_counter() - t0:.1f} s; total "
+          f"{time.perf_counter() - t_start:.1f} s)", flush=True)
 
     def worst(checks, prefix):
         return max(c["max_abs_err"] for c in checks if c["case"].startswith(prefix))
@@ -1149,6 +1364,7 @@ def main() -> None:
     }]}
     print(json.dumps({"serve": served}))
     print(json.dumps({"train": trained}))
+    print(json.dumps({"netsim": netsim}))
     print(smi_line())
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,0 +1,664 @@
+"""Fluid-flow discrete-time simulator of the dual AI-DC leaf-spine-OTN path.
+
+The PyTorch twin of the JAX package's ``netsim/fluid.py`` on the paper's
+Fig. 3 path: one step = ``dt_us`` of simulated time; per-flow byte rates are
+integrated through the queues of Fig. 3(a):
+
+    sender NIC --> [Q_src] source OTN --(pipe: delay D, cap C_otn)-->
+    [Q_dst] destination OTN --> [Q_leaf] destination leaf (shared with
+    intra-DC flows, ECN marking here) --> receiver
+
+with ACKs and CNPs returning over delay lines of D (or consumed on the way,
+as the scheme decides) and PFC from the destination OTN riding back over D.
+
+What the port runs: the ideal channel, one long-haul link, no failure
+schedule, the hard (non-soft) step, and ``trace_mode`` ``full``,
+``decimate`` and ``metrics``. Every other configuration raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
+
+Batching: every state leaf carries the JAX package's vmapped shape, a
+leading scenario axis ``[B]`` (per-flow ``[B, F]``, delay rings
+``[B, Dp, F]``), and one step advances the whole batch. Rings are allocated
+at the batch's padded length ``delay_pad`` and each scenario's ring index
+wraps at its own ``delay_steps``. The delay rings, the control subchannel
+and the metrics histogram are written in place; everything else a step
+makes is new.
+
+Execution: on the CPU the steps run eagerly. On the card ``simulate_batch``
+captures a block of steps into a ``torch.cuda.CUDAGraph`` and replays it:
+the state lives in static tensors, the step index ``t`` is a device int32
+advanced inside the graph, and no step reads a value back to the host (the
+counterpart of JAX's one compiled ``lax.scan``). A capture that fails
+raises.
+"""
+from __future__ import annotations
+
+import time
+from typing import NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.config.net import (
+    NetConfig, NetParams, batch_template, stack_net_params,
+)
+from repro_torch.core.cc_proxy import DcqcnState, init_dcqcn, step_dcqcn
+from repro_torch.core.matchrdma import default_history_slots
+from repro_torch.device import resolve_device
+from repro_torch.netsim.queues import (
+    drain_proportional, ecn_mark_prob, pfc_hysteresis,
+)
+from repro_torch.netsim.schemes import get_scheme
+from repro_torch.netsim.schemes.base import Scheme, SchemeCtx, SchemeSignals
+from repro_torch.netsim.streaming import HIST_BINS, hist_bin_index, kahan_add
+from repro_torch.netsim.workload import WorkloadParams, as_workload_batch
+
+MTU = 1500.0
+INF = float(np.float32(1e30))
+WARMUP_FRAC = 0.1   # fraction of the horizon discarded as startup transient
+
+TRACE_MODES = ("full", "decimate", "metrics")
+
+# engine-owned streaming reductions: warm-step sums (-> means) and all-step
+# running maxes. ``MetricAcc`` keeps them as columns in this order.
+STREAM_SUM_KEYS = ("q_src", "q_dst", "q_leaf", "pause_dst",
+                   "thr_inter", "thr_intra")
+STREAM_MAX_KEYS = ("q_src", "q_dst", "q_leaf", "cons_err")
+
+# Steps per captured CUDA graph on the card.
+GRAPH_BLOCK = 256
+
+
+def is_unfinished(done_at_us):
+    """True where ``done_at_us`` still carries the INF 'not done' sentinel
+    (any value at or above INF/2; numpy or torch)."""
+    return done_at_us >= INF / 2
+
+
+class MetricAcc(NamedTuple):
+    """O(1)-per-scenario carry of the Fig. 3 reductions
+    (``trace_mode="metrics"``). The JAX package keeps ``sum_s``, ``sum_c``
+    and ``maxes`` as dicts of ``[B]`` arrays; here each is one tensor whose
+    last axis follows ``STREAM_SUM_KEYS`` / ``STREAM_MAX_KEYS`` (one kernel
+    a step updates them all; ``acc_columns`` gives the dict view)."""
+    sum_s: torch.Tensor    # [B, 6] Kahan running sums over warm steps
+    sum_c: torch.Tensor    # [B, 6] Kahan compensation terms
+    maxes: torch.Tensor    # [B, 4] running maxes over ALL steps
+    hist: torch.Tensor     # [B, HIST_BINS] int32 warm-step histogram of q_dst
+    scheme: dict           # scheme-private accumulators (Scheme.init_metric_acc)
+
+
+def acc_columns(acc: MetricAcc) -> dict:
+    """``{"sum_s": {key: [B]}, "sum_c": ..., "maxes": ...}``: the JAX
+    package's dict layout of the engine's streamed reductions."""
+    return {name: {k: getattr(acc, name)[..., i] for i, k in enumerate(keys)}
+            for name, keys in (("sum_s", STREAM_SUM_KEYS),
+                               ("sum_c", STREAM_SUM_KEYS),
+                               ("maxes", STREAM_MAX_KEYS))}
+
+
+def _init_metric_acc(scheme, ctx, state0) -> MetricAcc:
+    z = torch.zeros_like(state0.inflight[..., 0])
+    return MetricAcc(
+        sum_s=z[..., None].repeat_interleave(len(STREAM_SUM_KEYS), -1),
+        sum_c=z[..., None].repeat_interleave(len(STREAM_SUM_KEYS), -1),
+        maxes=z[..., None].repeat_interleave(len(STREAM_MAX_KEYS), -1),
+        hist=torch.zeros(z.shape + (HIST_BINS,), dtype=torch.int32,
+                         device=z.device),
+        scheme=scheme.init_metric_acc(ctx, state0),
+    )
+
+
+def _accumulate_engine(acc: MetricAcc, out: dict, inc) -> MetricAcc:
+    """Fold one step's trace dict into the engine's streamed reductions
+    (``inc``: 1.0 past the warm-up cutoff). The histogram is updated in
+    place."""
+    x = torch.stack([out[k] for k in STREAM_SUM_KEYS], -1) * inc
+    # Kahan-compensated so the streamed mean matches the trace mean to ~ulp
+    sum_s, sum_c = kahan_add(acc.sum_s, acc.sum_c, x)
+    maxes = torch.maximum(acc.maxes,
+                          torch.stack([out[k] for k in STREAM_MAX_KEYS], -1))
+    b = hist_bin_index(out["q_dst"])[..., None]
+    acc.hist.scatter_add_(-1, b, inc.to(torch.int32).expand(b.shape))
+    return acc._replace(sum_s=sum_s, sum_c=sum_c, maxes=maxes)
+
+
+class SimState(NamedTuple):
+    """The engine state; per-scenario leaves ``[B]``, per-flow ``[B, F]``,
+    delay rings ``[B, Dp, F]`` (no leading axis for one unbatched scenario).
+    The JAX package's channel slots (``chan``, ``retx_*``) are absent: the
+    port has only the ideal channel."""
+    sent: torch.Tensor          # cumulative bytes leaving the sender NIC
+    acked: torch.Tensor         # cumulative bytes ACKed at the sender
+    delivered: torch.Tensor     # cumulative bytes delivered to the receiver
+    done_at_us: torch.Tensor    # completion time (INF = not done)
+    cc: DcqcnState              # DCQCN machine
+    cnp_timer: torch.Tensor     # us since last CNP emission (receiver side)
+    marked_acc: torch.Tensor    # marked-byte accumulator
+    proxy_timer: torch.Tensor   # us since last proxy cut (MatchRDMA)
+    proxy_mod: torch.Tensor     # multiplicative proxy modulation in [0.25, 1]
+    q_src: torch.Tensor         # source-OTN queue bytes
+    q_dst: torch.Tensor         # destination-OTN queue bytes
+    q_leaf: torch.Tensor        # destination-leaf queue bytes
+    pipe: torch.Tensor          # [.., Dp, F] in-flight long-haul bytes
+    inflight: torch.Tensor      # running sum of pipe
+    ack_line: torch.Tensor      # [.., Dp, F] ACK return path
+    cnp_line: torch.Tensor      # [.., Dp, F] CNP return path
+    pause_line: torch.Tensor    # [.., Dp] PFC signal dst-OTN -> src-OTN
+    pause_dst: torch.Tensor     # dst OTN asserting long-haul pause
+    extra: object               # scheme-private state (Scheme.init_extra_state)
+
+
+def check_main_path(cfg: NetConfig, channel=None, trace_mode: str = "full",
+                    decimate: int = 1) -> None:
+    """Raise ``NotImplementedError`` for any option outside the ported Fig. 3
+    path, naming the ROADMAP queue 1 item that ports it; ``ValueError`` for
+    an unknown trace mode."""
+    if channel not in (None, "ideal"):
+        raise NotImplementedError(
+            f"channel {channel!r}: only the ideal channel is ported; the "
+            f"channel subsystem comes with ROADMAP queue 1 item 13")
+    if cfg.num_paths > 1 or cfg.is_multisite:
+        raise NotImplementedError(
+            f"num_paths={cfg.num_paths}, num_sites={cfg.num_sites}: only one "
+            f"long-haul link is ported; multi-link and multi-site come with "
+            f"ROADMAP queue 1 item 14")
+    if cfg.failure_len > 0:
+        raise NotImplementedError(
+            "failure_schedule: failures come with ROADMAP queue 1 item 15")
+    if cfg.soft_step:
+        raise NotImplementedError(
+            "soft_step=True: the differentiable engine comes with ROADMAP "
+            "queue 1 item 16")
+    if trace_mode == "window":
+        raise NotImplementedError(
+            "trace_mode='window': observability comes with ROADMAP queue 1 "
+            "item 15")
+    if trace_mode not in TRACE_MODES:
+        raise ValueError(f"unknown trace_mode {trace_mode!r}; expected one of "
+                         f"{TRACE_MODES}")
+    if decimate < 1:
+        raise ValueError(f"decimate must be >= 1, got {decimate}")
+
+
+def init_state(cfg: NetConfig, num_flows: int, params: NetParams = None,
+               delay_pad: int = 0, history_slots: int = 0,
+               scheme: Scheme = None) -> SimState:
+    """The initial state. ``params`` carries the per-scenario scalars (their
+    shape, 0-d or ``[B]``, is the state's leading shape; None = ``cfg``'s
+    own); ``delay_pad``/``history_slots`` are ring sizes (0 = size for
+    ``cfg``); ``scheme`` owns the ``extra`` slot (None = the default
+    MatchRDMA block)."""
+    check_main_path(cfg)
+    f = num_flows
+    if delay_pad <= 0:
+        delay_pad = cfg.static_delay_steps
+    if params is None:
+        params = NetParams.of(cfg)
+    if scheme is None:
+        scheme = Scheme()
+    bs = params.one_way_delay_us.shape
+    dev = params.one_way_delay_us.device
+
+    def z(*shape):
+        return torch.zeros(*bs, *shape, device=dev)
+
+    nic = params.nic_gbps * 1e9 / 8.0
+    return SimState(
+        sent=z(f), acked=z(f), delivered=z(f),
+        done_at_us=torch.full((*bs, f), INF, device=dev),
+        cc=init_dcqcn(f, nic),
+        cnp_timer=torch.full((*bs, f), 1e9, device=dev),
+        marked_acc=z(f),
+        proxy_timer=torch.full((*bs, f), 1e9, device=dev),
+        proxy_mod=torch.ones(*bs, f, device=dev),
+        q_src=z(f), q_dst=z(f), q_leaf=z(f),
+        pipe=z(delay_pad, f),
+        inflight=z(f),
+        ack_line=z(delay_pad, f),
+        cnp_line=z(delay_pad, f),
+        pause_line=z(delay_pad),
+        pause_dst=z(),
+        extra=scheme.init_extra_state(
+            cfg, params, f, history_slots=history_slots,
+            chan_delay_pad=delay_pad + cfg.control_proc_steps),
+    )
+
+
+def ring_row(t: torch.Tensor, d_steps: torch.Tensor, delay_pad: int):
+    """Row of the delay rings that step ``t`` reads and then writes: each
+    scenario's ring wraps at its own delay, inside the padded allocation."""
+    return torch.remainder(t, d_steps)
+
+
+def _workload_tensors(wl, device) -> WorkloadParams:
+    return WorkloadParams(*(torch.as_tensor(np.asarray(v, np.float32)
+                                            if not torch.is_tensor(v) else v,
+                                            device=device) for v in wl))
+
+
+def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
+                 period_slots: int = 0, params: NetParams = None,
+                 delay_pad: int = 0):
+    """Build the per-step transition ``step(state, t) -> (state, out)``.
+
+    ``wl``: the per-flow workload leaves (numpy or tensors, the leading shape
+    of ``params``'s leaves); ``params``: the per-scenario scalars (None =
+    ``cfg``'s own); ``t``: the step index, an int32 0-d tensor on the run's
+    device. ``out`` is the step's trace dict (per-scenario values)."""
+    check_main_path(cfg)
+    scheme = get_scheme(scheme)
+    if params is None:
+        params = NetParams.of(cfg)
+    if delay_pad <= 0:
+        delay_pad = cfg.static_delay_steps
+    dev = params.one_way_delay_us.device
+    wl = _workload_tensors(wl, dev)
+    dt_us = cfg.dt_us
+    dt_s = dt_us * 1e-6
+    # each scenario's delay, clamped to the ring allocation (an index past it
+    # would raise, where JAX would clamp it silently)
+    d_steps = torch.clamp(params.delay_steps(dt_us), 1, delay_pad)
+    nic = params.nic_gbps * 1e9 / 8.0
+    c_otn = params.otn_capacity_gbps * 1e9 / 8.0
+    c_leaf = params.dst_dc_gbps * 1e9 / 8.0
+    xoff = params.pfc_xoff_kb * 1024.0
+    xon = params.pfc_xon_kb * 1024.0
+    # OTN nodes are provisioned with BDP-scaled buffers (long-haul headroom)
+    bdp = c_otn * 2.0 * params.one_way_delay_us * 1e-6
+    xoff_otn = torch.maximum(xoff, params.otn_buffer_bdp_frac * bdp)
+    xon_otn = xoff_otn / 2.0
+
+    is_inter = wl.is_inter
+    is_intra = 1.0 - is_inter
+    inter = is_inter > 0
+    window = wl.window
+    total_bytes = wl.total_bytes
+    start_us = wl.start_us
+    active_mask = wl.active_mask
+    f = is_inter.shape[-1]
+    rtt_us = torch.where(inter, 2.0 * d_steps[..., None] * dt_us + 4.0, 4.0)
+    # loop invariants of the step, computed once as XLA hoists them
+    periodic = wl.period_us > 0
+    period = torch.clamp(wl.period_us, min=1.0)
+    on_len = wl.duty * wl.period_us
+    c_otn_dt = c_otn * dt_s
+    c_leaf_dt = c_leaf * dt_s
+    nic_col = nic[..., None]
+
+    ctx = SchemeCtx(
+        cfg=cfg, params=params, period_slots=period_slots,
+        dt_us=dt_us, dt_s=dt_s, nic=nic, c_otn=c_otn, c_leaf=c_leaf,
+        xoff=xoff, xon=xon, xoff_otn=xoff_otn, xon_otn=xon_otn,
+        is_inter=is_inter, is_intra=is_intra, rtt_us=rtt_us, d_steps=d_steps)
+    rtt_scale = scheme.rtt_scale(ctx)
+
+    def step(state: SimState, t: torch.Tensor):
+        t_us = t.to(torch.float32) * dt_us
+        row = ring_row(t, d_steps, delay_pad).to(torch.int64)[..., None]
+        row_f = row[..., None].expand(*row.shape[:-1], 1, f)
+
+        # ------------------------------------------------ 1. flow phase
+        started = (t_us >= start_us).to(torch.float32)
+        in_period = torch.where(
+            periodic,
+            (torch.fmod(torch.clamp(t_us - start_us, min=0.0), period)
+             < on_len).to(torch.float32),
+            1.0)
+        not_done = (state.delivered < total_bytes).to(torch.float32)
+        active = started * in_period * not_done * active_mask
+
+        # ------------------------------------------------ 2. delayed inputs
+        ack_arr = state.ack_line.gather(-2, row_f)[..., 0, :]
+        cnp_arr = state.cnp_line.gather(-2, row_f)[..., 0, :]
+        pipe_out = state.pipe.gather(-2, row_f)[..., 0, :]
+        pause_sig = state.pause_line.gather(-1, row)[..., 0]
+        cap_src = torch.where(pause_sig > 0.5, 0.0, c_otn_dt)  # delayed PFC
+
+        # ------------------------------------------------ 3. ACK accounting
+        acked = torch.where(inter, scheme.ack_view(ctx, state, ack_arr),
+                            state.delivered)          # intra: ~us loop
+        acked = torch.minimum(acked, state.sent)
+
+        # ------------------------------------------------ 4. sender rates
+        win_avail = torch.clamp(window - (state.sent - acked), min=0.0)
+        base_rate = torch.minimum(win_avail / dt_s, nic_col)
+        rate = scheme.sender_rate(ctx, state, base_rate)
+        # src-OTN -> sender PFC (1 step, from last-step queue)
+        src_nic_pause = (state.q_src.sum(-1) > xoff_otn).to(torch.float32)
+        rate = rate * torch.where(inter, 1.0 - src_nic_pause[..., None], 1.0)
+        send = rate * active * dt_s                    # bytes this step
+        sent = state.sent + send
+
+        # ------------------------------------------------ 5. source OTN
+        q_src, drained_src = scheme.src_otn_release(
+            ctx, state, send * is_inter, cap_src, active)
+        state.pipe.scatter_(-2, row_f, drained_src[..., None, :])  # at t + D
+        inflight = state.inflight + drained_src - pipe_out
+
+        # ------------------------------------------------ 6. destination OTN
+        q_leaf_tot = state.q_leaf.sum(-1)
+        leaf_pfc = (q_leaf_tot > xoff).to(torch.float32)
+        cap_dst = c_leaf_dt * (1.0 - leaf_pfc)
+        q_dst, drained_dst = drain_proportional(state.q_dst, pipe_out, cap_dst)
+        egress_bytes = drained_dst.sum(-1)
+        q_dst_tot = q_dst.sum(-1)
+        pause_dst = pfc_hysteresis(state.pause_dst, q_dst_tot, xoff_otn,
+                                   xon_otn)
+        state.pause_line.scatter_(-1, row, pause_dst[..., None])
+
+        # ------------------------------------------------ 7. destination leaf
+        arrivals_leaf = drained_dst + send * is_intra
+        mark_p = ecn_mark_prob(q_leaf_tot, cfg, params=params)
+        q_leaf, drained_leaf = drain_proportional(state.q_leaf, arrivals_leaf,
+                                                  c_leaf_dt)
+        delivered = state.delivered + drained_leaf
+        marked_acc = state.marked_acc + drained_leaf * mark_p[..., None]
+
+        # ------------------------------------------------ 8. CNP generation
+        cnp_timer = state.cnp_timer + dt_us
+        emit = (marked_acc >= MTU) & (cnp_timer >= cfg.cnp_interval_us)
+        cnp_out = emit.to(torch.float32)
+        cnp_timer = torch.where(emit, 0.0, cnp_timer)
+        marked_acc = torch.where(emit, 0.0, marked_acc)
+
+        # ------------------------------------------------ 9. scheme feedback
+        fb = scheme.feedback(ctx, state, SchemeSignals(
+            t=t, active=active, sent=sent, cnp_out=cnp_out, cnp_arr=cnp_arr,
+            egress_bytes=egress_bytes, q_dst_tot=q_dst_tot, q_leaf=q_leaf,
+            leaf_pfc=leaf_pfc))
+
+        # ------------------------------------------------ 10. return paths
+        thr_inter = drained_leaf * is_inter
+        state.ack_line.scatter_(-2, row_f, thr_inter[..., None, :])
+        state.cnp_line.scatter_(-2, row_f, fb.cnp_wire[..., None, :])
+
+        # ------------------------------------------------ 11. CC update
+        cc = step_dcqcn(state.cc, fb.cnp_in, send, cfg, rtt_scale=rtt_scale)
+
+        # ------------------------------------------------ 12. FCT
+        newly_done = (delivered >= total_bytes) & is_unfinished(state.done_at_us)
+        done_at = torch.where(newly_done, t_us, state.done_at_us)
+
+        new_state = SimState(
+            sent=sent, acked=acked, delivered=delivered, done_at_us=done_at,
+            cc=cc, cnp_timer=cnp_timer, marked_acc=marked_acc,
+            proxy_timer=fb.proxy_timer, proxy_mod=fb.proxy_mod,
+            q_src=q_src, q_dst=q_dst, q_leaf=q_leaf,
+            pipe=state.pipe, inflight=inflight,
+            ack_line=state.ack_line, cnp_line=state.cnp_line,
+            pause_line=state.pause_line, pause_dst=pause_dst, extra=fb.extra)
+        # per-flow byte conservation residual: everything the sender emitted
+        # is delivered or sits in exactly one queue or the pipe
+        residual = sent - delivered - q_src - q_dst - q_leaf - inflight
+        cons_err = (residual.abs() / torch.clamp(sent, min=1.0)).amax(-1)
+        out = {
+            "q_src": q_src.sum(-1),
+            "q_dst": q_dst_tot,
+            "q_leaf": q_leaf.sum(-1),
+            "pause_dst": pause_dst,
+            "src_paused": pause_sig,
+            "thr_inter": thr_inter.sum(-1) / dt_s,
+            "thr_intra": (drained_leaf * is_intra).sum(-1) / dt_s,
+            "cons_err": cons_err,
+        }
+        out.update(scheme.extra_traces(ctx, state))
+        return new_state, out
+
+    step.ctx = ctx      # shared per-run quantities for the metric machinery
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Driving the step: eager on the CPU, CUDA graphs on the card
+# ---------------------------------------------------------------------------
+
+
+def _tree_leaves(tree) -> list:
+    if torch.is_tensor(tree):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in _tree_leaves(v)]
+    return []
+
+
+def _tree_clone(tree):
+    if torch.is_tensor(tree):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _tree_clone(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_clone(v) for v in tree))
+    if isinstance(tree, tuple):
+        return tuple(_tree_clone(v) for v in tree)
+    return tree
+
+
+class _Carry(NamedTuple):
+    state: SimState
+    t: torch.Tensor                  # int32 0-d: the next step's index
+    acc: Optional[MetricAcc]         # metrics mode
+    traces: Optional[torch.Tensor]   # [B, K, rows] full/decimate mode
+
+
+def _make_advance(step, scheme, mode: str, decimate: int, warm: int,
+                  keys: tuple):
+    """One step of the run with its mode's bookkeeping, ``carry -> carry``.
+    Full/decimate modes write the step's trace values into row
+    ``t // decimate`` of the trace buffer (the block's last step is the one
+    kept, as the JAX package keeps it)."""
+    ctx = step.ctx
+    k = decimate if mode == "decimate" else 1
+
+    def advance(c: _Carry) -> _Carry:
+        state, out = step(c.state, c.t)
+        acc, traces = c.acc, c.traces
+        if mode == "metrics":
+            inc = (c.t >= warm).to(torch.float32)
+            acc = _accumulate_engine(acc, out, inc)
+            acc = acc._replace(scheme=scheme.accumulate_metrics(
+                ctx, acc.scheme, state, out, inc))
+        else:
+            col = (c.t // k).to(torch.int64)[None]
+            vals = torch.stack([out[key] for key in keys], -1)
+            traces.index_copy_(-1, col, vals[..., None])
+        return _Carry(state, c.t + 1, acc, traces)
+
+    return advance
+
+
+def _capture(advance, carry: _Carry, n: int, pool):
+    """A CUDA graph of ``n`` advances that reads and writes ``carry``'s
+    tensors in place."""
+    graph = torch.cuda.CUDAGraph()
+    src = _tree_leaves(carry)
+    with torch.cuda.graph(graph, pool=pool):
+        c = carry
+        for _ in range(n):
+            c = advance(c)
+        for dst, new in zip(src, _tree_leaves(c)):
+            if new is not dst:
+                dst.copy_(new)
+    return graph
+
+
+def _drive(step, scheme, state0: SimState, steps: int, mode: str,
+           decimate: int, warm: int, graph_block: int,
+           profile: Optional[dict] = None):
+    """Run ``steps`` steps from ``state0``; returns ``(final, aux)`` with
+    ``aux`` the ``{key: [..., T']}`` trace dict or a ``MetricAcc``.
+    ``profile``, when given, receives the run's timings: ``capture_s`` (host
+    seconds capturing the graphs) and ``run_ms`` (the steps' device time by
+    CUDA events on the card, host time on the CPU)."""
+    dev = state0.sent.device
+    ctx = step.ctx
+    t0 = torch.zeros((), dtype=torch.int32, device=dev)
+    # one step on a copy names the trace keys (and warms the allocator)
+    _, out = step(_tree_clone(state0), t0)
+    keys = tuple(out)
+    acc = traces = None
+    if mode == "metrics":
+        acc = _init_metric_acc(scheme, ctx, state0)
+    else:
+        k = decimate if mode == "decimate" else 1
+        rows = steps // k
+        # one spare row takes the steps past the last whole block
+        traces = torch.zeros(out["q_dst"].shape + (len(keys), rows + 1),
+                             device=dev)
+    carry = _Carry(state0, t0, acc, traces)
+    advance = _make_advance(step, scheme, mode, decimate, warm, keys)
+    timer = _Timer(dev)
+    if dev.type == "cuda" and graph_block > 0:
+        carry = _Carry(*_tree_clone(tuple(carry)))
+        block = max(min(graph_block, steps), 1)
+        pool = torch.cuda.graph_pool_handle()
+        plan = [(n, reps) for n, reps in ((block, steps // block),
+                                          (steps % block, 1)) if n and reps]
+        graphs = [(_capture(advance, carry, n, pool), reps) for n, reps in plan]
+        timer.captured()
+        for graph, reps in graphs:
+            for _ in range(reps):
+                graph.replay()
+    else:
+        timer.captured()
+        for _ in range(steps):
+            carry = advance(carry)
+    if profile is not None:
+        profile.update(timer.done())
+    if mode == "metrics":
+        return carry.state, carry.acc
+    return carry.state, {key: carry.traces[..., i, :rows]
+                         for i, key in enumerate(keys)}
+
+
+class _Timer:
+    """Host time of the set-up, then the steps' time: CUDA events on the
+    card (device time from the first replay to the last), host clock with
+    the CPU."""
+
+    def __init__(self, dev: torch.device):
+        self.cuda = dev.type == "cuda"
+        self.t0 = time.perf_counter()
+
+    def captured(self):
+        self.t1 = time.perf_counter()
+        if self.cuda:
+            self.ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            self.ev[0].record()
+
+    def done(self) -> dict:
+        if self.cuda:
+            self.ev[1].record()
+            self.ev[1].synchronize()
+            run_ms = self.ev[0].elapsed_time(self.ev[1])
+        else:
+            run_ms = (time.perf_counter() - self.t1) * 1e3
+        return {"capture_s": self.t1 - self.t0, "run_ms": run_ms,
+                "wall_s": time.perf_counter() - self.t0}
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+
+def simulate(cfg: NetConfig, workload, scheme, horizon_us: Optional[float] = None,
+             period_slots: int = 0, delay_pad: int = 0, history_slots: int = 0,
+             trace_mode: str = "full", decimate: int = 1, channel=None,
+             device=None, graph_block: int = GRAPH_BLOCK):
+    """Run one scenario; returns ``(final_state, traces)`` with ``[T]`` traces
+    (or ``(final_state, MetricAcc)`` under ``trace_mode="metrics"``), leaves
+    without a batch axis. A batch of one through ``simulate_batch``."""
+    final, aux = simulate_batch(
+        [cfg], [workload] if not isinstance(workload, WorkloadParams)
+        else WorkloadParams(*(np.asarray(v)[None] for v in workload)),
+        scheme, horizon_us if horizon_us is not None else cfg.horizon_us,
+        period_slots, trace_mode=trace_mode, decimate=decimate,
+        delay_pad=delay_pad, history_slots=history_slots, channel=channel,
+        device=device, graph_block=graph_block)
+    return _index_tree(final, 0), _index_tree(aux, 0)
+
+
+def _index_tree(tree, i):
+    if torch.is_tensor(tree):
+        return tree[i]
+    if isinstance(tree, dict):
+        return {k: _index_tree(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_index_tree(v, i) for v in tree))
+    return tree
+
+
+def batch_padding(cfgs: Sequence[NetConfig]):
+    """(delay_pad, history_slots) covering every scenario in the grid: the
+    ring sizes shared by all cells of a batch (the pad absorbs any excess of
+    a cell's control-processing steps over the template's)."""
+    tmpl = batch_template(cfgs)
+    delay_pad = (max(c.static_delay_steps for c in cfgs)
+                 + max(0, max(c.control_proc_steps for c in cfgs)
+                       - tmpl.control_proc_steps))
+    return delay_pad, max(default_history_slots(c) for c in cfgs)
+
+
+def build_batch(cfgs: Sequence[NetConfig], workload, scheme,
+                period_slots: int = 0, delay_pad: int = 0,
+                history_slots: int = 0, device=None):
+    """``(template, state0, step)`` of a scenario batch: the batch's static
+    template, its initial state and its step function, with the rings
+    padded to the batch (and at least ``delay_pad``/``history_slots``)."""
+    cfgs = list(cfgs)
+    if not cfgs:
+        raise ValueError("simulate_batch: empty config batch")
+    for c in cfgs:
+        check_main_path(c)
+    scheme = get_scheme(scheme)
+    dev = resolve_device(device)
+    tmpl = batch_template(cfgs)
+    dp, hs = batch_padding(cfgs)
+    delay_pad, history_slots = max(delay_pad, dp), max(history_slots, hs)
+    params = stack_net_params(cfgs, device=dev)
+    wlp = as_workload_batch(workload, len(cfgs))
+    state0 = init_state(tmpl, wlp.is_inter.shape[-1], params=params,
+                        delay_pad=delay_pad, history_slots=history_slots,
+                        scheme=scheme)
+    step = make_step_fn(tmpl, wlp, scheme, period_slots, params=params,
+                        delay_pad=delay_pad)
+    return tmpl, state0, step
+
+
+def simulate_batch(cfgs: Sequence[NetConfig], workload, scheme,
+                   horizon_us: Optional[float] = None, period_slots: int = 0,
+                   trace_mode: str = "full", decimate: int = 1,
+                   delay_pad: int = 0, history_slots: int = 0,
+                   warm_steps: Optional[int] = None, channel=None,
+                   device=None, graph_block: int = GRAPH_BLOCK,
+                   profile: Optional[dict] = None):
+    """Run a whole scenario grid as one ``[B]`` batch.
+
+    ``cfgs``: the per-scenario configs; every static field must match (the
+    per-scenario scalars go into a stacked ``NetParams``). ``workload``: one
+    shared ``Workload``, one per scenario, or stacked ``[B, F]``
+    ``WorkloadParams``. Returns ``(final_states, traces)`` with a leading
+    ``[B]`` axis on every leaf, or ``(final_states, MetricAcc)`` under
+    ``trace_mode="metrics"``. ``delay_pad``/``history_slots`` set MINIMUM
+    ring sizes; ``warm_steps`` overrides the warm-up cutoff of the streamed
+    reductions. ``device``: where the batch runs, ``cuda`` unless the caller
+    says (raises without a GPU). ``graph_block``: steps per captured CUDA
+    graph on the card; 0 runs the steps eagerly there (the reference the
+    graphs are held to). ``profile``: a dict that receives ``steps``,
+    ``cells`` and the run's timings (see ``_drive``)."""
+    cfgs = list(cfgs)
+    for c in cfgs:
+        check_main_path(c, channel, trace_mode, decimate)
+    tmpl, state0, step = build_batch(cfgs, workload, scheme, period_slots,
+                                     delay_pad, history_slots, device)
+    steps = tmpl.horizon_steps(
+        horizon_us if horizon_us is not None
+        else max(c.horizon_us for c in cfgs))
+    warm = int(steps * WARMUP_FRAC) if warm_steps is None else int(warm_steps)
+    if profile is not None:
+        profile.update(steps=steps, cells=len(cfgs))
+    return _drive(step, get_scheme(scheme), state0, steps, trace_mode,
+                  decimate, warm, graph_block, profile)

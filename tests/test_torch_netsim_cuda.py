@@ -1,0 +1,73 @@
+"""The port's netsim on the card: the CUDA-graph path against the eager steps
+bit for bit, the card against the CPU on the golden scenarios, and the
+options outside the ported path raising there too.
+
+These tests import no JAX, so they run on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_netsim_cuda.py
+
+Without a CUDA GPU every test here skips. Card against CPU: the card divides
+by a constant as a multiply by its reciprocal and sums in another order, an
+ulp a step apart, so the runs are held to the Fig. 3 columns and the final
+state with the tolerances the CPU parity tests use (``tests/torch_parity.py``).
+"""
+import pytest
+import torch
+
+from repro_torch.config.net import NetConfig
+from repro_torch.netsim import fluid
+from repro_torch.netsim import workload as pwork
+from torch_parity import (
+    GOLDEN, SCHEMES, assert_columns_close, assert_final_close, fig3_columns,
+    golden_configs, golden_workload, leaves,
+)
+
+
+@pytest.fixture
+def cuda():
+    """The card; decided here, never at import."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    return torch.device("cuda", 0)
+
+
+def _run(name, scheme, device, **kw):
+    return fluid.simulate_batch(golden_configs(name, NetConfig),
+                                golden_workload(name, pwork), scheme,
+                                GOLDEN[name][3], device=device, **kw)
+
+
+@pytest.mark.parametrize("mode", ["full", "metrics"])
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_graph_matches_eager_bit_for_bit(cuda, scheme, mode):
+    kw = dict(trace_mode=mode, horizon_us=512 * 5.0)
+    cfgs = golden_configs("batch", NetConfig)
+    wl = golden_workload("batch", pwork)
+    eager = fluid.simulate_batch(cfgs, wl, scheme, device=cuda, graph_block=0, **kw)
+    graph = fluid.simulate_batch(cfgs, wl, scheme, device=cuda, graph_block=100, **kw)
+    e, g = leaves(eager), leaves(graph)
+    assert sorted(e) == sorted(g) and len(e) > 40
+    diff = [k for k in e if not (e[k] == g[k]).all()]
+    assert not diff, diff
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("name", sorted(GOLDEN))
+def test_card_matches_cpu(cuda, name, scheme):
+    cf, ct = _run(name, scheme, cuda)
+    pf, pt = _run(name, scheme, "cpu")
+    steps = int(GOLDEN[name][3] / 5.0)
+    card = {k: v.cpu().numpy() for k, v in ct.items()}
+    cpu = {k: v.numpy() for k, v in pt.items()}
+    assert_columns_close(fig3_columns(card, steps), fig3_columns(cpu, steps),
+                         f"{name}/{scheme}")
+    assert_final_close(cf, pf, 5.0, f"{name}/{scheme}")
+
+
+def test_unported_options_raise_on_the_card(cuda):
+    wl = pwork.throughput_workload(1 << 20, 1, 2)
+    for cfg, kw in ((NetConfig(num_paths=2), {}), (NetConfig(soft_step=True), {}),
+                    (NetConfig(), {"channel": "jitter"}),
+                    (NetConfig(), {"trace_mode": "window"})):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+            fluid.simulate_batch([cfg], wl, "dcqcn", 100.0, device=cuda, **kw)

@@ -1,0 +1,163 @@
+"""The port's runner against the JAX package's: ``run_experiment_batch`` and
+``sweep_grid`` rows (``full`` and ``metrics`` modes, heterogeneous scenario
+grids, chunked plans), the unported options that must raise, and the entry
+point's device rule.
+
+Row tolerances (the Fig. 3 columns): throughput, goodput, peak / mean / p99
+buffer and intra-DC throughput within ``COLUMN_REL`` (1e-3) relative plus
+``ABS_FLOOR``; pause
+ratio within ``PAUSE_ABS`` (1e-3); in ``metrics`` mode the p99 within one
+histogram bin; average FCT within one step (``dt_us``, FCTs are step
+times); completion equal; the schemes' streamed columns within 1e-3.
+"""
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+import repro.netsim as jnetsim
+from repro.config.base import NetConfig as JNetConfig
+from repro.netsim import workload as jwork
+from repro_torch.config.net import NetConfig
+from repro_torch.netsim import runner as prunner
+from repro_torch.netsim import workload as pwork
+from repro_torch.netsim.streaming import HIST_BINS
+from torch_parity import COLUMN_REL, PAUSE_ABS
+
+BIN_RATIO = 10 ** (12 / (HIST_BINS - 1))
+# on top of the relative limit, 100 bytes (1e-4 MB; 1e-4 Gbps for the rates):
+# a drained queue holds f32 residues of a few bytes (available minus drained
+# bytes of order 1e6; JAX leaves -2e-9 MB where the port leaves 0), and its
+# p99 or mean is made of them
+ABS_FLOOR = 1e-4
+H_US = 4_000.0
+
+
+def assert_rows_close(prows, jrows, metrics_mode=False, what=""):
+    assert len(prows) == len(jrows), what
+    for p, j in zip(prows, jrows):
+        assert sorted(p) == sorted(j), (what, sorted(set(p) ^ set(j)))
+        assert p["scheme"] == j["scheme"] and p["distance_km"] == j["distance_km"]
+        for k, r in j.items():
+            if k in ("scheme", "distance_km"):
+                continue
+            v = p[k]
+            if k == "completion_frac":
+                ok = v == r
+            elif k == "avg_fct_us":
+                ok = (np.isnan(v) and np.isnan(r)) or v == r or abs(v - r) <= 5.0
+            elif k == "pause_ratio":
+                ok = abs(v - r) <= PAUSE_ABS
+            elif k == "p99_buffer_mb" and metrics_mode:
+                ok = v == r or (min(v, r) > 0 and max(v, r) / min(v, r) <= BIN_RATIO * 1.0001)
+            else:
+                ok = abs(v - r) <= COLUMN_REL * abs(r) + ABS_FLOOR
+            assert ok, f"{what} {p['scheme']} d={p['distance_km']} {k}: {v} vs {r}"
+
+
+def _grid(netconfig, work):
+    """Mixed distances and capacities, three workloads (a padded flow set)."""
+    cells = [(1.0, 16, "throughput_workload", dict(msg_size=1 << 20, concurrency=2, num_flows=4)),
+             (100.0, 16, "congestion_workload", dict(num_inter=3, num_intra=2,
+                                                     burst_start_us=1_000.0,
+                                                     burst_len_us=1_500.0,
+                                                     horizon_us=H_US)),
+             (300.0, 8, "mixed_fct_workload", dict(msg_size=16 << 10, num_inter=2,
+                                                   num_intra=2, num_background=1,
+                                                   request_start_us=500.0)),
+             (50.0, 4, "throughput_workload", dict(msg_size=64 << 10, concurrency=4, num_flows=2))]
+    return ([netconfig(distance_km=d, num_otn_links=n) for d, n, _, _ in cells],
+            [getattr(work, b)(**kw) for _, _, b, kw in cells])
+
+
+@pytest.mark.parametrize("mode", ["full", "metrics"])
+def test_sweep_grid_rows_match_jax(mode):
+    jcfgs, jwls = _grid(JNetConfig, jwork)
+    pcfgs, pwls = _grid(NetConfig, pwork)
+    schemes = ("dcqcn", "pseudo_ack", "themis", "matchrdma")
+    jrows = jnetsim.sweep_grid([jnetsim.Scenario(c, w) for c, w in zip(jcfgs, jwls)],
+                               schemes, horizon_us=H_US, trace_mode=mode)
+    # full mode with chunk_cells=3: two launches, the second padded with its
+    # last cell
+    prows = prunner.sweep_grid([prunner.Scenario(c, w) for c, w in zip(pcfgs, pwls)],
+                               schemes, horizon_us=H_US, trace_mode=mode,
+                               chunk_cells=3 if mode == "full" else None,
+                               device="cpu")
+    assert_rows_close(prows, jrows, mode == "metrics", f"sweep_grid {mode}")
+
+
+def test_run_experiment_batch_and_sweep_match_jax():
+    wl_j = jwork.throughput_workload(256 << 10, 2, 3)
+    wl_p = pwork.throughput_workload(256 << 10, 2, 3)
+    dists = (1.0, 200.0)
+    jrows = jnetsim.run_experiment_batch([JNetConfig(distance_km=d) for d in dists],
+                                         wl_j, jnetsim.get_scheme("matchrdma"), H_US)
+    prows = prunner.run_experiment_batch([NetConfig(distance_km=d) for d in dists],
+                                         wl_p, "matchrdma", H_US, device="cpu")
+    assert_rows_close(prows, jrows, what="run_experiment_batch")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        j1 = jnetsim.run_experiment(JNetConfig(distance_km=10.0), wl_j, "themis", H_US)
+    p1 = prunner.run_experiment(NetConfig(distance_km=10.0), wl_p, "themis", H_US,
+                                device="cpu")
+    assert_rows_close([p1], [j1], what="run_experiment")
+    js = jnetsim.sweep(JNetConfig(), wl_j, ("dcqcn",), (1.0, 20.0), horizon_us=H_US)
+    ps = prunner.sweep(NetConfig(), wl_p, ("dcqcn",), (1.0, 20.0), horizon_us=H_US,
+                       device="cpu")
+    assert_rows_close(ps, js, what="sweep")
+    cfgs = [NetConfig(distance_km=d) for d in (10.0, 700.0)]
+    assert prunner.convergence_horizon_us(cfgs) == jnetsim.runner.convergence_horizon_us(
+        [JNetConfig(distance_km=d) for d in (10.0, 700.0)])
+
+
+def test_chunk_plan_matches_jax():
+    for steps, mode, k in ((44_000, "full", 1), (20_000, "decimate", 10),
+                           (44_000, "metrics", 1)):
+        assert prunner.chunk_cells(steps, mode, k) == \
+            jnetsim.runner.chunk_cells(steps, mode, k)
+    assert prunner._plan_launches(10, ("a",), 4) == [
+        prunner._Launch("a", lo, hi, 4) for lo, hi in ((0, 4), (4, 8), (8, 10))]
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(channel="bernoulli_loss"), "item 13"),
+    (dict(trace_mode="window"), "item 15"),
+    (dict(checkpoint_dir="x"), "item 15"),
+    (dict(strict_conservation=True), "item 15"),
+    (dict(on_nonfinite="raise"), "item 15"),
+    (dict(manifest_path="m.jsonl"), "item 15"),
+    (dict(abort_after_launches=1), "item 15"),
+    (dict(devices=["cpu", "cpu"]), "item 17"),
+])
+def test_unported_runner_options_raise(kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        prunner.run_experiment_batch([NetConfig()], pwork.throughput_workload(1 << 20, 1, 2),
+                                     "dcqcn", 100.0, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("cfg,item", [
+    (dict(num_paths=2), "item 14"), (dict(num_sites=3, num_paths=3), "item 14"),
+    (dict(failure_schedule=(((1.0, 2.0),),)), "item 15"),
+    (dict(soft_step=True), "item 16"),
+])
+def test_unported_configs_raise(cfg, item):
+    from repro_torch.netsim.fluid import simulate_batch
+    with pytest.raises(NotImplementedError, match=item):
+        simulate_batch([NetConfig(**cfg)], pwork.throughput_workload(1 << 20, 1, 2),
+                       "dcqcn", 100.0, device="cpu")
+
+
+def test_entry_point_runs_on_cuda_unless_asked():
+    from repro_torch.launch import netsim as launch
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: the default device is usable here")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch.main(["--figure", "fig3cd", "--horizon-us", "50"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        prunner.run_experiment_batch([NetConfig()], pwork.throughput_workload(1 << 20, 1, 2),
+                                     "dcqcn", 100.0)
+    out = launch.main(["--figure", "fig3cd", "--horizon-us", "50", "--device", "cpu"])
+    assert out["device"] == "cpu" and len(out["rows"]) == 10
+    assert [r["scheme"] for r in out["schemes"]] == ["dcqcn", "pseudo_ack", "themis",
+                                                     "matchrdma"]
