@@ -90,15 +90,30 @@ and builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    d_steps" on the batch that mixes distances, "MatchRDMA's source-OTN
    release ignores the budget gate"); then Fig. 3b at full width through
    ``launch.netsim``: 7 distances x 6 message sizes = 42 cells of 4 flows at
-   the paper's 220 ms (44,000 steps), one [B=42] batch per scheme, with its
-   wall time, cell-steps per second, device ms per step (CUDA events),
-   kernels per step (100 eager steps under the profiler), the device's idle
-   share (a profiled graph replay), the rows and the max speedup vs DCQCN.
+   44 ms (8,800 steps; a fifth of the paper's 220 ms, so that phase 11 fits),
+   one [B=42] batch per scheme, with its wall time, cell-steps per second,
+   device ms per step (CUDA events), kernels per step (100 eager steps under
+   the profiler), the device's idle share (a profiled graph replay), the
+   rows and the max speedup vs DCQCN.
+11. the seven schemes over the multi-link and multi-site long haul (the
+   related-work pack geopipe / sdr_rdma / rdmacell, the [L] link axis, site
+   graphs; again no kernel of its own): card vs CPU with phase 10's limits
+   for the three on the golden scenarios, and for all seven on a
+   three-link delay-spread cell of scheme_compare's topology grid and on
+   its 3-site mesh (4 ms each); graphs vs eager steps bit for bit for the
+   three on the golden batch and all seven on the three-link cell; two
+   planted faults that must read over a limit ("every link's ring read at
+   link 0's delay", "rdmacell's route_weights returns the base route");
+   then ``launch.netsim``'s ``scheme_compare`` (7 distances, 220 ms, one
+   [B=7] batch a scheme) and ``topology`` (3 x 3 unequal three-link cells,
+   20 ms, [B=9]) grids with their row asserts, wall, cell-steps per second,
+   device ms and kernels per step for each scheme.
 
 Each serving and training path runs with every kernel's launch count set to
 0 just before it and read just after. The last lines are the serving,
-training and netsim JSON records, the card's ``name, power.limit``, the
-kernels' JSON record, and ``{"ok": true, "device": {...}}``.
+training, netsim and multi-link netsim JSON records, the card's
+``name, power.limit``, the kernels' JSON record, and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -221,6 +236,21 @@ NETSIM_TOL = {"throughput": 1e-3, "peak_buffer": 1e-3, "mean_buffer": 1e-3,
 NETSIM_FLOOR = {"throughput": 1e-4 * 1e9 / 8.0, "peak_buffer": 100.0,
                 "mean_buffer": 100.0, "p99_buffer": 100.0}
 NETSIM_GRAPH_STEPS = 512   # graph vs eager on the card, the golden batch
+# Fig. 3b's horizon here: a fifth of the paper's 220 ms (8,800 steps), so
+# that phases 10 and 11 together fit the script's time; the full depth runs
+# through `python -m repro_torch.launch.netsim --figure fig3b --full`.
+NETSIM_FIG3B_H_US = 44_000.0
+# Phase 11, the seven schemes over the multi-link and multi-site long haul:
+# the related-work pack, and two multi-link scenarios: one
+# delay-spread cell of benchmarks/scheme_compare.py's topology grid (100 km,
+# three links, delays x1/x2/x4, capacities 0.6/0.3/0.1) under the golden
+# congestion workload, and scheme_compare's 3-site mesh (SITES_EDGES) under
+# its _sites_workload; cut to 4 ms, as the CPU side runs eagerly.
+NETSIM_RELATED = ("geopipe", "sdr_rdma", "rdmacell")
+NETSIM_ALL = NETSIM_SCHEMES + NETSIM_RELATED
+NETSIM_LINKS3 = dict(distance_km=100.0, num_paths=3, path_delay_scale=(1.0, 2.0, 4.0),
+                     path_cap_frac=(0.6, 0.3, 0.1))
+NETSIM_LINKS_H_US = 4_000.0
 
 
 def fail(msg: str) -> None:
@@ -1064,18 +1094,41 @@ def phase_train(torch, card: str, arch: str, planted: dict) -> dict:
     return out
 
 
+def netsim_scenario(name: str):
+    """(configs, workload, horizon us) of a golden scenario (NETSIM_GOLDEN),
+    ``links3`` or ``mesh`` (NETSIM_LINKS3, the 3-site mesh)."""
+    from repro_torch.config.net import NetConfig
+    from repro_torch.netsim import topology, workload
+
+    if name in NETSIM_GOLDEN:
+        dists, build, kw, horizon = NETSIM_GOLDEN[name]
+        return ([NetConfig(distance_km=d) for d in dists],
+                getattr(workload, build)(**kw), horizon)
+    h = NETSIM_LINKS_H_US
+    if name == "links3":
+        return ([NetConfig(**NETSIM_LINKS3)],
+                workload.congestion_workload(**NETSIM_GOLDEN["seq"][2]), h)
+    e, fs = topology.SiteEdge, workload.FlowSpec
+    mesh = topology.SiteGraph(3, (e(0, 1), e(0, 1, delay_scale=1.5),
+                                  e(0, 2, cap_frac=0.2), e(2, 1, cap_frac=0.2)))
+    flows = ([fs(True, 1 << 20, 16) for _ in range(2)]
+             + [fs(True, 1 << 20, 16, src_site=0, dst_site=2),
+                fs(True, 1 << 20, 16, src_site=2, dst_site=1)]
+             + [fs(False, 256 << 10, 8, dst_site=1, start_us=h / 3.0, period_us=h,
+                   duty=1.0 / 3.0) for _ in range(2)])
+    return ([mesh.to_net_config(NetConfig(distance_km=100.0))],
+            workload.Workload(tuple(flows)), h)
+
+
 def netsim_golden_run(torch, name: str, scheme: str, device) -> dict:
-    """One golden scenario through ``simulate_batch``: the Fig. 3 columns of
-    its traces (per cell) and its final state, as numpy."""
+    """One scenario (``netsim_scenario``) through ``simulate_batch``: the
+    Fig. 3 columns of its traces (per cell) and its final state, as numpy."""
     import numpy as np
 
-    from repro_torch.config.net import NetConfig
-    from repro_torch.netsim import fluid, workload
+    from repro_torch.netsim import fluid
 
-    dists, build, kw, horizon = NETSIM_GOLDEN[name]
-    final, traces = fluid.simulate_batch(
-        [NetConfig(distance_km=d) for d in dists],
-        getattr(workload, build)(**kw), scheme, horizon, device=device)
+    cfgs, wl, horizon = netsim_scenario(name)
+    final, traces = fluid.simulate_batch(cfgs, wl, scheme, horizon, device=device)
     tr = {k: v.cpu().numpy().astype(np.float64) for k, v in traces.items()}
     warm = int(tr["q_dst"].shape[1] * fluid.WARMUP_FRAC)
     return {
@@ -1127,10 +1180,10 @@ def phase_netsim(torch, card: str) -> dict:
     """The netsim Fig. 3 path on the card (phase 10): card vs CPU on the
     golden scenarios, graph vs eager bit for bit, two planted faults, and
     Fig. 3b at full width (7 distances x 6 message sizes = 42 cells, 4 flows
-    each, 220 ms) for the four schemes, one [B=42] batch a scheme."""
-    from repro_torch.config.net import NetConfig
+    each; 44 ms, a fifth of the paper's 220 ms) for the four schemes, one
+    [B=42] batch a scheme."""
     from repro_torch.launch import netsim as launch_netsim
-    from repro_torch.netsim import fluid, workload
+    from repro_torch.netsim import fluid
     from repro_torch.netsim.schemes.base import Scheme
     from repro_torch.netsim.schemes.matchrdma import MatchRdmaScheme
 
@@ -1139,71 +1192,31 @@ def phase_netsim(torch, card: str) -> dict:
 
     # 1. card (graphs) vs CPU (eager) on the golden scenarios
     t0 = time.perf_counter()
-    cpu, cards, sound = {}, {}, {}
-    for name in NETSIM_GOLDEN:
-        for scheme in NETSIM_SCHEMES:
-            key = f"{name}/{scheme}"
-            cpu[key] = netsim_golden_run(torch, name, scheme, "cpu")
-            cards[key] = netsim_golden_run(torch, name, scheme, dev)
-            sound[key] = netsim_readings(cards[key], cpu[key])
-            print(f"  card vs CPU {key}: " + ", ".join(
-                f"{k} {v:.3e}" for k, v in sound[key].items()), flush=True)
-    bad = {k: over_netsim(v) for k, v in sound.items() if over_netsim(v)}
-    check(not bad, f"netsim card vs CPU over the limits {NETSIM_TOL}: {bad}")
-    out["card_vs_cpu"] = sound
+    out["card_vs_cpu"], cpu, cards = netsim_card_vs_cpu(
+        torch, [(n, s) for n in NETSIM_GOLDEN for s in NETSIM_SCHEMES], dev)
     print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # 2. graph vs eager on the card, bit for bit
-    dists, build, kw, _ = NETSIM_GOLDEN["batch"]
-    cfgs = [NetConfig(distance_km=d) for d in dists]
-    wl = getattr(workload, build)(**kw)
-    h = NETSIM_GRAPH_STEPS * cfgs[0].dt_us
-    equal = {}
-    for scheme in NETSIM_SCHEMES:
-        runs = [fluid.simulate_batch(cfgs, wl, scheme, h, device=dev, graph_block=g)
-                for g in (0, fluid.GRAPH_BLOCK)]
-        a, b = (netsim_leaves(torch, r) for r in runs)
-        equal[scheme] = sorted(k for k in a if not torch.equal(a[k], b[k]))
-        print(f"  graph vs eager {scheme}, {NETSIM_GRAPH_STEPS} steps: {len(a)} leaves, "
-              f"{len(equal[scheme])} differ", flush=True)
-    check(not any(equal.values()), f"CUDA graphs differ from the eager steps: {equal}")
+    netsim_graph_vs_eager(torch, [("batch", s) for s in NETSIM_SCHEMES], dev)
 
     # 3. planted faults, in the card's run only; each must read over a limit
-    controls = {}
-
     def wrap_at_pad(t, d_steps, delay_pad):
         return torch.remainder(t, torch.full_like(d_steps, delay_pad))
 
-    for fault, key, (owner, attr, repl) in (
-            ("ring wraps at delay_pad instead of each scenario's d_steps",
-             "batch/dcqcn", (fluid, "ring_row", wrap_at_pad)),
-            ("MatchRDMA's source-OTN release ignores the budget gate",
-             "seq/matchrdma", (MatchRdmaScheme, "src_otn_release",
-                               Scheme.src_otn_release))):
-        kept = owner.__dict__[attr]
-        setattr(owner, attr, repl)
-        try:
-            name, scheme = key.split("/")
-            planted = netsim_golden_run(torch, name, scheme, dev)
-        finally:
-            setattr(owner, attr, kept)
-        r = netsim_readings(planted, cpu[key])
-        controls[fault] = {"case": key, "readings": r, "over": over_netsim(r),
-                           "peak_buffer_mb": (planted["peak_buffer"] / 1e6).tolist(),
-                           "throughput_gbps": (planted["throughput"] * 8 / 1e9).tolist()}
-        print(f"  control, {fault} ({key}): " + ", ".join(
-            f"{k} {v:.3e}" for k, v in r.items()) + f"; peak buffer "
-            f"{controls[fault]['peak_buffer_mb']} MB, throughput "
-            f"{controls[fault]['throughput_gbps']} Gbps", flush=True)
-        check(bool(controls[fault]["over"]), f"the card-vs-CPU check does not catch: {fault}")
+    out["planted"] = netsim_planted(torch, (
+        ("ring wraps at delay_pad instead of each scenario's d_steps",
+         "batch/dcqcn", (fluid, "ring_row", wrap_at_pad)),
+        ("MatchRDMA's source-OTN release ignores the budget gate",
+         "seq/matchrdma", (MatchRdmaScheme, "src_otn_release",
+                           Scheme.src_otn_release))), cpu, dev)
     print(f"  peak buffer (seq, card), MB: " + ", ".join(
         f"{s} {cards['seq/' + s]['peak_buffer'][0] / 1e6:.3f}" for s in NETSIM_SCHEMES),
         flush=True)
-    out["planted"] = controls
 
-    # 4. Fig. 3b at full width, each scheme's 42 cells as one batch
+    # 4. Fig. 3b at full width (at NETSIM_FIG3B_H_US), each scheme's 42
+    # cells as one batch
     t0 = time.perf_counter()
-    fig = launch_netsim.Figure("fig3b", dev)
+    fig = launch_netsim.Figure("fig3b", dev, horizon_us=NETSIM_FIG3B_H_US)
     rows = launch_netsim.fig3b_throughput(fig, full=True)
     for r in fig.records:
         check(r["cells"] == 42 and r["launches"] == 1,
@@ -1231,6 +1244,131 @@ def phase_netsim(torch, card: str) -> dict:
     return out
 
 
+def netsim_card_vs_cpu(torch, cases, dev) -> dict:
+    """Card (CUDA graphs) vs CPU (eager) readings for each (scenario, scheme)
+    of ``cases``; fails the run over NETSIM_TOL. Returns the readings, the
+    CPU runs (the planted faults are read against them) and the card's."""
+    cpu, cards, sound = {}, {}, {}
+    for name, scheme in cases:
+        key = f"{name}/{scheme}"
+        cpu[key] = netsim_golden_run(torch, name, scheme, "cpu")
+        cards[key] = netsim_golden_run(torch, name, scheme, dev)
+        sound[key] = netsim_readings(cards[key], cpu[key])
+        print(f"  card vs CPU {key}: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in sound[key].items()), flush=True)
+    bad = {k: over_netsim(v) for k, v in sound.items() if over_netsim(v)}
+    check(not bad, f"netsim card vs CPU over the limits {NETSIM_TOL}: {bad}")
+    return sound, cpu, cards
+
+
+def netsim_graph_vs_eager(torch, cases, dev) -> dict:
+    """Each (scenario, scheme) for NETSIM_GRAPH_STEPS steps through CUDA graphs
+    and through eager steps on the card; fails the run unless every leaf of
+    the result is equal."""
+    from repro_torch.netsim import fluid
+
+    equal = {}
+    for name, scheme in cases:
+        cfgs, wl, _ = netsim_scenario(name)
+        h = NETSIM_GRAPH_STEPS * cfgs[0].dt_us
+        runs = [fluid.simulate_batch(cfgs, wl, scheme, h, device=dev, graph_block=g)
+                for g in (0, fluid.GRAPH_BLOCK)]
+        a, b = (netsim_leaves(torch, r) for r in runs)
+        equal[f"{name}/{scheme}"] = sorted(k for k in a if not torch.equal(a[k], b[k]))
+        print(f"  graph vs eager {name}/{scheme}, {NETSIM_GRAPH_STEPS} steps: {len(a)} "
+              f"leaves, {len(equal[f'{name}/{scheme}'])} differ", flush=True)
+    check(not any(equal.values()), f"CUDA graphs differ from the eager steps: {equal}")
+    return equal
+
+
+def netsim_planted(torch, faults, cpu, dev) -> dict:
+    """Each (fault, "scenario/scheme", (owner, attribute, replacement)) run
+    on the card with the attribute replaced; fails the run unless its
+    readings against the sound CPU run go over a limit."""
+    controls = {}
+    for fault, key, (owner, attr, repl) in faults:
+        kept = owner.__dict__[attr]
+        setattr(owner, attr, repl)
+        try:
+            name, scheme = key.split("/")
+            planted = netsim_golden_run(torch, name, scheme, dev)
+        finally:
+            setattr(owner, attr, kept)
+        r = netsim_readings(planted, cpu[key])
+        controls[fault] = {"case": key, "readings": r, "over": over_netsim(r),
+                           "peak_buffer_mb": (planted["peak_buffer"] / 1e6).tolist(),
+                           "throughput_gbps": (planted["throughput"] * 8 / 1e9).tolist()}
+        print(f"  control, {fault} ({key}): " + ", ".join(
+            f"{k} {v:.3e}" for k, v in r.items()) + f"; peak buffer "
+            f"{controls[fault]['peak_buffer_mb']} MB, throughput "
+            f"{controls[fault]['throughput_gbps']} Gbps", flush=True)
+        check(bool(controls[fault]["over"]), f"the card-vs-CPU check does not catch: {fault}")
+    return controls
+
+
+def netsim_figure(torch, card: str, name: str, n_cells: int) -> dict:
+    """One of launch.netsim's seven-scheme figures on the card (its default
+    grid), each scheme's grid one streamed batch: rows, wall, cell-steps/s,
+    device ms a step, kernels a step."""
+    from repro_torch.launch import netsim as launch_netsim
+
+    t0 = time.perf_counter()
+    fig = launch_netsim.Figure(name, torch.device("cuda"))
+    rows = launch_netsim.FIGURES[name](fig, full=False)
+    check([r["scheme"] for r in fig.records] == list(NETSIM_ALL),
+          f"{name}: schemes {[r['scheme'] for r in fig.records]}")
+    for r in fig.records:
+        check(r["cells"] == n_cells and r["launches"] == 1,
+              f"{name} {r['scheme']}: {r['cells']} cells in {r['launches']} launches")
+        print(f"  {name} {r['scheme']}: {r['cells']} cells x {r['steps']} steps, wall "
+              f"{r['wall_s']:.2f} s (capture {r['capture_s']:.2f} s), "
+              f"{r['cell_steps_per_s']:.0f} cell-steps/s, device "
+              f"{r['device_ms_per_step']:.4f} ms/step, {r['kernels_per_step']:.0f} "
+              f"kernels/step; profiled graph of {r['graph_steps']} steps: "
+              f"{r['graph_kernel_ms_per_step']:.4f} ms of kernels in "
+              f"{r['graph_span_ms_per_step']:.4f} ms a step, idle "
+              f"{100 * r['idle_share']:.1f}% [{card}]", flush=True)
+    for row, _, note in rows:
+        if "/summary/" in row:
+            print(f"  {row}: {note}", flush=True)
+    check(len(rows) == 7 * n_cells + 7, f"{name}: {len(rows)} rows")
+    print(f"  ({name}: {time.perf_counter() - t0:.1f} s)", flush=True)
+    return {"schemes": [{k: v for k, v in r.items() if k != "top_kernels"}
+                        for r in fig.records],
+            "rows": rows}
+
+
+def phase_netsim_links(torch, card: str) -> dict:
+    """The seven schemes over the multi-link and multi-site long haul (phase
+    11): card vs CPU, graph vs eager, two planted faults, and the
+    scheme_compare and topology grids of launch.netsim on the card."""
+    from repro_torch.netsim import fluid
+    from repro_torch.netsim.schemes.base import Scheme
+    from repro_torch.netsim.schemes.rdmacell import RdmaCellScheme
+
+    dev = torch.device("cuda")
+    out = {"card_vs_cpu_tol": NETSIM_TOL}
+    t0 = time.perf_counter()
+    out["card_vs_cpu"], cpu, _ = netsim_card_vs_cpu(
+        torch, [(n, s) for n in NETSIM_GOLDEN for s in NETSIM_RELATED]
+        + [(n, s) for n in ("links3", "mesh") for s in NETSIM_ALL], dev)
+    print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
+    netsim_graph_vs_eager(torch, [("batch", s) for s in NETSIM_RELATED]
+                          + [("links3", s) for s in NETSIM_ALL], dev)
+
+    def ring_at_link0(t, link_d_steps):
+        return torch.remainder(t, link_d_steps[..., :1]).expand_as(link_d_steps)
+
+    out["planted"] = netsim_planted(torch, (
+        ("every link's ring read at link 0's delay", "links3/dcqcn",
+         (fluid, "link_ring_row", ring_at_link0)),
+        ("rdmacell's route_weights returns the base route", "links3/rdmacell",
+         (RdmaCellScheme, "route_weights", Scheme.route_weights))), cpu, dev)
+    out["scheme_compare"] = netsim_figure(torch, card, "scheme_compare", 7)
+    out["topology"] = netsim_figure(torch, card, "topology", 9)
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run chip_smoke.py from a checkout")
@@ -1246,14 +1384,14 @@ def main() -> None:
     card = smi_line()
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
-    print(f"[1/10] card: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
+    print(f"[1/11] card: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{name}, compute capability {cap[0]}.{cap[1]}", flush=True)
     check(cap == (9, 0), f"needs compute capability 9.0 (sm_90a), found {cap}")
 
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build(build.sources())
-    print(f"[2/10] build: {len(logs)} of {len(build.sources())} kernel sources compiled "
+    print(f"[2/11] build: {len(logs)} of {len(build.sources())} kernel sources compiled "
           f"in {time.perf_counter() - t0:.1f} s into {build.BUILD_DIR}", flush=True)
     for src, log in logs.items():
         for line in log.splitlines():
@@ -1274,7 +1412,7 @@ def main() -> None:
           f"the f32 SSD-scan instantiations are not the scalar kernel: {ssd_hgmma}")
 
     t0 = time.perf_counter()
-    print("[3/10] kernels against their plain versions", flush=True)
+    print("[3/11] kernels against their plain versions", flush=True)
     flash = phase_flash(torch, card)
     ssd = phase_ssd(torch, card)
     scan = phase_rglru(torch, card)
@@ -1287,7 +1425,7 @@ def main() -> None:
             (MAMBA, mamba_faults(torch), "state not carried across chunks"),
             (RG, rglru_faults(torch), "recurrence restarted every 256 steps")), start=4):
         t0 = time.perf_counter()
-        print(f"[{i}/10] serve {arch} at full width", flush=True)
+        print(f"[{i}/11] serve {arch} at full width", flush=True)
         served[arch] = phase_serve(torch, card, arch, faults, must_fail)
         print(f"  ({time.perf_counter() - t0:.1f} s; total "
               f"{time.perf_counter() - t_start:.1f} s)", flush=True)
@@ -1296,14 +1434,21 @@ def main() -> None:
     trained, faults = {}, train_faults(torch)
     for i, arch in enumerate((QWEN, MAMBA, RG), start=7):
         t0 = time.perf_counter()
-        print(f"[{i}/10] train {arch} at full width", flush=True)
+        print(f"[{i}/11] train {arch} at full width", flush=True)
         trained[arch] = phase_train(torch, card, arch, faults[arch])
         print(f"  ({time.perf_counter() - t0:.1f} s; total "
               f"{time.perf_counter() - t_start:.1f} s)", flush=True)
 
     t0 = time.perf_counter()
-    print("[10/10] netsim Fig. 3 path", flush=True)
+    print("[10/11] netsim Fig. 3 path", flush=True)
     netsim = phase_netsim(torch, card)
+    print(f"  ({time.perf_counter() - t0:.1f} s; total "
+          f"{time.perf_counter() - t_start:.1f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    print("[11/11] netsim: seven schemes over the multi-link and multi-site long haul",
+          flush=True)
+    netsim_links = phase_netsim_links(torch, card)
     print(f"  ({time.perf_counter() - t0:.1f} s; total "
           f"{time.perf_counter() - t_start:.1f} s)", flush=True)
 
@@ -1365,6 +1510,7 @@ def main() -> None:
     print(json.dumps({"serve": served}))
     print(json.dumps({"train": trained}))
     print(json.dumps({"netsim": netsim}))
+    print(json.dumps({"netsim_links": netsim_links}))
     print(smi_line())
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,4 +1,5 @@
-"""The paper's Fig. 3 figures through the port's netsim, on the card.
+"""The paper's Fig. 3 figures and the seven-scheme comparisons through the
+port's netsim, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.netsim --figure fig3b \
         [--full] [--device cpu] [--horizon-us US] [--profile-steps N]
@@ -10,6 +11,18 @@ pause reduction, FCT improvement), printed as ``name,value,note`` with
 ``value`` the wall time per cell in us, as ``figures.py`` prints them. Each
 scheme's whole grid runs as one ``[B]`` batch (``figures.py`` runs fig3b per
 message size; the cells are independent, so the rows are the same).
+
+``--figure scheme_compare`` and ``--figure topology`` are the torch twins of
+``benchmarks/scheme_compare.py``'s ``run`` (the seven schemes over 7
+distances, 10 with ``--full``, on the congestion workload at the
+convergence horizon, at least 30 ms) and ``run_topology_grid`` (the seven
+schemes over 3 x 3 delay spreads and capacity skews of three links at
+100 km, 4 x 4 with ``--full``, 20 ms), streamed (``trace_mode="metrics"``),
+with the same asserts: every scheme's streamed columns present and finite,
+and on the topology grid rdmacell's spraying columns with ``spray_entropy``
+in [0, 1]. Their ``--impairment-grid``, ``--sites-grid`` and
+``--failover-grid`` need the channel subsystem or failure schedules, which
+are not ported: those figures raise ``NotImplementedError``.
 
 Per scheme it also prints the wall time (host clock around the runner call,
 graph capture included), simulated cell-steps per second, and, on the card,
@@ -25,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import time
 from typing import List, Optional
 
@@ -33,12 +47,26 @@ import torch
 from repro_torch.config.net import NetConfig
 from repro_torch.device import resolve_device
 from repro_torch.netsim import (
-    SCHEMES, congestion_workload, mixed_fct_workload, run_experiment_batch,
-    throughput_workload,
+    ALL_SCHEMES, SCHEMES, congestion_workload, convergence_horizon_us,
+    mixed_fct_workload, run_experiment_batch, throughput_workload,
 )
 from repro_torch.netsim.fluid import build_batch
 
 PROFILE_STEPS = 100
+
+# scheme_compare.py's asserts: the streamed columns of each scheme's rows,
+# and rdmacell's columns on every multi-link row
+STREAMED_COLS = {
+    "dcqcn": ("mean_cc_rate_gbps",),
+    "themis": ("mean_cc_rate_gbps",),
+    "pseudo_ack": ("mean_pseudo_lead_mb",),
+    "matchrdma": ("mean_budget_gbps", "mean_budget_at_src_gbps"),
+    "geopipe": ("mean_credit_mb", "credit_stall_frac"),
+    "sdr_rdma": ("mean_ack_lag_mb", "mean_retx_reserve_frac"),
+    "rdmacell": ("mean_budget_gbps",),
+}
+TOPOLOGY_COLS = ("mean_reorder_buf_mb", "spray_entropy")
+ENTROPY_ROUNDING = 1e-6
 
 
 class Figure:
@@ -55,12 +83,14 @@ class Figure:
     def horizon(self, paper_us: float) -> float:
         return paper_us if self.horizon_us is None else self.horizon_us
 
-    def run(self, cfgs, workload, scheme: str, horizon_us: float):
+    def run(self, cfgs, workload, scheme: str, horizon_us: float,
+            trace_mode: str = "full"):
         """The rows of one scheme's batch and its wall us per cell."""
         launches: list = []
         t0 = time.perf_counter()
         rows = run_experiment_batch(cfgs, workload, scheme, horizon_us,
-                                    device=self.device, profile=launches)
+                                    trace_mode=trace_mode, device=self.device,
+                                    profile=launches)
         wall_s = time.perf_counter() - t0
         steps = launches[0]["steps"]
         run_ms = sum(p["run_ms"] for p in launches)
@@ -220,8 +250,127 @@ def fig3e_fct(fig: Figure, full: bool = False):
     return rows
 
 
+def compare_workload(horizon_us: float):
+    """scheme_compare.py's congestion scenario scaled to the horizon: 4
+    inter-DC flows and 4 intra-DC flows bursting through the middle third."""
+    return congestion_workload(num_inter=4, num_intra=4,
+                               burst_start_us=horizon_us / 3.0,
+                               burst_len_us=horizon_us / 3.0,
+                               horizon_us=horizon_us)
+
+
+def _finite(v) -> bool:
+    return isinstance(v, float) and math.isfinite(v)
+
+
+def _check_streamed(name: str, rows: dict, n_cells: int, links: bool = False):
+    """scheme_compare.py's row asserts over each scheme's rows."""
+    for s, rs in rows.items():
+        if len(rs) != n_cells:
+            raise AssertionError(f"{name} {s}: {len(rs)} rows, {n_cells} cells")
+        cols = STREAMED_COLS[s] + (TOPOLOGY_COLS if links and s == "rdmacell"
+                                   else ())
+        for col in cols + ("throughput_gbps",):
+            bad = [i for i, r in enumerate(rs) if not _finite(r.get(col))]
+            if bad:
+                raise AssertionError(f"{name} {s}: column {col} missing or not "
+                                     f"finite at cells {bad}")
+        if links and s == "rdmacell":
+            # an even spray reads 1.0000000180537645 here and in the JAX
+            # package (the f32 entropy over the f64 log 3): [0, 1] up to f32
+            bad = [r["spray_entropy"] for r in rs
+                   if not 0.0 <= r["spray_entropy"] <= 1.0 + ENTROPY_ROUNDING]
+            if bad:
+                raise AssertionError(f"{name}: spray_entropy outside [0, 1]: {bad}")
+
+
+def scheme_compare(fig: Figure, full: bool = False):
+    """scheme_compare.py ``run``: the seven schemes over the distance grid on
+    the congestion workload, each scheme's grid one streamed batch.
+    Summary rows per scheme: throughput at the farthest distance, the worst
+    peak buffer, the mean pause ratio."""
+    dists = (1.0, 10.0, 50.0, 100.0, 300.0, 500.0, 1000.0)
+    if full:
+        dists = dists + (30.0, 700.0, 2000.0)
+    cfgs = [NetConfig(distance_km=d) for d in sorted(dists)]
+    h = fig.horizon(max(convergence_horizon_us(cfgs), 30_000.0))
+    wl = compare_workload(h)
+    res, out = {}, []
+    for s in ALL_SCHEMES:
+        res[s], us = fig.run(cfgs, wl, s, h, trace_mode="metrics")
+        for r in res[s]:
+            out.append((f"scheme_compare/{s}/d{r['distance_km']:g}km", us,
+                        f"thr={r['throughput_gbps']:.4g}Gbps "
+                        f"peak={r['peak_buffer_mb']:.4g}MB "
+                        f"mean={r['mean_buffer_mb']:.4g}MB "
+                        f"p99={r['p99_buffer_mb']:.4g}MB "
+                        f"pause={r['pause_ratio']:.4g} "
+                        f"intra={r['intra_thr_gbps']:.4g}Gbps"))
+    _check_streamed("scheme_compare", res, len(cfgs))
+    far = max(dists)
+    for s, rs in res.items():
+        out.append((f"scheme_compare/summary/{s}", 0.0,
+                    f"thr@far={next(r for r in rs if r['distance_km'] == far)['throughput_gbps']:.2f}Gbps "
+                    f"worst_peak={max(r['peak_buffer_mb'] for r in rs):.2f}MB "
+                    f"mean_pause={sum(r['pause_ratio'] for r in rs) / len(rs):.4f}"))
+    return out
+
+
+def topology(fig: Figure, full: bool = False):
+    """scheme_compare.py ``run_topology_grid``: the seven schemes over three
+    unequal links at 100 km (delay spread x capacity skew), each scheme's
+    grid one streamed batch. Summary rows per scheme: mean throughput and
+    worst peak buffer (rdmacell: also the mean spray entropy)."""
+    spreads = ((1.0, 1.0, 1.0), (1.0, 1.5, 2.0), (1.0, 2.0, 4.0))
+    skews = ((1 / 3, 1 / 3, 1 / 3), (0.5, 0.3, 0.2), (0.6, 0.3, 0.1))
+    if full:
+        spreads = spreads + ((1.0, 3.0, 6.0),)
+        skews = skews + ((0.8, 0.15, 0.05),)
+    cells = [(sp, sk) for sp in spreads for sk in skews]
+    cfgs = [NetConfig(distance_km=100.0, num_paths=3, path_delay_scale=sp,
+                      path_cap_frac=sk) for sp, sk in cells]
+    h = fig.horizon(20_000.0)
+    wl = compare_workload(h)
+    res, out = {}, []
+    for s in ALL_SCHEMES:
+        res[s], us = fig.run(cfgs, wl, s, h, trace_mode="metrics")
+        for (sp, sk), r in zip(cells, res[s]):
+            cell = ("x".join(f"{x:g}" for x in sp) + "/"
+                    + "x".join(f"{x:.2g}" for x in sk))
+            extra = (f" rob={r['mean_reorder_buf_mb']:.4g}MB "
+                     f"entropy={r['spray_entropy']:.4f}"
+                     if "spray_entropy" in r else "")
+            out.append((f"topology/{s}/{cell}", us,
+                        f"thr={r['throughput_gbps']:.4g}Gbps "
+                        f"peak={r['peak_buffer_mb']:.4g}MB "
+                        f"pause={r['pause_ratio']:.4g}{extra}"))
+    _check_streamed("topology", res, len(cfgs), links=True)
+    for s, rs in res.items():
+        extra = (f" spray_entropy={sum(r['spray_entropy'] for r in rs) / len(rs):.4f}"
+                 if s == "rdmacell" else "")
+        out.append((f"topology/summary/{s}", 0.0,
+                    f"mean_thr={sum(r['throughput_gbps'] for r in rs) / len(rs):.2f}Gbps "
+                    f"worst_peak={max(r['peak_buffer_mb'] for r in rs):.2f}MB"
+                    + extra))
+    return out
+
+
+def _unported(item: str, what: str):
+    def figure(fig: Figure, full: bool = False):
+        raise NotImplementedError(
+            f"{what}: not ported; it comes with ROADMAP queue 1 item {item}")
+    return figure
+
+
 FIGURES = {"fig3b": fig3b_throughput, "fig3cd": fig3cd_buffer_pause,
-           "fig3e": fig3e_fct}
+           "fig3e": fig3e_fct, "scheme_compare": scheme_compare,
+           "topology": topology,
+           "impairment": _unported("13", "scheme_compare --impairment-grid "
+                                         "(the channel subsystem)"),
+           "sites": _unported("13", "scheme_compare --sites-grid (the "
+                                    "trace_replay channel)"),
+           "failover": _unported("15", "scheme_compare --failover-grid "
+                                       "(failure schedules)")}
 
 
 def main(argv=None) -> dict:

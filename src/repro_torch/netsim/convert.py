@@ -2,7 +2,9 @@
 
 ``state_from_numpy`` turns a JAX ``SimState`` whose leaves are numpy arrays
 (``jax.tree.map(np.asarray, state)``) into the port's ``SimState``, leaf for
-leaf, with the ``[B]`` axis where the batch has one; ``acc_from_numpy`` does
+leaf, with the ``[B]`` axis where the batch has one (the ``[L]`` leaves of a
+multi-link run and the extra state of every scheme included);
+``acc_from_numpy`` does
 the same for a ``MetricAcc`` (its dicts of ``[B]`` arrays become the port's
 key-ordered columns). The JAX package's channel slots are dropped: under the
 ideal channel they are None. Nothing here imports JAX: the objects are only
@@ -21,10 +23,11 @@ from repro_torch.core.slots import SlotRing
 from repro_torch.netsim.fluid import (
     STREAM_MAX_KEYS, STREAM_SUM_KEYS, MetricAcc, SimState,
 )
+from repro_torch.netsim.schemes import GeoPipeState, RdmaCellState, SdrRdmaState
 
 _TYPES = {cls.__name__: cls for cls in (
     SimState, DcqcnState, MatchRdmaState, PseudoAckState, SlotRing,
-    BudgetState, ControlChannel)}
+    BudgetState, ControlChannel, GeoPipeState, SdrRdmaState, RdmaCellState)}
 
 
 def _from(obj, device):

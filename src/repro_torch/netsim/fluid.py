@@ -11,18 +11,27 @@ integrated through the queues of Fig. 3(a):
 with ACKs and CNPs returning over delay lines of D (or consumed on the way,
 as the scheme decides) and PFC from the destination OTN riding back over D.
 
-What the port runs: the ideal channel, one long-haul link, no failure
+What the port runs: the ideal channel, one long-haul link or ``num_paths``
+parallel links (``[L]``, optionally the edges of a site graph), no failure
 schedule, the hard (non-soft) step, and ``trace_mode`` ``full``,
 ``decimate`` and ``metrics``. Every other configuration raises
 ``NotImplementedError`` naming the ROADMAP item that ports it.
 
+Multi-link (``cfg.num_paths = L > 1``): the source OTN's release is sprayed
+over the links by the scheme's ``route_weights`` (masked to links with
+capacity, rows normalised, clipped per link; what a link cannot take spills
+back into the source queue). Each link has its own capacity, delay and
+destination PFC threshold, and its own pause riding back at its own delay.
+On a site graph each flow sprays only onto the edges of its site pair.
+
 Batching: every state leaf carries the JAX package's vmapped shape, a
 leading scenario axis ``[B]`` (per-flow ``[B, F]``, delay rings
-``[B, Dp, F]``), and one step advances the whole batch. Rings are allocated
-at the batch's padded length ``delay_pad`` and each scenario's ring index
-wraps at its own ``delay_steps``. The delay rings, the control subchannel
-and the metrics histogram are written in place; everything else a step
-makes is new.
+``[B, Dp, F]``; at L > 1 ``q_dst [B, L, F]``, ``pipe [B, Dp, L, F]``,
+``pause_line [B, Dp, L]``, ``pause_dst [B, L]``), and one step advances the
+whole batch. Rings are allocated at the batch's padded length ``delay_pad``
+and each scenario's (each link's) ring index wraps at its own delay. The
+delay rings, the control subchannel and the metrics histogram are written
+in place; everything else a step makes is new.
 
 Execution: on the CPU the steps run eagerly. On the card ``simulate_batch``
 captures a block of steps into a ``torch.cuda.CUDAGraph`` and replays it:
@@ -51,6 +60,7 @@ from repro_torch.netsim.queues import (
 from repro_torch.netsim.schemes import get_scheme
 from repro_torch.netsim.schemes.base import Scheme, SchemeCtx, SchemeSignals
 from repro_torch.netsim.streaming import HIST_BINS, hist_bin_index, kahan_add
+from repro_torch.netsim.topology import validate_site_endpoints
 from repro_torch.netsim.workload import WorkloadParams, as_workload_batch
 
 MTU = 1500.0
@@ -125,9 +135,10 @@ def _accumulate_engine(acc: MetricAcc, out: dict, inc) -> MetricAcc:
 
 class SimState(NamedTuple):
     """The engine state; per-scenario leaves ``[B]``, per-flow ``[B, F]``,
-    delay rings ``[B, Dp, F]`` (no leading axis for one unbatched scenario).
-    The JAX package's channel slots (``chan``, ``retx_*``) are absent: the
-    port has only the ideal channel."""
+    delay rings ``[B, Dp, F]`` (no leading axis for one unbatched scenario;
+    the L > 1 shapes are in the module docstring). The JAX package's channel
+    slots (``chan``, ``retx_*``) are absent: the port has only the ideal
+    channel."""
     sent: torch.Tensor          # cumulative bytes leaving the sender NIC
     acked: torch.Tensor         # cumulative bytes ACKed at the sender
     delivered: torch.Tensor     # cumulative bytes delivered to the receiver
@@ -138,14 +149,14 @@ class SimState(NamedTuple):
     proxy_timer: torch.Tensor   # us since last proxy cut (MatchRDMA)
     proxy_mod: torch.Tensor     # multiplicative proxy modulation in [0.25, 1]
     q_src: torch.Tensor         # source-OTN queue bytes
-    q_dst: torch.Tensor         # destination-OTN queue bytes
+    q_dst: torch.Tensor         # destination-OTN queue bytes (per link)
     q_leaf: torch.Tensor        # destination-leaf queue bytes
-    pipe: torch.Tensor          # [.., Dp, F] in-flight long-haul bytes
+    pipe: torch.Tensor          # [.., Dp, (L,) F] in-flight long-haul bytes
     inflight: torch.Tensor      # running sum of pipe
     ack_line: torch.Tensor      # [.., Dp, F] ACK return path
     cnp_line: torch.Tensor      # [.., Dp, F] CNP return path
-    pause_line: torch.Tensor    # [.., Dp] PFC signal dst-OTN -> src-OTN
-    pause_dst: torch.Tensor     # dst OTN asserting long-haul pause
+    pause_line: torch.Tensor    # [.., Dp, (L)] PFC signal dst-OTN -> src-OTN
+    pause_dst: torch.Tensor     # dst OTN asserting long-haul pause (per link)
     extra: object               # scheme-private state (Scheme.init_extra_state)
 
 
@@ -158,11 +169,6 @@ def check_main_path(cfg: NetConfig, channel=None, trace_mode: str = "full",
         raise NotImplementedError(
             f"channel {channel!r}: only the ideal channel is ported; the "
             f"channel subsystem comes with ROADMAP queue 1 item 13")
-    if cfg.num_paths > 1 or cfg.is_multisite:
-        raise NotImplementedError(
-            f"num_paths={cfg.num_paths}, num_sites={cfg.num_sites}: only one "
-            f"long-haul link is ported; multi-link and multi-site come with "
-            f"ROADMAP queue 1 item 14")
     if cfg.failure_len > 0:
         raise NotImplementedError(
             "failure_schedule: failures come with ROADMAP queue 1 item 15")
@@ -191,6 +197,7 @@ def init_state(cfg: NetConfig, num_flows: int, params: NetParams = None,
     MatchRDMA block)."""
     check_main_path(cfg)
     f = num_flows
+    links = (cfg.num_paths,) if cfg.num_paths > 1 else ()
     if delay_pad <= 0:
         delay_pad = cfg.static_delay_steps
     if params is None:
@@ -212,13 +219,13 @@ def init_state(cfg: NetConfig, num_flows: int, params: NetParams = None,
         marked_acc=z(f),
         proxy_timer=torch.full((*bs, f), 1e9, device=dev),
         proxy_mod=torch.ones(*bs, f, device=dev),
-        q_src=z(f), q_dst=z(f), q_leaf=z(f),
-        pipe=z(delay_pad, f),
+        q_src=z(f), q_dst=z(*links, f), q_leaf=z(f),
+        pipe=z(delay_pad, *links, f),
         inflight=z(f),
         ack_line=z(delay_pad, f),
         cnp_line=z(delay_pad, f),
-        pause_line=z(delay_pad),
-        pause_dst=z(),
+        pause_line=z(delay_pad, *links),
+        pause_dst=z(*links),
         extra=scheme.init_extra_state(
             cfg, params, f, history_slots=history_slots,
             chan_delay_pad=delay_pad + cfg.control_proc_steps),
@@ -229,6 +236,22 @@ def ring_row(t: torch.Tensor, d_steps: torch.Tensor, delay_pad: int):
     """Row of the delay rings that step ``t`` reads and then writes: each
     scenario's ring wraps at its own delay, inside the padded allocation."""
     return torch.remainder(t, d_steps)
+
+
+def link_ring_row(t: torch.Tensor, link_d_steps: torch.Tensor):
+    """``[B, L]`` rows of the per-link rings (pipe, pause line) that step
+    ``t`` reads and then writes: each link wraps at its own delay."""
+    return torch.remainder(t, link_d_steps)
+
+
+def _drain_links(q, arrivals, capacity_bytes):
+    """``drain_proportional`` over every (link, flow) entry of ``[B, L, F]``
+    queues at once, as the JAX package drains its ``[L, F]`` destination
+    OTN: one capacity, shared in proportion to the whole backlog."""
+    shape = q.shape
+    new_q, drained = drain_proportional(q.flatten(-2), arrivals.flatten(-2),
+                                        capacity_bytes)
+    return new_q.view(shape), drained.view(shape)
 
 
 def _workload_tensors(wl, device) -> WorkloadParams:
@@ -245,8 +268,17 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
     ``wl``: the per-flow workload leaves (numpy or tensors, the leading shape
     of ``params``'s leaves); ``params``: the per-scenario scalars (None =
     ``cfg``'s own); ``t``: the step index, an int32 0-d tensor on the run's
-    device. ``out`` is the step's trace dict (per-scenario values)."""
+    device. ``out`` is the step's trace dict (per-scenario values; at L > 1
+    also the per-link ``q_dst_link``, ``link_tx`` and ``link_pause``)."""
     check_main_path(cfg)
+    n_links = cfg.num_paths
+    multi = n_links > 1
+    if cfg.is_multisite and not multi:
+        raise ValueError(
+            f"make_step_fn: multi-site config (num_sites={cfg.num_sites}, "
+            f"site_edges={cfg.site_edges!r}) requires num_paths > 1 - a "
+            f"site graph compiles onto the link axis (one edge per link; "
+            f"see docs/sites.md)")
     scheme = get_scheme(scheme)
     if params is None:
         params = NetParams.of(cfg)
@@ -285,12 +317,52 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
     c_otn_dt = c_otn * dt_s
     c_leaf_dt = c_leaf * dt_s
     nic_col = nic[..., None]
+    zero_f = torch.zeros_like(is_inter)       # loss notifications (ideal)
+
+    link_caps = link_d_steps = edge_sites = None
+    if multi:
+        # per-link capacity, delay (clamped to the ring) and dst-OTN PFC
+        # thresholds: the explicit floor or the link's own BDP-scaled
+        # headroom, whichever is larger. Everything constant over the run
+        # is built here, outside the captured step.
+        link_caps = params.link_cap_gbps * 1e9 / 8.0              # [B, L]
+        link_d_steps = torch.clamp(
+            torch.round(params.link_delay_us / dt_us).to(torch.int32),
+            1, delay_pad)                                         # [B, L]
+        link_bdp = link_caps * 2.0 * params.link_delay_us * 1e-6
+        xoff_link = torch.maximum(
+            params.link_thresh_kb * 1024.0,
+            params.otn_buffer_bdp_frac[..., None] * link_bdp)
+        xon_link = xoff_link / 2.0
+        link_caps_dt = link_caps * dt_s
+        cap_w = link_caps / torch.clamp(link_caps.sum(-1, keepdim=True),
+                                        min=1e-9)
+        route = wl.route                                          # [B, F, W]
+        if route.shape[-1] == 1:
+            route = route.expand(*route.shape[:-1], n_links)
+        elif route.shape[-1] != n_links:
+            raise ValueError(
+                f"WorkloadParams.route has {route.shape[-1]} link columns "
+                f"but cfg.num_paths = {n_links} - give each flow a "
+                f"length-{n_links} route (or () for the symmetric default)")
+        if cfg.is_multisite:
+            # the endpoint matrix: each flow sprays only onto the edges
+            # serving its (src_site, dst_site) pair
+            edge_sites = torch.as_tensor(cfg.edge_pairs(), dtype=torch.int32,
+                                         device=dev)              # [L, 2]
+            pair_mask = ((wl.src_site[..., None] == edge_sites[:, 0])
+                         & (wl.dst_site[..., None] == edge_sites[:, 1]))
+            route = route * pair_mask.to(torch.float32)
 
     ctx = SchemeCtx(
         cfg=cfg, params=params, period_slots=period_slots,
         dt_us=dt_us, dt_s=dt_s, nic=nic, c_otn=c_otn, c_leaf=c_leaf,
         xoff=xoff, xon=xon, xoff_otn=xoff_otn, xon_otn=xon_otn,
-        is_inter=is_inter, is_intra=is_intra, rtt_us=rtt_us, d_steps=d_steps)
+        is_inter=is_inter, is_intra=is_intra, rtt_us=rtt_us, d_steps=d_steps,
+        num_links=n_links, link_caps=link_caps, link_d_steps=link_d_steps,
+        num_sites=cfg.num_sites, edge_sites=edge_sites,
+        flow_src_site=wl.src_site if cfg.is_multisite else None,
+        flow_dst_site=wl.dst_site if cfg.is_multisite else None)
     rtt_scale = scheme.rtt_scale(ctx)
 
     def step(state: SimState, t: torch.Tensor):
@@ -311,9 +383,19 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
         # ------------------------------------------------ 2. delayed inputs
         ack_arr = state.ack_line.gather(-2, row_f)[..., 0, :]
         cnp_arr = state.cnp_line.gather(-2, row_f)[..., 0, :]
-        pipe_out = state.pipe.gather(-2, row_f)[..., 0, :]
-        pause_sig = state.pause_line.gather(-1, row)[..., 0]
-        cap_src = torch.where(pause_sig > 0.5, 0.0, c_otn_dt)  # delayed PFC
+        if multi:
+            # each link's ring row wraps at its own delay: row l of the
+            # padded ring holds what link l launched d_l steps ago
+            lrow = link_ring_row(t, link_d_steps).to(torch.int64)[..., None, :]
+            lrow_f = lrow[..., None].expand(*lrow.shape, f)
+            pipe_out = state.pipe.gather(-3, lrow_f)[..., 0, :, :]  # [B, L, F]
+            pause_sig = state.pause_line.gather(-2, lrow)[..., 0, :]  # [B, L]
+            cap_link = torch.where(pause_sig > 0.5, 0.0, link_caps_dt)
+            cap_src = cap_link.sum(-1)
+        else:
+            pipe_out = state.pipe.gather(-2, row_f)[..., 0, :]
+            pause_sig = state.pause_line.gather(-1, row)[..., 0]
+            cap_src = torch.where(pause_sig > 0.5, 0.0, c_otn_dt)  # delayed PFC
 
         # ------------------------------------------------ 3. ACK accounting
         acked = torch.where(inter, scheme.ack_view(ctx, state, ack_arr),
@@ -333,22 +415,52 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
         # ------------------------------------------------ 5. source OTN
         q_src, drained_src = scheme.src_otn_release(
             ctx, state, send * is_inter, cap_src, active)
-        state.pipe.scatter_(-2, row_f, drained_src[..., None, :])  # at t + D
-        inflight = state.inflight + drained_src - pipe_out
+        if multi:
+            # spray the release over the links: the scheme's weights masked
+            # to links with capacity, rows normalised, clipped per link;
+            # what a saturated link cannot take spills back into q_src
+            w = torch.clamp(scheme.route_weights(ctx, state, route), min=0.0)
+            w = w * (cap_link > 0.0)[..., None, :]               # [B, F, L]
+            share = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+            want = drained_src[..., None] * share
+            link_want = want.sum(-2)                              # [B, L]
+            scale = torch.clamp(
+                cap_link / torch.clamp(link_want, min=1e-9), max=1.0)
+            sent_link = (want * scale[..., None, :]).transpose(-1, -2)
+            q_src = q_src + (drained_src - sent_link.sum(-2))
+            state.pipe.scatter_(-3, lrow_f, sent_link[..., None, :, :])
+            inflight = (state.inflight + sent_link.sum(-2)
+                        - pipe_out.sum(-2))
+        else:
+            state.pipe.scatter_(-2, row_f, drained_src[..., None, :])  # at t + D
+            inflight = state.inflight + drained_src - pipe_out
 
         # ------------------------------------------------ 6. destination OTN
         q_leaf_tot = state.q_leaf.sum(-1)
         leaf_pfc = (q_leaf_tot > xoff).to(torch.float32)
         cap_dst = c_leaf_dt * (1.0 - leaf_pfc)
-        q_dst, drained_dst = drain_proportional(state.q_dst, pipe_out, cap_dst)
-        egress_bytes = drained_dst.sum(-1)
-        q_dst_tot = q_dst.sum(-1)
-        pause_dst = pfc_hysteresis(state.pause_dst, q_dst_tot, xoff_otn,
-                                   xon_otn)
-        state.pause_line.scatter_(-1, row, pause_dst[..., None])
+        if multi:
+            q_dst, drained_dst = _drain_links(state.q_dst, pipe_out, cap_dst)
+            egress_bytes = drained_dst.flatten(-2).sum(-1)
+            q_dst_tot = q_dst.flatten(-2).sum(-1)
+            # per-link backlog -> per-link PFC, riding back at the link's delay
+            q_dst_link = q_dst.sum(-1)                            # [B, L]
+            pause_dst = pfc_hysteresis(state.pause_dst, q_dst_link, xoff_link,
+                                       xon_link)
+            state.pause_line.scatter_(-2, lrow, pause_dst[..., None, :])
+            drained_dst_f = drained_dst.sum(-2)
+        else:
+            q_dst, drained_dst = drain_proportional(state.q_dst, pipe_out,
+                                                    cap_dst)
+            egress_bytes = drained_dst.sum(-1)
+            q_dst_tot = q_dst.sum(-1)
+            pause_dst = pfc_hysteresis(state.pause_dst, q_dst_tot, xoff_otn,
+                                       xon_otn)
+            state.pause_line.scatter_(-1, row, pause_dst[..., None])
+            drained_dst_f = drained_dst
 
         # ------------------------------------------------ 7. destination leaf
-        arrivals_leaf = drained_dst + send * is_intra
+        arrivals_leaf = drained_dst_f + send * is_intra
         mark_p = ecn_mark_prob(q_leaf_tot, cfg, params=params)
         q_leaf, drained_leaf = drain_proportional(state.q_leaf, arrivals_leaf,
                                                   c_leaf_dt)
@@ -366,7 +478,11 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
         fb = scheme.feedback(ctx, state, SchemeSignals(
             t=t, active=active, sent=sent, cnp_out=cnp_out, cnp_arr=cnp_arr,
             egress_bytes=egress_bytes, q_dst_tot=q_dst_tot, q_leaf=q_leaf,
-            leaf_pfc=leaf_pfc))
+            leaf_pfc=leaf_pfc, retx_arr=zero_f,
+            link_sent=sent_link if multi else None,
+            link_arrivals=pipe_out if multi else None,
+            link_want=link_want if multi else None,
+            link_cap=cap_link if multi else None))
 
         # ------------------------------------------------ 10. return paths
         thr_inter = drained_leaf * is_inter
@@ -390,18 +506,30 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
             pause_line=state.pause_line, pause_dst=pause_dst, extra=fb.extra)
         # per-flow byte conservation residual: everything the sender emitted
         # is delivered or sits in exactly one queue or the pipe
-        residual = sent - delivered - q_src - q_dst - q_leaf - inflight
+        q_dst_f = q_dst.sum(-2) if multi else q_dst
+        residual = sent - delivered - q_src - q_dst_f - q_leaf - inflight
         cons_err = (residual.abs() / torch.clamp(sent, min=1.0)).amax(-1)
+        if multi:
+            # capacity-weighted pause means keep the scalar keys (and the
+            # Fig. 3 pause-ratio column) shape-stable across L
+            pause_trace = (pause_dst * cap_w).sum(-1)
+            src_paused_trace = (pause_sig * cap_w).sum(-1)
+        else:
+            pause_trace, src_paused_trace = pause_dst, pause_sig
         out = {
             "q_src": q_src.sum(-1),
             "q_dst": q_dst_tot,
             "q_leaf": q_leaf.sum(-1),
-            "pause_dst": pause_dst,
-            "src_paused": pause_sig,
+            "pause_dst": pause_trace,
+            "src_paused": src_paused_trace,
             "thr_inter": thr_inter.sum(-1) / dt_s,
             "thr_intra": (drained_leaf * is_intra).sum(-1) / dt_s,
             "cons_err": cons_err,
         }
+        if multi:
+            out.update(q_dst_link=q_dst_link,        # [B, L] dst backlog
+                       link_tx=sent_link.sum(-1),    # [B, L] bytes launched
+                       link_pause=pause_dst)         # [B, L] PFC state
         out.update(scheme.extra_traces(ctx, state))
         return new_state, out
 
@@ -440,7 +568,8 @@ class _Carry(NamedTuple):
     state: SimState
     t: torch.Tensor                  # int32 0-d: the next step's index
     acc: Optional[MetricAcc]         # metrics mode
-    traces: Optional[torch.Tensor]   # [B, K, rows] full/decimate mode
+    traces: Optional[torch.Tensor]   # [B, K, rows] full/decimate mode (a
+                                     # per-link key takes L of the K rows)
 
 
 def _make_advance(step, scheme, mode: str, decimate: int, warm: int,
@@ -462,7 +591,8 @@ def _make_advance(step, scheme, mode: str, decimate: int, warm: int,
                 ctx, acc.scheme, state, out, inc))
         else:
             col = (c.t // k).to(torch.int64)[None]
-            vals = torch.stack([out[key] for key in keys], -1)
+            bs = out["q_dst"].shape
+            vals = torch.cat([out[key].reshape(*bs, -1) for key in keys], -1)
             traces.index_copy_(-1, col, vals[..., None])
         return _Carry(state, c.t + 1, acc, traces)
 
@@ -498,6 +628,13 @@ def _drive(step, scheme, state0: SimState, steps: int, mode: str,
     # one step on a copy names the trace keys (and warms the allocator)
     _, out = step(_tree_clone(state0), t0)
     keys = tuple(out)
+    bs = out["q_dst"].shape
+    # each key's rows [lo, hi) of the trace buffer: one, or L for a
+    # per-link key
+    spans, lo = {}, 0
+    for key in keys:
+        hi = lo + int(np.prod(out[key].shape[len(bs):]))
+        spans[key], lo = (lo, hi), hi
     acc = traces = None
     if mode == "metrics":
         acc = _init_metric_acc(scheme, ctx, state0)
@@ -505,8 +642,7 @@ def _drive(step, scheme, state0: SimState, steps: int, mode: str,
         k = decimate if mode == "decimate" else 1
         rows = steps // k
         # one spare row takes the steps past the last whole block
-        traces = torch.zeros(out["q_dst"].shape + (len(keys), rows + 1),
-                             device=dev)
+        traces = torch.zeros(bs + (lo, rows + 1), device=dev)
     carry = _Carry(state0, t0, acc, traces)
     advance = _make_advance(step, scheme, mode, decimate, warm, keys)
     timer = _Timer(dev)
@@ -529,8 +665,10 @@ def _drive(step, scheme, state0: SimState, steps: int, mode: str,
         profile.update(timer.done())
     if mode == "metrics":
         return carry.state, carry.acc
-    return carry.state, {key: carry.traces[..., i, :rows]
-                         for i, key in enumerate(keys)}
+    return carry.state, {
+        key: (carry.traces[..., lo, :rows] if out[key].dim() == len(bs)
+              else carry.traces[..., lo:hi, :rows].transpose(-1, -2))
+        for key, (lo, hi) in spans.items()}
 
 
 class _Timer:
@@ -620,6 +758,8 @@ def build_batch(cfgs: Sequence[NetConfig], workload, scheme,
     delay_pad, history_slots = max(delay_pad, dp), max(history_slots, hs)
     params = stack_net_params(cfgs, device=dev)
     wlp = as_workload_batch(workload, len(cfgs))
+    if tmpl.is_multisite:
+        validate_site_endpoints(tmpl, wlp)   # host-side: stalls fail early
     state0 = init_state(tmpl, wlp.is_inter.shape[-1], params=params,
                         delay_pad=delay_pad, history_slots=history_slots,
                         scheme=scheme)

@@ -15,10 +15,12 @@ Execution modes (``trace_mode``):
                  (``MetricAcc``) and only O(B) values reach the host; schemes
                  add their own columns through ``Scheme.finalize_metrics``.
 
-The JAX runner's hardening knobs (checkpoints and resume, the finite guard,
-strict conservation, crash injection, run manifests) and its channel and
-failover columns are not ported: asking for one raises
-``NotImplementedError`` naming ROADMAP queue 1 item 15 (or 13, 14).
+Multi-link and multi-site grids (``num_paths > 1``, site graphs) run like
+any other; rdmacell adds its spraying columns there. The JAX runner's
+hardening knobs (checkpoints and resume, the finite guard, strict
+conservation, crash injection, run manifests) and its channel and failover
+columns are not ported: asking for one raises ``NotImplementedError``
+naming ROADMAP queue 1 item 15 (or 13).
 """
 from __future__ import annotations
 
@@ -178,18 +180,22 @@ def _trace_float_budget(device: torch.device) -> int:
 
 def chunk_cells(steps: int, trace_mode: str = "full", decimate: int = 1,
                 chunk_cells: Optional[int] = None,
-                device: Optional[torch.device] = None) -> int:
+                device: Optional[torch.device] = None,
+                num_links: int = 1) -> int:
     """Scenario cells per launch: the explicit ``chunk_cells`` override, or
     the bounded-memory auto size (full/decimate: the materialized trace
-    block stays under the trace-float budget of ``device``; metrics: the flat
+    block stays under the trace-float budget of ``device``, counting the
+    three ``[L]`` trace keys of a multi-link grid; metrics: the flat
     ``METRICS_CHUNK_CELLS`` ceiling)."""
     if chunk_cells is None:
         if trace_mode == "metrics":
             chunk_cells = METRICS_CHUNK_CELLS
         else:
             t = max(steps // max(decimate, 1), 1)
+            # q_dst_link / link_tx / link_pause are [L] per step at L > 1
+            keys = _TRACE_KEYS_EST + (3 * num_links if num_links > 1 else 0)
             budget = _trace_float_budget(device or torch.device("cpu"))
-            chunk_cells = max(budget // (t * _TRACE_KEYS_EST), 1)
+            chunk_cells = max(budget // (t * keys), 1)
     return max(int(chunk_cells), 1)
 
 
@@ -336,7 +342,7 @@ def run_experiment_batch(cfgs: Sequence[NetConfig], workload, scheme,
     wlp = as_workload_batch(workload, len(cfgs))
     grid_static = _grid_static(cfgs, horizon_us, delay_pad, history_slots)
     chunk = _auto_chunk_cells(grid_static[1], trace_mode, decimate,
-                              chunk_cells, dev)
+                              chunk_cells, dev, cfgs[0].num_paths)
     plan = _plan_launches(len(cfgs), (scheme,), chunk)
     return _execute_plan(plan, cfgs, wlp, grid_static, period_slots,
                          trace_mode, decimate, dev, profile)[scheme]
@@ -401,7 +407,7 @@ def sweep_grid(scenarios, workload=None, schemes=(),
     wlp = as_workload_batch(wl, len(cfgs))
     grid_static = _grid_static(cfgs, horizon_us, 0, 0)
     chunk = _auto_chunk_cells(grid_static[1], trace_mode, decimate,
-                              chunk_cells, dev)
+                              chunk_cells, dev, cfgs[0].num_paths)
     plan = _plan_launches(len(cfgs), scheme_objs, chunk)
     by_scheme = _execute_plan(plan, cfgs, wlp, grid_static, period_slots,
                               trace_mode, decimate, dev)

@@ -4,9 +4,9 @@ A scheme is how a long-haul RDMA control plane sees ACKs, shapes the
 source-OTN release and routes congestion feedback. ``fluid.make_step_fn`` is
 a scheme-agnostic skeleton (flow phase -> queues -> ECN/PFC -> CC -> FCT)
 that composes the hooks below; the contract is the JAX package's
-(``docs/scheme-api.md``), restricted to one long-haul link and the ideal
-channel: ``route_weights``, ``retx_rate`` and ``emit_events`` (multi-link,
-channel repair, event rings) come with the slices that port those paths.
+(``docs/scheme-api.md``) on the ideal channel: ``retx_rate`` is a hook here,
+but the channel repair path that calls it is not ported, and
+``emit_events`` (event rings) comes with the slice that ports them.
 
 Hooks run on torch tensors with a leading scenario axis ``[B]`` (per-flow
 tensors ``[B, F]``); none may read a value back to the host, so a block of
@@ -18,6 +18,9 @@ steps can be captured in a CUDA graph.
   ``ack_view``           cumulative acked bytes the sender sees (inter-DC).
   ``sender_rate``        sender rate law before NIC-PFC gating.
   ``src_otn_release``    how the source OTN drains toward the long haul.
+  ``route_weights``      ``[B, F, L]`` spray weights over the parallel
+                         long-haul links (``num_paths > 1`` only).
+  ``retx_rate``          bytes/s granted to loss repair (channel path).
   ``feedback``           CNP routing + per-step updates of the extra state.
   ``rtt_scale``          optional per-flow DCQCN fairness factor (THEMIS).
   ``extra_traces``       scheme-owned additions to the per-step trace dict.
@@ -41,6 +44,16 @@ def long_haul_bdp(ctx: "SchemeCtx") -> torch.Tensor:
     return ctx.c_otn * 2.0 * ctx.params.one_way_delay_us * 1e-6
 
 
+def apply_link_live(ctx: "SchemeCtx", weights: torch.Tensor) -> torch.Tensor:
+    """Mask ``[B, F, L]`` spray weights down to the links alive this step:
+    the reroute contract every ``route_weights`` honours. With no failure
+    schedule (``ctx.link_live is None``) the weights pass through untouched."""
+    if ctx.link_live is None:
+        return weights
+    live = ctx.link_live[..., None, :]
+    return torch.where(live < 1.0, weights * live, weights)
+
+
 class SchemeCtx(NamedTuple):
     """Per-run quantities shared by every hook, built once by
     ``make_step_fn``. Per-scenario tensors are ``[B]``, per-flow ``[B, F]``."""
@@ -60,6 +73,18 @@ class SchemeCtx(NamedTuple):
     is_intra: torch.Tensor       # [B, F]
     rtt_us: torch.Tensor         # [B, F] e2e RTT estimate per flow
     d_steps: torch.Tensor        # [B] int32 one-way delay in steps
+    # multi-link topology (num_paths > 1 only; None on the single pipe)
+    num_links: int = 1                            # static L
+    link_caps: Optional[torch.Tensor] = None      # [B, L] per-link bytes/s
+    link_d_steps: Optional[torch.Tensor] = None   # [B, L] int32 delay steps
+    # multi-site graph views (cfg.is_multisite only)
+    num_sites: int = 2                            # static site count
+    edge_sites: Optional[torch.Tensor] = None     # [L, 2] int32 site pairs
+    flow_src_site: Optional[torch.Tensor] = None  # [B, F] flow source site
+    flow_dst_site: Optional[torch.Tensor] = None  # [B, F] flow dest site
+    # per-step link live mask of a failure schedule ([B, L]); None without
+    # one (failure schedules are not ported, so always None here)
+    link_live: Optional[torch.Tensor] = None
 
 
 class SchemeSignals(NamedTuple):
@@ -73,6 +98,13 @@ class SchemeSignals(NamedTuple):
     q_dst_tot: torch.Tensor      # [B] new dst-OTN backlog
     q_leaf: torch.Tensor         # [B, F] new dst-leaf queue
     leaf_pfc: torch.Tensor       # [B] leaf asserting PFC toward dst OTN
+    retx_arr: torch.Tensor       # [B, F] loss notifications arriving at the
+                                 # source (zeros on the ideal channel)
+    # multi-link signals (None on the single pipe)
+    link_sent: Optional[torch.Tensor] = None      # [B, L, F] sprayed per link
+    link_arrivals: Optional[torch.Tensor] = None  # [B, L, F] landed per link
+    link_want: Optional[torch.Tensor] = None      # [B, L] pre-clip demand
+    link_cap: Optional[torch.Tensor] = None       # [B, L] capacity, bytes
 
 
 class Feedback(NamedTuple):
@@ -126,6 +158,17 @@ class Scheme:
         """Drain law of the source OTN: ``(new_q_src, drained)``, FIFO-fair."""
         return drain_proportional(state.q_src, arrivals, cap)
 
+    def route_weights(self, ctx: SchemeCtx, state, base_route):
+        """``[B, F, L]`` spray weights over the parallel links (the engine
+        normalises rows and masks links without capacity): the workload's
+        routing matrix, off dead links."""
+        return apply_link_live(ctx, base_route)
+
+    def retx_rate(self, ctx: SchemeCtx, state, rate):
+        """``[B, F]`` bytes/s the sender may spend on repair: by default the
+        scheme's own sender rate, so repair competes with new data."""
+        return rate
+
     def feedback(self, ctx: SchemeCtx, state, sig: SchemeSignals) -> Feedback:
         """CNPs ride the full return path; intra-DC CNPs loop locally."""
         return Feedback(
@@ -178,10 +221,6 @@ class Scheme:
 
 _REGISTRY: Dict[str, Scheme] = {}
 
-# Schemes of the JAX package that a later slice of the port brings.
-_LATER = {name: "ROADMAP queue 1 item 12 (the rest of the scheme pack)"
-          for name in ("geopipe", "sdr_rdma", "rdmacell")}
-
 SchemeLike = Union[str, Scheme]
 
 
@@ -217,10 +256,6 @@ def get_scheme(scheme: SchemeLike) -> Scheme:
     """Resolve a scheme name (or pass a ``Scheme`` instance through)."""
     if isinstance(scheme, Scheme):
         return scheme
-    if scheme in _LATER:
-        raise NotImplementedError(
-            f"scheme {scheme!r} is not ported yet; it comes with "
-            f"{_LATER[scheme]}")
     try:
         return _REGISTRY[scheme]
     except (KeyError, TypeError):

@@ -114,9 +114,13 @@ def test_workload_arrays_are_equal(build, args):
 
 
 def test_unported_schemes_raise_by_name():
-    for name in ("geopipe", "sdr_rdma", "rdmacell"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            get_scheme(name)
+    """Every scheme of the JAX package resolves in the port (the related-work
+    pack came with the multi-link slice); an unknown name raises."""
+    from repro.netsim.schemes import ALL_SCHEMES as JAX_ALL
+    from repro_torch.netsim.schemes import ALL_SCHEMES
+    assert ALL_SCHEMES == JAX_ALL
+    for name in ALL_SCHEMES:
+        assert get_scheme(name).name == name
     with pytest.raises(ValueError, match="unknown scheme"):
         get_scheme("nope")
 

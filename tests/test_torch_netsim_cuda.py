@@ -1,6 +1,8 @@
 """The port's netsim on the card: the CUDA-graph path against the eager steps
-bit for bit, the card against the CPU on the golden scenarios, and the
-options outside the ported path raising there too.
+bit for bit, the card against the CPU on the golden scenarios (all seven
+schemes) and on the two multi-link scenarios of ``tests/torch_parity.py``
+(the three-link delay-spread cell and the 3-site mesh), and the options
+outside the ported path raising there too.
 
 These tests import no JAX, so they run on a machine that has only PyTorch:
 
@@ -16,11 +18,18 @@ import torch
 
 from repro_torch.config.net import NetConfig
 from repro_torch.netsim import fluid
+from repro_torch.netsim import topology as ptopo
 from repro_torch.netsim import workload as pwork
 from torch_parity import (
-    GOLDEN, SCHEMES, assert_columns_close, assert_final_close, fig3_columns,
-    golden_configs, golden_workload, leaves,
+    ALL_SCHEMES, COLUMN_FLOORS, GOLDEN, LINKS3_H_US, MESH_H_US, RELATED, SCHEMES,
+    assert_columns_close, assert_final_close, fig3_columns, golden_configs,
+    golden_workload, leaves, links3_config, mesh_config, mesh_workload,
 )
+
+# the multi-link scenarios: configs, workload, horizon
+LINKS = {"links3": ([links3_config(NetConfig)], golden_workload("seq", pwork),
+                    LINKS3_H_US),
+         "mesh": ([mesh_config(NetConfig, ptopo)], mesh_workload(pwork), MESH_H_US)}
 
 
 @pytest.fixture
@@ -64,9 +73,56 @@ def test_card_matches_cpu(cuda, name, scheme):
     assert_final_close(cf, pf, 5.0, f"{name}/{scheme}")
 
 
+@pytest.mark.parametrize("mode", ["full", "metrics"])
+@pytest.mark.parametrize("scheme", ALL_SCHEMES)
+def test_multilink_graph_matches_eager_bit_for_bit(cuda, scheme, mode):
+    cfgs, wl, _ = LINKS["links3"]
+    kw = dict(trace_mode=mode, horizon_us=512 * 5.0)
+    eager = fluid.simulate_batch(cfgs, wl, scheme, device=cuda, graph_block=0, **kw)
+    graph = fluid.simulate_batch(cfgs, wl, scheme, device=cuda, graph_block=100, **kw)
+    e, g = leaves(eager), leaves(graph)
+    assert sorted(e) == sorted(g) and len(e) > 30
+    diff = [k for k in e if not (e[k] == g[k]).all()]
+    assert not diff, diff
+
+
+@pytest.mark.parametrize("scheme", RELATED)
+def test_related_graph_matches_eager_bit_for_bit(cuda, scheme):
+    kw = dict(horizon_us=512 * 5.0)
+    cfgs = golden_configs("batch", NetConfig)
+    wl = golden_workload("batch", pwork)
+    eager = fluid.simulate_batch(cfgs, wl, scheme, device=cuda, graph_block=0, **kw)
+    graph = fluid.simulate_batch(cfgs, wl, scheme, device=cuda, graph_block=100, **kw)
+    e, g = leaves(eager), leaves(graph)
+    diff = [k for k in e if not (e[k] == g[k]).all()]
+    assert sorted(e) == sorted(g) and not diff, diff
+
+
+@pytest.mark.parametrize("scheme", RELATED)
+@pytest.mark.parametrize("name", sorted(GOLDEN))
+def test_related_card_matches_cpu(cuda, name, scheme):
+    test_card_matches_cpu(cuda, name, scheme)
+
+
+@pytest.mark.parametrize("scheme", ALL_SCHEMES)
+@pytest.mark.parametrize("name", sorted(LINKS))
+def test_multilink_card_matches_cpu(cuda, name, scheme):
+    cfgs, wl, h = LINKS[name]
+    cf, ct = fluid.simulate_batch(cfgs, wl, scheme, h, device=cuda)
+    pf, pt = fluid.simulate_batch(cfgs, wl, scheme, h, device="cpu")
+    steps = int(h / 5.0)
+    card = {k: v.cpu().numpy() for k, v in ct.items()}
+    cpu = {k: v.numpy() for k, v in pt.items()}
+    assert card["link_tx"].shape == cpu["link_tx"].shape
+    assert_columns_close(fig3_columns(card, steps), fig3_columns(cpu, steps),
+                         f"{name}/{scheme}", COLUMN_FLOORS)
+    assert_final_close(cf, pf, 5.0, f"{name}/{scheme}")
+
+
 def test_unported_options_raise_on_the_card(cuda):
     wl = pwork.throughput_workload(1 << 20, 1, 2)
-    for cfg, kw in ((NetConfig(num_paths=2), {}), (NetConfig(soft_step=True), {}),
+    for cfg, kw in ((NetConfig(num_paths=2), {"channel": "jitter"}),
+                    (NetConfig(soft_step=True), {}),
                     (NetConfig(), {"channel": "jitter"}),
                     (NetConfig(), {"trace_mode": "window"})):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):

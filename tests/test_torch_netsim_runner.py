@@ -5,10 +5,10 @@ point's device rule.
 
 Row tolerances (the Fig. 3 columns): throughput, goodput, peak / mean / p99
 buffer and intra-DC throughput within ``COLUMN_REL`` (1e-3) relative plus
-``ABS_FLOOR``; pause
-ratio within ``PAUSE_ABS`` (1e-3); in ``metrics`` mode the p99 within one
-histogram bin; average FCT within one step (``dt_us``, FCTs are step
-times); completion equal; the schemes' streamed columns within 1e-3.
+``ABS_FLOOR``; pause ratio within ``PAUSE_ABS`` (1e-3); in ``metrics`` mode
+the p99 within one histogram bin; average FCT within one step (``dt_us``,
+FCTs are step times); completion equal; the schemes' streamed columns within
+1e-3 (``torch_parity.assert_rows_close``).
 """
 import warnings
 
@@ -22,39 +22,9 @@ from repro.netsim import workload as jwork
 from repro_torch.config.net import NetConfig
 from repro_torch.netsim import runner as prunner
 from repro_torch.netsim import workload as pwork
-from repro_torch.netsim.streaming import HIST_BINS
-from torch_parity import COLUMN_REL, PAUSE_ABS
+from torch_parity import assert_rows_close
 
-BIN_RATIO = 10 ** (12 / (HIST_BINS - 1))
-# on top of the relative limit, 100 bytes (1e-4 MB; 1e-4 Gbps for the rates):
-# a drained queue holds f32 residues of a few bytes (available minus drained
-# bytes of order 1e6; JAX leaves -2e-9 MB where the port leaves 0), and its
-# p99 or mean is made of them
-ABS_FLOOR = 1e-4
 H_US = 4_000.0
-
-
-def assert_rows_close(prows, jrows, metrics_mode=False, what=""):
-    assert len(prows) == len(jrows), what
-    for p, j in zip(prows, jrows):
-        assert sorted(p) == sorted(j), (what, sorted(set(p) ^ set(j)))
-        assert p["scheme"] == j["scheme"] and p["distance_km"] == j["distance_km"]
-        for k, r in j.items():
-            if k in ("scheme", "distance_km"):
-                continue
-            v = p[k]
-            if k == "completion_frac":
-                ok = v == r
-            elif k == "avg_fct_us":
-                ok = (np.isnan(v) and np.isnan(r)) or v == r or abs(v - r) <= 5.0
-            elif k == "pause_ratio":
-                ok = abs(v - r) <= PAUSE_ABS
-            elif k == "p99_buffer_mb" and metrics_mode:
-                ok = v == r or (min(v, r) > 0 and max(v, r) / min(v, r) <= BIN_RATIO * 1.0001)
-            else:
-                ok = abs(v - r) <= COLUMN_REL * abs(r) + ABS_FLOOR
-            assert ok, f"{what} {p['scheme']} d={p['distance_km']} {k}: {v} vs {r}"
-
 
 def _grid(netconfig, work):
     """Mixed distances and capacities, three workloads (a padded flow set)."""
@@ -137,7 +107,9 @@ def test_unported_runner_options_raise(kw, item):
 
 
 @pytest.mark.parametrize("cfg,item", [
-    (dict(num_paths=2), "item 14"), (dict(num_sites=3, num_paths=3), "item 14"),
+    (dict(num_paths=2, soft_step=True), "item 16"),
+    (dict(num_sites=3, num_paths=3, failure_schedule=(((1.0, 2.0),),) * 3),
+     "item 15"),
     (dict(failure_schedule=(((1.0, 2.0),),)), "item 15"),
     (dict(soft_step=True), "item 16"),
 ])

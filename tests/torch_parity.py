@@ -7,6 +7,8 @@ tests import it. It imports no JAX itself: leaves are read with numpy.
 import numpy as np
 import torch
 
+from repro_torch.netsim.streaming import HIST_BINS
+
 
 def leaves(tree, prefix: str = "") -> dict:
     """``{"a.b.c": ndarray}`` for every array leaf of a NamedTuple / dict /
@@ -77,6 +79,48 @@ GOLDEN = {
               dict(msg_size=1 << 20, concurrency=1, num_flows=4), 8_000.0),
 }
 
+RELATED = ("geopipe", "sdr_rdma", "rdmacell")
+ALL_SCHEMES = SCHEMES + RELATED
+
+# The multi-link scenarios: one cell of benchmarks/scheme_compare.py's
+# topology grid (100 km, three links, its widest delay spread and capacity
+# skew) under the golden congestion workload, 10 ms; and the 3-site mesh of
+# scheme_compare.SITES_EDGES (two parallel 0->1 edges, a thin relay through
+# site 2) under scheme_compare._sites_workload, cut to 6 ms.
+LINKS3 = dict(distance_km=100.0, num_paths=3, path_delay_scale=(1.0, 2.0, 4.0),
+              path_cap_frac=(0.6, 0.3, 0.1))
+LINKS3_H_US = 10_000.0
+MESH_H_US = 6_000.0
+
+
+def links3_config(netconfig):
+    return netconfig(**LINKS3)
+
+
+def mesh_config(netconfig, topology):
+    e = topology.SiteEdge
+    edges = (e(0, 1), e(0, 1, delay_scale=1.5), e(0, 2, cap_frac=0.2),
+             e(2, 1, cap_frac=0.2))
+    return topology.SiteGraph(3, edges).to_net_config(netconfig(distance_km=100.0))
+
+
+def mesh_workload(work, horizon_us: float = MESH_H_US):
+    """Inter-DC load on all three site pairs and an intra-DC burst at site 1's
+    leaf through the middle third (scheme_compare._sites_workload)."""
+    fs = work.FlowSpec
+    inter = [fs(True, 1 << 20, 16) for _ in range(2)]
+    inter += [fs(True, 1 << 20, 16, src_site=0, dst_site=2),
+              fs(True, 1 << 20, 16, src_site=2, dst_site=1)]
+    intra = [fs(False, 256 << 10, 8, dst_site=1, start_us=horizon_us / 3.0,
+                period_us=horizon_us, duty=1.0 / 3.0) for _ in range(2)]
+    return work.Workload(tuple(inter + intra))
+
+
+_EMPTY = "the step's throughput reads the gap as it drains empty: "
+_XOFF_50KM = ("src-OTN -> sender PFC: sum(q_src) settles on xoff_otn = 1e7 B "
+              "(0.1 x 2D x C_otn at 50 km), 9,999,999 B in JAX, 10,000,001 B "
+              "in the port; one flow-step (250,000 B) more is sent in JAX")
+
 # Where a free run of the port parts from JAX's on these scenarios, and the
 # hard threshold that flips there (found by tests/test_torch_netsim_step.py,
 # whose single steps agree to 1e-6 on both sides of each of these steps).
@@ -91,6 +135,52 @@ PARTS = {
                               "bytes_ctr + 62,500 B reaches 1e7 B in the port "
                               "(9,937,500) and misses it in JAX (9,937,499)"),
     ("batch", "themis"): (953, "the same DCQCN byte counter"),
+    ("seq", "rdmacell"): (306, "rdmacell is dcqcn on one link: the same "
+                               "src-OTN -> sender PFC threshold"),
+    ("seq", "sdr_rdma"): (709, "cons_err, the conservation residual of f32 "
+                               "byte counters of ~3.5e7 B, drifts by a "
+                               "rounding a step at its own rate in each "
+                               "(single steps agree to 1e-6): 4.4e-7 of sent "
+                               "in JAX, 1.04e-5 in the port. The queues part "
+                               "at step 898, where the destination OTN drains "
+                               "empty and min(backlog, capacity) hands the "
+                               "1,380 B gap of q_dst to the leaf at once"),
+    ("seq", "geopipe"): (381, "the credit gate: the source releases its whole "
+                              "credit, so credit = window - (released - "
+                              "granted) lands on 0 within the ulp (1-2 B) of "
+                              "counters of 1e7 B, and credit_stall (credit "
+                              "<= 1 B) reads 2 B in JAX, 0 B in the port"),
+    ("batch", "geopipe"): (124, "the same credit gate (the 1 km cell)"),
+    # the multi-link scenarios: most part where a queue drains empty; its
+    # level, a difference of byte counters, is a few ulps of drift apart by
+    # then, and min(backlog, capacity) hands the whole gap on in one step
+    ("links3", "dcqcn"): (510, _EMPTY + "the destination OTN (95 B apart)"),
+    ("links3", "themis"): (510, _EMPTY + "the destination OTN (95 B apart)"),
+    ("links3", "sdr_rdma"): (906, _EMPTY + "the destination leaf (439 B)"),
+    ("links3", "rdmacell"): (922, _EMPTY + "the destination leaf (272 B)"),
+    ("links3", "geopipe"): (384, "the credit gate, as on the golden cell"),
+    ("mesh", "dcqcn"): (748, "link 0's destination PFC releases at XON = "
+                             "3e6 B: q_dst_link[0] reads 3,000,045.75 B in "
+                             "JAX, 2,999,991.75 B in the port"),
+    ("mesh", "themis"): (551, _EMPTY + "the source OTN (212 B), so the "
+                                       "last spray differs on every link"),
+    ("mesh", "sdr_rdma"): (847, _EMPTY + "the destination leaf (52 B)"),
+    ("mesh", "rdmacell"): (462, _EMPTY + "the destination leaf (64 B)"),
+    ("mesh", "geopipe"): (305, "the credit gate, as on the golden cell"),
+    # scheme_compare's 50 km cell, cut to 3 ms (tests/test_torch_netsim_compare.py)
+    ("compare_50km", "dcqcn"): (153, _XOFF_50KM),
+    ("compare_50km", "themis"): (153, _XOFF_50KM),
+    ("compare_50km", "rdmacell"): (153, _XOFF_50KM),
+}
+# Row columns that are read at a parting's threshold itself, over the whole
+# run, and with it why they are not held to COLUMN_REL.
+ROW_PARTS = {
+    ("geopipe", "credit_stall_frac"): (
+        "the share of steps with credit <= 1 B: the credit-paced source "
+        "spends its credit to 0 within the 1-2 B ulp of its counters, so "
+        "each such step's flag is decided by f32 rounding (golden batch, "
+        "1 km: 0.281 in the port, 0.169 in JAX; every other column of "
+        "those rows within 1e-3)"),
 }
 # Traces before a part: the steps' ulp-level differences (1e-7 relative, an
 # XLA FMA against torch's two roundings) accumulate over up to 2000 steps in
@@ -102,6 +192,14 @@ CONS_ERR_ABS = 1e-5
 COLUMN_REL = 1e-3        # throughput, peak / mean / p99 buffer
 PAUSE_ABS = 1e-3         # pause ratio
 FINAL_REL = 1e-4         # final sent / delivered, of the largest value
+# Queue levels are differences of byte counters that move about C.dt = 1e6 B
+# a step (1.6 Tb/s for 5 us); a drained queue holds f32 residues of that
+# size's ulp (a few 1e-3 B, of either sign), so the new tests read queue
+# errors against at least QUEUE_SCALE bytes (1e-6 of it is one byte).
+QUEUE_SCALE = 1e6
+QUEUE_LEAVES = ("q_src", "q_dst", "q_leaf", "q_dst_link", "out.q_src",
+                "out.q_dst", "out.q_leaf", "out.q_dst_link",
+                "extra.acc_queue", "extra.mr.acc_queue")
 
 
 def golden_configs(name, netconfig):
@@ -126,13 +224,23 @@ def fig3_columns(traces: dict, steps: int) -> dict:
     }
 
 
-def assert_columns_close(port: dict, ref: dict, what: str = "") -> None:
+# Where a column's reference is itself a residue (a queue that never holds
+# more than f32 residues of drained bytes), it is read against at least these:
+# 100 B under the buffers, 1e-4 Gb/s under the throughput (chip_smoke.py's
+# NETSIM_FLOOR). The new multi-link tests pass them.
+COLUMN_FLOORS = {"peak_buffer": 100.0, "mean_buffer": 100.0, "p99_buffer": 100.0,
+                 "throughput": 1e-4 * 1e9 / 8.0}
+
+
+def assert_columns_close(port: dict, ref: dict, what: str = "",
+                         floors: dict = None) -> None:
     for k, r in ref.items():
         r, p = np.asarray(r, np.float64), np.asarray(port[k], np.float64)
         if k == "pause_ratio":
             err, lim = np.abs(p - r).max(), PAUSE_ABS
         else:
-            err, lim = (np.abs(p - r) / np.maximum(np.abs(r), 1e-30)).max(), COLUMN_REL
+            scale = np.maximum(np.abs(r), (floors or {}).get(k, 1e-30))
+            err, lim = (np.abs(p - r) / scale).max(), COLUMN_REL
         assert err <= lim, f"{what} {k}: {p} vs {r} (error {err:.3e} > {lim:g})"
 
 
@@ -153,9 +261,10 @@ def assert_final_close(port_state, ref_state, dt_us: float, what: str = "") -> N
 
 
 def assert_traces_close_before(port: dict, ref: dict, part: int, what: str = "",
-                               every: int = 1) -> None:
-    """Every trace key within TRACE_REL of its largest value (cons_err
-    within CONS_ERR_ABS) on the rows before step ``part``."""
+                               every: int = 1, floors: dict = None) -> None:
+    """Every trace key within TRACE_REL of its largest value, or of
+    ``floors[key]`` where that is larger (cons_err within CONS_ERR_ABS), on
+    the rows before step ``part``."""
     rows = part // every
     for k, r in ref.items():
         r = np.asarray(r, np.float64)
@@ -165,5 +274,45 @@ def assert_traces_close_before(port: dict, ref: dict, part: int, what: str = "",
         if k == "cons_err":
             assert d <= CONS_ERR_ABS, f"{what} {k}: {d:.3e}"
         else:
-            rel = d / max(np.abs(r).max(), 1e-30)
+            rel = d / max(np.abs(r).max(), (floors or {}).get(k, 0.0), 1e-30)
             assert rel <= TRACE_REL, f"{what} {k}: {rel:.3e} before step {part}"
+
+
+# ---------------------------------------------------------------------------
+# Rows (runner): the Fig. 3 columns and the schemes' streamed columns
+# ---------------------------------------------------------------------------
+
+BIN_RATIO = 10 ** (12 / (HIST_BINS - 1))
+# on top of the relative limit, 100 bytes (1e-4 MB; 1e-4 Gbps for the rates):
+# a drained queue holds f32 residues of a few bytes (available minus drained
+# bytes of order 1e6; JAX leaves -2e-9 MB where the port leaves 0), and its
+# p99 or mean is made of them
+ABS_FLOOR = 1e-4
+
+
+def assert_rows_close(prows, jrows, metrics_mode=False, what=""):
+    """Row for row, each column as the module docstring of
+    tests/test_torch_netsim_runner.py states; a column of ``ROW_PARTS`` only
+    present and within [0, 1]."""
+    assert len(prows) == len(jrows), what
+    for p, j in zip(prows, jrows):
+        assert sorted(p) == sorted(j), (what, sorted(set(p) ^ set(j)))
+        assert p["scheme"] == j["scheme"] and p["distance_km"] == j["distance_km"]
+        for k, r in j.items():
+            if k in ("scheme", "distance_km"):
+                continue
+            if (p["scheme"], k) in ROW_PARTS:
+                assert 0.0 <= p[k] <= 1.0, (what, p["scheme"], k, p[k])
+                continue
+            v = p[k]
+            if k == "completion_frac":
+                ok = v == r
+            elif k == "avg_fct_us":
+                ok = (np.isnan(v) and np.isnan(r)) or v == r or abs(v - r) <= 5.0
+            elif k == "pause_ratio":
+                ok = abs(v - r) <= PAUSE_ABS
+            elif k == "p99_buffer_mb" and metrics_mode:
+                ok = v == r or (min(v, r) > 0 and max(v, r) / min(v, r) <= BIN_RATIO * 1.0001)
+            else:
+                ok = abs(v - r) <= COLUMN_REL * abs(r) + ABS_FLOOR
+            assert ok, f"{what} {p['scheme']} d={p['distance_km']} {k}: {v} vs {r}"
