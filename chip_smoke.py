@@ -104,14 +104,32 @@ and builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    three on the golden batch and all seven on the three-link cell; two
    planted faults that must read over a limit ("every link's ring read at
    link 0's delay", "rdmacell's route_weights returns the base route");
-   then ``launch.netsim``'s ``scheme_compare`` (7 distances, 220 ms, one
-   [B=7] batch a scheme) and ``topology`` (3 x 3 unequal three-link cells,
-   20 ms, [B=9]) grids with their row asserts, wall, cell-steps per second,
-   device ms and kernels per step for each scheme.
+   then ``launch.netsim``'s ``scheme_compare`` (7 distances at 44 ms, a
+   fifth of its 220 ms, so that phase 12 fits; one [B=7] batch a scheme) and
+   ``topology`` (3 x 3 unequal three-link cells, 20 ms, [B=9]) grids with
+   their row asserts, wall, cell-steps per second, device ms and kernels per
+   step for each scheme.
+12. the impaired, replayed and failing long haul (the channel models, the
+   threefry PRNG, the loss-repair path, failure schedules, the hardened
+   runner; again no kernel of its own): the threefry draws on the card bit
+   for bit against the CPU's over 2^20 counters; card vs CPU with phase 10's
+   limits for all seven schemes on the golden congestion cell under the
+   ``impaired`` channel (loss, jitter and flap, 4 ms), on the 3-site mesh
+   under ``trace_replay`` at schedule scale 1 and on the link-0 and site
+   outages of three links (4 ms); graphs vs eager steps bit for bit on
+   those; three planted faults, each of which must fail its check ("the
+   step key folded from a count read at capture time": graph vs eager;
+   "a dead link's arrivals delivered, not dumped": card vs CPU; "loss
+   notifications never reach the retransmit backlog": ``strict_conservation``
+   must raise ``ConservationError``); the kernels one step's draws launch;
+   then ``launch.netsim``'s ``impairment`` (6 cells), ``sites`` (9) and
+   ``failover`` (6) grids at full width (20 ms, one batch a scheme) with
+   their asserts, rows, wall, capture, cell-steps per second, device ms and
+   kernels per step for each scheme.
 
 Each serving and training path runs with every kernel's launch count set to
 0 just before it and read just after. The last lines are the serving,
-training, netsim and multi-link netsim JSON records, the card's
+training, netsim, multi-link and channel netsim JSON records, the card's
 ``name, power.limit``, the kernels' JSON record, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -251,6 +269,27 @@ NETSIM_ALL = NETSIM_SCHEMES + NETSIM_RELATED
 NETSIM_LINKS3 = dict(distance_km=100.0, num_paths=3, path_delay_scale=(1.0, 2.0, 4.0),
                      path_cap_frac=(0.6, 0.3, 0.1))
 NETSIM_LINKS_H_US = 4_000.0
+# scheme_compare's distance grid in phase 11: a fifth of its 220 ms (8,800
+# steps), so that phase 12 fits the script's time
+NETSIM_COMPARE_H_US = 44_000.0
+# Phase 12, the channel and failure paths: the golden congestion cell under
+# the impaired channel (tests/test_channel.py's conservation knobs), the
+# 3-site mesh under its replayed schedule at amplitude 1, and link-0 and
+# site outages on three unequal links at 100 km under a streaming workload;
+# 4 ms each, as the CPU side runs eagerly (the draws ~500 ops a step).
+NETSIM_IMPAIRED = dict(distance_km=100.0, loss_rate=0.01, loss_burst_len=4.0,
+                       jitter_us=20.0, flap_period_us=2_000.0, flap_depth=0.5)
+NETSIM_CHANNEL_H_US = 4_000.0
+NETSIM_CHANNEL_SCHEMES = ("dcqcn", "matchrdma", "rdmacell")
+# the site outage with sdr_rdma in rdmacell's place: rdmacell's site-outage
+# run parts between card and CPU within 4 ms (final sent 1.383e-3 apart on an
+# H100 80GB HBM3 at 700 W), as it parts from JAX at step 401 on its
+# reorder-buffer trace
+NETSIM_SITE_SCHEMES = ("dcqcn", "matchrdma", "sdr_rdma")
+# graphs vs eager on the channel cases: 192 steps through graphs of 64
+NETSIM_CHANNEL_GRAPH = (192, 64)
+# profiled eager steps a scheme for the phase 12 figures' kernel counts
+NETSIM_CHANNEL_PROFILE_STEPS = 20
 
 
 def fail(msg: str) -> None:
@@ -1095,29 +1134,41 @@ def phase_train(torch, card: str, arch: str, planted: dict) -> dict:
 
 
 def netsim_scenario(name: str):
-    """(configs, workload, horizon us) of a golden scenario (NETSIM_GOLDEN),
-    ``links3`` or ``mesh`` (NETSIM_LINKS3, the 3-site mesh)."""
+    """(configs, workload, horizon us, channel) of a golden scenario
+    (NETSIM_GOLDEN), ``links3`` or ``mesh`` (NETSIM_LINKS3, the 3-site
+    mesh), or a channel case: ``impaired`` (NETSIM_IMPAIRED), ``sites`` (the
+    mesh under its replayed schedule), ``link0`` / ``site`` (outages)."""
     from repro_torch.config.net import NetConfig
-    from repro_torch.netsim import topology, workload
+    from repro_torch.launch import netsim as launch_netsim
+    from repro_torch.netsim import FailureSchedule, topology, workload
 
     if name in NETSIM_GOLDEN:
         dists, build, kw, horizon = NETSIM_GOLDEN[name]
         return ([NetConfig(distance_km=d) for d in dists],
-                getattr(workload, build)(**kw), horizon)
+                getattr(workload, build)(**kw), horizon, None)
     h = NETSIM_LINKS_H_US
     if name == "links3":
         return ([NetConfig(**NETSIM_LINKS3)],
-                workload.congestion_workload(**NETSIM_GOLDEN["seq"][2]), h)
-    e, fs = topology.SiteEdge, workload.FlowSpec
-    mesh = topology.SiteGraph(3, (e(0, 1), e(0, 1, delay_scale=1.5),
-                                  e(0, 2, cap_frac=0.2), e(2, 1, cap_frac=0.2)))
-    flows = ([fs(True, 1 << 20, 16) for _ in range(2)]
-             + [fs(True, 1 << 20, 16, src_site=0, dst_site=2),
-                fs(True, 1 << 20, 16, src_site=2, dst_site=1)]
-             + [fs(False, 256 << 10, 8, dst_site=1, start_us=h / 3.0, period_us=h,
-                   duty=1.0 / 3.0) for _ in range(2)])
-    return ([mesh.to_net_config(NetConfig(distance_km=100.0))],
-            workload.Workload(tuple(flows)), h)
+                workload.congestion_workload(**NETSIM_GOLDEN["seq"][2]), h, None)
+    if name == "impaired":
+        return ([NetConfig(**NETSIM_IMPAIRED)],
+                workload.congestion_workload(**NETSIM_GOLDEN["seq"][2]),
+                NETSIM_CHANNEL_H_US, "impaired")
+    if name in ("link0", "site"):
+        fs = FailureSchedule.empty(3)
+        fs = (fs.link_outage(0, 600.0, 2_000.0) if name == "link0"
+              else fs.site_outage(1, 600.0, 1_500.0, ((0, 1),) * 3))
+        return ([fs.apply(NetConfig(distance_km=100.0, num_paths=3,
+                                    path_cap_frac=(0.5, 0.3, 0.2)))],
+                workload.throughput_workload(1 << 23, 4, 4), NETSIM_CHANNEL_H_US, None)
+    mesh = topology.SiteGraph(3, launch_netsim.SITES_EDGES)
+    cfg = mesh.to_net_config(NetConfig(distance_km=100.0))
+    if name == "mesh":
+        return [cfg], launch_netsim.sites_workload(h), h, None
+    h = NETSIM_CHANNEL_H_US
+    cfg = dataclasses.replace(cfg, channel_schedule=launch_netsim.sites_schedule(1.0),
+                              channel_schedule_dt_us=h / 8.0)
+    return [cfg], launch_netsim.sites_workload(h), h, "trace_replay"
 
 
 def netsim_golden_run(torch, name: str, scheme: str, device) -> dict:
@@ -1127,8 +1178,9 @@ def netsim_golden_run(torch, name: str, scheme: str, device) -> dict:
 
     from repro_torch.netsim import fluid
 
-    cfgs, wl, horizon = netsim_scenario(name)
-    final, traces = fluid.simulate_batch(cfgs, wl, scheme, horizon, device=device)
+    cfgs, wl, horizon, channel = netsim_scenario(name)
+    final, traces = fluid.simulate_batch(cfgs, wl, scheme, horizon, device=device,
+                                         channel=channel)
     tr = {k: v.cpu().numpy().astype(np.float64) for k, v in traces.items()}
     warm = int(tr["q_dst"].shape[1] * fluid.WARMUP_FRAC)
     return {
@@ -1261,23 +1313,33 @@ def netsim_card_vs_cpu(torch, cases, dev) -> dict:
     return sound, cpu, cards
 
 
-def netsim_graph_vs_eager(torch, cases, dev) -> dict:
-    """Each (scenario, scheme) for NETSIM_GRAPH_STEPS steps through CUDA graphs
-    and through eager steps on the card; fails the run unless every leaf of
-    the result is equal."""
+def netsim_graph_vs_eager(torch, cases, dev, steps: int = NETSIM_GRAPH_STEPS,
+                          graph_block: int = 0) -> dict:
+    """Each (scenario, scheme) for ``steps`` steps through CUDA graphs (of
+    ``graph_block`` steps; 0 = fluid.GRAPH_BLOCK) and through eager steps on
+    the card; fails the run unless every leaf of the result is equal."""
+    from repro_torch.netsim import fluid
+
+    equal = netsim_graph_diffs(torch, cases, dev, steps, graph_block)
+    check(not any(equal.values()), f"CUDA graphs differ from the eager steps: {equal}")
+    return equal
+
+
+def netsim_graph_diffs(torch, cases, dev, steps: int, graph_block: int = 0) -> dict:
+    """The leaves where graphs and eager steps differ, per (scenario, scheme)."""
     from repro_torch.netsim import fluid
 
     equal = {}
     for name, scheme in cases:
-        cfgs, wl, _ = netsim_scenario(name)
-        h = NETSIM_GRAPH_STEPS * cfgs[0].dt_us
-        runs = [fluid.simulate_batch(cfgs, wl, scheme, h, device=dev, graph_block=g)
-                for g in (0, fluid.GRAPH_BLOCK)]
+        cfgs, wl, _, channel = netsim_scenario(name)
+        h = steps * cfgs[0].dt_us
+        runs = [fluid.simulate_batch(cfgs, wl, scheme, h, device=dev, graph_block=g,
+                                     channel=channel)
+                for g in (0, graph_block or fluid.GRAPH_BLOCK)]
         a, b = (netsim_leaves(torch, r) for r in runs)
         equal[f"{name}/{scheme}"] = sorted(k for k in a if not torch.equal(a[k], b[k]))
-        print(f"  graph vs eager {name}/{scheme}, {NETSIM_GRAPH_STEPS} steps: {len(a)} "
+        print(f"  graph vs eager {name}/{scheme}, {steps} steps: {len(a)} "
               f"leaves, {len(equal[f'{name}/{scheme}'])} differ", flush=True)
-    check(not any(equal.values()), f"CUDA graphs differ from the eager steps: {equal}")
     return equal
 
 
@@ -1306,14 +1368,18 @@ def netsim_planted(torch, faults, cpu, dev) -> dict:
     return controls
 
 
-def netsim_figure(torch, card: str, name: str, n_cells: int) -> dict:
+def netsim_figure(torch, card: str, name: str, n_cells: int,
+                  horizon_us=None, profile_steps=None) -> dict:
     """One of launch.netsim's seven-scheme figures on the card (its default
-    grid), each scheme's grid one streamed batch: rows, wall, cell-steps/s,
-    device ms a step, kernels a step."""
+    grid, at ``horizon_us`` if given), each scheme's grid one batch: rows,
+    wall, capture, cell-steps/s, device ms a step, kernels a step
+    (``profile_steps`` eager steps profiled; None = launch.netsim's
+    default)."""
     from repro_torch.launch import netsim as launch_netsim
 
     t0 = time.perf_counter()
-    fig = launch_netsim.Figure(name, torch.device("cuda"))
+    kw = {} if profile_steps is None else {"profile_steps": profile_steps}
+    fig = launch_netsim.Figure(name, torch.device("cuda"), horizon_us, **kw)
     rows = launch_netsim.FIGURES[name](fig, full=False)
     check([r["scheme"] for r in fig.records] == list(NETSIM_ALL),
           f"{name}: schemes {[r['scheme'] for r in fig.records]}")
@@ -1364,8 +1430,122 @@ def phase_netsim_links(torch, card: str) -> dict:
          (fluid, "link_ring_row", ring_at_link0)),
         ("rdmacell's route_weights returns the base route", "links3/rdmacell",
          (RdmaCellScheme, "route_weights", Scheme.route_weights))), cpu, dev)
-    out["scheme_compare"] = netsim_figure(torch, card, "scheme_compare", 7)
+    out["scheme_compare"] = netsim_figure(torch, card, "scheme_compare", 7,
+                                          horizon_us=NETSIM_COMPARE_H_US)
     out["topology"] = netsim_figure(torch, card, "topology", 9)
+    return out
+
+
+def prng_kernels_per_step(torch, dev) -> dict:
+    """Kernels one impaired step's draws launch on the card, at L = 1 and at
+    L = 3 (the step key, the link keys, the loss and jitter subkeys, the
+    uniforms of 8 flows), counted under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.netsim import prng
+
+    key0 = prng.fold_in(prng.prng_key(0, dev)[None, :], torch.arange(4, device=dev))
+    t = torch.zeros((), dtype=torch.int32, device=dev)
+    sub = torch.tensor([0, 1], device=dev)
+    out = {}
+    for links in (1, 3):
+        def draws():
+            key = prng.fold_in(key0, t)
+            if links > 1:
+                key = prng.fold_in(key[..., None, :], torch.arange(links, device=dev))
+            return prng.uniform(prng.fold_in(key[..., None, :], sub), (8,))
+        draws()
+        torch.cuda.synchronize(dev)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            draws()
+            torch.cuda.synchronize(dev)
+        out[f"L={links}"] = sum(e.device_type == DeviceType.CUDA for e in prof.events())
+    return out
+
+
+def phase_netsim_channel(torch, card: str) -> dict:
+    """The channel and failure paths (phase 12): threefry card vs CPU, card
+    vs CPU and graph vs eager on the impaired cell, the replayed mesh and
+    the outages, three planted faults, the draws' kernels a step, and the
+    impairment, sites and failover grids of launch.netsim on the card."""
+    import itertools
+
+    from repro_torch.netsim import fluid, prng, runner
+
+    dev = torch.device("cuda")
+    out = {"card_vs_cpu_tol": NETSIM_TOL}
+
+    # 1. threefry on the card against the CPU, bit for bit
+    keys = prng.fold_in(prng.prng_key(7)[None, :], torch.arange(4))
+    bits_cpu = prng.random_bits(keys, (1 << 20,))
+    bits_card = prng.random_bits(keys.to(dev), (1 << 20,)).cpu()
+    u_cpu = prng.uniform(keys, (1 << 20,)).view(torch.int32)
+    u_card = prng.uniform(keys.to(dev), (1 << 20,)).cpu().view(torch.int32)
+    out["threefry_words_differing"] = int((bits_cpu != bits_card).sum())
+    out["uniform_bits_differing"] = int((u_cpu != u_card).sum())
+    print(f"  threefry, 4 keys x 2^20 counters: {out['threefry_words_differing']} "
+          f"words and {out['uniform_bits_differing']} uniforms differ from the CPU's",
+          flush=True)
+    check(out["threefry_words_differing"] == 0 and out["uniform_bits_differing"] == 0,
+          "the card's threefry draws differ from the CPU's")
+    out["prng_kernels_per_step"] = prng_kernels_per_step(torch, dev)
+    print(f"  kernels of one step's draws: {out['prng_kernels_per_step']}", flush=True)
+
+    # 2. card (graphs) vs CPU (eager)
+    t0 = time.perf_counter()
+    cases = ([("impaired", s) for s in NETSIM_ALL]
+             + [(n, s) for n in ("sites", "link0") for s in NETSIM_CHANNEL_SCHEMES]
+             + [("site", s) for s in NETSIM_SITE_SCHEMES])
+    out["card_vs_cpu"], cpu, _ = netsim_card_vs_cpu(torch, cases, dev)
+    print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # 3. graphs vs eager, bit for bit
+    steps, block = NETSIM_CHANNEL_GRAPH
+    netsim_graph_vs_eager(torch, cases, dev, steps, block)
+
+    # 4. planted faults, each of which must fail its check
+    count = itertools.count()
+    kept = fluid.step_key
+    fluid.step_key = lambda key, t: prng.fold_in(key, next(count))
+    try:
+        diff = netsim_graph_diffs(torch, [("impaired", "dcqcn")], dev, steps, block)
+    finally:
+        fluid.step_key = kept
+    planted = {"step key folded from a count read at capture time": {
+        "check": "graph vs eager", "leaves_differing": diff["impaired/dcqcn"]}}
+    print(f"  control, step key from capture time: {len(diff['impaired/dcqcn'])} leaves "
+          f"differ from the eager steps", flush=True)
+    check(bool(diff["impaired/dcqcn"]), "graph vs eager does not catch a step key "
+          "folded from a count read at capture time")
+    planted.update(netsim_planted(torch, (
+        ("a dead link's arrivals delivered, not dumped", "link0/dcqcn",
+         (fluid, "outage_dump", lambda down, arrivals: (arrivals, arrivals * 0.0))),),
+        cpu, dev))
+    cfgs, wl, h, _ = netsim_scenario("link0")
+    kept = fluid.notified_backlog
+    fluid.notified_backlog = lambda backlog, retx_arr: backlog
+    try:
+        runner.run_experiment_batch(cfgs, wl, "dcqcn", h, trace_mode="decimate",
+                                    decimate=4, strict_conservation=True, device=dev)
+        caught = None
+    except runner.ConservationError as err:
+        caught = {"cell": err.cell, "step": err.step, "err": err.err, "tol": err.tol}
+    finally:
+        fluid.notified_backlog = kept
+    planted["loss notifications never reach the retransmit backlog"] = {
+        "check": "strict_conservation", "conservation_error": caught}
+    print(f"  control, notifications dropped at the source: ConservationError {caught}",
+          flush=True)
+    check(caught is not None, "strict_conservation does not catch loss notifications "
+          "that never reach the retransmit backlog")
+    out["planted"] = planted
+
+    # 5. the three grids at full width
+    for name, n_cells in (("impairment", 6), ("sites", 9), ("failover", 6)):
+        out[name] = netsim_figure(torch, card, name, n_cells,
+                                  profile_steps=NETSIM_CHANNEL_PROFILE_STEPS)
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1384,14 +1564,14 @@ def main() -> None:
     card = smi_line()
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
-    print(f"[1/11] card: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
+    print(f"[1/12] card: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{name}, compute capability {cap[0]}.{cap[1]}", flush=True)
     check(cap == (9, 0), f"needs compute capability 9.0 (sm_90a), found {cap}")
 
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build(build.sources())
-    print(f"[2/11] build: {len(logs)} of {len(build.sources())} kernel sources compiled "
+    print(f"[2/12] build: {len(logs)} of {len(build.sources())} kernel sources compiled "
           f"in {time.perf_counter() - t0:.1f} s into {build.BUILD_DIR}", flush=True)
     for src, log in logs.items():
         for line in log.splitlines():
@@ -1412,7 +1592,7 @@ def main() -> None:
           f"the f32 SSD-scan instantiations are not the scalar kernel: {ssd_hgmma}")
 
     t0 = time.perf_counter()
-    print("[3/11] kernels against their plain versions", flush=True)
+    print("[3/12] kernels against their plain versions", flush=True)
     flash = phase_flash(torch, card)
     ssd = phase_ssd(torch, card)
     scan = phase_rglru(torch, card)
@@ -1425,7 +1605,7 @@ def main() -> None:
             (MAMBA, mamba_faults(torch), "state not carried across chunks"),
             (RG, rglru_faults(torch), "recurrence restarted every 256 steps")), start=4):
         t0 = time.perf_counter()
-        print(f"[{i}/11] serve {arch} at full width", flush=True)
+        print(f"[{i}/12] serve {arch} at full width", flush=True)
         served[arch] = phase_serve(torch, card, arch, faults, must_fail)
         print(f"  ({time.perf_counter() - t0:.1f} s; total "
               f"{time.perf_counter() - t_start:.1f} s)", flush=True)
@@ -1434,21 +1614,27 @@ def main() -> None:
     trained, faults = {}, train_faults(torch)
     for i, arch in enumerate((QWEN, MAMBA, RG), start=7):
         t0 = time.perf_counter()
-        print(f"[{i}/11] train {arch} at full width", flush=True)
+        print(f"[{i}/12] train {arch} at full width", flush=True)
         trained[arch] = phase_train(torch, card, arch, faults[arch])
         print(f"  ({time.perf_counter() - t0:.1f} s; total "
               f"{time.perf_counter() - t_start:.1f} s)", flush=True)
 
     t0 = time.perf_counter()
-    print("[10/11] netsim Fig. 3 path", flush=True)
+    print("[10/12] netsim Fig. 3 path", flush=True)
     netsim = phase_netsim(torch, card)
     print(f"  ({time.perf_counter() - t0:.1f} s; total "
           f"{time.perf_counter() - t_start:.1f} s)", flush=True)
 
     t0 = time.perf_counter()
-    print("[11/11] netsim: seven schemes over the multi-link and multi-site long haul",
+    print("[11/12] netsim: seven schemes over the multi-link and multi-site long haul",
           flush=True)
     netsim_links = phase_netsim_links(torch, card)
+    print(f"  ({time.perf_counter() - t0:.1f} s; total "
+          f"{time.perf_counter() - t_start:.1f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    print("[12/12] netsim: the impaired, replayed and failing long haul", flush=True)
+    netsim_channel = phase_netsim_channel(torch, card)
     print(f"  ({time.perf_counter() - t0:.1f} s; total "
           f"{time.perf_counter() - t_start:.1f} s)", flush=True)
 
@@ -1511,6 +1697,7 @@ def main() -> None:
     print(json.dumps({"train": trained}))
     print(json.dumps({"netsim": netsim}))
     print(json.dumps({"netsim_links": netsim_links}))
+    print(json.dumps({"netsim_channel": netsim_channel}))
     print(smi_line())
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

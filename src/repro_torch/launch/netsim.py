@@ -2,7 +2,8 @@
 port's netsim, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.netsim --figure fig3b \
-        [--full] [--device cpu] [--horizon-us US] [--profile-steps N]
+        [--full] [--device cpu] [--horizon-us US] [--profile-steps N] \
+        [--checkpoint-dir DIR [--resume]]
 
 The torch twin of ``benchmarks/figures.py`` ``fig3b_throughput``,
 ``fig3cd_buffer_pause`` and ``fig3e_fct``: the same grids (reduced unless
@@ -20,9 +21,22 @@ schemes over 3 x 3 delay spreads and capacity skews of three links at
 100 km, 4 x 4 with ``--full``, 20 ms), streamed (``trace_mode="metrics"``),
 with the same asserts: every scheme's streamed columns present and finite,
 and on the topology grid rdmacell's spraying columns with ``spray_entropy``
-in [0, 1]. Their ``--impairment-grid``, ``--sites-grid`` and
-``--failover-grid`` need the channel subsystem or failure schedules, which
-are not ported: those figures raise ``NotImplementedError``.
+in [0, 1].
+
+``--figure impairment``, ``sites`` and ``failover`` are the twins of its
+``run_impairment_grid`` (the seven schemes over loss_rate x jitter_us at 50
+km on the ``impaired`` channel, 6 cells, 15 with ``--full``, 20 ms),
+``run_sites_grid`` (the 3-site mesh under ``trace_replay``: relay delay
+spread x schedule amplitude, 9 cells, 20 with ``--full``) and
+``run_failover_grid`` (three unequal links at 100 km: no outage, link 0 or
+the whole site down, for 2 or 4 ms, 6.67 with ``--full``; decimated traces,
+``strict_conservation`` armed, ``--checkpoint-dir``/``--resume`` as in
+JAX), with their asserts: the channel (or failover) columns present and
+finite; sdr_rdma repairing faster than dcqcn (lower p99 repair latency) at
+every lossy jitter-free cell where both repair, and the zero-impairment rows
+equal to an ideal-channel run of those cells within 1e-6; the replayed
+loss biting at full amplitude only; the control rows scoring 0 and a site
+outage collapsing more than half the throughput, no less than link 0's.
 
 Per scheme it also prints the wall time (host clock around the runner call,
 graph capture included), simulated cell-steps per second, and, on the card,
@@ -44,11 +58,14 @@ from typing import List, Optional
 
 import torch
 
+import dataclasses
+
 from repro_torch.config.net import NetConfig
 from repro_torch.device import resolve_device
 from repro_torch.netsim import (
-    ALL_SCHEMES, SCHEMES, congestion_workload, convergence_horizon_us,
-    mixed_fct_workload, run_experiment_batch, throughput_workload,
+    ALL_SCHEMES, SCHEMES, FailureSchedule, FlowSpec, SiteEdge, SiteGraph,
+    Workload, congestion_workload, convergence_horizon_us, mixed_fct_workload,
+    run_experiment_batch, throughput_workload,
 )
 from repro_torch.netsim.fluid import build_batch
 
@@ -67,6 +84,12 @@ STREAMED_COLS = {
 }
 TOPOLOGY_COLS = ("mean_reorder_buf_mb", "spray_entropy")
 ENTROPY_ROUNDING = 1e-6
+# the columns every impairment / sites row and every failover row carries
+CHANNEL_COLS = ("goodput_gbps", "wire_gbps", "retx_frac",
+                "p99_repair_latency_us")
+FAILOVER_COLS = ("failover_collapse_frac", "failover_recovery_us")
+# the zero-impairment rows against an ideal-channel run of the same cells
+IDEAL_ROW_REL = 1e-6
 
 
 class Figure:
@@ -84,14 +107,20 @@ class Figure:
         return paper_us if self.horizon_us is None else self.horizon_us
 
     def run(self, cfgs, workload, scheme: str, horizon_us: float,
-            trace_mode: str = "full"):
-        """The rows of one scheme's batch and its wall us per cell."""
+            trace_mode: str = "full", channel=None, **kw):
+        """The rows of one scheme's batch and its wall us per cell; ``kw``
+        goes to ``run_experiment_batch`` (decimation, hardening knobs)."""
         launches: list = []
         t0 = time.perf_counter()
         rows = run_experiment_batch(cfgs, workload, scheme, horizon_us,
-                                    trace_mode=trace_mode, device=self.device,
-                                    profile=launches)
+                                    trace_mode=trace_mode, channel=channel,
+                                    device=self.device, profile=launches, **kw)
         wall_s = time.perf_counter() - t0
+        if not launches:     # every launch resumed from its checkpoint
+            rec = {"figure": self.name, "scheme": scheme, "cells": len(cfgs),
+                   "launches": 0, "resumed": True, "wall_s": wall_s}
+            self.records.append(rec)
+            return rows, wall_s * 1e6 / len(cfgs)
         steps = launches[0]["steps"]
         run_ms = sum(p["run_ms"] for p in launches)
         rec = {"figure": self.name, "scheme": scheme, "cells": len(cfgs),
@@ -103,14 +132,14 @@ class Figure:
             "cpu_ms_per_step"] = run_ms / max(steps * len(launches), 1)
         if self.device.type == "cuda" and self.profile_steps > 0:
             rec.update(step_profile(cfgs, workload, scheme, self.device,
-                                    self.profile_steps))
+                                    self.profile_steps, channel=channel))
         self.records.append(rec)
         return rows, wall_s * 1e6 / len(cfgs)
 
 
 def step_profile(cfgs, workload, scheme: str, device: torch.device,
                  n_steps: int = PROFILE_STEPS,
-                 graph_kernels: int = 4096) -> dict:
+                 graph_kernels: int = 4096, channel=None) -> dict:
     """Where a step's time goes on the card: ``n_steps`` eager steps of the
     batch under ``torch.profiler`` (kernels launched and kernel ms per step,
     time by kernel), then one replay of a CUDA graph of about
@@ -122,7 +151,8 @@ def step_profile(cfgs, workload, scheme: str, device: torch.device,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    _, state, step = build_batch(cfgs, workload, scheme, device=device)
+    _, state, step = build_batch(cfgs, workload, scheme, device=device,
+                                 channel=channel)
     t = torch.zeros((), dtype=torch.int32, device=device)
 
     def run(state, t, n):
@@ -355,22 +385,236 @@ def topology(fig: Figure, full: bool = False):
     return out
 
 
-def _unported(item: str, what: str):
-    def figure(fig: Figure, full: bool = False):
-        raise NotImplementedError(
-            f"{what}: not ported; it comes with ROADMAP queue 1 item {item}")
-    return figure
+def _by_scheme(fig: Figure, cfgs, wl, horizon_us: float, cells, label,
+               **kw) -> tuple:
+    """Each scheme's grid as one batch: ``(rows by scheme, printed rows)``;
+    ``cols`` are printed beside the Fig. 3 ones, the rest of ``kw`` goes to
+    ``Figure.run``."""
+    cols = kw.pop("cols", ())
+    res, out = {}, []
+    for s in ALL_SCHEMES:
+        res[s], us = fig.run(cfgs, wl, s, horizon_us, **kw)
+        if len(res[s]) != len(cells):
+            raise AssertionError(f"{fig.name} {s}: {len(res[s])} rows, "
+                                 f"{len(cells)} cells")
+        for cell, r in zip(cells, res[s]):
+            out.append((f"{fig.name}/{s}/{label(cell)}", us, " ".join(
+                f"{k}={r[k]:.4g}" for k in ("throughput_gbps", "peak_buffer_mb",
+                                           "pause_ratio") + cols)))
+    return res, out
+
+
+def _check_finite(name: str, res: dict, cols: tuple):
+    for s, rs in res.items():
+        for col in cols + ("throughput_gbps",):
+            bad = [i for i, r in enumerate(rs) if not _finite(r.get(col))]
+            if bad:
+                raise AssertionError(f"{name} {s}: column {col} missing or not "
+                                     f"finite at cells {bad}")
+
+
+def impairment_cells(full: bool = False) -> tuple:
+    """``(cells, configs)`` of the impairment grid: (loss_rate, jitter_us) at
+    50 km with ``loss_burst_len`` 4."""
+    loss_rates = (0.0, 0.005, 0.02) + ((0.001, 0.05) if full else ())
+    jitters = (0.0, 25.0) + ((100.0,) if full else ())
+    cells = [(lr, j) for lr in sorted(loss_rates) for j in sorted(jitters)]
+    return cells, [NetConfig(distance_km=50.0, loss_rate=lr, loss_burst_len=4.0,
+                             jitter_us=j) for lr, j in cells]
+
+
+def impairment(fig: Figure, full: bool = False):
+    """scheme_compare.py ``run_impairment_grid``: the seven schemes over
+    loss_rate x jitter_us at 50 km (``loss_burst_len`` 4) on the
+    ``impaired`` channel, each scheme's grid one streamed batch. Asserts the
+    channel columns, sdr_rdma's lower p99 repair latency than dcqcn at every
+    lossy jitter-free cell where both repair (at least one such cell), and
+    the zero-impairment rows against an ideal-channel run of those cells.
+    Summary rows per scheme: the cell with the largest retx_frac."""
+    cells, cfgs = impairment_cells(full)
+    h = fig.horizon(20_000.0)
+    wl = compare_workload(h)
+    res, out = _by_scheme(fig, cfgs, wl, h, cells,
+                          lambda c: f"loss{c[0]:g}/jitter{c[1]:g}us",
+                          trace_mode="metrics", channel="impaired",
+                          cols=CHANNEL_COLS)
+    _check_finite("impairment", res, CHANNEL_COLS)
+    compared = 0
+    for i, (lr, j) in enumerate(cells):
+        dc = res["dcqcn"][i]["p99_repair_latency_us"]
+        sdr = res["sdr_rdma"][i]["p99_repair_latency_us"]
+        if lr > 0 and j == 0.0 and dc > 0 and sdr > 0:
+            if not sdr < dc:
+                raise AssertionError(f"impairment loss {lr}: sdr_rdma p99 repair "
+                                     f"latency {sdr} us not below dcqcn's {dc} us")
+            compared += 1
+    if not compared:
+        raise AssertionError("impairment: no lossy cell produced pending repairs "
+                             "to compare")
+    # the channel is invisible at its defaults
+    zero = [i for i, (lr, j) in enumerate(cells) if lr == 0 and j == 0]
+    for s in ALL_SCHEMES:
+        ideal = run_experiment_batch([cfgs[i] for i in zero], wl, s, h,
+                                     trace_mode="metrics", device=fig.device)
+        for i, b in zip(zero, ideal):
+            a = res[s][i]
+            for m in ("throughput_gbps", "mean_buffer_mb", "pause_ratio"):
+                if abs(a[m] - b[m]) > IDEAL_ROW_REL * max(abs(a[m]), abs(b[m]), 1.0):
+                    raise AssertionError(f"impairment {s}: zero-impairment {m} "
+                                         f"{a[m]} vs the ideal channel's {b[m]}")
+    for s, rs in res.items():
+        w = max(rs, key=lambda r: r["retx_frac"])
+        out.append((f"impairment/summary/{s}", 0.0,
+                    f"goodput_worst={w['goodput_gbps']:.2f}Gbps "
+                    f"retx_frac_worst={w['retx_frac']:.4f} "
+                    f"p99_repair_worst={w['p99_repair_latency_us']:.1f}us"))
+    return out
+
+
+# the 3-site mesh of the sites grid: a bundled primary pair (two parallel
+# 0->1 edges) plus a relay path through site 2 (scheme_compare.SITES_EDGES)
+SITES_EDGES = (SiteEdge(0, 1), SiteEdge(0, 1, delay_scale=1.5),
+               SiteEdge(0, 2, cap_frac=0.2), SiteEdge(2, 1, cap_frac=0.2))
+
+
+def sites_workload(horizon_us: float) -> Workload:
+    """scheme_compare._sites_workload: inter-DC load on all three site pairs
+    and an intra-DC burst at site 1's leaf through the middle third."""
+    inter = [FlowSpec(True, 1 << 20, 16) for _ in range(2)]
+    inter += [FlowSpec(True, 1 << 20, 16, src_site=0, dst_site=2),
+              FlowSpec(True, 1 << 20, 16, src_site=2, dst_site=1)]
+    intra = [FlowSpec(False, 256 << 10, 8, dst_site=1, start_us=horizon_us / 3.0,
+                      period_us=horizon_us, duty=1.0 / 3.0) for _ in range(2)]
+    return Workload(tuple(inter + intra))
+
+
+def sites_schedule(scale: float, k: int = 8) -> tuple:
+    """scheme_compare._sites_schedule: the mesh's per-edge timeline scaled by
+    ``scale`` (a loss burst on the primary edge, a capacity dip on its
+    sibling, loss and deferral on the relay uplink, a clean downlink)."""
+    def edge(loss_peak=0.0, defer_peak=0.0, cap_dip=0.0, slot=3):
+        loss, defer, cap = [0.0] * k, [0.0] * k, [1.0] * k
+        loss[slot] = loss_peak * scale
+        defer[slot] = defer_peak * scale
+        cap[(slot + 2) % k] = 1.0 - cap_dip * scale
+        return tuple(zip(loss, defer, cap))
+    return (edge(loss_peak=0.3), edge(cap_dip=0.6),
+            edge(loss_peak=0.1, defer_peak=0.4), edge())
+
+
+def sites_cells(horizon_us: float, full: bool = False) -> tuple:
+    """``(cells, configs)`` of the sites grid: (relay delay spread, schedule
+    amplitude) on the mesh at 100 km, one schedule slot an eighth of the
+    horizon."""
+    spreads = (1.0, 1.5, 2.5) + ((4.0,) if full else ())
+    scales = (0.0, 0.5, 1.0) + ((0.25, 0.75) if full else ())
+    cells = [(sp, sc) for sp in spreads for sc in sorted(scales)]
+    base = NetConfig(distance_km=100.0, channel_schedule_dt_us=horizon_us / 8.0)
+    cfgs = []
+    for sp, sc in cells:
+        g = SiteGraph(3, SITES_EDGES[:2] + tuple(
+            dataclasses.replace(e, delay_scale=sp) for e in SITES_EDGES[2:]))
+        cfgs.append(dataclasses.replace(g.to_net_config(base),
+                                        channel_schedule=sites_schedule(sc)))
+    return cells, cfgs
+
+
+def sites(fig: Figure, full: bool = False):
+    """scheme_compare.py ``run_sites_grid``: the seven schemes over the 3-site
+    mesh at 100 km under ``trace_replay``, relay delay spread x schedule
+    amplitude, each scheme's grid one streamed batch. Asserts the channel
+    columns and that dcqcn's replayed loss bites at amplitude 1 and not at
+    0. Summary rows per scheme: mean throughput and the cell with the
+    largest retx_frac."""
+    h = fig.horizon(20_000.0)
+    cells, cfgs = sites_cells(h, full)
+    res, out = _by_scheme(fig, cfgs, sites_workload(h), h, cells,
+                          lambda c: f"spread{c[0]:g}/scale{c[1]:g}",
+                          trace_mode="metrics", channel="trace_replay",
+                          cols=CHANNEL_COLS)
+    _check_finite("sites", res, CHANNEL_COLS)
+    for i, (sp, sc) in enumerate(cells):
+        retx = res["dcqcn"][i]["retx_frac"]
+        if (sc == 0.0 and retx != 0.0) or (sc == 1.0 and not retx > 0.0):
+            raise AssertionError(f"sites spread {sp} scale {sc}: dcqcn retx_frac "
+                                 f"{retx}")
+    for s, rs in res.items():
+        w = max(rs, key=lambda r: r["retx_frac"])
+        out.append((f"sites/summary/{s}", 0.0,
+                    f"mean_thr={sum(r['throughput_gbps'] for r in rs) / len(rs):.2f}Gbps "
+                    f"goodput_worst={w['goodput_gbps']:.2f}Gbps "
+                    f"retx_frac_worst={w['retx_frac']:.4f}"))
+    return out
+
+
+def failover_cells(horizon_us: float, full: bool = False) -> tuple:
+    """``(cells, configs)`` of the failover grid: {none, link0, site} x
+    outage length, three links at 100 km with capacities 0.5 / 0.3 / 0.2,
+    every cell one window per edge (no-op windows on the controls) so the
+    window count is the grid's."""
+    t_down = horizon_us / 3.0
+    durations = (horizon_us / 10.0, horizon_us / 5.0) + (
+        (horizon_us / 3.0,) if full else ())
+    edge_pairs = ((0, 1),) * 3
+
+    def schedule(kind: str, dur: float) -> FailureSchedule:
+        if kind == "link0":
+            return FailureSchedule(3).link_outage(0, t_down, t_down + dur)
+        if kind == "site":
+            return FailureSchedule(3).site_outage(1, t_down, t_down + dur, edge_pairs)
+        return FailureSchedule(3, (((0.0, 0.0),),) * 3)
+
+    cells = [(k, d) for k in ("none", "link0", "site") for d in durations]
+    base = NetConfig(distance_km=100.0, num_paths=3, path_cap_frac=(0.5, 0.3, 0.2))
+    return cells, [schedule(k, d).apply(base) for k, d in cells]
+
+
+def failover(fig: Figure, full: bool = False, checkpoint_dir=None,
+             resume: bool = False):
+    """scheme_compare.py ``run_failover_grid``: the seven schemes over the
+    outage grid (``failover_cells``), each scheme's grid one batch of
+    decimated traces (``decimate=4``) with ``strict_conservation`` armed and
+    optional per-launch checkpoints. Asserts the failover columns, the
+    controls scoring 0, and a site outage collapsing dcqcn's throughput by
+    more than half and no less than link 0's outage of the same length.
+    Summary rows per scheme: the worst collapse and recovery."""
+    h = fig.horizon(20_000.0)
+    cells, cfgs = failover_cells(h, full)
+    res, out = _by_scheme(fig, cfgs, compare_workload(h), h, cells,
+                          lambda c: f"{c[0]}/{c[1]:g}us", trace_mode="decimate",
+                          decimate=4, strict_conservation=True,
+                          checkpoint_dir=checkpoint_dir, resume=resume,
+                          cols=FAILOVER_COLS)
+    _check_finite("failover", res, FAILOVER_COLS)
+    for s, rs in res.items():
+        for (kind, dur), r in zip(cells, rs):
+            ok = (0.0 <= r["failover_collapse_frac"] <= 1.0
+                  and r["failover_recovery_us"] >= 0.0)
+            if kind == "none":
+                ok = ok and r["failover_collapse_frac"] == 0.0 \
+                    and r["failover_recovery_us"] == 0.0
+            if not ok:
+                raise AssertionError(f"failover {s} {kind} {dur}: {r}")
+    for i, (kind, dur) in enumerate(cells):
+        if kind == "site":
+            site = res["dcqcn"][i]["failover_collapse_frac"]
+            link = res["dcqcn"][cells.index(("link0", dur))]["failover_collapse_frac"]
+            if not (site > 0.5 and site >= link - 1e-9):
+                raise AssertionError(f"failover {dur} us: site collapse {site}, "
+                                     f"link 0's {link}")
+    for s, rs in res.items():
+        down = [r for r, (k, _) in zip(rs, cells) if k != "none"]
+        out.append((f"failover/summary/{s}", 0.0,
+                    f"collapse_worst={max(r['failover_collapse_frac'] for r in down):.4f} "
+                    f"recovery_worst={max(r['failover_recovery_us'] for r in down):.1f}us "
+                    f"mean_thr={sum(r['throughput_gbps'] for r in rs) / len(rs):.2f}Gbps"))
+    return out
 
 
 FIGURES = {"fig3b": fig3b_throughput, "fig3cd": fig3cd_buffer_pause,
            "fig3e": fig3e_fct, "scheme_compare": scheme_compare,
-           "topology": topology,
-           "impairment": _unported("13", "scheme_compare --impairment-grid "
-                                         "(the channel subsystem)"),
-           "sites": _unported("13", "scheme_compare --sites-grid (the "
-                                    "trace_replay channel)"),
-           "failover": _unported("15", "scheme_compare --failover-grid "
-                                       "(failure schedules)")}
+           "topology": topology, "impairment": impairment, "sites": sites,
+           "failover": failover}
 
 
 def main(argv=None) -> dict:
@@ -384,15 +628,27 @@ def main(argv=None) -> dict:
                          "paper's)")
     ap.add_argument("--profile-steps", type=int, default=PROFILE_STEPS,
                     help="eager steps profiled per scheme on the card (0: none)")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="failover: one JSON checkpoint per finished launch")
+    ap.add_argument("--resume", action="store_true",
+                    help="failover: load finished launches from --checkpoint-dir")
     args = ap.parse_args(argv)
+    if (args.checkpoint_dir or args.resume) and args.figure != "failover":
+        ap.error("--checkpoint-dir/--resume go with --figure failover")
 
     dev = resolve_device(args.device)
     fig = Figure(args.figure, dev, args.horizon_us, args.profile_steps)
-    rows = FIGURES[args.figure](fig, args.full)
+    kw = ({"checkpoint_dir": args.checkpoint_dir, "resume": args.resume}
+          if args.figure == "failover" else {})
+    rows = FIGURES[args.figure](fig, args.full, **kw)
     for name, value, note in rows:
         print(f"{name},{value:.1f},{note}")
     kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     for r in fig.records:
+        if r.get("resumed"):
+            print(f"{r['figure']} {r['scheme']}: {r['cells']} cells resumed from "
+                  f"checkpoints", flush=True)
+            continue
         line = (f"{r['figure']} {r['scheme']}: {r['cells']} cells x "
                 f"{r['steps']} steps, wall {r['wall_s']:.2f} s, "
                 f"{r['cell_steps_per_s']:.0f} cell-steps/s")

@@ -3,12 +3,12 @@
 ``state_from_numpy`` turns a JAX ``SimState`` whose leaves are numpy arrays
 (``jax.tree.map(np.asarray, state)``) into the port's ``SimState``, leaf for
 leaf, with the ``[B]`` axis where the batch has one (the ``[L]`` leaves of a
-multi-link run and the extra state of every scheme included);
-``acc_from_numpy`` does
-the same for a ``MetricAcc`` (its dicts of ``[B]`` arrays become the port's
-key-ordered columns). The JAX package's channel slots are dropped: under the
-ideal channel they are None. Nothing here imports JAX: the objects are only
-read by field name.
+multi-link run, the extra state of every scheme and the channel slots
+included: ``chan`` as the port's ``ImpairState``/``ReplayState`` or a dict,
+the ``retx_*`` rings and backlog, each None where JAX's is);
+``acc_from_numpy`` does the same for a ``MetricAcc`` (its dicts of ``[B]``
+arrays become the port's key-ordered columns; the channel accumulator stays
+a dict). Nothing here imports JAX: the objects are only read by field name.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ from repro_torch.core.cc_proxy import DcqcnState
 from repro_torch.core.matchrdma import MatchRdmaState
 from repro_torch.core.pseudo_ack import PseudoAckState
 from repro_torch.core.slots import SlotRing
+from repro_torch.netsim.channel import ImpairState, ReplayState
 from repro_torch.netsim.fluid import (
     STREAM_MAX_KEYS, STREAM_SUM_KEYS, MetricAcc, SimState,
 )
@@ -27,7 +28,8 @@ from repro_torch.netsim.schemes import GeoPipeState, RdmaCellState, SdrRdmaState
 
 _TYPES = {cls.__name__: cls for cls in (
     SimState, DcqcnState, MatchRdmaState, PseudoAckState, SlotRing,
-    BudgetState, ControlChannel, GeoPipeState, SdrRdmaState, RdmaCellState)}
+    BudgetState, ControlChannel, GeoPipeState, SdrRdmaState, RdmaCellState,
+    ImpairState, ReplayState)}
 
 
 def _from(obj, device):
@@ -57,7 +59,8 @@ def acc_from_numpy(acc, device=None) -> MetricAcc:
                      sum_c=cols(acc.sum_c, STREAM_SUM_KEYS),
                      maxes=cols(acc.maxes, STREAM_MAX_KEYS),
                      hist=torch.as_tensor(np.array(acc.hist), device=device),
-                     scheme=_from(acc.scheme, device))
+                     scheme=_from(acc.scheme, device),
+                     chan=_from(acc.chan, device))
 
 
 def to_numpy(tree):

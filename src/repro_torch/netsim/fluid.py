@@ -11,11 +11,25 @@ integrated through the queues of Fig. 3(a):
 with ACKs and CNPs returning over delay lines of D (or consumed on the way,
 as the scheme decides) and PFC from the destination OTN riding back over D.
 
-What the port runs: the ideal channel, one long-haul link or ``num_paths``
-parallel links (``[L]``, optionally the edges of a site graph), no failure
-schedule, the hard (non-soft) step, and ``trace_mode`` ``full``,
-``decimate`` and ``metrics``. Every other configuration raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+What the port runs: one long-haul link or ``num_paths`` parallel links
+(``[L]``, optionally the edges of a site graph), every registered channel
+model (``channel=``), failure schedules, the hard (non-soft) step, and
+``trace_mode`` ``full``, ``decimate`` and ``metrics``. ``soft_step`` and
+``window`` mode raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
+
+Channel and failures: a non-ideal channel model impairs what leaves the pipe
+before the destination OTN sees it and may dim the source-OTN capacity; its
+draws are counter-based (``netsim.prng``, bit-equal to ``jax.random``) with
+the step key ``fold_in(scenario_key(prng_key(channel_seed), params), t)``
+folded from the device-side ``t`` (one more ``fold_in`` of the link index
+at L > 1). A failure schedule marks links dead in its windows: their
+capacity is zeroed and what reaches their far end is dumped. Either switches
+on the loss-repair path: lost bytes ride a notification ring back to the
+source (delay D), wait in a per-flow retransmit backlog and re-enter the
+source OTN at the scheme's ``retx_rate``, ahead of new data. Every
+impairment joins through a ``where`` whose clean branch is the original
+tensor, so zero knobs and an all-up schedule are the ideal run bit for bit.
 
 Multi-link (``cfg.num_paths = L > 1``): the source OTN's release is sprayed
 over the links by the scheme's ``route_weights`` (masked to links with
@@ -27,11 +41,14 @@ On a site graph each flow sprays only onto the edges of its site pair.
 Batching: every state leaf carries the JAX package's vmapped shape, a
 leading scenario axis ``[B]`` (per-flow ``[B, F]``, delay rings
 ``[B, Dp, F]``; at L > 1 ``q_dst [B, L, F]``, ``pipe [B, Dp, L, F]``,
-``pause_line [B, Dp, L]``, ``pause_dst [B, L]``), and one step advances the
-whole batch. Rings are allocated at the batch's padded length ``delay_pad``
-and each scenario's (each link's) ring index wraps at its own delay. The
-delay rings, the control subchannel and the metrics histogram are written
-in place; everything else a step makes is new.
+``pause_line [B, Dp, L]``, ``pause_dst [B, L]``; with the repair path
+``retx_backlog [B, F]``, ``retx_line [B, Dp, F]``, ``retx_inflight [B, F]``),
+and one step advances the whole batch. Rings are allocated at the batch's
+padded length ``delay_pad`` and each scenario's (each link's) ring index
+wraps at its own delay. The
+delay rings (the notification ring too), the control subchannel and the
+metrics histograms are written in place; everything else a step makes is
+new.
 
 Execution: on the CPU the steps run eagerly. On the card ``simulate_batch``
 captures a block of steps into a ``torch.cuda.CUDAGraph`` and replays it:
@@ -54,6 +71,10 @@ from repro_torch.config.net import (
 from repro_torch.core.cc_proxy import DcqcnState, init_dcqcn, step_dcqcn
 from repro_torch.core.matchrdma import default_history_slots
 from repro_torch.device import resolve_device
+from repro_torch.netsim.channel import (
+    ChannelInputs, get_channel_model, scenario_key,
+)
+from repro_torch.netsim.prng import fold_in, prng_key
 from repro_torch.netsim.queues import (
     drain_proportional, ecn_mark_prob, pfc_hysteresis,
 )
@@ -74,6 +95,10 @@ TRACE_MODES = ("full", "decimate", "metrics")
 STREAM_SUM_KEYS = ("q_src", "q_dst", "q_leaf", "pause_dst",
                    "thr_inter", "thr_intra")
 STREAM_MAX_KEYS = ("q_src", "q_dst", "q_leaf", "cons_err")
+# Trace keys that are per-step byte counts: under ``trace_mode="decimate"``
+# a kept row holds the SUM over its block (level keys keep the block's last
+# step), so the channel's rate columns are exact at any decimation.
+DECIMATE_SUM_KEYS = ("chan_wire", "chan_lost", "chan_retx")
 
 # Steps per captured CUDA graph on the card.
 GRAPH_BLOCK = 256
@@ -96,6 +121,8 @@ class MetricAcc(NamedTuple):
     maxes: torch.Tensor    # [B, 4] running maxes over ALL steps
     hist: torch.Tensor     # [B, HIST_BINS] int32 warm-step histogram of q_dst
     scheme: dict           # scheme-private accumulators (Scheme.init_metric_acc)
+    chan: Optional[dict] = None   # channel accumulators (ChannelModel.
+                                  # init_metric_acc; None without repair path)
 
 
 def acc_columns(acc: MetricAcc) -> dict:
@@ -107,7 +134,21 @@ def acc_columns(acc: MetricAcc) -> dict:
                                ("maxes", STREAM_MAX_KEYS))}
 
 
-def _init_metric_acc(scheme, ctx, state0) -> MetricAcc:
+def _failure_len(params: NetParams) -> int:
+    """Static outage-window count W of a run: the ``fail_windows`` leaf's
+    shape (a batch template resets ``cfg.failure_schedule``)."""
+    return int(params.fail_windows.shape[-2])
+
+
+def _track_chan(channel, params: NetParams) -> bool:
+    """Whether the loss-repair path (and its ``chan_*`` trace keys and
+    streamed channel columns) exists: any non-ideal channel, or a failure
+    schedule (an outage dumps bytes into the repair path even under the
+    ideal channel)."""
+    return (not channel.is_ideal) or _failure_len(params) > 0
+
+
+def _init_metric_acc(scheme, channel, ctx, state0) -> MetricAcc:
     z = torch.zeros_like(state0.inflight[..., 0])
     return MetricAcc(
         sum_s=z[..., None].repeat_interleave(len(STREAM_SUM_KEYS), -1),
@@ -116,6 +157,8 @@ def _init_metric_acc(scheme, ctx, state0) -> MetricAcc:
         hist=torch.zeros(z.shape + (HIST_BINS,), dtype=torch.int32,
                          device=z.device),
         scheme=scheme.init_metric_acc(ctx, state0),
+        chan=(channel.init_metric_acc(ctx, state0)
+              if _track_chan(channel, ctx.params) else None),
     )
 
 
@@ -136,9 +179,10 @@ def _accumulate_engine(acc: MetricAcc, out: dict, inc) -> MetricAcc:
 class SimState(NamedTuple):
     """The engine state; per-scenario leaves ``[B]``, per-flow ``[B, F]``,
     delay rings ``[B, Dp, F]`` (no leading axis for one unbatched scenario;
-    the L > 1 shapes are in the module docstring). The JAX package's channel
-    slots (``chan``, ``retx_*``) are absent: the port has only the ideal
-    channel."""
+    the L > 1 shapes are in the module docstring). The channel slots are
+    None exactly where the JAX package's are: ``chan`` under the ideal
+    channel, ``retx_*`` without the repair path (ideal channel, no failure
+    schedule)."""
     sent: torch.Tensor          # cumulative bytes leaving the sender NIC
     acked: torch.Tensor         # cumulative bytes ACKed at the sender
     delivered: torch.Tensor     # cumulative bytes delivered to the receiver
@@ -158,20 +202,18 @@ class SimState(NamedTuple):
     pause_line: torch.Tensor    # [.., Dp, (L)] PFC signal dst-OTN -> src-OTN
     pause_dst: torch.Tensor     # dst OTN asserting long-haul pause (per link)
     extra: object               # scheme-private state (Scheme.init_extra_state)
+    chan: object = None         # channel-private state (init_channel_state)
+    retx_backlog: Optional[torch.Tensor] = None   # lost bytes awaiting repair
+    retx_line: Optional[torch.Tensor] = None      # [.., Dp, F] notifications
+    retx_inflight: Optional[torch.Tensor] = None  # running sum of retx_line
 
 
 def check_main_path(cfg: NetConfig, channel=None, trace_mode: str = "full",
                     decimate: int = 1) -> None:
-    """Raise ``NotImplementedError`` for any option outside the ported Fig. 3
-    path, naming the ROADMAP queue 1 item that ports it; ``ValueError`` for
-    an unknown trace mode."""
-    if channel not in (None, "ideal"):
-        raise NotImplementedError(
-            f"channel {channel!r}: only the ideal channel is ported; the "
-            f"channel subsystem comes with ROADMAP queue 1 item 13")
-    if cfg.failure_len > 0:
-        raise NotImplementedError(
-            "failure_schedule: failures come with ROADMAP queue 1 item 15")
+    """Raise ``NotImplementedError`` for an option the port does not run yet,
+    naming the ROADMAP queue 1 item that ports it; ``ValueError`` for an
+    unknown channel model or trace mode."""
+    get_channel_model(channel)
     if cfg.soft_step:
         raise NotImplementedError(
             "soft_step=True: the differentiable engine comes with ROADMAP "
@@ -189,15 +231,19 @@ def check_main_path(cfg: NetConfig, channel=None, trace_mode: str = "full",
 
 def init_state(cfg: NetConfig, num_flows: int, params: NetParams = None,
                delay_pad: int = 0, history_slots: int = 0,
-               scheme: Scheme = None) -> SimState:
+               scheme: Scheme = None, channel=None) -> SimState:
     """The initial state. ``params`` carries the per-scenario scalars (their
     shape, 0-d or ``[B]``, is the state's leading shape; None = ``cfg``'s
     own); ``delay_pad``/``history_slots`` are ring sizes (0 = size for
     ``cfg``); ``scheme`` owns the ``extra`` slot (None = the default
-    MatchRDMA block)."""
+    MatchRDMA block); ``channel`` (a registered name or model, None =
+    ideal) owns ``chan``, and the ``retx_*`` slots exist with the repair
+    path."""
     check_main_path(cfg)
+    channel = get_channel_model(channel)
     f = num_flows
-    links = (cfg.num_paths,) if cfg.num_paths > 1 else ()
+    n_links = cfg.num_paths
+    links = (n_links,) if n_links > 1 else ()
     if delay_pad <= 0:
         delay_pad = cfg.static_delay_steps
     if params is None:
@@ -210,6 +256,19 @@ def init_state(cfg: NetConfig, num_flows: int, params: NetParams = None,
     def z(*shape):
         return torch.zeros(*bs, *shape, device=dev)
 
+    chan = backlog = retx_line = retx_inflight = None
+    if _track_chan(channel, params):
+        backlog, retx_line, retx_inflight = z(f), z(delay_pad, f), z(f)
+    if not channel.is_ideal:
+        base_key = scenario_key(prng_key(cfg.channel_seed, dev), params)
+        if links:
+            # one impairment process per link: the link index folded in
+            link = torch.arange(n_links, device=dev)
+            chan = channel.init_channel_state(
+                cfg, params, f, key=fold_in(base_key[..., None, :], link),
+                link=link)
+        else:
+            chan = channel.init_channel_state(cfg, params, f, key=base_key)
     nic = params.nic_gbps * 1e9 / 8.0
     return SimState(
         sent=z(f), acked=z(f), delivered=z(f),
@@ -229,6 +288,8 @@ def init_state(cfg: NetConfig, num_flows: int, params: NetParams = None,
         extra=scheme.init_extra_state(
             cfg, params, f, history_slots=history_slots,
             chan_delay_pad=delay_pad + cfg.control_proc_steps),
+        chan=chan, retx_backlog=backlog, retx_line=retx_line,
+        retx_inflight=retx_inflight,
     )
 
 
@@ -254,6 +315,26 @@ def _drain_links(q, arrivals, capacity_bytes):
     return new_q.view(shape), drained.view(shape)
 
 
+def step_key(chan_key0: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """This step's channel key per scenario, ``fold_in(chan_key0, t)``: folded
+    from the device-side step index, so every replay of a captured graph
+    draws its own step's noise."""
+    return fold_in(chan_key0, t)
+
+
+def outage_dump(down: torch.Tensor, arrivals: torch.Tensor):
+    """What reaches the far end of a dead link is lost there: ``(arrivals
+    delivered, bytes dumped)`` under the dead mask ``down`` (broadcast
+    against ``arrivals``)."""
+    return torch.where(down, 0.0, arrivals), torch.where(down, arrivals, 0.0)
+
+
+def notified_backlog(backlog: torch.Tensor, retx_arr: torch.Tensor) -> torch.Tensor:
+    """The retransmit backlog at the source once this step's loss
+    notifications have arrived."""
+    return backlog + retx_arr
+
+
 def _workload_tensors(wl, device) -> WorkloadParams:
     return WorkloadParams(*(torch.as_tensor(np.asarray(v, np.float32)
                                             if not torch.is_tensor(v) else v,
@@ -262,14 +343,17 @@ def _workload_tensors(wl, device) -> WorkloadParams:
 
 def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
                  period_slots: int = 0, params: NetParams = None,
-                 delay_pad: int = 0):
+                 delay_pad: int = 0, channel=None):
     """Build the per-step transition ``step(state, t) -> (state, out)``.
 
     ``wl``: the per-flow workload leaves (numpy or tensors, the leading shape
     of ``params``'s leaves); ``params``: the per-scenario scalars (None =
-    ``cfg``'s own); ``t``: the step index, an int32 0-d tensor on the run's
+    ``cfg``'s own); ``channel``: a registered channel-model name or model
+    (None = ideal); ``t``: the step index, an int32 0-d tensor on the run's
     device. ``out`` is the step's trace dict (per-scenario values; at L > 1
-    also the per-link ``q_dst_link``, ``link_tx`` and ``link_pause``)."""
+    also the per-link ``q_dst_link``, ``link_tx`` and ``link_pause``; with
+    the repair path the ``chan_*`` keys; with a failure schedule
+    ``fail_live``)."""
     check_main_path(cfg)
     n_links = cfg.num_paths
     multi = n_links > 1
@@ -280,8 +364,12 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
             f"site graph compiles onto the link axis (one edge per link; "
             f"see docs/sites.md)")
     scheme = get_scheme(scheme)
+    channel = get_channel_model(channel)
+    impaired = not channel.is_ideal
     if params is None:
         params = NetParams.of(cfg)
+    has_fail = _failure_len(params) > 0
+    repair = impaired or has_fail
     if delay_pad <= 0:
         delay_pad = cfg.static_delay_steps
     dev = params.one_way_delay_us.device
@@ -317,7 +405,7 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
     c_otn_dt = c_otn * dt_s
     c_leaf_dt = c_leaf * dt_s
     nic_col = nic[..., None]
-    zero_f = torch.zeros_like(is_inter)       # loss notifications (ideal)
+    zero_f = torch.zeros_like(is_inter)       # no loss notifications
 
     link_caps = link_d_steps = edge_sites = None
     if multi:
@@ -335,6 +423,7 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
             params.otn_buffer_bdp_frac[..., None] * link_bdp)
         xon_link = xoff_link / 2.0
         link_caps_dt = link_caps * dt_s
+        link_ids = torch.arange(n_links, device=dev)
         cap_w = link_caps / torch.clamp(link_caps.sum(-1, keepdim=True),
                                         min=1e-9)
         route = wl.route                                          # [B, F, W]
@@ -364,11 +453,31 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
         flow_src_site=wl.src_site if cfg.is_multisite else None,
         flow_dst_site=wl.dst_site if cfg.is_multisite else None)
     rtt_scale = scheme.rtt_scale(ctx)
+    keyed = impaired and channel.needs_key
+    if keyed:
+        # the per-scenario stream, built once outside the captured step
+        chan_key0 = scenario_key(prng_key(cfg.channel_seed, dev), params)
+    if has_fail:
+        fail_lo = params.fail_windows[..., 0]                     # [B, L, W]
+        fail_hi = params.fail_windows[..., 1]
+    if repair:
+        d_us = d_steps.to(torch.float32) * dt_us
 
     def step(state: SimState, t: torch.Tensor):
         t_us = t.to(torch.float32) * dt_us
         row = ring_row(t, d_steps, delay_pad).to(torch.int64)[..., None]
         row_f = row[..., None].expand(*row.shape[:-1], 1, f)
+
+        # ------------------------------------------- 0. failure live mask
+        # a link is down inside any of its (down, up) windows (strict upper
+        # bound: the (0, 0) padding windows never fire); schemes see the
+        # mask and re-spray over the survivors
+        if has_fail:
+            link_down = ((t_us >= fail_lo) & (t_us < fail_hi)).any(-1)  # [B, L]
+            link_live = 1.0 - link_down.to(torch.float32)
+            hctx = ctx._replace(link_live=link_live)
+        else:
+            hctx = ctx
 
         # ------------------------------------------------ 1. flow phase
         started = (t_us >= start_us).to(torch.float32)
@@ -391,35 +500,97 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
             pipe_out = state.pipe.gather(-3, lrow_f)[..., 0, :, :]  # [B, L, F]
             pause_sig = state.pause_line.gather(-2, lrow)[..., 0, :]  # [B, L]
             cap_link = torch.where(pause_sig > 0.5, 0.0, link_caps_dt)
+            if has_fail:
+                cap_link = torch.where(link_down, 0.0, cap_link)
             cap_src = cap_link.sum(-1)
         else:
             pipe_out = state.pipe.gather(-2, row_f)[..., 0, :]
             pause_sig = state.pause_line.gather(-1, row)[..., 0]
             cap_src = torch.where(pause_sig > 0.5, 0.0, c_otn_dt)  # delayed PFC
+            if has_fail:
+                cap_src = torch.where(link_down[..., 0], 0.0, cap_src)
+
+        # ------------------------------------------------ 2b. channel hook
+        # what leaves the pipe is impaired before the destination OTN sees
+        # it, and the source-OTN capacity may be dimmed; lost bytes ride
+        # the notification ring back to the source (delay D)
+        retx_arr = (state.retx_line.gather(-2, row_f)[..., 0, :] if repair
+                    else zero_f)
+        chan_new = None
+        pipe_arrivals, lost = pipe_out, zero_f
+        if impaired:
+            key = None
+            if keyed:
+                key = step_key(chan_key0, t)                       # [B, 2]
+                if multi:   # one key per link
+                    key = fold_in(key[..., None, :], link_ids)     # [B, L, 2]
+            eff = channel.apply_impairments(ctx, state.chan, ChannelInputs(
+                t=t, key=key, pipe_out=pipe_out,
+                cap_src=cap_link if multi else cap_src))
+            pipe_arrivals, chan_new = eff.arrivals, eff.chan
+            if multi:
+                lost = eff.lost.sum(-2)
+                cap_link = eff.cap_src
+                cap_src = cap_link.sum(-1)
+            else:
+                lost, cap_src = eff.lost, eff.cap_src
+        # -------------------------------------------- 2c. outage dump
+        # bytes reaching the far end of a dead link are lost there and ride
+        # the notification ring back, to be re-sent over the survivors
+        if has_fail:
+            if multi:
+                pipe_arrivals, dumped = outage_dump(link_down[..., None],
+                                                    pipe_arrivals)
+                fail_lost = dumped.sum(-2)
+            else:
+                pipe_arrivals, fail_lost = outage_dump(link_down[..., :1],
+                                                       pipe_arrivals)
+            lost = torch.where(fail_lost > 0.0, lost + fail_lost, lost)
 
         # ------------------------------------------------ 3. ACK accounting
-        acked = torch.where(inter, scheme.ack_view(ctx, state, ack_arr),
+        acked = torch.where(inter, scheme.ack_view(hctx, state, ack_arr),
                             state.delivered)          # intra: ~us loop
         acked = torch.minimum(acked, state.sent)
 
         # ------------------------------------------------ 4. sender rates
         win_avail = torch.clamp(window - (state.sent - acked), min=0.0)
         base_rate = torch.minimum(win_avail / dt_s, nic_col)
-        rate = scheme.sender_rate(ctx, state, base_rate)
+        rate = scheme.sender_rate(hctx, state, base_rate)
         # src-OTN -> sender PFC (1 step, from last-step queue)
         src_nic_pause = (state.q_src.sum(-1) > xoff_otn).to(torch.float32)
         rate = rate * torch.where(inter, 1.0 - src_nic_pause[..., None], 1.0)
+        # -------------------------------------------- 4b. loss repair
+        # notified losses are re-sent first, at the rate the scheme grants;
+        # what repair uses comes off the new-data rate (the where() keeps
+        # the no-repair branch the untouched rate tensor)
+        if repair:
+            backlog_avail = notified_backlog(state.retx_backlog, retx_arr)
+            retx_bps = torch.clamp(scheme.retx_rate(hctx, state, rate), min=0.0)
+            retx_send = (torch.minimum(torch.minimum(backlog_avail,
+                                                     retx_bps * dt_s),
+                                       nic_col * dt_s)
+                         * is_inter * (1.0 - src_nic_pause[..., None]))
+            rate = torch.where(retx_send > 0.0,
+                               torch.clamp(rate - retx_send / dt_s, min=0.0),
+                               rate)
+            retx_backlog = backlog_avail - retx_send
+        else:
+            retx_send, retx_backlog = zero_f, zero_f
         send = rate * active * dt_s                    # bytes this step
         sent = state.sent + send
 
         # ------------------------------------------------ 5. source OTN
+        arrivals_src = send * is_inter
+        if repair:
+            arrivals_src = torch.where(retx_send > 0.0,
+                                       arrivals_src + retx_send, arrivals_src)
         q_src, drained_src = scheme.src_otn_release(
-            ctx, state, send * is_inter, cap_src, active)
+            hctx, state, arrivals_src, cap_src, active)
         if multi:
             # spray the release over the links: the scheme's weights masked
-            # to links with capacity, rows normalised, clipped per link;
-            # what a saturated link cannot take spills back into q_src
-            w = torch.clamp(scheme.route_weights(ctx, state, route), min=0.0)
+            # to links with capacity, rows normalised, clipped per link; what
+            # a saturated link cannot take spills back into q_src
+            w = torch.clamp(scheme.route_weights(hctx, state, route), min=0.0)
             w = w * (cap_link > 0.0)[..., None, :]               # [B, F, L]
             share = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
             want = drained_src[..., None] * share
@@ -440,7 +611,7 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
         leaf_pfc = (q_leaf_tot > xoff).to(torch.float32)
         cap_dst = c_leaf_dt * (1.0 - leaf_pfc)
         if multi:
-            q_dst, drained_dst = _drain_links(state.q_dst, pipe_out, cap_dst)
+            q_dst, drained_dst = _drain_links(state.q_dst, pipe_arrivals, cap_dst)
             egress_bytes = drained_dst.flatten(-2).sum(-1)
             q_dst_tot = q_dst.flatten(-2).sum(-1)
             # per-link backlog -> per-link PFC, riding back at the link's delay
@@ -450,7 +621,7 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
             state.pause_line.scatter_(-2, lrow, pause_dst[..., None, :])
             drained_dst_f = drained_dst.sum(-2)
         else:
-            q_dst, drained_dst = drain_proportional(state.q_dst, pipe_out,
+            q_dst, drained_dst = drain_proportional(state.q_dst, pipe_arrivals,
                                                     cap_dst)
             egress_bytes = drained_dst.sum(-1)
             q_dst_tot = q_dst.sum(-1)
@@ -475,12 +646,12 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
         marked_acc = torch.where(emit, 0.0, marked_acc)
 
         # ------------------------------------------------ 9. scheme feedback
-        fb = scheme.feedback(ctx, state, SchemeSignals(
+        fb = scheme.feedback(hctx, state, SchemeSignals(
             t=t, active=active, sent=sent, cnp_out=cnp_out, cnp_arr=cnp_arr,
             egress_bytes=egress_bytes, q_dst_tot=q_dst_tot, q_leaf=q_leaf,
-            leaf_pfc=leaf_pfc, retx_arr=zero_f,
+            leaf_pfc=leaf_pfc, retx_arr=retx_arr, retx_backlog=retx_backlog,
             link_sent=sent_link if multi else None,
-            link_arrivals=pipe_out if multi else None,
+            link_arrivals=pipe_arrivals if multi else None,
             link_want=link_want if multi else None,
             link_cap=cap_link if multi else None))
 
@@ -496,6 +667,11 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
         newly_done = (delivered >= total_bytes) & is_unfinished(state.done_at_us)
         done_at = torch.where(newly_done, t_us, state.done_at_us)
 
+        retx_inflight = None
+        if repair:
+            state.retx_line.scatter_(-2, row_f, lost[..., None, :])
+            retx_inflight = state.retx_inflight + lost - retx_arr
+
         new_state = SimState(
             sent=sent, acked=acked, delivered=delivered, done_at_us=done_at,
             cc=cc, cnp_timer=cnp_timer, marked_acc=marked_acc,
@@ -503,11 +679,21 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
             q_src=q_src, q_dst=q_dst, q_leaf=q_leaf,
             pipe=state.pipe, inflight=inflight,
             ack_line=state.ack_line, cnp_line=state.cnp_line,
-            pause_line=state.pause_line, pause_dst=pause_dst, extra=fb.extra)
+            pause_line=state.pause_line, pause_dst=pause_dst, extra=fb.extra,
+            chan=chan_new, retx_backlog=retx_backlog if repair else None,
+            retx_line=state.retx_line, retx_inflight=retx_inflight)
         # per-flow byte conservation residual: everything the sender emitted
-        # is delivered or sits in exactly one queue or the pipe
+        # is delivered or sits in exactly one queue, the pipe, the
+        # notification ring, the retransmit backlog or a channel buffer
         q_dst_f = q_dst.sum(-2) if multi else q_dst
         residual = sent - delivered - q_src - q_dst_f - q_leaf - inflight
+        if repair:
+            residual = residual - retx_inflight - retx_backlog
+        if impaired:
+            held = channel.held_bytes(chan_new)
+            if multi and torch.is_tensor(held):
+                held = held.sum(-2)
+            residual = residual - held
         cons_err = (residual.abs() / torch.clamp(sent, min=1.0)).amax(-1)
         if multi:
             # capacity-weighted pause means keep the scalar keys (and the
@@ -530,10 +716,32 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
             out.update(q_dst_link=q_dst_link,        # [B, L] dst backlog
                        link_tx=sent_link.sum(-1),    # [B, L] bytes launched
                        link_pause=pause_dst)         # [B, L] PFC state
-        out.update(scheme.extra_traces(ctx, state))
+        if repair:
+            # goodput = wire - lost; the repair wait is the notification
+            # transit D, the virtual drain of the pending backlog at the
+            # granted repair rate (floored at 1 MB/s) and the re-send
+            # transit D
+            backlog_tot = retx_backlog.sum(-1)
+            serv_cap = torch.clamp(
+                (torch.minimum(retx_bps, nic_col) * is_inter).sum(-1), min=1e6)
+            wait_us = torch.where(backlog_tot > 0,
+                                  2.0 * d_us + backlog_tot / serv_cap * 1e6,
+                                  0.0)
+            out.update(chan_wire=pipe_out.flatten(-2).sum(-1) if multi
+                       else pipe_out.sum(-1),
+                       chan_lost=lost.sum(-1),
+                       chan_retx=retx_send.sum(-1),
+                       chan_backlog=backlog_tot,
+                       chan_repair_wait_us=wait_us)
+        if has_fail:
+            # the live mask ([B, L] at L > 1, [B] on one link)
+            out["fail_live"] = link_live if multi else link_live[..., 0]
+        out.update(scheme.extra_traces(hctx, state))
         return new_state, out
 
-    step.ctx = ctx      # shared per-run quantities for the metric machinery
+    # shared per-run quantities for the metric machinery
+    step.ctx, step.channel = ctx, channel
+    step.track_chan = repair
     return step
 
 
@@ -573,12 +781,13 @@ class _Carry(NamedTuple):
 
 
 def _make_advance(step, scheme, mode: str, decimate: int, warm: int,
-                  keys: tuple):
+                  keys: tuple, sum_rows: Optional[torch.Tensor] = None):
     """One step of the run with its mode's bookkeeping, ``carry -> carry``.
     Full/decimate modes write the step's trace values into row
     ``t // decimate`` of the trace buffer (the block's last step is the one
-    kept, as the JAX package keeps it)."""
-    ctx = step.ctx
+    kept, as the JAX package keeps it); under ``decimate`` the rows
+    ``sum_rows`` (``DECIMATE_SUM_KEYS``) add the block's steps up instead."""
+    ctx, channel = step.ctx, step.channel
     k = decimate if mode == "decimate" else 1
 
     def advance(c: _Carry) -> _Carry:
@@ -589,14 +798,32 @@ def _make_advance(step, scheme, mode: str, decimate: int, warm: int,
             acc = _accumulate_engine(acc, out, inc)
             acc = acc._replace(scheme=scheme.accumulate_metrics(
                 ctx, acc.scheme, state, out, inc))
+            if step.track_chan:
+                acc = acc._replace(chan=channel.accumulate_metrics(
+                    ctx, acc.chan, state, out, inc))
         else:
             col = (c.t // k).to(torch.int64)[None]
             bs = out["q_dst"].shape
             vals = torch.cat([out[key].reshape(*bs, -1) for key in keys], -1)
+            if sum_rows is not None:
+                prev = traces[..., sum_rows, col]
+                vals[..., sum_rows] = torch.where(
+                    c.t % k == 0, vals[..., sum_rows], prev + vals[..., sum_rows])
             traces.index_copy_(-1, col, vals[..., None])
         return _Carry(state, c.t + 1, acc, traces)
 
     return advance
+
+
+def _graph_block(steps: int, graph_block: int) -> int:
+    """Steps per captured graph: ``graph_block``, or the largest divisor of
+    ``steps`` above half of it, so that no second graph is captured for the
+    remainder (capture time grows with the kernels captured)."""
+    block = max(min(graph_block, steps), 1)
+    for b in range(block, block // 2, -1):
+        if steps % b == 0:
+            return b
+    return block
 
 
 def _capture(advance, carry: _Carry, n: int, pool):
@@ -635,20 +862,23 @@ def _drive(step, scheme, state0: SimState, steps: int, mode: str,
     for key in keys:
         hi = lo + int(np.prod(out[key].shape[len(bs):]))
         spans[key], lo = (lo, hi), hi
-    acc = traces = None
+    acc = traces = sum_rows = None
     if mode == "metrics":
-        acc = _init_metric_acc(scheme, ctx, state0)
+        acc = _init_metric_acc(scheme, step.channel, ctx, state0)
     else:
         k = decimate if mode == "decimate" else 1
         rows = steps // k
         # one spare row takes the steps past the last whole block
         traces = torch.zeros(bs + (lo, rows + 1), device=dev)
+        summed = [spans[key][0] for key in DECIMATE_SUM_KEYS if key in spans]
+        if k > 1 and summed:
+            sum_rows = torch.tensor(summed, dtype=torch.int64, device=dev)
     carry = _Carry(state0, t0, acc, traces)
-    advance = _make_advance(step, scheme, mode, decimate, warm, keys)
+    advance = _make_advance(step, scheme, mode, decimate, warm, keys, sum_rows)
     timer = _Timer(dev)
     if dev.type == "cuda" and graph_block > 0:
         carry = _Carry(*_tree_clone(tuple(carry)))
-        block = max(min(graph_block, steps), 1)
+        block = _graph_block(steps, graph_block)
         pool = torch.cuda.graph_pool_handle()
         plan = [(n, reps) for n, reps in ((block, steps // block),
                                           (steps % block, 1)) if n and reps]
@@ -742,15 +972,16 @@ def batch_padding(cfgs: Sequence[NetConfig]):
 
 def build_batch(cfgs: Sequence[NetConfig], workload, scheme,
                 period_slots: int = 0, delay_pad: int = 0,
-                history_slots: int = 0, device=None):
+                history_slots: int = 0, device=None, channel=None):
     """``(template, state0, step)`` of a scenario batch: the batch's static
     template, its initial state and its step function, with the rings
-    padded to the batch (and at least ``delay_pad``/``history_slots``)."""
+    padded to the batch (and at least ``delay_pad``/``history_slots``), on
+    the channel model ``channel``."""
     cfgs = list(cfgs)
     if not cfgs:
         raise ValueError("simulate_batch: empty config batch")
     for c in cfgs:
-        check_main_path(c)
+        check_main_path(c, channel)
     scheme = get_scheme(scheme)
     dev = resolve_device(device)
     tmpl = batch_template(cfgs)
@@ -762,9 +993,9 @@ def build_batch(cfgs: Sequence[NetConfig], workload, scheme,
         validate_site_endpoints(tmpl, wlp)   # host-side: stalls fail early
     state0 = init_state(tmpl, wlp.is_inter.shape[-1], params=params,
                         delay_pad=delay_pad, history_slots=history_slots,
-                        scheme=scheme)
+                        scheme=scheme, channel=channel)
     step = make_step_fn(tmpl, wlp, scheme, period_slots, params=params,
-                        delay_pad=delay_pad)
+                        delay_pad=delay_pad, channel=channel)
     return tmpl, state0, step
 
 
@@ -784,8 +1015,10 @@ def simulate_batch(cfgs: Sequence[NetConfig], workload, scheme,
     ``[B]`` axis on every leaf, or ``(final_states, MetricAcc)`` under
     ``trace_mode="metrics"``. ``delay_pad``/``history_slots`` set MINIMUM
     ring sizes; ``warm_steps`` overrides the warm-up cutoff of the streamed
-    reductions. ``device``: where the batch runs, ``cuda`` unless the caller
-    says (raises without a GPU). ``graph_block``: steps per captured CUDA
+    reductions. ``channel``: a registered channel-model name or model (None
+    = ideal); its knobs are per-scenario ``NetParams`` leaves, so an
+    impairment grid is one batch. ``device``: where the batch runs, ``cuda``
+    unless the caller says (raises without a GPU). ``graph_block``: steps per captured CUDA
     graph on the card; 0 runs the steps eagerly there (the reference the
     graphs are held to). ``profile``: a dict that receives ``steps``,
     ``cells`` and the run's timings (see ``_drive``)."""
@@ -793,7 +1026,7 @@ def simulate_batch(cfgs: Sequence[NetConfig], workload, scheme,
     for c in cfgs:
         check_main_path(c, channel, trace_mode, decimate)
     tmpl, state0, step = build_batch(cfgs, workload, scheme, period_slots,
-                                     delay_pad, history_slots, device)
+                                     delay_pad, history_slots, device, channel)
     steps = tmpl.horizon_steps(
         horizon_us if horizon_us is not None
         else max(c.horizon_us for c in cfgs))

@@ -16,15 +16,29 @@ Execution modes (``trace_mode``):
                  add their own columns through ``Scheme.finalize_metrics``.
 
 Multi-link and multi-site grids (``num_paths > 1``, site graphs) run like
-any other; rdmacell adds its spraying columns there. The JAX runner's
-hardening knobs (checkpoints and resume, the finite guard, strict
-conservation, crash injection, run manifests) and its channel and failover
-columns are not ported: asking for one raises ``NotImplementedError``
-naming ROADMAP queue 1 item 15 (or 13).
+any other; rdmacell adds its spraying columns there. A non-ideal channel or
+a failure schedule adds the channel columns (``goodput_gbps``,
+``wire_gbps``, ``retx_frac``, ``p99_repair_latency_us``) in every mode, and
+a failure schedule the failover columns (``failover_collapse_frac``,
+``failover_recovery_us``) from materialized traces.
+
+Hardening (opt-in, as in the JAX runner): ``strict_conservation`` raises
+``ConservationError`` at the (scheme, cell, step) of the first violation,
+``on_nonfinite`` keeps, quarantines or raises on diverged cells,
+``checkpoint_dir`` writes one atomic JSON checkpoint per finished launch
+(``resume`` reloads them under a sha256 fingerprint of the plan),
+``abort_after_launches`` is the crash-injection hook, and a launch that
+runs out of device memory is split in two, down to single cells. Run
+manifests (``manifest_path``) come with observability (ROADMAP queue 1
+item 15) and ``devices=`` with item 17: both raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
+import os
+import warnings
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -32,6 +46,7 @@ import torch
 
 from repro_torch.config.net import NetConfig, batch_template
 from repro_torch.device import resolve_device
+from repro_torch.netsim.channel import get_channel_model
 from repro_torch.netsim.fluid import (
     STREAM_MAX_KEYS, STREAM_SUM_KEYS, WARMUP_FRAC, batch_padding,
     check_main_path, is_unfinished, simulate_batch,
@@ -101,9 +116,74 @@ def _assemble_rows(cfgs: Sequence[NetConfig], scheme_name: str, cols: dict,
     return rows
 
 
+def _channel_cols_from_traces(traces_np: dict, warm: int, dt_s: float,
+                              decimate: int = 1) -> dict:
+    """The channel columns from materialized ``chan_*`` traces, the
+    full/decimate twin of ``ChannelModel.finalize_metrics``. Rates are over
+    simulated time: a decimated sample is the SUM of its block's bytes
+    (``fluid.DECIMATE_SUM_KEYS``), so the columns agree at any decimation."""
+    wire = traces_np["chan_wire"][:, warm:].astype(np.float64)
+    lost = traces_np["chan_lost"][:, warm:].astype(np.float64)
+    retx = traces_np["chan_retx"][:, warm:].astype(np.float64)
+    wait = traces_np["chan_repair_wait_us"][:, warm:]
+    per_s = 1.0 / (max(wire.shape[1], 1) * max(decimate, 1) * dt_s)
+    # p99 over the steps with a repair pending (as the streamed histogram)
+    p99 = np.zeros(wire.shape[0])
+    for i in range(wire.shape[0]):
+        pending = wait[i][wait[i] > 0]
+        p99[i] = np.percentile(pending, 99) if pending.size else 0.0
+    return {
+        "goodput_gbps": (wire.sum(axis=1) - lost.sum(axis=1))
+        * per_s * 8.0 / 1e9,
+        "wire_gbps": wire.sum(axis=1) * per_s * 8.0 / 1e9,
+        "retx_frac": retx.sum(axis=1) / np.maximum(wire.sum(axis=1), 1.0),
+        "p99_repair_latency_us": p99,
+    }
+
+
+def _failover_cols_from_traces(cfgs: Sequence[NetConfig], traces_np: dict,
+                               decimate: int = 1) -> dict:
+    """Failover scores from the ``thr_inter`` series of cells with a failure
+    schedule: ``failover_collapse_frac`` = 1 - (mean inter-DC throughput over
+    the outage span) / (mean before the first down edge), clipped to [0, 1];
+    ``failover_recovery_us`` = time from the last up edge until the
+    throughput first regains 90 % of the pre-outage mean (clamped to the end
+    of the trace). The span is [min down, max up] over a cell's real windows;
+    a cell without one (an all-up control) scores 0 on both. Sample j of a
+    decimated trace is the value at step ``(j+1)*decimate - 1``."""
+    thr = np.asarray(traces_np["thr_inter"], np.float64)       # [B, S]
+    n_cells, n_samples = thr.shape
+    t_us = (np.arange(n_samples, dtype=np.float64) + 1.0) \
+        * max(decimate, 1) * cfgs[0].dt_us
+    collapse = np.zeros(n_cells)
+    recovery = np.zeros(n_cells)
+    for i, cfg in enumerate(cfgs[:n_cells]):
+        fa = np.asarray(cfg.failure_array(), np.float64)       # [L, W, 2]
+        real = fa[..., 1] > fa[..., 0]
+        if not real.any():
+            continue
+        down = fa[..., 0][real].min()
+        up = fa[..., 1][real].max()
+        pre = thr[i][t_us < down]
+        base = pre.mean() if pre.size else 0.0
+        if base <= 0.0:
+            continue
+        span = thr[i][(t_us >= down) & (t_us < up)]
+        during = span.mean() if span.size else 0.0
+        collapse[i] = min(max(1.0 - during / base, 0.0), 1.0)
+        post = t_us >= up
+        rec = post & (thr[i] >= 0.9 * base)
+        if rec.any():
+            recovery[i] = t_us[rec].min() - up
+        elif post.any():
+            recovery[i] = max(t_us[-1] - up, 0.0)
+    return {"failover_collapse_frac": collapse,
+            "failover_recovery_us": recovery}
+
+
 def _metrics_batch(cfgs: Sequence[NetConfig], wl: WorkloadParams,
-                   scheme_name: str, final_np: dict,
-                   traces_np: dict) -> List[Dict[str, float]]:
+                   scheme_name: str, final_np: dict, traces_np: dict,
+                   decimate: int = 1) -> List[Dict[str, float]]:
     """Fig. 3 metric set from materialized [B, T] traces in one vectorized
     pass (``trace_mode="full"``/``"decimate"``)."""
     steps = traces_np["q_dst"].shape[1]
@@ -123,11 +203,22 @@ def _metrics_batch(cfgs: Sequence[NetConfig], wl: WorkloadParams,
         "intra_thr_gbps":
             traces_np["thr_intra"][:, warm:].mean(axis=1) * 8.0 / 1e9,
     }
+    if "chan_wire" in traces_np:
+        cols.update(_channel_cols_from_traces(
+            traces_np, warm, cfgs[0].dt_us * 1e-6, decimate))
+    if cfgs[0].failure_len > 0:
+        cols.update(_failover_cols_from_traces(cfgs, traces_np, decimate))
     return _assemble_rows(cfgs, scheme_name, cols)
 
 
+def _numpy_tree(tree):
+    if torch.is_tensor(tree):
+        return tree.detach().cpu().numpy()
+    return {k: _numpy_tree(v) for k, v in tree.items()}
+
+
 def _metrics_streaming(cfgs: Sequence[NetConfig], wl: WorkloadParams, scheme,
-                       final_np: dict, acc, steps: int,
+                       channel, final_np: dict, acc, steps: int,
                        warm: int) -> List[Dict[str, float]]:
     """The same Fig. 3 metric set from the O(B) streamed accumulators
     (``trace_mode="metrics"``). p99 inverts the fixed-bin log-histogram
@@ -149,8 +240,13 @@ def _metrics_streaming(cfgs: Sequence[NetConfig], wl: WorkloadParams, scheme,
         "completion_frac": completion,
         "intra_thr_gbps": sums["thr_intra"] / n_warm * 8.0 / 1e9,
     }
-    extra = scheme.finalize_metrics(
-        {k: v.cpu().numpy() for k, v in acc.scheme.items()}, steps, n_warm)
+    extra = dict(scheme.finalize_metrics(_numpy_tree(acc.scheme), steps,
+                                         n_warm) or {})
+    # the channel accumulator streams under the ideal channel too when a
+    # failure schedule is armed (outage losses ride the chan_* keys)
+    if acc.chan is not None:
+        extra.update(channel.finalize_metrics(
+            _numpy_tree(acc.chan), steps, n_warm, cfgs[0].dt_us * 1e-6))
     return _assemble_rows(cfgs, scheme.name, cols, extra)
 
 
@@ -181,22 +277,34 @@ def _trace_float_budget(device: torch.device) -> int:
 def chunk_cells(steps: int, trace_mode: str = "full", decimate: int = 1,
                 chunk_cells: Optional[int] = None,
                 device: Optional[torch.device] = None,
-                num_links: int = 1) -> int:
+                num_links: int = 1, schedule_floats: int = 0) -> int:
     """Scenario cells per launch: the explicit ``chunk_cells`` override, or
     the bounded-memory auto size (full/decimate: the materialized trace
     block stays under the trace-float budget of ``device``, counting the
     three ``[L]`` trace keys of a multi-link grid; metrics: the flat
-    ``METRICS_CHUNK_CELLS`` ceiling)."""
+    ``METRICS_CHUNK_CELLS`` ceiling). ``schedule_floats`` is a cell's
+    resident schedule tables (``_sched_floats``), counted in every mode."""
     if chunk_cells is None:
         if trace_mode == "metrics":
             chunk_cells = METRICS_CHUNK_CELLS
+            if schedule_floats > 0:
+                chunk_cells = min(chunk_cells,
+                                  max(MAX_TRACE_FLOATS // schedule_floats, 1))
         else:
             t = max(steps // max(decimate, 1), 1)
             # q_dst_link / link_tx / link_pause are [L] per step at L > 1
             keys = _TRACE_KEYS_EST + (3 * num_links if num_links > 1 else 0)
             budget = _trace_float_budget(device or torch.device("cpu"))
-            chunk_cells = max(budget // (t * keys), 1)
+            chunk_cells = max(
+                budget // (t * keys + max(schedule_floats, 0)), 1)
     return max(int(chunk_cells), 1)
+
+
+def _sched_floats(cfg: NetConfig) -> int:
+    """f32 values of a cell's resident schedule tables: the trace-replay
+    channel schedule ([L, K, 3]) and the failure windows ([L, W, 2])."""
+    return (cfg.num_paths * cfg.schedule_len * 3
+            + cfg.num_paths * cfg.failure_len * 2)
 
 
 # inside run_experiment_batch / sweep_grid the ``chunk_cells`` KEYWORD
@@ -234,11 +342,161 @@ def _grid_static(cfgs, horizon_us, delay_pad: int, history_slots: int):
             max(delay_pad, dp), max(history_slots, hs))
 
 
+# ---------------------------------------------------------------------------
+# Runner hardening: conservation guard, finite guard, checkpoint/resume, OOM
+# backoff
+# ---------------------------------------------------------------------------
+
+
+class ConservationError(RuntimeError):
+    """``strict_conservation``: a cell's conservation residual (``cons_err``,
+    max over flows of |residual| / max(sent, 1)) went over the tolerance.
+    Carries the grid-order ``cell`` and the engine ``step`` of the first
+    violation (None under ``trace_mode="metrics"``, which streams only the
+    running max)."""
+
+    def __init__(self, scheme_name: str, cell: int, step: Optional[int],
+                 err: float, tol: float):
+        self.scheme_name, self.cell, self.step = scheme_name, cell, step
+        self.err, self.tol = err, tol
+        where = (f"step {step}" if step is not None
+                 else "step unknown (trace_mode='metrics' streams only the "
+                      "running max - rerun with trace_mode='full' to "
+                      "localize)")
+        super().__init__(
+            f"strict_conservation: scheme {scheme_name!r} violated byte "
+            f"conservation at cell {cell}, {where}: "
+            f"|residual|/sent = {err:.3e} > tol {tol:.1e}")
+
+
+def _check_conservation(scheme_name: str, aux, lo: int, n_real: int,
+                        trace_mode: str, decimate: int, tol: float) -> None:
+    """The first ``cons_err > tol`` -> ``ConservationError`` at grid-order
+    (cell, step); sample j of a decimated trace is step ``(j+1)*decimate -
+    1``; metrics mode reports no step."""
+    if trace_mode == "metrics":
+        m = aux.maxes[..., STREAM_MAX_KEYS.index("cons_err")].cpu().numpy()[:n_real]
+        bad = m > tol
+        if bad.any():
+            i = int(np.argmax(bad))
+            raise ConservationError(scheme_name, lo + i, None, float(m[i]), tol)
+        return
+    k = decimate if trace_mode == "decimate" else 1
+    cons = aux["cons_err"]
+    cons = (cons.cpu().numpy() if torch.is_tensor(cons) else np.asarray(cons))[:n_real]
+    bad = cons > tol
+    if bad.any():
+        i, j = np.argwhere(bad)[0]
+        raise ConservationError(scheme_name, lo + int(i), (int(j) + 1) * k - 1,
+                                float(cons[i, j]), tol)
+
+
+# ``avg_fct_us`` is exempt from the finite guard: inf (no flow finished) and
+# nan (no finite flow) are its in-band sentinels
+_NONFINITE_EXEMPT = ("avg_fct_us",)
+
+
+def _guard_nonfinite(rows: List[dict], lo: int, on_nonfinite: str) -> List[dict]:
+    """Per-cell finite guard: ``"keep"`` passes rows through, ``"quarantine"``
+    swaps a diverged cell's row for a failure record (``failed=True``, the
+    offending columns, the grid-order cell), ``"raise"`` aborts naming
+    them."""
+    if on_nonfinite == "keep":
+        return rows
+    out = []
+    for i, row in enumerate(rows):
+        bad = sorted(k for k, v in row.items()
+                     if k not in _NONFINITE_EXEMPT
+                     and isinstance(v, float) and not np.isfinite(v))
+        if not bad:
+            out.append(row)
+            continue
+        cell = lo + i
+        if on_nonfinite == "raise":
+            raise RuntimeError(
+                f"non-finite metrics at cell {cell} "
+                f"(scheme {row.get('scheme')!r}): columns {bad} - rerun "
+                f"with on_nonfinite='quarantine' to skip diverged cells")
+        out.append({"scheme": row.get("scheme"),
+                    "distance_km": row.get("distance_km", float("nan")),
+                    "cell_index": cell, "failed": True,
+                    "nonfinite_cols": bad})
+    return out
+
+
+def _plan_fingerprint(plan, cfgs, wlp_np, grid_static, period_slots,
+                      trace_mode, decimate, channel) -> str:
+    """sha256 of everything that decides a plan's rows (configs, workload
+    leaves, grid statics, modes, channel, scheme set): a resume against
+    checkpoints of another plan refuses."""
+    h = hashlib.sha256()
+    for c in cfgs:
+        h.update(repr(c).encode())
+    for leaf in wlp_np:
+        a = np.asarray(leaf)
+        h.update(str(a.dtype).encode())
+        h.update(str(a.shape).encode())
+        h.update(a.tobytes())
+    names = tuple(sorted({launch.scheme.name for launch in plan}))
+    h.update(repr((tuple(grid_static), int(period_slots), trace_mode,
+                   int(decimate), getattr(channel, "name", None),
+                   names)).encode())
+    return h.hexdigest()
+
+
+def _checkpoint_path(checkpoint_dir: str, launch: _Launch) -> str:
+    return os.path.join(checkpoint_dir,
+                        f"{launch.scheme.name}_{launch.lo}_{launch.hi}.json")
+
+
+def _load_checkpoint(path: str, fingerprint: str) -> Optional[list]:
+    """A finished launch's rows, or None to (re)run it: a torn file (killed
+    before the atomic rename) counts as absent; a valid file of another
+    plan raises."""
+    if not os.path.exists(path):
+        return None
+    try:
+        with open(path) as f:
+            data = json.load(f)
+    except (json.JSONDecodeError, OSError, UnicodeDecodeError):
+        return None
+    if data.get("fingerprint") != fingerprint:
+        raise ValueError(
+            f"--resume: checkpoint {path} was written by a DIFFERENT "
+            f"launch plan (grid, workload, horizon, trace mode, channel "
+            f"or scheme set changed); delete the checkpoint directory to "
+            f"start this sweep from scratch")
+    return data["rows"]
+
+
+def _write_checkpoint(path: str, fingerprint: str, launch: _Launch,
+                      rows: list) -> None:
+    """Atomic per-launch checkpoint: JSON floats round-trip exactly, and the
+    temporary file plus rename leaves the whole file or none."""
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump({"fingerprint": fingerprint, "scheme": launch.scheme.name,
+                   "lo": launch.lo, "hi": launch.hi, "rows": rows}, f)
+    os.replace(tmp, path)
+
+
+def _is_oom_error(e: Exception) -> bool:
+    if isinstance(e, torch.cuda.OutOfMemoryError):
+        return True
+    s = str(e)
+    return "RESOURCE_EXHAUSTED" in s or "out of memory" in s.lower()
+
+
 def _run_launch(launch: _Launch, cfgs, wlp: WorkloadParams, grid_static,
-                period_slots, trace_mode, decimate, device,
-                profile: Optional[list]) -> List[dict]:
+                period_slots, trace_mode, decimate, device, channel,
+                strict_conservation: bool = False,
+                conservation_tol: float = 1e-3,
+                profile: Optional[list] = None) -> List[dict]:
     """One launch -> its real cells' rows (grid order); its timings are
-    appended to ``profile`` when given."""
+    appended to ``profile`` when given. A launch that runs out of device
+    memory is retried as two half-size launches, down to single cells.
+    The conservation guard runs per launch, so the error names the first
+    violation of the first offending chunk."""
     horizon, steps, warm, delay_pad, history_slots = grid_static
     sub_cfgs = cfgs[launch.lo:launch.hi]
     sub_wlp = WorkloadParams(*(v[launch.lo:launch.hi] for v in wlp))
@@ -247,58 +505,114 @@ def _run_launch(launch: _Launch, cfgs, wlp: WorkloadParams, grid_static,
     kw = {}
     if profile is not None:
         kw["profile"] = {"scheme": launch.scheme.name, "real_cells": n_real}
+    try:
+        final, aux = simulate_batch(
+            sub_cfgs, sub_wlp, launch.scheme, horizon, period_slots,
+            trace_mode=trace_mode, decimate=decimate, delay_pad=delay_pad,
+            history_slots=history_slots, warm_steps=warm, channel=channel,
+            device=device, **kw)
+    except Exception as e:  # noqa: BLE001 - filtered to device OOM here
+        if not _is_oom_error(e) or n_real <= 1:
+            raise
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        mid = launch.lo + (n_real + 1) // 2
+        warnings.warn(
+            f"launch ({launch.scheme.name}, cells [{launch.lo}, "
+            f"{launch.hi})) hit device OOM; retrying as two half-size "
+            f"launches", RuntimeWarning, stacklevel=2)
+        rows = []
+        for lo, hi in ((launch.lo, mid), (mid, launch.hi)):
+            rows.extend(_run_launch(
+                _Launch(launch.scheme, lo, hi, hi - lo), cfgs, wlp,
+                grid_static, period_slots, trace_mode, decimate, device,
+                channel, strict_conservation, conservation_tol, profile))
+        return rows
+    if profile is not None:
         profile.append(kw["profile"])
-    final, aux = simulate_batch(
-        sub_cfgs, sub_wlp, launch.scheme, horizon, period_slots,
-        trace_mode=trace_mode, decimate=decimate, delay_pad=delay_pad,
-        history_slots=history_slots, warm_steps=warm, device=device, **kw)
+    if strict_conservation:
+        _check_conservation(launch.scheme.name, aux, launch.lo, n_real,
+                            trace_mode, decimate, conservation_tol)
     final_np = {"delivered": final.delivered.cpu().numpy(),
                 "done_at_us": final.done_at_us.cpu().numpy()}
     if trace_mode == "metrics":
-        rows = _metrics_streaming(sub_cfgs, sub_wlp, launch.scheme, final_np,
-                                  aux, steps, warm)
+        rows = _metrics_streaming(sub_cfgs, sub_wlp, launch.scheme, channel,
+                                  final_np, aux, steps, warm)
     else:
         traces_np = {k: v.cpu().numpy() for k, v in aux.items()}
         rows = _metrics_batch(sub_cfgs, sub_wlp, launch.scheme.name, final_np,
-                              traces_np)
+                              traces_np, decimate if trace_mode == "decimate" else 1)
     return rows[:n_real]
 
 
-# the JAX runner's hardening knobs, at their off values
-_HARDENING_OFF = {"checkpoint_dir": None, "resume": False,
-                  "on_nonfinite": "keep", "strict_conservation": False,
-                  "conservation_tol": 1e-3, "abort_after_launches": None,
-                  "manifest_path": None}
-
-
-def _check_unported(cfgs, channel, trace_mode, decimate, devices, knobs: dict):
-    unknown = sorted(set(knobs) - set(_HARDENING_OFF))
-    if unknown:
-        raise TypeError(f"unexpected keyword arguments {unknown}")
+def _check_unported(cfgs, channel, trace_mode, decimate, devices,
+                    manifest_path, on_nonfinite) -> None:
     for c in cfgs:
         check_main_path(c, channel, trace_mode, decimate)
     if devices is not None:
         raise NotImplementedError(
             "devices=: sharding a grid over several devices comes with ROADMAP "
             "queue 1 item 17; pass device= for the one device to run on")
-    on = sorted(k for k, off in _HARDENING_OFF.items()
-                if knobs.get(k, off) != off)
-    if on:
+    if manifest_path is not None:
         raise NotImplementedError(
-            f"{', '.join(on)}: the runner's hardening knobs come with ROADMAP "
-            f"queue 1 item 15")
+            "manifest_path: run manifests come with observability, ROADMAP "
+            "queue 1 item 15")
+    if on_nonfinite not in ("keep", "quarantine", "raise"):
+        raise ValueError(
+            f"on_nonfinite must be 'keep', 'quarantine' or 'raise', "
+            f"got {on_nonfinite!r}")
 
 
 def _execute_plan(plan: Sequence[_Launch], cfgs, wlp: WorkloadParams,
                   grid_static, period_slots, trace_mode, decimate, device,
-                  profile=None) -> Dict[object, list]:
-    """Run every launch; returns scheme -> full row list (grid order)."""
+                  channel=None, profile=None, *,
+                  checkpoint_dir: Optional[str] = None, resume: bool = False,
+                  on_nonfinite: str = "keep",
+                  strict_conservation: bool = False,
+                  conservation_tol: float = 1e-3,
+                  abort_after_launches: Optional[int] = None
+                  ) -> Dict[object, list]:
+    """Run every launch; returns scheme -> full row list (grid order).
+
+    ``checkpoint_dir``: one atomic JSON checkpoint per finished launch; with
+    ``resume`` a rerun of the SAME plan loads finished launches (bit-equal
+    rows) and runs the rest, and a checkpoint of another plan raises.
+    ``on_nonfinite``: ``"keep"`` / ``"quarantine"`` / ``"raise"``.
+    ``strict_conservation``: ``ConservationError`` on the first ``cons_err
+    > conservation_tol``. ``abort_after_launches``: raise after that many
+    executed launches (their checkpoints already written), the
+    crash-injection hook of the resume tests."""
+    channel = get_channel_model(channel)
     wlp = WorkloadParams(*(np.asarray(v) for v in wlp))
+    fingerprint = None
+    if checkpoint_dir is not None:
+        fingerprint = _plan_fingerprint(plan, cfgs, wlp, grid_static,
+                                        period_slots, trace_mode, decimate,
+                                        channel)
+        os.makedirs(checkpoint_dir, exist_ok=True)
     rows: Dict[object, list] = {}
+    executed = 0
     for launch in plan:
-        rows.setdefault(launch.scheme, []).extend(_run_launch(
-            launch, cfgs, wlp, grid_static, period_slots, trace_mode,
-            decimate, device, profile))
+        ckpt = (_checkpoint_path(checkpoint_dir, launch)
+                if checkpoint_dir is not None else None)
+        if ckpt is not None and resume:
+            cached = _load_checkpoint(ckpt, fingerprint)
+            if cached is not None:
+                rows.setdefault(launch.scheme, []).extend(cached)
+                continue
+        if abort_after_launches is not None and executed >= abort_after_launches:
+            raise RuntimeError(
+                f"abort_after_launches: aborting sweep after {executed} "
+                f"executed launches (crash-injection hook)")
+        sub_rows = _guard_nonfinite(
+            _run_launch(launch, cfgs, wlp, grid_static, period_slots,
+                        trace_mode, decimate, device, channel,
+                        strict_conservation, conservation_tol, profile),
+            launch.lo, on_nonfinite)
+        if ckpt is not None:
+            _write_checkpoint(ckpt, fingerprint, launch, sub_rows)
+        executed += 1
+        rows.setdefault(launch.scheme, []).extend(sub_rows)
     return rows
 
 
@@ -329,23 +643,37 @@ def run_experiment_batch(cfgs: Sequence[NetConfig], workload, scheme,
                          delay_pad: int = 0, history_slots: int = 0,
                          channel=None, device=None,
                          profile: Optional[list] = None,
-                         **hardening) -> List[Dict[str, float]]:
+                         checkpoint_dir: Optional[str] = None,
+                         resume: bool = False, on_nonfinite: str = "keep",
+                         strict_conservation: bool = False,
+                         conservation_tol: float = 1e-3,
+                         abort_after_launches: Optional[int] = None,
+                         manifest_path: Optional[str] = None
+                         ) -> List[Dict[str, float]]:
     """Fig. 3 metrics for every scenario of a grid, from a chunked launch
     plan. ``workload``: shared ``Workload``, per-scenario sequence, or
-    stacked ``WorkloadParams``. ``device``: ``cuda`` unless the caller says;
-    ``profile``: a list that gets one timing dict per launch
-    (``simulate_batch``'s ``profile``)."""
+    stacked ``WorkloadParams``. ``channel``: the channel model of every cell
+    (name or model, None = ideal). ``device``: ``cuda`` unless the caller
+    says; ``profile``: a list that gets one timing dict per launch
+    (``simulate_batch``'s ``profile``). The hardening knobs are
+    ``_execute_plan``'s."""
     cfgs = list(cfgs)
-    _check_unported(cfgs, channel, trace_mode, decimate, devices, hardening)
+    _check_unported(cfgs, channel, trace_mode, decimate, devices,
+                    manifest_path, on_nonfinite)
     dev = resolve_device(device)
     scheme = get_scheme(scheme)
     wlp = as_workload_batch(workload, len(cfgs))
     grid_static = _grid_static(cfgs, horizon_us, delay_pad, history_slots)
     chunk = _auto_chunk_cells(grid_static[1], trace_mode, decimate,
-                              chunk_cells, dev, cfgs[0].num_paths)
+                              chunk_cells, dev, cfgs[0].num_paths,
+                              _sched_floats(cfgs[0]))
     plan = _plan_launches(len(cfgs), (scheme,), chunk)
-    return _execute_plan(plan, cfgs, wlp, grid_static, period_slots,
-                         trace_mode, decimate, dev, profile)[scheme]
+    return _execute_plan(
+        plan, cfgs, wlp, grid_static, period_slots, trace_mode, decimate, dev,
+        channel, profile, checkpoint_dir=checkpoint_dir, resume=resume,
+        on_nonfinite=on_nonfinite, strict_conservation=strict_conservation,
+        conservation_tol=conservation_tol,
+        abort_after_launches=abort_after_launches)[scheme]
 
 
 def convergence_horizon_us(cfgs: Sequence[NetConfig],
@@ -373,11 +701,17 @@ def sweep_grid(scenarios, workload=None, schemes=(),
                trace_mode: str = "full", decimate: int = 1,
                chunk_cells: Optional[int] = None,
                devices: Optional[Sequence] = None, channel=None,
-               device=None, **hardening):
+               device=None, profile: Optional[list] = None,
+               checkpoint_dir: Optional[str] = None, resume: bool = False,
+               on_nonfinite: str = "keep", strict_conservation: bool = False,
+               conservation_tol: float = 1e-3,
+               abort_after_launches: Optional[int] = None,
+               manifest_path: Optional[str] = None):
     """Heterogeneous scenario grids x schemes as ONE launch plan; rows in
     the order ``for scenario: for scheme``. Either
     ``sweep_grid([Scenario(cfg, wl), ...], schemes)`` (each cell its own
-    config and workload) or ``sweep_grid(cfgs, shared_workload, schemes)``."""
+    config and workload) or ``sweep_grid(cfgs, shared_workload, schemes)``.
+    ``channel`` and the hardening knobs as in ``run_experiment_batch``."""
     scenarios = list(scenarios)
     if not scenarios:
         raise ValueError("sweep_grid: empty scenario grid")
@@ -401,14 +735,20 @@ def sweep_grid(scenarios, workload=None, schemes=(),
     if not schemes:
         raise ValueError(
             "sweep_grid: no schemes given - pass schemes=(\"dcqcn\", ...)")
-    _check_unported(cfgs, channel, trace_mode, decimate, devices, hardening)
+    _check_unported(cfgs, channel, trace_mode, decimate, devices,
+                    manifest_path, on_nonfinite)
     dev = resolve_device(device)
     scheme_objs = [get_scheme(s) for s in schemes]
     wlp = as_workload_batch(wl, len(cfgs))
     grid_static = _grid_static(cfgs, horizon_us, 0, 0)
     chunk = _auto_chunk_cells(grid_static[1], trace_mode, decimate,
-                              chunk_cells, dev, cfgs[0].num_paths)
+                              chunk_cells, dev, cfgs[0].num_paths,
+                              _sched_floats(cfgs[0]))
     plan = _plan_launches(len(cfgs), scheme_objs, chunk)
-    by_scheme = _execute_plan(plan, cfgs, wlp, grid_static, period_slots,
-                              trace_mode, decimate, dev)
+    by_scheme = _execute_plan(
+        plan, cfgs, wlp, grid_static, period_slots, trace_mode, decimate, dev,
+        channel, profile, checkpoint_dir=checkpoint_dir, resume=resume,
+        on_nonfinite=on_nonfinite, strict_conservation=strict_conservation,
+        conservation_tol=conservation_tol,
+        abort_after_launches=abort_after_launches)
     return [by_scheme[s][i] for i in range(len(cfgs)) for s in scheme_objs]

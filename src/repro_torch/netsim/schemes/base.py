@@ -4,9 +4,11 @@ A scheme is how a long-haul RDMA control plane sees ACKs, shapes the
 source-OTN release and routes congestion feedback. ``fluid.make_step_fn`` is
 a scheme-agnostic skeleton (flow phase -> queues -> ECN/PFC -> CC -> FCT)
 that composes the hooks below; the contract is the JAX package's
-(``docs/scheme-api.md``) on the ideal channel: ``retx_rate`` is a hook here,
-but the channel repair path that calls it is not ported, and
-``emit_events`` (event rings) comes with the slice that ports them.
+(``docs/scheme-api.md``): ``retx_rate`` grants the engine's loss-repair path
+its rate, ``SchemeSignals.retx_arr`` carries the loss notifications that
+arrive at the source, and with a failure schedule ``SchemeCtx.link_live``
+holds the step's live-link mask. ``emit_events`` (event rings) comes with
+the slice that ports them.
 
 Hooks run on torch tensors with a leading scenario axis ``[B]`` (per-flow
 tensors ``[B, F]``); none may read a value back to the host, so a block of
@@ -82,8 +84,9 @@ class SchemeCtx(NamedTuple):
     edge_sites: Optional[torch.Tensor] = None     # [L, 2] int32 site pairs
     flow_src_site: Optional[torch.Tensor] = None  # [B, F] flow source site
     flow_dst_site: Optional[torch.Tensor] = None  # [B, F] flow dest site
-    # per-step link live mask of a failure schedule ([B, L]); None without
-    # one (failure schedules are not ported, so always None here)
+    # per-step live-link mask of a failure schedule ([B, L], 1.0 = up), set
+    # by the engine each step; None without a schedule. route_weights folds
+    # it in through apply_link_live so sprays avoid dead links
     link_live: Optional[torch.Tensor] = None
 
 
@@ -99,7 +102,9 @@ class SchemeSignals(NamedTuple):
     q_leaf: torch.Tensor         # [B, F] new dst-leaf queue
     leaf_pfc: torch.Tensor       # [B] leaf asserting PFC toward dst OTN
     retx_arr: torch.Tensor       # [B, F] loss notifications arriving at the
-                                 # source (zeros on the ideal channel)
+                                 # source (zeros without the repair path)
+    retx_backlog: torch.Tensor   # [B, F] retransmit backlog after this
+                                 # step's repair service
     # multi-link signals (None on the single pipe)
     link_sent: Optional[torch.Tensor] = None      # [B, L, F] sprayed per link
     link_arrivals: Optional[torch.Tensor] = None  # [B, L, F] landed per link

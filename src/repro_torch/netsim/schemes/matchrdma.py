@@ -74,13 +74,15 @@ class MatchRdmaScheme(Scheme):
         mr = mr._replace(pseudo=pseudo)
 
         # ---- proxy brake from the delayed congestion summary, rate-limited:
-        # cut x0.7 (floor 0.25), recover with a ~1 ms time constant (loss
-        # notifications brake too once a lossy channel is ported)
+        # cut x0.7 (floor 0.25), recover with a ~1 ms time constant. Loss
+        # notifications (zeros without the repair path) brake the same way:
+        # a dropping long haul is over-injection the budget estimator only
+        # sees a control window later
         proxy_timer = state.proxy_timer + ctx.dt_us
         cut = torch.clamp(state.proxy_mod * 0.7, min=0.25)
         recover = torch.clamp(state.proxy_mod * (1.0 + 5e-4 * ctx.dt_us),
                               max=1.0)
-        fire = ((mr.summary_at_src > 0.5)[..., None]
+        fire = (((mr.summary_at_src > 0.5)[..., None] | (sig.retx_arr > 0))
                 & (proxy_timer >= cfg.cnp_interval_us))
         proxy_mod = torch.where(fire, cut, recover)
         proxy_timer = torch.where(fire, 0.0, proxy_timer)

@@ -15,6 +15,7 @@ step, and by the threshold itself, crossed at that step in one run only.
 """
 import numpy as np
 import pytest
+import torch
 
 import repro.netsim as jnetsim
 from benchmarks import scheme_compare as sc
@@ -93,9 +94,15 @@ def _assert_parts_at_threshold(distance_km, scheme):
     assert (a > xoff_otn) != (b > xoff_otn), (a, b, xoff_otn)
 
 
-def test_unported_grids_raise_naming_their_item():
-    fig = _Keep()
-    for name, item in (("impairment", "item 13"), ("sites", "item 13"),
-                       ("failover", "item 15")):
-        with pytest.raises(NotImplementedError, match=item):
-            launch.FIGURES[name](fig)
+def test_every_scheme_compare_grid_is_a_figure():
+    """scheme_compare.py's five grids are launch.netsim figures (the channel,
+    sites and failover ones held in tests/test_torch_netsim_channel_figures.py);
+    without a GPU the model substrate still refuses to build by default."""
+    assert {"scheme_compare", "topology", "impairment", "sites",
+            "failover"} <= set(launch.FIGURES)
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: the default device is usable here")
+    from repro_torch.config import get_model_config
+    from repro_torch.models import build_model
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(get_model_config("qwen1.5-0.5b", smoke=True))

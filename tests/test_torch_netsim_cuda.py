@@ -1,8 +1,12 @@
 """The port's netsim on the card: the CUDA-graph path against the eager steps
 bit for bit, the card against the CPU on the golden scenarios (all seven
 schemes) and on the two multi-link scenarios of ``tests/torch_parity.py``
-(the three-link delay-spread cell and the 3-site mesh), and the options
-outside the ported path raising there too.
+(the three-link delay-spread cell and the 3-site mesh), the channel and
+failure paths (the threefry draws bit-equal to the CPU's; the impaired golden
+cell, the mesh under its replayed schedule and link and site outages, graphs
+against eager and card against CPU; the step key folded from a capture-time
+step index caught), and the options outside the ported path raising there
+too.
 
 These tests import no JAX, so they run on a machine that has only PyTorch:
 
@@ -16,14 +20,19 @@ state with the tolerances the CPU parity tests use (``tests/torch_parity.py``).
 import pytest
 import torch
 
+import dataclasses
+import itertools
+
 from repro_torch.config.net import NetConfig
-from repro_torch.netsim import fluid
+from repro_torch.launch import netsim as launch
+from repro_torch.netsim import FailureSchedule, fluid, prng
 from repro_torch.netsim import topology as ptopo
 from repro_torch.netsim import workload as pwork
 from torch_parity import (
-    ALL_SCHEMES, COLUMN_FLOORS, GOLDEN, LINKS3_H_US, MESH_H_US, RELATED, SCHEMES,
-    assert_columns_close, assert_final_close, fig3_columns, golden_configs,
-    golden_workload, leaves, links3_config, mesh_config, mesh_workload,
+    ALL_SCHEMES, COLUMN_FLOORS, GOLDEN, IMPAIRED_H_US, IMPAIRED_KNOBS, LINKS3_H_US,
+    MESH_H_US, RELATED, SCHEMES, SEQ_KW, assert_columns_close, assert_final_close,
+    fig3_columns, golden_configs, golden_workload, leaves, links3_config,
+    mesh_config, mesh_workload,
 )
 
 # the multi-link scenarios: configs, workload, horizon
@@ -119,11 +128,81 @@ def test_multilink_card_matches_cpu(cuda, name, scheme):
     assert_final_close(cf, pf, 5.0, f"{name}/{scheme}")
 
 
+# the channel and failure scenarios: (configs, workload, horizon, channel)
+def _channel_case(name):
+    if name == "impaired":
+        return ([NetConfig(**IMPAIRED_KNOBS)], pwork.congestion_workload(**SEQ_KW),
+                IMPAIRED_H_US, "impaired")
+    if name == "sites":
+        cfg = dataclasses.replace(mesh_config(NetConfig, ptopo),
+                                  channel_schedule=launch.sites_schedule(1.0),
+                                  channel_schedule_dt_us=MESH_H_US / 8.0)
+        return [cfg], mesh_workload(pwork), MESH_H_US, "trace_replay"
+    fs = FailureSchedule.empty(3)
+    fs = (fs.link_outage(0, 600.0, 2_000.0) if name == "link0"
+          else fs.site_outage(1, 600.0, 1_500.0, ((0, 1),) * 3))
+    cfg = fs.apply(NetConfig(distance_km=100.0, num_paths=3, path_cap_frac=(0.5, 0.3, 0.2)))
+    return [cfg], pwork.throughput_workload(1 << 23, 4, 4), 3_000.0, None
+
+
+CHANNEL_CASES = ([("impaired", s) for s in ALL_SCHEMES]
+                 + [(n, s) for n in ("sites", "link0", "site")
+                    for s in ("dcqcn", "matchrdma", "rdmacell")])
+
+
+def _graph_vs_eager(cuda, name, scheme, steps=192, graph_block=64):
+    cfgs, wl, _, channel = _channel_case(name)
+    kw = dict(horizon_us=steps * 5.0, channel=channel, device=cuda)
+    eager = fluid.simulate_batch(cfgs, wl, scheme, graph_block=0, **kw)
+    graph = fluid.simulate_batch(cfgs, wl, scheme, graph_block=graph_block, **kw)
+    e, g = leaves(eager), leaves(graph)
+    assert sorted(e) == sorted(g)
+    return [k for k in e if not (e[k] == g[k]).all()]
+
+
+def test_threefry_card_matches_cpu(cuda):
+    keys = prng.fold_in(prng.prng_key(7)[None, :], torch.arange(4))
+    for shape in ((1 << 20,), (3, 5)):
+        a = prng.random_bits(keys, shape)
+        b = prng.random_bits(keys.to(cuda), shape).cpu()
+        assert torch.equal(a, b)
+        assert torch.equal(prng.uniform(keys, shape).view(torch.int32),
+                           prng.uniform(keys.to(cuda), shape).cpu().view(torch.int32))
+
+
+@pytest.mark.parametrize("name,scheme", CHANNEL_CASES)
+def test_channel_graph_matches_eager_bit_for_bit(cuda, name, scheme):
+    assert not _graph_vs_eager(cuda, name, scheme)
+
+
+@pytest.mark.parametrize("name,scheme", CHANNEL_CASES)
+def test_channel_card_matches_cpu(cuda, name, scheme):
+    cfgs, wl, h, channel = _channel_case(name)
+    cf, ct = fluid.simulate_batch(cfgs, wl, scheme, h, channel=channel, device=cuda)
+    pf, pt = fluid.simulate_batch(cfgs, wl, scheme, h, channel=channel, device="cpu")
+    steps = int(h / 5.0)
+    card = {k: v.cpu().numpy() for k, v in ct.items()}
+    cpu = {k: v.numpy() for k, v in pt.items()}
+    assert "chan_lost" in card and card["chan_lost"].sum() > 0
+    assert_columns_close(fig3_columns(card, steps), fig3_columns(cpu, steps),
+                         f"{name}/{scheme}", COLUMN_FLOORS)
+    assert_final_close(cf, pf, 5.0, f"{name}/{scheme}")
+
+
+def test_step_key_from_capture_time_is_caught(cuda, monkeypatch):
+    """Planted: the step key folded from a host-side count read while the
+    graph is captured, so every replay draws the captured steps' noise. The
+    graphs must then differ from the eager steps."""
+    count = itertools.count()
+    monkeypatch.setattr(fluid, "step_key",
+                        lambda key, t: prng.fold_in(key, next(count)))
+    assert _graph_vs_eager(cuda, "impaired", "dcqcn")
+
+
 def test_unported_options_raise_on_the_card(cuda):
     wl = pwork.throughput_workload(1 << 20, 1, 2)
-    for cfg, kw in ((NetConfig(num_paths=2), {"channel": "jitter"}),
+    for cfg, kw in ((NetConfig(num_paths=2, soft_step=True), {"channel": "jitter"}),
                     (NetConfig(soft_step=True), {}),
-                    (NetConfig(), {"channel": "jitter"}),
                     (NetConfig(), {"trace_mode": "window"})):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
             fluid.simulate_batch([cfg], wl, "dcqcn", 100.0, device=cuda, **kw)

@@ -1,7 +1,8 @@
 """The port's runner against the JAX package's: ``run_experiment_batch`` and
 ``sweep_grid`` rows (``full`` and ``metrics`` modes, heterogeneous scenario
-grids, chunked plans), the unported options that must raise, and the entry
-point's device rule.
+grids, chunked plans), the options that still raise (``window`` mode, run
+manifests, several devices, ``soft_step``) and those that now run (channels,
+hardening knobs, failure schedules), and the entry point's device rule.
 
 Row tolerances (the Fig. 3 columns): throughput, goodput, peak / mean / p99
 buffer and intra-DC throughput within ``COLUMN_REL`` (1e-3) relative plus
@@ -91,13 +92,8 @@ def test_chunk_plan_matches_jax():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(channel="bernoulli_loss"), "item 13"),
     (dict(trace_mode="window"), "item 15"),
-    (dict(checkpoint_dir="x"), "item 15"),
-    (dict(strict_conservation=True), "item 15"),
-    (dict(on_nonfinite="raise"), "item 15"),
     (dict(manifest_path="m.jsonl"), "item 15"),
-    (dict(abort_after_launches=1), "item 15"),
     (dict(devices=["cpu", "cpu"]), "item 17"),
 ])
 def test_unported_runner_options_raise(kw, item):
@@ -106,11 +102,24 @@ def test_unported_runner_options_raise(kw, item):
                                      "dcqcn", 100.0, device="cpu", **kw)
 
 
+@pytest.mark.parametrize("kw", [
+    dict(channel="bernoulli_loss"), dict(checkpoint_dir="ck"),
+    dict(strict_conservation=True), dict(on_nonfinite="raise"),
+    dict(abort_after_launches=1),
+])
+def test_ported_runner_options_run(kw, tmp_path):
+    """The channel and the hardening knobs (ROADMAP queue 1 items 13 and 15)
+    run; tests/test_torch_netsim_{channel,failures}.py hold what they do."""
+    if "checkpoint_dir" in kw:
+        kw = dict(checkpoint_dir=str(tmp_path / "ck"))
+    rows = prunner.run_experiment_batch([NetConfig()], pwork.throughput_workload(1 << 20, 1, 2),
+                                        "dcqcn", 100.0, device="cpu", **kw)
+    assert len(rows) == 1 and np.isfinite(rows[0]["throughput_gbps"])
+    assert ("retx_frac" in rows[0]) == ("channel" in kw)
+
+
 @pytest.mark.parametrize("cfg,item", [
     (dict(num_paths=2, soft_step=True), "item 16"),
-    (dict(num_sites=3, num_paths=3, failure_schedule=(((1.0, 2.0),),) * 3),
-     "item 15"),
-    (dict(failure_schedule=(((1.0, 2.0),),)), "item 15"),
     (dict(soft_step=True), "item 16"),
 ])
 def test_unported_configs_raise(cfg, item):
@@ -118,6 +127,22 @@ def test_unported_configs_raise(cfg, item):
     with pytest.raises(NotImplementedError, match=item):
         simulate_batch([NetConfig(**cfg)], pwork.throughput_workload(1 << 20, 1, 2),
                        "dcqcn", 100.0, device="cpu")
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(num_sites=3, num_paths=3, site_edges=((0, 1), (0, 2), (2, 1)),
+         failure_schedule=(((5.0, 20.0),),) * 3),
+    dict(failure_schedule=(((5.0, 20.0),),)),
+])
+def test_failure_configs_run(cfg):
+    """Failure schedules (ROADMAP queue 1 item 15) run: the live mask is a
+    trace key, down for the window (5 <= t_us < 20: steps 1-3)."""
+    from repro_torch.netsim.fluid import simulate_batch
+    _, tr = simulate_batch([NetConfig(**cfg)], pwork.throughput_workload(1 << 20, 1, 2),
+                           "dcqcn", 100.0, device="cpu")
+    live = tr["fail_live"].numpy()
+    assert live.shape[:2] == (1, 20) and live[0, 1:4].max() == 0.0
+    assert live[0, 0].min() == 1.0 and live[0, 4:].min() == 1.0
 
 
 def test_entry_point_runs_on_cuda_unless_asked():

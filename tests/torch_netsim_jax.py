@@ -30,9 +30,10 @@ STEP_REL = 1e-6
 STEP_CONS_ERR_ABS = 1e-6
 
 
-def jax_states(cfgs, wl, scheme, steps):
+def jax_states(cfgs, wl, scheme, steps, channel=None):
     """``(states, outs)``: the JAX ``SimState`` before each of ``steps``
-    steps (every leaf ``[B, T, ...]``) and the step traces, as numpy."""
+    steps (every leaf ``[B, T, ...]``) and the step traces, as numpy, on the
+    channel model ``channel`` (None = ideal)."""
     tmpl = jfl.batch_template(cfgs)
     dp, hs = jfl.batch_padding(cfgs)
     wlp = jwork.as_workload_batch(wl, len(cfgs))
@@ -42,8 +43,9 @@ def jax_states(cfgs, wl, scheme, steps):
 
     def one(p, w):
         st0 = jfl.init_state(tmpl, f, params=p, delay_pad=dp,
-                             history_slots=hs, scheme=sch)
-        step = jfl.make_step_fn(tmpl, w, sch, 0, params=p, delay_pad=dp)
+                             history_slots=hs, scheme=sch, channel=channel)
+        step = jfl.make_step_fn(tmpl, w, sch, 0, params=p, delay_pad=dp,
+                                channel=channel)
 
         def body(st, t):
             new, out = step(st, t)
@@ -55,14 +57,14 @@ def jax_states(cfgs, wl, scheme, steps):
     return jax.tree.map(np.asarray, before), jax.tree.map(np.asarray, outs)
 
 
-def port_step(cfgs, wl, scheme):
+def port_step(cfgs, wl, scheme, channel=None):
     """The port's step function for the same batch, on the CPU."""
     tmpl = pfl.batch_template(cfgs)
     dp, _ = pfl.batch_padding(cfgs)
     wlp = pwork.as_workload_batch(wl, len(cfgs))
     return pfl.make_step_fn(tmpl, wlp, scheme, 0,
                             params=stack_net_params(cfgs, device="cpu"),
-                            delay_pad=dp)
+                            delay_pad=dp, channel=channel)
 
 
 def at(tree, t):
