@@ -90,7 +90,8 @@ and builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    d_steps" on the batch that mixes distances, "MatchRDMA's source-OTN
    release ignores the budget gate"); then Fig. 3b at full width through
    ``launch.netsim``: 7 distances x 6 message sizes = 42 cells of 4 flows at
-   44 ms (8,800 steps; a fifth of the paper's 220 ms, so that phase 11 fits),
+   22 ms (4,400 steps; a tenth of the paper's 220 ms, so that phases 11-13
+   fit),
    one [B=42] batch per scheme, with its wall time, cell-steps per second,
    device ms per step (CUDA events), kernels per step (100 eager steps under
    the profiler), the device's idle share (a profiled graph replay), the
@@ -104,8 +105,8 @@ and builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    three on the golden batch and all seven on the three-link cell; two
    planted faults that must read over a limit ("every link's ring read at
    link 0's delay", "rdmacell's route_weights returns the base route");
-   then ``launch.netsim``'s ``scheme_compare`` (7 distances at 44 ms, a
-   fifth of its 220 ms, so that phase 12 fits; one [B=7] batch a scheme) and
+   then ``launch.netsim``'s ``scheme_compare`` (7 distances at 22 ms, a
+   tenth of its 220 ms, so that phases 12-13 fit; one [B=7] batch a scheme) and
    ``topology`` (3 x 3 unequal three-link cells, 20 ms, [B=9]) grids with
    their row asserts, wall, cell-steps per second, device ms and kernels per
    step for each scheme.
@@ -114,9 +115,10 @@ and builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    runner; again no kernel of its own): the threefry draws on the card bit
    for bit against the CPU's over 2^20 counters; card vs CPU with phase 10's
    limits for all seven schemes on the golden congestion cell under the
-   ``impaired`` channel (loss, jitter and flap, 4 ms), on the 3-site mesh
+   ``impaired`` channel (loss, jitter and flap, 3 ms), on the 3-site mesh
    under ``trace_replay`` at schedule scale 1 and on the link-0 and site
-   outages of three links (4 ms); graphs vs eager steps bit for bit on
+   outages of three links (3 ms, cut from 4 so that phase 13 fits); graphs
+   vs eager steps bit for bit on
    those; three planted faults, each of which must fail its check ("the
    step key folded from a count read at capture time": graph vs eager;
    "a dead link's arrivals delivered, not dumped": card vs CPU; "loss
@@ -126,10 +128,31 @@ and builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    ``failover`` (6) grids at full width (20 ms, one batch a scheme) with
    their asserts, rows, wall, capture, cell-steps per second, device ms and
    kernels per step for each scheme.
+13. observability and training traffic (window mode, event rings, run
+   manifests, Perfetto timelines, the AICB traffic model; again no kernel
+   of its own): ``launch.netsim``'s ``obs`` smoke (a window-mode sweep of
+   dcqcn and matchrdma at 100 and 300 km, 12 ms, with a run manifest; its
+   rows equal to metrics mode's; the manifest summarised and diffed by
+   ``tools/obs_report.py``; a timeline with PFC events in the dcqcn cells
+   and brakes in the matchrdma cells); window-mode graphs vs eager steps
+   bit for bit for the seven schemes (256 steps through graphs of 64, a
+   ring of 64 steps and 32 event slots, the discard slot left out); card
+   vs CPU on the golden congestion cell (3 ms) and the site outage for
+   dcqcn, matchrdma and sdr_rdma: the same events at the same steps,
+   values within 1e-4, and phase 10's limits on the streamed columns; two
+   planted faults that must fail that check ("event positions without the
+   prefix sum": the three ``fail_enter`` events of the outage collide;
+   "candidates read from the post-step state": no edge fires); then
+   ``launch.geo_training --distances-km 10,1000 --lossy`` at full width
+   (deepseek-67b's traffic on the 2 x 16 x 16 mesh, 120 ms = 24,000 steps,
+   both compressions, and the 3-link lossy grid of 6 cells for dcqcn and
+   sdr_rdma): rows complete and finite, the two compressions' rows equal,
+   and the "repairs Nx faster" lines.
 
 Each serving and training path runs with every kernel's launch count set to
 0 just before it and read just after. The last lines are the serving,
-training, netsim, multi-link and channel netsim JSON records, the card's
+training, netsim, multi-link, channel netsim and observability JSON
+records, the card's
 ``name, power.limit``, the kernels' JSON record, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -254,10 +277,10 @@ NETSIM_TOL = {"throughput": 1e-3, "peak_buffer": 1e-3, "mean_buffer": 1e-3,
 NETSIM_FLOOR = {"throughput": 1e-4 * 1e9 / 8.0, "peak_buffer": 100.0,
                 "mean_buffer": 100.0, "p99_buffer": 100.0}
 NETSIM_GRAPH_STEPS = 512   # graph vs eager on the card, the golden batch
-# Fig. 3b's horizon here: a fifth of the paper's 220 ms (8,800 steps), so
-# that phases 10 and 11 together fit the script's time; the full depth runs
+# Fig. 3b's horizon here: a tenth of the paper's 220 ms (4,400 steps), so
+# that phases 10 to 13 together fit the script's time; the full depth runs
 # through `python -m repro_torch.launch.netsim --figure fig3b --full`.
-NETSIM_FIG3B_H_US = 44_000.0
+NETSIM_FIG3B_H_US = 22_000.0
 # Phase 11, the seven schemes over the multi-link and multi-site long haul:
 # the related-work pack, and two multi-link scenarios: one
 # delay-spread cell of benchmarks/scheme_compare.py's topology grid (100 km,
@@ -269,17 +292,18 @@ NETSIM_ALL = NETSIM_SCHEMES + NETSIM_RELATED
 NETSIM_LINKS3 = dict(distance_km=100.0, num_paths=3, path_delay_scale=(1.0, 2.0, 4.0),
                      path_cap_frac=(0.6, 0.3, 0.1))
 NETSIM_LINKS_H_US = 4_000.0
-# scheme_compare's distance grid in phase 11: a fifth of its 220 ms (8,800
-# steps), so that phase 12 fits the script's time
-NETSIM_COMPARE_H_US = 44_000.0
+# scheme_compare's distance grid in phase 11: a tenth of its 220 ms (4,400
+# steps), so that phases 12 and 13 fit the script's time
+NETSIM_COMPARE_H_US = 22_000.0
 # Phase 12, the channel and failure paths: the golden congestion cell under
 # the impaired channel (tests/test_channel.py's conservation knobs), the
 # 3-site mesh under its replayed schedule at amplitude 1, and link-0 and
 # site outages on three unequal links at 100 km under a streaming workload;
-# 4 ms each, as the CPU side runs eagerly (the draws ~500 ops a step).
+# 3 ms each, as the CPU side runs eagerly (the draws ~500 ops a step; 4 ms
+# until phase 13 needed the time).
 NETSIM_IMPAIRED = dict(distance_km=100.0, loss_rate=0.01, loss_burst_len=4.0,
                        jitter_us=20.0, flap_period_us=2_000.0, flap_depth=0.5)
-NETSIM_CHANNEL_H_US = 4_000.0
+NETSIM_CHANNEL_H_US = 3_000.0
 NETSIM_CHANNEL_SCHEMES = ("dcqcn", "matchrdma", "rdmacell")
 # the site outage with sdr_rdma in rdmacell's place: rdmacell's site-outage
 # run parts between card and CPU within 4 ms (final sent 1.383e-3 apart on an
@@ -290,6 +314,19 @@ NETSIM_SITE_SCHEMES = ("dcqcn", "matchrdma", "sdr_rdma")
 NETSIM_CHANNEL_GRAPH = (192, 64)
 # profiled eager steps a scheme for the phase 12 figures' kernel counts
 NETSIM_CHANNEL_PROFILE_STEPS = 20
+# Phase 13, observability and training traffic: window mode with an event
+# ring of OBS_SLOTS slots and a ring of OBS_WINDOW_STEPS steps (so that it
+# wraps) on the golden congestion cell (L = 1) and the site outage of three
+# links (three fail_enter events at one step), NETSIM_CHANNEL_H_US each.
+# The congestion cell keeps its first three PFC edges within that horizon.
+OBS_SLOTS = 32
+OBS_WINDOW_STEPS = 64
+OBS_CASES = ("seq", "site")
+OBS_EVENT_SCHEMES = ("dcqcn", "matchrdma", "sdr_rdma")
+# graphs vs eager in window mode: steps, graph block
+OBS_GRAPH = (256, 64)
+# launch.geo_training on the card: its distance grid (with --lossy)
+GEO_DISTANCES = "10,1000"
 
 
 def fail(msg: str) -> None:
@@ -1232,7 +1269,7 @@ def phase_netsim(torch, card: str) -> dict:
     """The netsim Fig. 3 path on the card (phase 10): card vs CPU on the
     golden scenarios, graph vs eager bit for bit, two planted faults, and
     Fig. 3b at full width (7 distances x 6 message sizes = 42 cells, 4 flows
-    each; 44 ms, a fifth of the paper's 220 ms) for the four schemes, one
+    each; 22 ms, a tenth of the paper's 220 ms) for the four schemes, one
     [B=42] batch a scheme."""
     from repro_torch.launch import netsim as launch_netsim
     from repro_torch.netsim import fluid
@@ -1549,6 +1586,212 @@ def phase_netsim_channel(torch, card: str) -> dict:
     return out
 
 
+def obs_case(name: str):
+    """A scenario of ``netsim_scenario`` with the event ring and window of
+    phase 13."""
+    cfgs, wl, h, channel = netsim_scenario(name)
+    cfgs = [dataclasses.replace(c, event_ring_slots=OBS_SLOTS,
+                                trace_window_steps=OBS_WINDOW_STEPS) for c in cfgs]
+    return cfgs, wl, min(h, NETSIM_CHANNEL_H_US), channel
+
+
+def obs_run(torch, name: str, scheme: str, device, steps=None, graph_block=None):
+    """``(final, WindowAux)`` of a phase 13 case in window mode (``steps``
+    cuts the horizon; ``graph_block`` 0 runs eager steps on the card)."""
+    from repro_torch.netsim import fluid
+
+    cfgs, wl, h, channel = obs_case(name)
+    kw = {} if graph_block is None else {"graph_block": graph_block}
+    return fluid.simulate_batch(cfgs, wl, scheme, h if steps is None else steps * cfgs[0].dt_us,
+                                trace_mode="window", channel=channel, device=device, **kw)
+
+
+def obs_leaves(torch, run) -> dict:
+    """Every leaf of a window-mode run; the event ring's discard slot E (the
+    last column, written by every candidate that did not fire) left out."""
+    out = netsim_leaves(torch, run)
+    for k in [k for k in out if "/events/" in k and not k.endswith("/count")]:
+        out[k] = out[k][..., :OBS_SLOTS]
+    return out
+
+
+def obs_readings(torch, card, cpu) -> dict:
+    """Card vs CPU of two window-mode runs: the events (time, kind, link)
+    the same (0, else inf) with values within NETSIM_TOL["final"] of the
+    largest; the streamed Fig. 3 columns and the final state as phase 10
+    reads them."""
+    import numpy as np
+
+    from repro_torch.netsim import fluid
+    from repro_torch.netsim.obs import decode_events
+
+    def fig3(run):
+        final, aux = run
+        cols = fluid.acc_columns(aux.acc)
+        n = max(int(aux.window["q_dst"].shape[1]), 1)    # any positive scale
+        return {"throughput": cols["sum_s"]["thr_inter"].cpu().double().numpy() / n,
+                "peak_buffer": cols["maxes"]["q_dst"].cpu().double().numpy(),
+                "mean_buffer": cols["sum_s"]["q_dst"].cpu().double().numpy() / n,
+                "pause_ratio": cols["sum_s"]["pause_dst"].cpu().double().numpy() / n,
+                **{k: getattr(final, k).cpu().double().numpy()
+                   for k in ("sent", "delivered", "done_at_us")}}
+
+    c, p = fig3(card), fig3(cpu)
+    out = {k: float((np.abs(c[k] - p[k]) / (np.abs(p[k]) + NETSIM_FLOOR[k])).max())
+           for k in ("throughput", "peak_buffer", "mean_buffer")}
+    out["pause_ratio"] = float(np.abs(c["pause_ratio"] - p["pause_ratio"]).max())
+    out["final"] = max(float(np.abs(c[k] - p[k]).max() / max(np.abs(p[k]).max(), 1.0))
+                       for k in ("sent", "delivered"))
+    evs = []
+    for run in (card, cpu):
+        ring = run[1].events
+        evs.append([decode_events(ring, OBS_SLOTS, cell=i)
+                    for i in range(ring.count.shape[0])])
+    same = all([(e["t_us"], e["kind"], e["obj"]) for e in a]
+               == [(e["t_us"], e["kind"], e["obj"]) for e in b]
+               for a, b in zip(*evs))
+    out["events"] = 0.0 if same else float("inf")
+    vals = [(a["value"], b["value"]) for x, y in zip(*evs) for a, b in zip(x, y)]
+    scale = max([abs(b) for _, b in vals] + [1.0])
+    out["event_value"] = max([abs(a - b) / scale for a, b in vals] + [0.0])
+    out["n_events"] = sum(len(x) for x in evs[1])
+    return out
+
+
+def over_obs(readings: dict) -> list:
+    lim = dict(NETSIM_TOL, events=0.0, event_value=NETSIM_TOL["final"])
+    return sorted(k for k, v in readings.items() if k in lim and v > lim[k])
+
+
+def phase_obs(torch, card: str) -> dict:
+    """Observability and training traffic (phase 13): launch.netsim's obs
+    smoke, window-mode graphs vs eager bit for bit for the seven schemes,
+    card vs CPU events, two planted faults, and launch.geo_training at full
+    width with the lossy grid."""
+    from repro_torch.launch import geo_training
+    from repro_torch.launch import netsim as launch_netsim
+    from repro_torch.netsim import fluid
+    from repro_torch.netsim.obs import events as obs_events
+
+    dev = torch.device("cuda")
+    out = {}
+
+    # 1. the obs smoke (benchmarks/obs_bench.py run_smoke)
+    t0 = time.perf_counter()
+    fig = launch_netsim.Figure("obs", dev, profile_steps=NETSIM_CHANNEL_PROFILE_STEPS)
+    rows = launch_netsim.obs(fig, out_dir=str(ROOT / "build" / "obs"))
+    for name, _, note in rows:
+        print(f"  {name}: {note}", flush=True)
+    for r in fig.records:
+        print(f"  obs {r['scheme']}: {r['cells']} cells x {r['steps']} steps window mode, "
+              f"wall {r['wall_s']:.2f} s (capture {r['capture_s']:.2f} s), device "
+              f"{r['device_ms_per_step']:.4f} ms/step, {r['kernels_per_step']:.0f} "
+              f"kernels/step (metrics mode's step) [{card}]", flush=True)
+    from repro_torch.netsim.obs import read_manifest
+    _, recs = read_manifest(str(ROOT / "build" / "obs" / "manifest.jsonl"))
+    keys = ("argument_size_in_bytes", "temp_size_in_bytes", "output_size_in_bytes")
+    check(all(r["backend"] == "cuda" and r["compile_s"] > 0 and all(k in r for k in keys)
+              for r in recs), f"obs manifest launches without the card's figures: {recs}")
+    out["obs_smoke"] = {"rows": rows, "manifest": recs, "schemes": [
+        {k: v for k, v in r.items() if k != "top_kernels"} for r in fig.records],
+        "s": time.perf_counter() - t0}
+
+    # 2. window-mode graphs vs eager steps, bit for bit (the discard slot
+    # left out), for the seven schemes
+    t0 = time.perf_counter()
+    steps, block = OBS_GRAPH
+    differ = {}
+    for scheme in NETSIM_ALL:
+        a, b = (obs_leaves(torch, obs_run(torch, "seq", scheme, dev, steps, g))
+                for g in (0, block))
+        differ[scheme] = sorted(k for k in a if not torch.equal(a[k], b[k]))
+        print(f"  window graph vs eager seq/{scheme}, {steps} steps: {len(a)} leaves, "
+              f"{len(differ[scheme])} differ", flush=True)
+    check(not any(differ.values()), f"window-mode graphs differ from eager steps: {differ}")
+    out["window_graph_vs_eager"] = {"steps": steps, "graph_block": block,
+                                    "s": time.perf_counter() - t0}
+
+    # 3. card vs CPU, events and the streamed columns
+    t0 = time.perf_counter()
+    cpu, sound = {}, {}
+    for name in OBS_CASES:
+        for scheme in OBS_EVENT_SCHEMES:
+            key = f"{name}/{scheme}"
+            cpu[key] = obs_run(torch, name, scheme, "cpu")
+            sound[key] = obs_readings(torch, obs_run(torch, name, scheme, dev), cpu[key])
+            print(f"  card vs CPU {key}: " + ", ".join(
+                f"{k} {v:.3e}" for k, v in sound[key].items()), flush=True)
+    bad = {k: over_obs(v) for k, v in sound.items() if over_obs(v)}
+    check(not bad, f"window mode card vs CPU over the limits: {bad}")
+    out["card_vs_cpu"] = sound
+
+    # 4. planted faults, each of which must fail the card-vs-CPU check
+    def no_prefix_sum(ring, slots, t_us, candidates, codes=None):
+        kinds, objs = codes
+        fired = torch.stack([f.expand(ring.count.shape) for *_, f in candidates], -1)
+        vals = torch.stack([v.float().expand(ring.count.shape) if torch.is_tensor(v)
+                            else torch.full(ring.count.shape, float(v), device=fired.device)
+                            for _, _, v, _ in candidates], -1)
+        pos = torch.where(fired, torch.remainder(ring.count[..., None], slots),
+                          slots).long()
+        ts = t_us.expand(pos.shape)
+        return obs_events.EventRing(
+            ring.t_us.scatter(-1, pos, ts), ring.kind.scatter(-1, pos, kinds.expand(pos.shape)),
+            ring.obj.scatter(-1, pos, objs.expand(pos.shape)), ring.value.scatter(-1, pos, vals),
+            ring.count + fired.int().sum(-1, dtype=torch.int32))
+
+    kept = fluid.engine_event_candidates
+
+    def post_step_state(ctx, prev_state, state, t):
+        return kept(ctx, state, state, t)
+
+    planted = {}
+    for fault, key, attr, repl in (
+            ("event positions without the prefix sum", "site/dcqcn", "push_events",
+             no_prefix_sum),
+            ("candidates read from the post-step state", "seq/dcqcn",
+             "engine_event_candidates", post_step_state)):
+        orig = getattr(fluid, attr)
+        setattr(fluid, attr, repl)
+        try:
+            name, scheme = key.split("/")
+            r = obs_readings(torch, obs_run(torch, name, scheme, dev), cpu[key])
+        finally:
+            setattr(fluid, attr, orig)
+        planted[fault] = {"case": key, "readings": r, "over": over_obs(r)}
+        print(f"  control, {fault} ({key}): " + ", ".join(
+            f"{k} {v:.3e}" for k, v in r.items()), flush=True)
+        check(bool(planted[fault]["over"]), f"the window card-vs-CPU check does not catch: {fault}")
+    out["planted"] = planted
+    out["card_vs_cpu_s"] = time.perf_counter() - t0
+
+    # 5. launch.geo_training at full width with the lossy grid
+    t0 = time.perf_counter()
+    geo = geo_training.main(["--distances-km", GEO_DISTANCES, "--lossy"])
+    n = len(GEO_DISTANCES.split(","))
+    tables = geo["training"]
+    for compress, table in tables.items():
+        for scheme, rs in table["rows"].items():
+            check(len(rs) == n and all(
+                math.isfinite(r[c]) for r in rs for c in
+                ("throughput_gbps", "peak_buffer_mb", "pause_ratio")),
+                f"geo_training {compress}/{scheme}: rows {rs}")
+    same = [json.dumps(tables[c]["rows"], sort_keys=True) for c in ("none", "int8")]
+    check(same[0] == same[1], "geo_training: the two compressions' rows differ within 120 ms")
+    lossy = geo["lossy"]["rows"]
+    for scheme, rs in lossy.items():
+        check(len(rs) == 3 * n and all(math.isfinite(r[c]) for r in rs for c in
+                                      ("goodput_gbps", "wire_gbps", "retx_frac",
+                                       "p99_repair_latency_us")),
+              f"geo_training lossy {scheme}: rows {rs}")
+    check(bool(geo["lossy"]["repair_speedup"]), "geo_training: no 'repairs Nx faster' line")
+    out["geo_training"] = {"runs": geo["runs"], "repair_speedup": geo["lossy"]["repair_speedup"],
+                           "s": time.perf_counter() - t0}
+    print(f"  geo_training: {len(geo['runs'])} runs ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run chip_smoke.py from a checkout")
@@ -1564,14 +1807,14 @@ def main() -> None:
     card = smi_line()
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
-    print(f"[1/12] card: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
+    print(f"[1/13] card: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{name}, compute capability {cap[0]}.{cap[1]}", flush=True)
     check(cap == (9, 0), f"needs compute capability 9.0 (sm_90a), found {cap}")
 
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build(build.sources())
-    print(f"[2/12] build: {len(logs)} of {len(build.sources())} kernel sources compiled "
+    print(f"[2/13] build: {len(logs)} of {len(build.sources())} kernel sources compiled "
           f"in {time.perf_counter() - t0:.1f} s into {build.BUILD_DIR}", flush=True)
     for src, log in logs.items():
         for line in log.splitlines():
@@ -1592,7 +1835,7 @@ def main() -> None:
           f"the f32 SSD-scan instantiations are not the scalar kernel: {ssd_hgmma}")
 
     t0 = time.perf_counter()
-    print("[3/12] kernels against their plain versions", flush=True)
+    print("[3/13] kernels against their plain versions", flush=True)
     flash = phase_flash(torch, card)
     ssd = phase_ssd(torch, card)
     scan = phase_rglru(torch, card)
@@ -1605,7 +1848,7 @@ def main() -> None:
             (MAMBA, mamba_faults(torch), "state not carried across chunks"),
             (RG, rglru_faults(torch), "recurrence restarted every 256 steps")), start=4):
         t0 = time.perf_counter()
-        print(f"[{i}/12] serve {arch} at full width", flush=True)
+        print(f"[{i}/13] serve {arch} at full width", flush=True)
         served[arch] = phase_serve(torch, card, arch, faults, must_fail)
         print(f"  ({time.perf_counter() - t0:.1f} s; total "
               f"{time.perf_counter() - t_start:.1f} s)", flush=True)
@@ -1614,27 +1857,33 @@ def main() -> None:
     trained, faults = {}, train_faults(torch)
     for i, arch in enumerate((QWEN, MAMBA, RG), start=7):
         t0 = time.perf_counter()
-        print(f"[{i}/12] train {arch} at full width", flush=True)
+        print(f"[{i}/13] train {arch} at full width", flush=True)
         trained[arch] = phase_train(torch, card, arch, faults[arch])
         print(f"  ({time.perf_counter() - t0:.1f} s; total "
               f"{time.perf_counter() - t_start:.1f} s)", flush=True)
 
     t0 = time.perf_counter()
-    print("[10/12] netsim Fig. 3 path", flush=True)
+    print("[10/13] netsim Fig. 3 path", flush=True)
     netsim = phase_netsim(torch, card)
     print(f"  ({time.perf_counter() - t0:.1f} s; total "
           f"{time.perf_counter() - t_start:.1f} s)", flush=True)
 
     t0 = time.perf_counter()
-    print("[11/12] netsim: seven schemes over the multi-link and multi-site long haul",
+    print("[11/13] netsim: seven schemes over the multi-link and multi-site long haul",
           flush=True)
     netsim_links = phase_netsim_links(torch, card)
     print(f"  ({time.perf_counter() - t0:.1f} s; total "
           f"{time.perf_counter() - t_start:.1f} s)", flush=True)
 
     t0 = time.perf_counter()
-    print("[12/12] netsim: the impaired, replayed and failing long haul", flush=True)
+    print("[12/13] netsim: the impaired, replayed and failing long haul", flush=True)
     netsim_channel = phase_netsim_channel(torch, card)
+    print(f"  ({time.perf_counter() - t0:.1f} s; total "
+          f"{time.perf_counter() - t_start:.1f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    print("[13/13] observability and training traffic", flush=True)
+    obs = phase_obs(torch, card)
     print(f"  ({time.perf_counter() - t0:.1f} s; total "
           f"{time.perf_counter() - t_start:.1f} s)", flush=True)
 
@@ -1698,6 +1947,7 @@ def main() -> None:
     print(json.dumps({"netsim": netsim}))
     print(json.dumps({"netsim_links": netsim_links}))
     print(json.dumps({"netsim_channel": netsim_channel}))
+    print(json.dumps({"obs": obs}))
     print(smi_line())
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -4,9 +4,10 @@ A copy of ``ModelConfig``, ``TrainConfig`` and the block-kind constants of
 the JAX package's ``config/base.py``, kept here so that the port imports
 nothing of that package. ``TrainConfig.ckpt_dir`` has no fixed default:
 checkpoints go under the checkout's ``build/ckpt/``, not to a path that
-other checkouts share. Of ``ParallelConfig`` only the fields that training
-on one device reads are here; the mesh and sharding fields, and the network
-configuration, come with the slices that use them.
+other checkouts share. ``ParallelConfig`` is the JAX dataclass whole: the
+traffic model (``repro_torch.traffic``) reads its mesh, pod and compression
+fields; training on one device reads only ``remat``, ``microbatches`` and
+``opt_state_dtype``, and the mesh the other fields plan for is not built.
 """
 from __future__ import annotations
 
@@ -130,19 +131,58 @@ class ModelConfig:
         total += d  # final norm
         return total
 
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only top-k experts)."""
+        if self.num_experts == 0:
+            return self.param_count()
+        dense = self.param_count()
+        n_moe_layers = sum(1 for _, m in self.layer_blocks() if m == MLP_MOE)
+        per_expert = 3 * self.d_model * self.d_ff
+        inactive = n_moe_layers * (self.num_experts - self.num_experts_per_tok) * per_expert
+        return dense - inactive
+
 
 # ---------------------------------------------------------------------------
-# Parallelism (the fields that training on one device reads)
+# Parallelism
 # ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """The training fields of the JAX package's ``ParallelConfig``."""
+    """Mesh layout + sharding strategy."""
 
+    multi_pod: bool = False
+    pods: int = 2
+    data: int = 16
+    model: int = 16
+
+    fsdp: bool = False            # additionally shard params/opt-state over data axis
     remat: str = "block"          # none | block | dots; any other string means block
+    scan_layers: bool = True
     microbatches: int = 1         # gradient accumulation
+    # pod-axis (inter-DC) optimizations: the MatchRDMA-motivated features
+    hierarchical_allreduce: bool = True
+    pod_compression: str = "none"  # none | int8
+    # decode layout
+    shard_cache_seq: bool = True   # shard KV-cache sequence dim over model axis
+    flash_decode: bool = False     # explicit partial-softmax decode
     # optimizer state dtype (bf16 for the 340B config)
     opt_state_dtype: str = "float32"
+
+    def axis_names(self) -> tuple:
+        return ("pod", "data", "model") if self.multi_pod else ("data", "model")
+
+    def mesh_shape(self) -> tuple:
+        if self.multi_pod:
+            return (self.pods, self.data, self.model)
+        return (self.data, self.model)
+
+    def batch_axes(self) -> tuple:
+        return ("pod", "data") if self.multi_pod else ("data",)
+
+    @property
+    def num_devices(self) -> int:
+        n = self.data * self.model
+        return n * self.pods if self.multi_pod else n
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@ port's netsim, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.netsim --figure fig3b \
         [--full] [--device cpu] [--horizon-us US] [--profile-steps N] \
-        [--checkpoint-dir DIR [--resume]]
+        [--checkpoint-dir DIR [--resume]] [--manifest-out JSONL] \
+        [--timeline-out JSON] [--out-dir DIR]
 
 The torch twin of ``benchmarks/figures.py`` ``fig3b_throughput``,
 ``fig3cd_buffer_pause`` and ``fig3e_fct``: the same grids (reduced unless
@@ -38,6 +39,23 @@ equal to an ideal-channel run of those cells within 1e-6; the replayed
 loss biting at full amplitude only; the control rows scoring 0 and a site
 outage collapsing more than half the throughput, no less than link 0's.
 
+``--figure obs`` is the twin of ``benchmarks/obs_bench.py``'s ``run_smoke``:
+dcqcn and matchrdma at 100 and 300 km on the congestion workload (8 + 8
+flows, a burst from 2 to 8 ms), 12 ms, with a 32-slot event ring, as a
+window-mode ``sweep_grid`` with a run manifest; its rows must equal a
+metrics-mode run's exactly, ``tools/obs_report.py`` must summarize the
+manifest and diff it against itself, and a Perfetto timeline of a direct
+window-mode batch a scheme must hold PFC events in the dcqcn cells and
+``scheme_brake`` events in the matchrdma cells (``manifest.jsonl`` and
+``timeline.json`` under ``--out-dir``, default ``build/obs``).
+
+``--manifest-out PATH`` writes, for any figure, one JSONL run manifest of
+all the figure's launches (``netsim.obs.profile``; ``tools/obs_report.py``
+reads it). ``--timeline-out PATH`` (fig3cd) also exports
+``benchmarks/report.py``'s demo timeline: the 100 km congestion scenario
+for dcqcn and matchrdma in window mode with a 64-slot event ring, 40 ms
+(or ``--horizon-us``), one Perfetto process per scheme.
+
 Per scheme it also prints the wall time (host clock around the runner call,
 graph capture included), simulated cell-steps per second, and, on the card,
 the device ms per step (CUDA events around the graph replays), the kernels
@@ -51,23 +69,32 @@ paper's setup). The last line is JSON. Runs on the GPU unless
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import hashlib
 import json
 import math
+import os
+import subprocess
+import sys
 import time
+from pathlib import Path
 from typing import List, Optional
 
 import torch
-
-import dataclasses
 
 from repro_torch.config.net import NetConfig
 from repro_torch.device import resolve_device
 from repro_torch.netsim import (
     ALL_SCHEMES, SCHEMES, FailureSchedule, FlowSpec, SiteEdge, SiteGraph,
     Workload, congestion_workload, convergence_horizon_us, mixed_fct_workload,
-    run_experiment_batch, throughput_workload,
+    run_experiment_batch, simulate, simulate_batch, sweep_grid,
+    throughput_workload,
 )
 from repro_torch.netsim.fluid import build_batch
+from repro_torch.netsim.obs import (
+    decode_events, export_timeline, read_manifest, timeline_cell,
+    timeline_from_window, write_manifest,
+)
 
 PROFILE_STEPS = 100
 
@@ -93,18 +120,59 @@ IDEAL_ROW_REL = 1e-6
 
 
 class Figure:
-    """Runs one figure's batches and keeps each scheme's timing record."""
+    """Runs one figure's batches and keeps each scheme's timing record; with
+    ``manifest_out`` each runner call writes a run manifest, merged into one
+    at ``manifest_out`` by ``write_manifest``."""
 
     def __init__(self, name: str, device: torch.device,
                  horizon_us: Optional[float] = None,
-                 profile_steps: int = PROFILE_STEPS):
+                 profile_steps: int = PROFILE_STEPS,
+                 manifest_out: Optional[str] = None):
         self.name, self.device = name, device
         self.horizon_us = horizon_us
         self.profile_steps = profile_steps
+        self.manifest_out = manifest_out
+        self.manifests: List[str] = []
         self.records: List[dict] = []
 
     def horizon(self, paper_us: float) -> float:
         return paper_us if self.horizon_us is None else self.horizon_us
+
+    def manifest_part(self) -> Optional[str]:
+        """The manifest path of the next runner call (None without
+        ``manifest_out``)."""
+        if self.manifest_out is None:
+            return None
+        self.manifests.append(f"{self.manifest_out}.part{len(self.manifests)}")
+        return self.manifests[-1]
+
+    def write_manifest(self) -> Optional[str]:
+        """Merge the calls' manifests into ``manifest_out``: one header (the
+        calls' fingerprints hashed together, their launches, cells, schemes
+        and times summed) and every call's launch records, each tagged with
+        its ``call`` index."""
+        if not self.manifests:
+            return None
+        heads, launches = [], []
+        for i, part in enumerate(self.manifests):
+            head, recs = read_manifest(part)
+            heads.append(head)
+            launches += [dict(r, call=i) for r in recs]
+            os.remove(part)
+        h = hashlib.sha256("".join(hd["fingerprint"] for hd in heads).encode())
+        first = heads[0]
+        header = {k: first[k] for k in ("backend", "n_devices", "decimate",
+                                        "horizon_us", "steps", "warm_steps")}
+        modes = sorted({hd["trace_mode"] for hd in heads})
+        header.update(
+            figure=self.name, calls=len(heads), fingerprint=h.hexdigest(),
+            trace_mode=modes[0] if len(modes) == 1 else ",".join(modes),
+            schemes=sorted({s for hd in heads for s in hd["schemes"]}),
+            **{k: sum(hd[k] for hd in heads)
+               for k in ("n_cells", "n_launches", "n_resumed",
+                         "total_compile_s", "total_execute_s")})
+        self.manifests = []
+        return write_manifest(self.manifest_out, header, launches)
 
     def run(self, cfgs, workload, scheme: str, horizon_us: float,
             trace_mode: str = "full", channel=None, **kw):
@@ -114,19 +182,27 @@ class Figure:
         t0 = time.perf_counter()
         rows = run_experiment_batch(cfgs, workload, scheme, horizon_us,
                                     trace_mode=trace_mode, channel=channel,
-                                    device=self.device, profile=launches, **kw)
+                                    device=self.device, profile=launches,
+                                    manifest_path=self.manifest_part(), **kw)
         wall_s = time.perf_counter() - t0
+        self.record(scheme, len(cfgs), launches, wall_s, cfgs, workload, channel)
+        return rows, wall_s * 1e6 / len(cfgs)
+
+    def record(self, scheme: str, n_cells: int, launches: list, wall_s: float,
+               cfgs, workload, channel=None) -> dict:
+        """The timing record of one scheme's batch (its launches' timing
+        dicts), with the step profile on the card."""
         if not launches:     # every launch resumed from its checkpoint
-            rec = {"figure": self.name, "scheme": scheme, "cells": len(cfgs),
+            rec = {"figure": self.name, "scheme": scheme, "cells": n_cells,
                    "launches": 0, "resumed": True, "wall_s": wall_s}
             self.records.append(rec)
-            return rows, wall_s * 1e6 / len(cfgs)
+            return rec
         steps = launches[0]["steps"]
         run_ms = sum(p["run_ms"] for p in launches)
-        rec = {"figure": self.name, "scheme": scheme, "cells": len(cfgs),
+        rec = {"figure": self.name, "scheme": scheme, "cells": n_cells,
                "steps": steps, "launches": len(launches), "wall_s": wall_s,
                "capture_s": sum(p["capture_s"] for p in launches),
-               "cell_steps_per_s": len(cfgs) * steps / wall_s}
+               "cell_steps_per_s": n_cells * steps / wall_s}
         # CUDA events on the card, the host clock on the CPU
         rec["device_ms_per_step" if self.device.type == "cuda" else
             "cpu_ms_per_step"] = run_ms / max(steps * len(launches), 1)
@@ -134,7 +210,7 @@ class Figure:
             rec.update(step_profile(cfgs, workload, scheme, self.device,
                                     self.profile_steps, channel=channel))
         self.records.append(rec)
-        return rows, wall_s * 1e6 / len(cfgs)
+        return rec
 
 
 def step_profile(cfgs, workload, scheme: str, device: torch.device,
@@ -611,10 +687,154 @@ def failover(fig: Figure, full: bool = False, checkpoint_dir=None,
     return out
 
 
+# benchmarks/obs_bench.py's smoke grid: the event ring's slots and horizon
+OBS_SLOTS = 32
+OBS_H_US = 12_000.0
+OBS_SCHEMES = ("dcqcn", "matchrdma")
+# benchmarks/report.py's export_demo_timeline: slots and horizon
+DEMO_TIMELINE_SLOTS = 64
+DEMO_TIMELINE_H_US = 40_000.0
+REPO = Path(__file__).resolve().parents[3]
+OBS_REPORT = REPO / "tools" / "obs_report.py"
+OBS_OUT = REPO / "build" / "obs"
+
+
+def obs_report(*args: str) -> str:
+    """``tools/obs_report.py`` (the stdlib-only manifest tool of the
+    checkout) run on ``args``; its standard output."""
+    if not OBS_REPORT.is_file():
+        raise FileNotFoundError(f"{OBS_REPORT}: run from a checkout of the repository")
+    proc = subprocess.run([sys.executable, str(OBS_REPORT), *args],
+                          capture_output=True, text=True, timeout=120)
+    if proc.returncode != 0:
+        raise AssertionError(f"obs_report {args}: {proc.stderr}")
+    return proc.stdout
+
+
+def obs_grid():
+    """The obs smoke grid: 100 and 300 km with the event ring, the
+    congestion workload of 8 + 8 flows bursting from 2 to 8 ms."""
+    cfgs = [dataclasses.replace(NetConfig(distance_km=d), event_ring_slots=OBS_SLOTS)
+            for d in (100.0, 300.0)]
+    wl = congestion_workload(num_inter=8, num_intra=8, burst_start_us=2_000.0,
+                             burst_len_us=6_000.0, horizon_us=OBS_H_US)
+    return cfgs, wl
+
+
+def obs(fig: Figure, full: bool = False, out_dir: Optional[str] = None):
+    """benchmarks/obs_bench.py ``run_smoke``: a window-mode ``sweep_grid``
+    of dcqcn and matchrdma with a run manifest, its rows equal to a
+    metrics-mode run's exactly, the manifest summarised and diffed (against
+    itself) by ``tools/obs_report.py``, and a Perfetto timeline from a
+    direct window-mode ``simulate_batch`` a scheme, which must hold PFC
+    events in the dcqcn cells and ``scheme_brake`` events in the matchrdma
+    cells. ``out_dir`` (default ``build/obs`` in the checkout) receives
+    ``timeline.json`` and, unless the figure has a ``manifest_out``,
+    ``manifest.jsonl``."""
+    out_dir = out_dir or str(OBS_OUT)
+    os.makedirs(out_dir, exist_ok=True)
+    cfgs, wl = obs_grid()
+    manifest_path = fig.manifest_out or os.path.join(out_dir, "manifest.jsonl")
+    timeline_path = os.path.join(out_dir, "timeline.json")
+
+    # 1. window-mode sweep with a manifest; rows equal to metrics mode's
+    launches: list = []
+    t0 = time.perf_counter()
+    rows_w = sweep_grid(cfgs, wl, OBS_SCHEMES, OBS_H_US, trace_mode="window",
+                        manifest_path=manifest_path, device=fig.device,
+                        profile=launches)
+    window_s = time.perf_counter() - t0
+    for s, launch in zip(OBS_SCHEMES, launches):
+        fig.record(s, len(cfgs), [launch], launch["wall_s"], cfgs, wl)
+    rows_m = sweep_grid([dataclasses.replace(c, event_ring_slots=0) for c in cfgs],
+                        wl, OBS_SCHEMES, OBS_H_US, trace_mode="metrics",
+                        device=fig.device)
+    for a, b in zip(rows_w, rows_m):
+        for k in a:
+            if not (a[k] == b[k] or (a[k] != a[k] and b[k] != b[k])):
+                raise AssertionError(f"window/metrics row divergence at {k}: "
+                                     f"{a[k]} != {b[k]}")
+
+    # 2. the manifest through tools/obs_report.py
+    header, recs = read_manifest(manifest_path)
+    if header.get("record") != "header" or not header.get("fingerprint"):
+        raise AssertionError(f"manifest header: {header}")
+    if len(recs) != len(OBS_SCHEMES) or not all(
+            "execute_s" in r and "compile_s" in r for r in recs):
+        raise AssertionError(f"manifest launches: {recs}")
+    summary = obs_report("summarize", manifest_path)
+    if "totals:" not in summary:
+        raise AssertionError(f"obs_report summarize: {summary}")
+    diff = obs_report("diff", manifest_path, manifest_path)
+    if f"matched launches: {len(recs)}" not in diff:
+        raise AssertionError(f"obs_report diff: {diff}")
+
+    # 3. a timeline from a direct window-mode batch a scheme
+    steps = cfgs[0].horizon_steps(OBS_H_US)
+    merged = {"traceEvents": [], "displayTimeUnit": "ms"}
+    kinds = {}
+    for i, s in enumerate(OBS_SCHEMES):
+        _, aux = simulate_batch(cfgs, wl, s, OBS_H_US, trace_mode="window",
+                                device=fig.device)
+        kinds[s] = sorted({e["kind"] for c in range(len(cfgs))
+                           for e in decode_events(aux.events, OBS_SLOTS, cell=c)})
+        doc = timeline_from_window(
+            aux, dt_us=cfgs[0].dt_us, steps=steps,
+            window_steps=cfgs[0].trace_window_steps, event_ring_slots=OBS_SLOTS,
+            labels=[f"{s} @ {c.distance_km:.0f}km" for c in cfgs])
+        merged["traceEvents"] += [dict(r, pid=r["pid"] + i * len(cfgs))
+                                  for r in doc["traceEvents"]]
+    export_timeline(timeline_path, merged)
+    with open(timeline_path) as f:
+        loaded = json.load(f)
+    instants = [r for r in loaded["traceEvents"] if r.get("ph") == "i"]
+    if "pfc_xoff" not in kinds["dcqcn"] or "scheme_brake" not in kinds["matchrdma"]:
+        raise AssertionError(f"event kinds by scheme: {kinds}")
+    names = {r["name"] for r in instants}
+    if not {"pfc_xoff", "scheme_brake"} <= names:
+        raise AssertionError(f"timeline instant events: {sorted(names)}")
+    n_counter = sum(1 for r in loaded["traceEvents"] if r.get("ph") == "C")
+    mem = " ".join(f"{r['scheme']}:args={r['argument_size_in_bytes']},"
+                   f"temp={r['temp_size_in_bytes']},out={r['output_size_in_bytes']}"
+                   for r in recs if "temp_size_in_bytes" in r)
+    return [("obs/window_rows_equal_metrics", window_s * 1e6 / len(cfgs),
+             f"{len(rows_w)} rows"),
+            ("obs/manifest", 0.0, f"{manifest_path}: {len(recs)} launches, "
+             f"compile {header['total_compile_s']:.3f}s execute "
+             f"{header['total_execute_s']:.3f}s{' bytes ' + mem if mem else ''}"),
+            ("obs/event_kinds", 0.0, " ".join(f"{s}:{'|'.join(k)}"
+                                             for s, k in kinds.items())),
+            ("obs/timeline", 0.0, f"{timeline_path}: {n_counter} counter and "
+             f"{len(instants)} instant events")]
+
+
+def demo_timeline(path: str, device: torch.device,
+                  horizon_us: float = DEMO_TIMELINE_H_US) -> int:
+    """benchmarks/report.py ``export_demo_timeline``: the 100 km congestion
+    scenario per scheme (dcqcn, matchrdma) under ``trace_mode="window"``
+    with a 64-slot event ring, as one Perfetto document (a process per
+    scheme). Returns the number of trace events written."""
+    cfg = dataclasses.replace(NetConfig(distance_km=100.0),
+                              event_ring_slots=DEMO_TIMELINE_SLOTS)
+    wl = congestion_workload()
+    steps = cfg.horizon_steps(horizon_us)
+    recs = []
+    for pid, scheme in enumerate(OBS_SCHEMES):
+        _, aux = simulate(cfg, wl, scheme, horizon_us, trace_mode="window",
+                          device=device)
+        recs.extend(timeline_cell(
+            pid, label=f"{scheme} @ 100km congestion", dt_us=cfg.dt_us,
+            steps=steps, window_steps=cfg.trace_window_steps,
+            window=dict(aux.window),
+            events=decode_events(aux.events, DEMO_TIMELINE_SLOTS)))
+    export_timeline(path, {"traceEvents": recs, "displayTimeUnit": "ms"})
+    return len(recs)
+
+
 FIGURES = {"fig3b": fig3b_throughput, "fig3cd": fig3cd_buffer_pause,
            "fig3e": fig3e_fct, "scheme_compare": scheme_compare,
            "topology": topology, "impairment": impairment, "sites": sites,
-           "failover": failover}
+           "failover": failover, "obs": obs}
 
 
 def main(argv=None) -> dict:
@@ -632,15 +852,36 @@ def main(argv=None) -> dict:
                     help="failover: one JSON checkpoint per finished launch")
     ap.add_argument("--resume", action="store_true",
                     help="failover: load finished launches from --checkpoint-dir")
+    ap.add_argument("--manifest-out", default=None, metavar="JSONL",
+                    help="write the figure's run manifest (launches, capture "
+                         "and replay times, device memory) for "
+                         "tools/obs_report.py")
+    ap.add_argument("--timeline-out", default=None, metavar="JSON",
+                    help="fig3cd: also export the 100 km congestion scenario's "
+                         "window-mode Perfetto timeline (dcqcn, matchrdma)")
+    ap.add_argument("--out-dir", default=None,
+                    help="obs: artifact directory (default: build/obs)")
     args = ap.parse_args(argv)
     if (args.checkpoint_dir or args.resume) and args.figure != "failover":
         ap.error("--checkpoint-dir/--resume go with --figure failover")
+    if args.timeline_out and args.figure != "fig3cd":
+        ap.error("--timeline-out goes with --figure fig3cd")
+    if args.out_dir and args.figure != "obs":
+        ap.error("--out-dir goes with --figure obs")
 
     dev = resolve_device(args.device)
-    fig = Figure(args.figure, dev, args.horizon_us, args.profile_steps)
+    fig = Figure(args.figure, dev, args.horizon_us, args.profile_steps,
+                 manifest_out=args.manifest_out)
     kw = ({"checkpoint_dir": args.checkpoint_dir, "resume": args.resume}
-          if args.figure == "failover" else {})
+          if args.figure == "failover" else
+          {"out_dir": args.out_dir} if args.figure == "obs" else {})
     rows = FIGURES[args.figure](fig, args.full, **kw)
+    if args.manifest_out:
+        fig.write_manifest()
+        rows.append(("manifest", 0.0, args.manifest_out))
+    if args.timeline_out:
+        n = demo_timeline(args.timeline_out, dev, fig.horizon(DEMO_TIMELINE_H_US))
+        rows.append(("timeline", 0.0, f"{args.timeline_out} ({n} trace events)"))
     for name, value, note in rows:
         print(f"{name},{value:.1f},{note}")
     kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"

@@ -27,6 +27,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch.config.registry import ported_archs
 from repro_torch.device import resolve_device
 from repro_torch.launch import serve as launch_serve
 from repro_torch.serve.decode import greedy_decode
@@ -64,7 +65,7 @@ def measure(fn: Callable[[Any], Any], dev: torch.device, trace: Optional[Path] =
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default=launch_serve.ARCH, choices=sorted(launch_serve.WORKLOADS))
+    ap.add_argument("--arch", default=launch_serve.ARCH, choices=ported_archs())
     ap.add_argument("--trace-dir", default="")
     args = ap.parse_args(argv)
 

@@ -23,6 +23,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.config.registry import ported_archs
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.rglru_scan import rglru_scan_fwd
@@ -42,7 +43,7 @@ PORT_KERNEL_NAMES = ("fa_fwd", "ssd_bf16_kernel", "ssd_f32_kernel", "rglru_")   
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default=launch_train.ARCH,
-                    choices=sorted(launch_train.TRAIN_WORKLOADS))
+                    choices=ported_archs())
     ap.add_argument("--trace-dir", default="")
     args = ap.parse_args(argv)
 

@@ -20,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.config.registry import get_model_config
+from repro_torch.config.registry import get_model_config, ported_archs
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import Model, build_model
 from repro_torch.serve.decode import greedy_decode
@@ -101,7 +101,7 @@ def serve(model: Model, prompt: torch.Tensor, max_new: int) -> ServeResult:
 
 def main(argv=None) -> ServeResult:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default=ARCH, choices=sorted(WORKLOADS))
+    ap.add_argument("--arch", default=ARCH, choices=ported_archs())
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, help="default: the arch's workload")
     ap.add_argument("--prompt-len", type=int, help="default: the arch's workload")

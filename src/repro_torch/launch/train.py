@@ -39,9 +39,9 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.config.base import ParallelConfig, TrainConfig
-from repro_torch.config.registry import get_model_config
+from repro_torch.config.registry import get_model_config, ported_archs
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.model import Model, build_model
+from repro_torch.models.model import Model, build_model, check_ported
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.data import SyntheticDataset
 from repro_torch.train.elastic import FailureRecovery, StragglerMonitor
@@ -97,6 +97,7 @@ def setup(arch: str, *, smoke: bool = False, device: DeviceLike = None,
           ckpt_every: Optional[int] = None) -> Tuple[Model, TrainConfig, ParallelConfig]:
     """The model, train config and parallel config of a run; what is left
     ``None`` takes the arch's workload default (see the module docstring)."""
+    check_ported(get_model_config(arch, smoke=smoke))
     work = SMOKE_WORKLOAD if smoke else TRAIN_WORKLOADS[arch]
     batch, seq, steps = (work.batch if batch is None else batch,
                          work.seq if seq is None else seq,
@@ -189,7 +190,7 @@ def train(model: Model, train_cfg: TrainConfig, par: ParallelConfig = ParallelCo
 
 def main(argv=None) -> TrainResult:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default=ARCH, choices=sorted(TRAIN_WORKLOADS))
+    ap.add_argument("--arch", default=ARCH, choices=ported_archs())
     ap.add_argument("--smoke", action="store_true", help="the reduced config")
     ap.add_argument("--steps", type=int, help="default: the arch's workload")
     ap.add_argument("--batch", type=int, help="default: the arch's workload")

@@ -19,6 +19,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.base import ModelConfig
+from repro_torch.config.registry import arch_of, ported_archs
 from repro_torch.device import DeviceLike, dtype_of, resolve_device
 from repro_torch.models.layers import Embed
 from repro_torch.models.transformer import Backbone, Cache, init_caches
@@ -108,14 +109,28 @@ class Model(nn.Module):
         return caches, self.embed.logits(h[:, 0])
 
 
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a config of a registered arch whose
+    model the port does not build yet (``ported_archs()``)."""
+    arch = arch_of(cfg)
+    if arch is not None and arch not in ported_archs():
+        raise NotImplementedError(
+            f"arch {arch!r} is not ported yet: its config and traffic are "
+            f"data here, its model comes with ROADMAP queue 1 item 3 (ported: "
+            f"{ported_archs()})")
+
+
 def build_model(cfg: ModelConfig, *, device: DeviceLike = None,
                 generator: Optional[torch.Generator] = None, remat: str = "block") -> Model:
     """Builds the model on ``device`` (default ``cuda``; raises without a GPU).
 
     Parameters are drawn from ``generator`` (default: seed 0 on the model's
     device); on the ``meta`` device they are left unset. ``remat`` is the
-    loss's rematerialisation policy (``Backbone``).
+    loss's rematerialisation policy (``Backbone``). A config of a registered
+    arch that is not in ``ported_archs()`` raises ``NotImplementedError``
+    before anything is allocated.
     """
+    check_ported(cfg)
     dev = resolve_device(device)
     model = Model(cfg, device=dev, remat=remat)
     if dev.type != "meta":

@@ -15,18 +15,24 @@ PyTorch: the JAX package's ``netsim``.
   * topology - site graphs (``SiteGraph``, ``SiteEdge``,
                ``compile_site_graph``) compiled onto the ``[L]`` link axis.
   * fluid    - the scheme-agnostic engine (``simulate``, ``simulate_batch``;
-               ``TRACE_MODES`` = full / decimate / metrics; CUDA graphs on
-               the card).
+               ``TRACE_MODES`` = full / decimate / metrics / window; CUDA
+               graphs on the card).
+  * obs      - observability: event rings (``EVENT_KINDS``, ``EventRing``,
+               ``decode_events``, ``unroll_window``), Perfetto timelines
+               (``export_timeline``, ``timeline_from_window``,
+               ``timeline_from_traces``) and JSONL run manifests
+               (``write_manifest``, ``read_manifest``).
   * runner   - metric extraction + grid sweeps (``Scenario``, ``sweep``,
                ``sweep_grid``, ``run_experiment_batch``), hardened: strict
                conservation (``ConservationError``), a finite guard,
-               per-launch checkpoints with resume, OOM backoff.
-  * workload - flow sets (``Workload``) and their batch form
-               (``WorkloadParams``).
+               per-launch checkpoints with resume, OOM backoff, and run
+               manifests (``manifest_path``).
+  * workload - flow sets (``Workload``, ``aicb_workload``) and their batch
+               form (``WorkloadParams``).
   * convert  - the JAX package's state, as numpy, into the port's.
 
-``soft_step``, ``window`` mode, run manifests and multi-device sharding
-raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+``soft_step`` and multi-device sharding raise ``NotImplementedError`` naming
+the ROADMAP item that brings them.
 """
 from repro_torch.netsim.channel import (
     CHANNEL_MODELS, ChannelModel, available_channel_models,
@@ -36,7 +42,13 @@ from repro_torch.netsim.failures import (
     FailureSchedule, load_failure_json, save_failure_json,
 )
 from repro_torch.netsim.fluid import (
-    TRACE_MODES, MetricAcc, SimState, batch_padding, simulate, simulate_batch,
+    TRACE_MODES, MetricAcc, SimState, WindowAux, batch_padding, simulate,
+    simulate_batch,
+)
+from repro_torch.netsim.obs import (
+    EVENT_KINDS, EventRing, decode_events, event_count, export_timeline,
+    read_manifest, timeline_from_traces, timeline_from_window, unroll_window,
+    write_manifest,
 )
 from repro_torch.netsim.runner import (
     Scenario, chunk_cells, convergence_horizon_us, run_experiment,
@@ -51,15 +63,18 @@ from repro_torch.netsim.topology import (
     SiteEdge, SiteGraph, compile_site_graph, validate_site_endpoints,
 )
 from repro_torch.netsim.workload import (
-    BIG, FlowSpec, Workload, WorkloadParams, congestion_workload,
+    BIG, FlowSpec, Workload, WorkloadParams, aicb_workload, congestion_workload,
     mixed_fct_workload, stack_workload_params, throughput_workload,
 )
 
 __all__ = [
-    "ALL_SCHEMES", "BIG", "CHANNEL_MODELS", "ChannelModel",
-    "FailureSchedule", "FlowSpec", "MetricAcc", "RELATED_SCHEMES",
+    "ALL_SCHEMES", "BIG", "CHANNEL_MODELS", "ChannelModel", "EVENT_KINDS",
+    "EventRing", "FailureSchedule", "FlowSpec", "MetricAcc", "RELATED_SCHEMES",
     "SCHEMES", "Scenario", "Scheme", "SimState", "SiteEdge", "SiteGraph",
-    "TRACE_MODES", "Workload", "WorkloadParams", "compile_site_graph",
+    "TRACE_MODES", "WindowAux", "Workload", "WorkloadParams", "aicb_workload",
+    "compile_site_graph", "decode_events", "event_count", "export_timeline",
+    "read_manifest", "timeline_from_traces", "timeline_from_window",
+    "unroll_window", "write_manifest",
     "validate_site_endpoints", "available_channel_models",
     "available_schemes", "batch_padding", "chunk_cells",
     "get_channel_model", "load_failure_json", "register_channel_model",

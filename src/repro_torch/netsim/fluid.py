@@ -14,9 +14,15 @@ as the scheme decides) and PFC from the destination OTN riding back over D.
 What the port runs: one long-haul link or ``num_paths`` parallel links
 (``[L]``, optionally the edges of a site graph), every registered channel
 model (``channel=``), failure schedules, the hard (non-soft) step, and
-``trace_mode`` ``full``, ``decimate`` and ``metrics``. ``soft_step`` and
-``window`` mode raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+``trace_mode`` ``full``, ``decimate``, ``metrics`` and ``window``.
+``soft_step`` raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.
+
+``window`` mode is ``metrics`` (the same streamed ``MetricAcc``, bit for
+bit) plus a ring of the last ``cfg.trace_window_steps`` steps of every trace
+key (step t in row ``t mod W``) and, when ``cfg.event_ring_slots > 0``, the
+event ring of ``netsim.obs`` pushed after each step from the carry before
+the step and the state after it (``WindowAux``).
 
 Channel and failures: a non-ideal channel model impairs what leaves the pipe
 before the destination OTN sees it and may dim the source-OTN capacity; its
@@ -74,6 +80,10 @@ from repro_torch.device import resolve_device
 from repro_torch.netsim.channel import (
     ChannelInputs, get_channel_model, scenario_key,
 )
+from repro_torch.netsim.obs.events import (
+    EventRing, candidate_codes, engine_event_candidates, init_event_ring,
+    push_events,
+)
 from repro_torch.netsim.prng import fold_in, prng_key
 from repro_torch.netsim.queues import (
     drain_proportional, ecn_mark_prob, pfc_hysteresis,
@@ -88,7 +98,7 @@ MTU = 1500.0
 INF = float(np.float32(1e30))
 WARMUP_FRAC = 0.1   # fraction of the horizon discarded as startup transient
 
-TRACE_MODES = ("full", "decimate", "metrics")
+TRACE_MODES = ("full", "decimate", "metrics", "window")
 
 # engine-owned streaming reductions: warm-step sums (-> means) and all-step
 # running maxes. ``MetricAcc`` keeps them as columns in this order.
@@ -123,6 +133,18 @@ class MetricAcc(NamedTuple):
     scheme: dict           # scheme-private accumulators (Scheme.init_metric_acc)
     chan: Optional[dict] = None   # channel accumulators (ChannelModel.
                                   # init_metric_acc; None without repair path)
+
+
+class WindowAux(NamedTuple):
+    """Aux output of ``trace_mode="window"``: everything ``metrics`` mode
+    streams, plus the last ``cfg.trace_window_steps`` steps of every trace
+    key and (optionally) the event ring; O(W + E) per scenario, never O(T).
+    Every leaf has a leading ``[B]`` axis."""
+    acc: MetricAcc                  # the same streamed reductions as "metrics"
+    window: dict                    # trace key -> [B, W, ...] ring; step t
+                                    # in row t mod W (obs.unroll_window
+                                    # reorders)
+    events: Optional[EventRing]     # with cfg.event_ring_slots > 0, else None
 
 
 def acc_columns(acc: MetricAcc) -> dict:
@@ -218,10 +240,6 @@ def check_main_path(cfg: NetConfig, channel=None, trace_mode: str = "full",
         raise NotImplementedError(
             "soft_step=True: the differentiable engine comes with ROADMAP "
             "queue 1 item 16")
-    if trace_mode == "window":
-        raise NotImplementedError(
-            "trace_mode='window': observability comes with ROADMAP queue 1 "
-            "item 15")
     if trace_mode not in TRACE_MODES:
         raise ValueError(f"unknown trace_mode {trace_mode!r}; expected one of "
                          f"{TRACE_MODES}")
@@ -775,25 +793,32 @@ def _tree_clone(tree):
 class _Carry(NamedTuple):
     state: SimState
     t: torch.Tensor                  # int32 0-d: the next step's index
-    acc: Optional[MetricAcc]         # metrics mode
-    traces: Optional[torch.Tensor]   # [B, K, rows] full/decimate mode (a
+    acc: Optional[MetricAcc]         # metrics and window modes
+    traces: Optional[torch.Tensor]   # [B, K, rows] full/decimate mode, the
+                                     # [B, K, W] ring in window mode (a
                                      # per-link key takes L of the K rows)
+    events: Optional[EventRing] = None   # window mode's event ring
 
 
 def _make_advance(step, scheme, mode: str, decimate: int, warm: int,
-                  keys: tuple, sum_rows: Optional[torch.Tensor] = None):
+                  keys: tuple, sum_rows: Optional[torch.Tensor] = None,
+                  window_steps: int = 1, events=None):
     """One step of the run with its mode's bookkeeping, ``carry -> carry``.
     Full/decimate modes write the step's trace values into row
     ``t // decimate`` of the trace buffer (the block's last step is the one
     kept, as the JAX package keeps it); under ``decimate`` the rows
-    ``sum_rows`` (``DECIMATE_SUM_KEYS``) add the block's steps up instead."""
+    ``sum_rows`` (``DECIMATE_SUM_KEYS``) add the block's steps up instead.
+    Window mode streams as metrics mode does, writes row ``t mod
+    window_steps`` of its ring and, given ``events = (slots, codes)``,
+    pushes the step's event candidates (read from the carry before the step
+    and the state after it) into the event ring."""
     ctx, channel = step.ctx, step.channel
     k = decimate if mode == "decimate" else 1
 
     def advance(c: _Carry) -> _Carry:
         state, out = step(c.state, c.t)
-        acc, traces = c.acc, c.traces
-        if mode == "metrics":
+        acc, traces, ring = c.acc, c.traces, c.events
+        if mode in ("metrics", "window"):
             inc = (c.t >= warm).to(torch.float32)
             acc = _accumulate_engine(acc, out, inc)
             acc = acc._replace(scheme=scheme.accumulate_metrics(
@@ -801,8 +826,9 @@ def _make_advance(step, scheme, mode: str, decimate: int, warm: int,
             if step.track_chan:
                 acc = acc._replace(chan=channel.accumulate_metrics(
                     ctx, acc.chan, state, out, inc))
-        else:
-            col = (c.t // k).to(torch.int64)[None]
+        if mode != "metrics":
+            col = (c.t % window_steps if mode == "window"
+                   else c.t // k).to(torch.int64)[None]
             bs = out["q_dst"].shape
             vals = torch.cat([out[key].reshape(*bs, -1) for key in keys], -1)
             if sum_rows is not None:
@@ -810,7 +836,13 @@ def _make_advance(step, scheme, mode: str, decimate: int, warm: int,
                 vals[..., sum_rows] = torch.where(
                     c.t % k == 0, vals[..., sum_rows], prev + vals[..., sum_rows])
             traces.index_copy_(-1, col, vals[..., None])
-        return _Carry(state, c.t + 1, acc, traces)
+        if ring is not None:
+            slots, codes = events
+            cands = (list(engine_event_candidates(ctx, c.state, state, c.t))
+                     + list(scheme.emit_events(ctx, c.state, state, out)))
+            ring = push_events(ring, slots, c.t.to(torch.float32) * ctx.dt_us,
+                               cands, codes)
+        return _Carry(state, c.t + 1, acc, traces, ring)
 
     return advance
 
@@ -845,7 +877,8 @@ def _drive(step, scheme, state0: SimState, steps: int, mode: str,
            decimate: int, warm: int, graph_block: int,
            profile: Optional[dict] = None):
     """Run ``steps`` steps from ``state0``; returns ``(final, aux)`` with
-    ``aux`` the ``{key: [..., T']}`` trace dict or a ``MetricAcc``.
+    ``aux`` the ``{key: [..., T']}`` trace dict, a ``MetricAcc`` or a
+    ``WindowAux``.
     ``profile``, when given, receives the run's timings: ``capture_s`` (host
     seconds capturing the graphs) and ``run_ms`` (the steps' device time by
     CUDA events on the card, host time on the CPU)."""
@@ -853,7 +886,8 @@ def _drive(step, scheme, state0: SimState, steps: int, mode: str,
     ctx = step.ctx
     t0 = torch.zeros((), dtype=torch.int32, device=dev)
     # one step on a copy names the trace keys (and warms the allocator)
-    _, out = step(_tree_clone(state0), t0)
+    s0 = _tree_clone(state0)
+    s1, out = step(s0, t0)
     keys = tuple(out)
     bs = out["q_dst"].shape
     # each key's rows [lo, hi) of the trace buffer: one, or L for a
@@ -862,10 +896,26 @@ def _drive(step, scheme, state0: SimState, steps: int, mode: str,
     for key in keys:
         hi = lo + int(np.prod(out[key].shape[len(bs):]))
         spans[key], lo = (lo, hi), hi
-    acc = traces = sum_rows = None
-    if mode == "metrics":
+    acc = traces = sum_rows = ring = events = None
+    window_steps = max(int(ctx.cfg.trace_window_steps), 1)
+    if mode in ("metrics", "window"):
         acc = _init_metric_acc(scheme, step.channel, ctx, state0)
-    else:
+    if mode == "window":
+        traces = torch.zeros(bs + (lo, window_steps), device=dev)
+        slots = int(ctx.cfg.event_ring_slots)
+        if slots > 0:
+            # the candidate list is static: read it off the naming step
+            cands = (list(engine_event_candidates(ctx, s0, s1, t0))
+                     + list(scheme.emit_events(ctx, s0, s1, out)))
+            if len(cands) > slots:
+                raise ValueError(
+                    f"event_ring_slots={slots} is smaller than the "
+                    f"{len(cands)} per-step event candidates of this run - "
+                    f"raise NetConfig.event_ring_slots so one step can "
+                    f"never overflow the ring")
+            events = (slots, candidate_codes(cands, dev))
+            ring = init_event_ring(slots, bs, dev)
+    elif mode != "metrics":
         k = decimate if mode == "decimate" else 1
         rows = steps // k
         # one spare row takes the steps past the last whole block
@@ -873,8 +923,10 @@ def _drive(step, scheme, state0: SimState, steps: int, mode: str,
         summed = [spans[key][0] for key in DECIMATE_SUM_KEYS if key in spans]
         if k > 1 and summed:
             sum_rows = torch.tensor(summed, dtype=torch.int64, device=dev)
-    carry = _Carry(state0, t0, acc, traces)
-    advance = _make_advance(step, scheme, mode, decimate, warm, keys, sum_rows)
+    del s0, s1
+    carry = _Carry(state0, t0, acc, traces, ring)
+    advance = _make_advance(step, scheme, mode, decimate, warm, keys, sum_rows,
+                            window_steps, events)
     timer = _Timer(dev)
     if dev.type == "cuda" and graph_block > 0:
         carry = _Carry(*_tree_clone(tuple(carry)))
@@ -895,6 +947,11 @@ def _drive(step, scheme, state0: SimState, steps: int, mode: str,
         profile.update(timer.done())
     if mode == "metrics":
         return carry.state, carry.acc
+    if mode == "window":
+        window = {key: carry.traces[..., lo:hi, :].transpose(-1, -2).reshape(
+                      bs + (window_steps,) + out[key].shape[len(bs):])
+                  for key, (lo, hi) in spans.items()}
+        return carry.state, WindowAux(carry.acc, window, carry.events)
     return carry.state, {
         key: (carry.traces[..., lo, :rows] if out[key].dim() == len(bs)
               else carry.traces[..., lo:hi, :rows].transpose(-1, -2))
@@ -937,8 +994,9 @@ def simulate(cfg: NetConfig, workload, scheme, horizon_us: Optional[float] = Non
              trace_mode: str = "full", decimate: int = 1, channel=None,
              device=None, graph_block: int = GRAPH_BLOCK):
     """Run one scenario; returns ``(final_state, traces)`` with ``[T]`` traces
-    (or ``(final_state, MetricAcc)`` under ``trace_mode="metrics"``), leaves
-    without a batch axis. A batch of one through ``simulate_batch``."""
+    (or ``(final_state, MetricAcc)`` under ``trace_mode="metrics"``,
+    ``(final_state, WindowAux)`` under ``"window"``), leaves without a batch
+    axis. A batch of one through ``simulate_batch``."""
     final, aux = simulate_batch(
         [cfg], [workload] if not isinstance(workload, WorkloadParams)
         else WorkloadParams(*(np.asarray(v)[None] for v in workload)),
@@ -1012,8 +1070,9 @@ def simulate_batch(cfgs: Sequence[NetConfig], workload, scheme,
     per-scenario scalars go into a stacked ``NetParams``). ``workload``: one
     shared ``Workload``, one per scenario, or stacked ``[B, F]``
     ``WorkloadParams``. Returns ``(final_states, traces)`` with a leading
-    ``[B]`` axis on every leaf, or ``(final_states, MetricAcc)`` under
-    ``trace_mode="metrics"``. ``delay_pad``/``history_slots`` set MINIMUM
+    ``[B]`` axis on every leaf, ``(final_states, MetricAcc)`` under
+    ``trace_mode="metrics"`` or ``(final_states, WindowAux)`` under
+    ``"window"``. ``delay_pad``/``history_slots`` set MINIMUM
     ring sizes; ``warm_steps`` overrides the warm-up cutoff of the streamed
     reductions. ``channel``: a registered channel-model name or model (None
     = ideal); its knobs are per-scenario ``NetParams`` leaves, so an

@@ -14,6 +14,9 @@ Execution modes (``trace_mode``):
   * ``metrics``  no per-step array: the Fig. 3 reductions are streamed
                  (``MetricAcc``) and only O(B) values reach the host; schemes
                  add their own columns through ``Scheme.finalize_metrics``.
+  * ``window``   ``metrics`` plus the last-W-steps ring and the event ring
+                 (``WindowAux``); its rows come from ``WindowAux.acc``, equal
+                 to ``metrics``'s bit for bit.
 
 Multi-link and multi-site grids (``num_paths > 1``, site graphs) run like
 any other; rdmacell adds its spraying columns there. A non-ideal channel or
@@ -28,9 +31,13 @@ Hardening (opt-in, as in the JAX runner): ``strict_conservation`` raises
 ``checkpoint_dir`` writes one atomic JSON checkpoint per finished launch
 (``resume`` reloads them under a sha256 fingerprint of the plan),
 ``abort_after_launches`` is the crash-injection hook, and a launch that
-runs out of device memory is split in two, down to single cells. Run
-manifests (``manifest_path``) come with observability (ROADMAP queue 1
-item 15) and ``devices=`` with item 17: both raise ``NotImplementedError``.
+runs out of device memory is split in two, down to single cells.
+``manifest_path`` writes a JSONL run manifest in the JAX package's schema
+(``netsim.obs.profile``): a header with the plan's fingerprint and one record
+per launch, its graph-capture and replay times and device memory figures,
+which ``tools/obs_report.py`` summarizes and diffs. ``devices=`` (sharding a
+grid over several devices) comes with ROADMAP queue 1 item 17 and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -51,6 +58,7 @@ from repro_torch.netsim.fluid import (
     STREAM_MAX_KEYS, STREAM_SUM_KEYS, WARMUP_FRAC, batch_padding,
     check_main_path, is_unfinished, simulate_batch,
 )
+from repro_torch.netsim.obs.profile import profiled_traced_batch, write_manifest
 from repro_torch.netsim.schemes import get_scheme
 from repro_torch.netsim.streaming import hist_quantile
 from repro_torch.netsim.workload import (
@@ -282,10 +290,11 @@ def chunk_cells(steps: int, trace_mode: str = "full", decimate: int = 1,
     the bounded-memory auto size (full/decimate: the materialized trace
     block stays under the trace-float budget of ``device``, counting the
     three ``[L]`` trace keys of a multi-link grid; metrics: the flat
-    ``METRICS_CHUNK_CELLS`` ceiling). ``schedule_floats`` is a cell's
+    ``METRICS_CHUNK_CELLS`` ceiling, window mode's O(B W) ring included).
+    ``schedule_floats`` is a cell's
     resident schedule tables (``_sched_floats``), counted in every mode."""
     if chunk_cells is None:
-        if trace_mode == "metrics":
+        if trace_mode in ("metrics", "window"):
             chunk_cells = METRICS_CHUNK_CELLS
             if schedule_floats > 0:
                 chunk_cells = min(chunk_cells,
@@ -374,8 +383,9 @@ def _check_conservation(scheme_name: str, aux, lo: int, n_real: int,
     """The first ``cons_err > tol`` -> ``ConservationError`` at grid-order
     (cell, step); sample j of a decimated trace is step ``(j+1)*decimate -
     1``; metrics mode reports no step."""
-    if trace_mode == "metrics":
-        m = aux.maxes[..., STREAM_MAX_KEYS.index("cons_err")].cpu().numpy()[:n_real]
+    if trace_mode in ("metrics", "window"):
+        maxes = aux.maxes if trace_mode == "metrics" else aux.acc.maxes
+        m = maxes[..., STREAM_MAX_KEYS.index("cons_err")].cpu().numpy()[:n_real]
         bad = m > tol
         if bad.any():
             i = int(np.argmax(bad))
@@ -491,26 +501,33 @@ def _run_launch(launch: _Launch, cfgs, wlp: WorkloadParams, grid_static,
                 period_slots, trace_mode, decimate, device, channel,
                 strict_conservation: bool = False,
                 conservation_tol: float = 1e-3,
-                profile: Optional[list] = None) -> List[dict]:
+                profile: Optional[list] = None,
+                record: Optional[dict] = None) -> List[dict]:
     """One launch -> its real cells' rows (grid order); its timings are
-    appended to ``profile`` when given. A launch that runs out of device
-    memory is retried as two half-size launches, down to single cells.
-    The conservation guard runs per launch, so the error names the first
-    violation of the first offending chunk."""
+    appended to ``profile`` when given, and ``record`` (a run manifest's
+    launch record) is filled by ``obs.profiled_traced_batch``. A launch
+    that runs out of device memory is retried as two half-size launches,
+    down to single cells. The conservation guard runs per launch, so the
+    error names the first violation of the first offending chunk."""
     horizon, steps, warm, delay_pad, history_slots = grid_static
     sub_cfgs = cfgs[launch.lo:launch.hi]
     sub_wlp = WorkloadParams(*(v[launch.lo:launch.hi] for v in wlp))
     n_real = len(sub_cfgs)
     sub_cfgs, sub_wlp = _pad_chunk(sub_cfgs, sub_wlp, launch.pad_to)
-    kw = {}
-    if profile is not None:
-        kw["profile"] = {"scheme": launch.scheme.name, "real_cells": n_real}
+    timing = ({"scheme": launch.scheme.name, "real_cells": n_real}
+              if profile is not None else None)
+    kw = dict(trace_mode=trace_mode, decimate=decimate, delay_pad=delay_pad,
+              history_slots=history_slots, warm_steps=warm, channel=channel,
+              device=device)
     try:
-        final, aux = simulate_batch(
-            sub_cfgs, sub_wlp, launch.scheme, horizon, period_slots,
-            trace_mode=trace_mode, decimate=decimate, delay_pad=delay_pad,
-            history_slots=history_slots, warm_steps=warm, channel=channel,
-            device=device, **kw)
+        if record is not None:
+            final, aux = profiled_traced_batch(
+                sub_cfgs, sub_wlp, launch.scheme, horizon, period_slots,
+                record, timing=timing, **kw)
+        else:
+            final, aux = simulate_batch(
+                sub_cfgs, sub_wlp, launch.scheme, horizon, period_slots,
+                profile=timing, **kw)
     except Exception as e:  # noqa: BLE001 - filtered to device OOM here
         if not _is_oom_error(e) or n_real <= 1:
             raise
@@ -521,6 +538,8 @@ def _run_launch(launch: _Launch, cfgs, wlp: WorkloadParams, grid_static,
             f"launch ({launch.scheme.name}, cells [{launch.lo}, "
             f"{launch.hi})) hit device OOM; retrying as two half-size "
             f"launches", RuntimeWarning, stacklevel=2)
+        if record is not None:
+            record["oom_split"] = True
         rows = []
         for lo, hi in ((launch.lo, mid), (mid, launch.hi)):
             rows.extend(_run_launch(
@@ -529,15 +548,16 @@ def _run_launch(launch: _Launch, cfgs, wlp: WorkloadParams, grid_static,
                 channel, strict_conservation, conservation_tol, profile))
         return rows
     if profile is not None:
-        profile.append(kw["profile"])
+        profile.append(timing)
     if strict_conservation:
         _check_conservation(launch.scheme.name, aux, launch.lo, n_real,
                             trace_mode, decimate, conservation_tol)
     final_np = {"delivered": final.delivered.cpu().numpy(),
                 "done_at_us": final.done_at_us.cpu().numpy()}
-    if trace_mode == "metrics":
+    if trace_mode in ("metrics", "window"):
+        acc = aux if trace_mode == "metrics" else aux.acc
         rows = _metrics_streaming(sub_cfgs, sub_wlp, launch.scheme, channel,
-                                  final_np, aux, steps, warm)
+                                  final_np, acc, steps, warm)
     else:
         traces_np = {k: v.cpu().numpy() for k, v in aux.items()}
         rows = _metrics_batch(sub_cfgs, sub_wlp, launch.scheme.name, final_np,
@@ -546,17 +566,13 @@ def _run_launch(launch: _Launch, cfgs, wlp: WorkloadParams, grid_static,
 
 
 def _check_unported(cfgs, channel, trace_mode, decimate, devices,
-                    manifest_path, on_nonfinite) -> None:
+                    on_nonfinite) -> None:
     for c in cfgs:
         check_main_path(c, channel, trace_mode, decimate)
     if devices is not None:
         raise NotImplementedError(
             "devices=: sharding a grid over several devices comes with ROADMAP "
             "queue 1 item 17; pass device= for the one device to run on")
-    if manifest_path is not None:
-        raise NotImplementedError(
-            "manifest_path: run manifests come with observability, ROADMAP "
-            "queue 1 item 15")
     if on_nonfinite not in ("keep", "quarantine", "raise"):
         raise ValueError(
             f"on_nonfinite must be 'keep', 'quarantine' or 'raise', "
@@ -570,7 +586,8 @@ def _execute_plan(plan: Sequence[_Launch], cfgs, wlp: WorkloadParams,
                   on_nonfinite: str = "keep",
                   strict_conservation: bool = False,
                   conservation_tol: float = 1e-3,
-                  abort_after_launches: Optional[int] = None
+                  abort_after_launches: Optional[int] = None,
+                  manifest_path: Optional[str] = None
                   ) -> Dict[object, list]:
     """Run every launch; returns scheme -> full row list (grid order).
 
@@ -581,15 +598,21 @@ def _execute_plan(plan: Sequence[_Launch], cfgs, wlp: WorkloadParams,
     ``strict_conservation``: ``ConservationError`` on the first ``cons_err
     > conservation_tol``. ``abort_after_launches``: raise after that many
     executed launches (their checkpoints already written), the
-    crash-injection hook of the resume tests."""
+    crash-injection hook of the resume tests. ``manifest_path``: write a
+    JSONL run manifest (a header with the git rev, the plan's fingerprint
+    and the backend, one record per launch with its capture / replay times
+    and device memory figures; a launch loaded from its checkpoint is
+    recorded as ``resumed``)."""
     channel = get_channel_model(channel)
     wlp = WorkloadParams(*(np.asarray(v) for v in wlp))
     fingerprint = None
-    if checkpoint_dir is not None:
+    if checkpoint_dir is not None or manifest_path is not None:
         fingerprint = _plan_fingerprint(plan, cfgs, wlp, grid_static,
                                         period_slots, trace_mode, decimate,
                                         channel)
+    if checkpoint_dir is not None:
         os.makedirs(checkpoint_dir, exist_ok=True)
+    manifest = [] if manifest_path is not None else None
     rows: Dict[object, list] = {}
     executed = 0
     for launch in plan:
@@ -599,20 +622,51 @@ def _execute_plan(plan: Sequence[_Launch], cfgs, wlp: WorkloadParams,
             cached = _load_checkpoint(ckpt, fingerprint)
             if cached is not None:
                 rows.setdefault(launch.scheme, []).extend(cached)
+                if manifest is not None:
+                    manifest.append({"scheme": launch.scheme.name,
+                                     "lo": launch.lo, "hi": launch.hi,
+                                     "pad_to": launch.pad_to,
+                                     "resumed": True})
                 continue
         if abort_after_launches is not None and executed >= abort_after_launches:
             raise RuntimeError(
                 f"abort_after_launches: aborting sweep after {executed} "
                 f"executed launches (crash-injection hook)")
+        rec = {} if manifest is not None else None
         sub_rows = _guard_nonfinite(
             _run_launch(launch, cfgs, wlp, grid_static, period_slots,
                         trace_mode, decimate, device, channel,
-                        strict_conservation, conservation_tol, profile),
+                        strict_conservation, conservation_tol, profile, rec),
             launch.lo, on_nonfinite)
         if ckpt is not None:
             _write_checkpoint(ckpt, fingerprint, launch, sub_rows)
         executed += 1
+        if manifest is not None:
+            rec.update(scheme=launch.scheme.name, lo=launch.lo, hi=launch.hi,
+                       pad_to=launch.pad_to, n_real=launch.hi - launch.lo)
+            manifest.append(rec)
         rows.setdefault(launch.scheme, []).extend(sub_rows)
+    if manifest_path is not None:
+        executed_recs = [m for m in manifest if not m.get("resumed")]
+        header = {
+            "fingerprint": fingerprint,
+            "backend": device.type,
+            "n_devices": 1,
+            "trace_mode": trace_mode,
+            "decimate": int(decimate),
+            "horizon_us": float(grid_static[0]),
+            "steps": int(grid_static[1]),
+            "warm_steps": int(grid_static[2]),
+            "n_cells": len(cfgs),
+            "schemes": sorted({ln.scheme.name for ln in plan}),
+            "n_launches": len(plan),
+            "n_resumed": len(manifest) - len(executed_recs),
+            "total_compile_s": sum(m.get("compile_s", 0.0)
+                                   for m in executed_recs),
+            "total_execute_s": sum(m.get("execute_s", 0.0)
+                                   for m in executed_recs),
+        }
+        write_manifest(manifest_path, header, manifest)
     return rows
 
 
@@ -659,7 +713,7 @@ def run_experiment_batch(cfgs: Sequence[NetConfig], workload, scheme,
     ``_execute_plan``'s."""
     cfgs = list(cfgs)
     _check_unported(cfgs, channel, trace_mode, decimate, devices,
-                    manifest_path, on_nonfinite)
+                    on_nonfinite)
     dev = resolve_device(device)
     scheme = get_scheme(scheme)
     wlp = as_workload_batch(workload, len(cfgs))
@@ -673,7 +727,8 @@ def run_experiment_batch(cfgs: Sequence[NetConfig], workload, scheme,
         channel, profile, checkpoint_dir=checkpoint_dir, resume=resume,
         on_nonfinite=on_nonfinite, strict_conservation=strict_conservation,
         conservation_tol=conservation_tol,
-        abort_after_launches=abort_after_launches)[scheme]
+        abort_after_launches=abort_after_launches,
+        manifest_path=manifest_path)[scheme]
 
 
 def convergence_horizon_us(cfgs: Sequence[NetConfig],
@@ -736,7 +791,7 @@ def sweep_grid(scenarios, workload=None, schemes=(),
         raise ValueError(
             "sweep_grid: no schemes given - pass schemes=(\"dcqcn\", ...)")
     _check_unported(cfgs, channel, trace_mode, decimate, devices,
-                    manifest_path, on_nonfinite)
+                    on_nonfinite)
     dev = resolve_device(device)
     scheme_objs = [get_scheme(s) for s in schemes]
     wlp = as_workload_batch(wl, len(cfgs))
@@ -750,5 +805,6 @@ def sweep_grid(scenarios, workload=None, schemes=(),
         channel, profile, checkpoint_dir=checkpoint_dir, resume=resume,
         on_nonfinite=on_nonfinite, strict_conservation=strict_conservation,
         conservation_tol=conservation_tol,
-        abort_after_launches=abort_after_launches)
+        abort_after_launches=abort_after_launches,
+        manifest_path=manifest_path)
     return [by_scheme[s][i] for i in range(len(cfgs)) for s in scheme_objs]

@@ -7,8 +7,8 @@ that composes the hooks below; the contract is the JAX package's
 (``docs/scheme-api.md``): ``retx_rate`` grants the engine's loss-repair path
 its rate, ``SchemeSignals.retx_arr`` carries the loss notifications that
 arrive at the source, and with a failure schedule ``SchemeCtx.link_live``
-holds the step's live-link mask. ``emit_events`` (event rings) comes with
-the slice that ports them.
+holds the step's live-link mask, and ``emit_events`` adds a scheme's
+candidates to the event ring of ``trace_mode="window"``.
 
 Hooks run on torch tensors with a leading scenario axis ``[B]`` (per-flow
 tensors ``[B, F]``); none may read a value back to the host, so a block of
@@ -26,6 +26,7 @@ steps can be captured in a CUDA graph.
   ``feedback``           CNP routing + per-step updates of the extra state.
   ``rtt_scale``          optional per-flow DCQCN fairness factor (THEMIS).
   ``extra_traces``       scheme-owned additions to the per-step trace dict.
+  ``emit_events``        scheme-owned event-ring candidates (window mode).
   ``init_metric_acc`` / ``accumulate_metrics`` / ``finalize_metrics``
                          streamed columns under ``trace_mode="metrics"``.
 """
@@ -191,6 +192,17 @@ class Scheme:
             return {"budget": state.extra.budget.budget,
                     "budget_at_src": state.extra.budget_at_src}
         return {}
+
+    def emit_events(self, ctx: SchemeCtx, prev_state, state, out: dict) -> tuple:
+        """Scheme-owned event-ring candidates, evaluated around each step
+        (``prev_state`` / ``state`` are the pre / post ``SimState``) only
+        under ``trace_mode="window"`` with ``NetConfig.event_ring_slots >
+        0``. Returns a tuple of ``(kind_name, obj, value, fired)``:
+        ``kind_name`` a key of ``repro_torch.netsim.obs.EVENT_KINDS``,
+        ``obj`` a static int, ``value`` a ``[B]`` payload and ``fired`` a
+        ``[B]`` bool predicate. The candidate count must be static.
+        Default: no scheme events."""
+        return ()
 
     # -- streaming-metric hooks (trace_mode="metrics") ---------------------
     def init_metric_acc(self, ctx: SchemeCtx, state) -> dict:

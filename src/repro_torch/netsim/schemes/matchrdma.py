@@ -45,6 +45,13 @@ class MatchRdmaScheme(Scheme):
             np.asarray(acc["budget_at_src_sum"]) / max(n_warm, 1) * 8.0 / 1e9)
         return cols
 
+    def emit_events(self, ctx: SchemeCtx, prev_state, state, out) -> tuple:
+        # the proxy brake fired iff some flow's brake timer was reset this
+        # step (it otherwise only grows by dt_us); value = the deepest
+        # post-brake modulation level
+        fired = (state.proxy_timer < prev_state.proxy_timer).any(-1)
+        return (("scheme_brake", 0, state.proxy_mod.amin(-1), fired),)
+
     def ack_view(self, ctx: SchemeCtx, state, ack_arr):
         return state.extra.pseudo.packed
 

@@ -105,6 +105,16 @@ class SdrRdmaScheme(Scheme):
                * ctx.is_inter).sum(-1)
         return {"sr_ack_lag": lag, "sr_retx_frac": self._retx_frac(ctx, state)}
 
+    def emit_events(self, ctx: SchemeCtx, prev_state, state, out) -> tuple:
+        # the repair-budget reservation engages/releases when the
+        # degradation EWMA crosses its midpoint; value = the engaged
+        # NIC-rate fraction after the crossing
+        e0 = prev_state.extra.cong_ewma
+        e1 = state.extra.cong_ewma
+        frac = torch.clamp(ctx.params.sdr_retx_budget_frac, 0.0, MAX_RETX_FRAC) * e1
+        return (("scheme_budget_on", 0, frac, (e0 < 0.5) & (e1 >= 0.5)),
+                ("scheme_budget_off", 0, frac, (e0 >= 0.5) & (e1 < 0.5)))
+
     def init_metric_acc(self, ctx: SchemeCtx, state) -> dict:
         z = torch.zeros_like(state.extra.cong_ewma)
         return {"ack_lag_sum": z, "retx_frac_sum": z.clone()}

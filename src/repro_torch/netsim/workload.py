@@ -248,3 +248,22 @@ def mixed_fct_workload(msg_size: float, num_inter: int = 8,
              for i in range(num_inter)]
     intra = [FlowSpec(False, 64 << 10, 8) for _ in range(num_intra)]
     return Workload(tuple(background + inter + intra))
+
+
+def aicb_workload(comm_bytes_per_iter: float, iter_us: float,
+                  comm_frac: float, num_flows: int, msg_size: float,
+                  concurrency: int = 16, jitter: float = 0.0,
+                  seed: int = 0) -> Workload:
+    """LLM-training traffic from the AICB-like analytic model
+    (``repro_torch.traffic``): each iteration sends ``comm_bytes_per_iter``
+    during a comm phase lasting ``comm_frac``·iter. Optional per-flow phase
+    jitter, drawn from numpy's ``default_rng(seed)`` as the JAX package
+    draws it."""
+    rng = np.random.default_rng(seed)
+    flows = []
+    for i in range(num_flows):
+        start = float(rng.uniform(0, jitter * iter_us)) if jitter else 0.0
+        flows.append(FlowSpec(True, msg_size, concurrency,
+                              start_us=start, period_us=iter_us,
+                              duty=comm_frac))
+    return Workload(tuple(flows))

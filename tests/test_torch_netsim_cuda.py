@@ -5,8 +5,10 @@ schemes) and on the two multi-link scenarios of ``tests/torch_parity.py``
 failure paths (the threefry draws bit-equal to the CPU's; the impaired golden
 cell, the mesh under its replayed schedule and link and site outages, graphs
 against eager and card against CPU; the step key folded from a capture-time
-step index caught), and the options outside the ported path raising there
-too.
+step index caught), window mode (the window ring, the event ring and the
+streamed accumulators of graphs bit-equal to eager steps; the card's events
+equal to the CPU's on the golden congestion cell and a site outage), and the
+options outside the ported path raising there too.
 
 These tests import no JAX, so they run on a machine that has only PyTorch:
 
@@ -203,6 +205,65 @@ def test_unported_options_raise_on_the_card(cuda):
     wl = pwork.throughput_workload(1 << 20, 1, 2)
     for cfg, kw in ((NetConfig(num_paths=2, soft_step=True), {"channel": "jitter"}),
                     (NetConfig(soft_step=True), {}),
-                    (NetConfig(), {"trace_mode": "window"})):
+                    (NetConfig(soft_step=True), {"trace_mode": "window"})):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
             fluid.simulate_batch([cfg], wl, "dcqcn", 100.0, device=cuda, **kw)
+
+
+# window mode: an event ring of 32 slots and a window of 64 steps (so that
+# it wraps) on the golden congestion cell and the site outage of three links
+WINDOW = dict(event_ring_slots=32, trace_window_steps=64)
+
+
+def _window_case(name):
+    if name == "seq":
+        cfgs, wl, h, channel = golden_configs("seq", NetConfig), golden_workload(
+            "seq", pwork), GOLDEN["seq"][3], None
+    else:
+        cfgs, wl, h, channel = _channel_case(name)
+    return [dataclasses.replace(c, **WINDOW) for c in cfgs], wl, h, channel
+
+
+def _window_leaves(run):
+    """Every leaf of a window-mode run; the event ring's discard slot (the
+    last column, where every candidate that did not fire is written) left
+    out."""
+    out = leaves(run)
+    for k in [k for k in out if ".events." in k and not k.endswith("count")]:
+        out[k] = out[k][..., :WINDOW["event_ring_slots"]]
+    return out
+
+
+@pytest.mark.parametrize("scheme", ALL_SCHEMES)
+def test_window_graph_matches_eager_bit_for_bit(cuda, scheme):
+    cfgs, wl, _, _ = _window_case("seq")
+    kw = dict(horizon_us=320 * 5.0, trace_mode="window", device=cuda)
+    eager = fluid.simulate_batch(cfgs, wl, scheme, graph_block=0, **kw)
+    graph = fluid.simulate_batch(cfgs, wl, scheme, graph_block=64, **kw)
+    e, g = _window_leaves(eager), _window_leaves(graph)
+    assert sorted(e) == sorted(g) and any(".window." in k for k in e)
+    diff = [k for k in e if not (e[k] == g[k]).all()]
+    assert not diff, diff
+
+
+@pytest.mark.parametrize("scheme", ("dcqcn", "matchrdma", "sdr_rdma"))
+@pytest.mark.parametrize("name", ("seq", "site"))
+def test_window_card_matches_cpu(cuda, name, scheme):
+    """The same events (time, kind, link) in the same order, their values
+    within FINAL_REL of the largest, the window rings and the final state
+    as the CPU's."""
+    from repro_torch.netsim.obs import decode_events
+    from torch_parity import FINAL_REL
+
+    cfgs, wl, h, channel = _window_case(name)
+    runs = [fluid.simulate_batch(cfgs, wl, scheme, h, trace_mode="window",
+                                 channel=channel, device=d) for d in (cuda, "cpu")]
+    (cf, ca), (pf, pa) = runs
+    ec, ep = (decode_events(a.events, WINDOW["event_ring_slots"], cell=0) for a in (ca, pa))
+    assert [(e["t_us"], e["kind"], e["obj"]) for e in ec] == \
+        [(e["t_us"], e["kind"], e["obj"]) for e in ep]
+    scale = max([abs(e["value"]) for e in ep] + [1.0])
+    assert max([abs(a["value"] - b["value"]) for a, b in zip(ec, ep)] + [0.0]) <= FINAL_REL * scale
+    if name == "site":
+        assert [e["kind"] for e in ep].count("fail_enter") == 3
+    assert_final_close(cf, pf, 5.0, f"{name}/{scheme}")

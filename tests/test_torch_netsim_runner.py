@@ -1,8 +1,9 @@
 """The port's runner against the JAX package's: ``run_experiment_batch`` and
 ``sweep_grid`` rows (``full`` and ``metrics`` modes, heterogeneous scenario
-grids, chunked plans), the options that still raise (``window`` mode, run
-manifests, several devices, ``soft_step``) and those that now run (channels,
-hardening knobs, failure schedules), and the entry point's device rule.
+grids, chunked plans), the options that still raise (several devices,
+``soft_step``) and those that now run (channels, hardening knobs, failure
+schedules, ``window`` mode, run manifests), and the entry point's device
+rule.
 
 Row tolerances (the Fig. 3 columns): throughput, goodput, peak / mean / p99
 buffer and intra-DC throughput within ``COLUMN_REL`` (1e-3) relative plus
@@ -91,27 +92,31 @@ def test_chunk_plan_matches_jax():
         prunner._Launch("a", lo, hi, 4) for lo, hi in ((0, 4), (4, 8), (8, 10))]
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(trace_mode="window"), "item 15"),
-    (dict(manifest_path="m.jsonl"), "item 15"),
-    (dict(devices=["cpu", "cpu"]), "item 17"),
+@pytest.mark.parametrize("cfg,kw,item", [
+    (dict(), dict(devices=["cpu", "cpu"]), "item 17"),
+    (dict(), dict(devices=["cpu"], trace_mode="window"), "item 17"),
+    (dict(soft_step=True), dict(trace_mode="window"), "item 16"),
 ])
-def test_unported_runner_options_raise(kw, item):
+def test_unported_runner_options_raise(cfg, kw, item):
     with pytest.raises(NotImplementedError, match=item):
-        prunner.run_experiment_batch([NetConfig()], pwork.throughput_workload(1 << 20, 1, 2),
+        prunner.run_experiment_batch([NetConfig(**cfg)], pwork.throughput_workload(1 << 20, 1, 2),
                                      "dcqcn", 100.0, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("kw", [
     dict(channel="bernoulli_loss"), dict(checkpoint_dir="ck"),
     dict(strict_conservation=True), dict(on_nonfinite="raise"),
-    dict(abort_after_launches=1),
+    dict(abort_after_launches=1), dict(trace_mode="window"),
+    dict(manifest_path="m.jsonl"),
 ])
 def test_ported_runner_options_run(kw, tmp_path):
-    """The channel and the hardening knobs (ROADMAP queue 1 items 13 and 15)
-    run; tests/test_torch_netsim_{channel,failures}.py hold what they do."""
+    """The channel, the hardening knobs, window mode and run manifests
+    (ROADMAP queue 1 items 13 and 15) run; tests/test_torch_netsim_{channel,
+    failures,obs,manifest}.py hold what they do."""
     if "checkpoint_dir" in kw:
         kw = dict(checkpoint_dir=str(tmp_path / "ck"))
+    if "manifest_path" in kw:
+        kw = dict(manifest_path=str(tmp_path / "m.jsonl"))
     rows = prunner.run_experiment_batch([NetConfig()], pwork.throughput_workload(1 << 20, 1, 2),
                                         "dcqcn", 100.0, device="cpu", **kw)
     assert len(rows) == 1 and np.isfinite(rows[0]["throughput_gbps"])
