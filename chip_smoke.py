@@ -148,11 +148,34 @@ and builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    both compressions, and the 3-link lossy grid of 6 cells for dcqcn and
    sdr_rdma): rows complete and finite, the two compressions' rows equal,
    and the "repairs Nx faster" lines.
+14. the differentiable engine and the gradient tuner (the soft step,
+   autograd through the whole run, ``netsim.grad_tune``, ``launch.grad_tune``;
+   eager on the card, no kernel of its own): tests/test_grad.py's base point
+   (96 km) at 2 ms for the seven schemes on the ideal channel and dcqcn and
+   matchrdma on ``impaired``, each a batch of three cells at soft_temp 1.0,
+   0.3 and 0.3 raised by one ulp; each cell's surrogate and the gradient of
+   every NetParams and WorkloadParams leaf on the card against the CPU's
+   (run in worker processes meanwhile): every gradient finite, at 1.0 the
+   surrogate and every FD knob's gradient within ``SOFT_GRAD_TOL``, at 0.3
+   within ``SOFT_COLD_TOL``, printed beside the CPU's own move under the
+   one-ulp nudge; device ms a step forward and forward+backward; the tuner
+   against the bracket search on tests/test_grad_tune.py's cell (2
+   iterations, 10 evaluations, against 4 Adam steps, 9), which must reach
+   its score with fewer evaluations; two planted faults that must fail the
+   check ("reset gates not detached": the tangents blow up; "soft mode folds
+   the knob bits into the channel key": the impaired surrogate parts).
+
+Phases 1-9 run alone. Phases 10-14 (no kernel of the port's three) then run
+as units in four child processes of this script beside one another on the
+card (``NETSIM_LANES``), so that their wall and device times are read beside
+the other lanes' load; each unit's output is printed in phase order once all
+have ended. Their card-vs-CPU checks run the CPU side in three spawned worker
+processes while the card runs (``cpu_pool``).
 
 Each serving and training path runs with every kernel's launch count set to
 0 just before it and read just after. The last lines are the serving,
-training, netsim, multi-link, channel netsim and observability JSON
-records, the card's
+training, netsim, multi-link, channel netsim, observability and
+differentiable-engine JSON records, the card's
 ``name, power.limit``, the kernels' JSON record, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -305,11 +328,14 @@ NETSIM_IMPAIRED = dict(distance_km=100.0, loss_rate=0.01, loss_burst_len=4.0,
                        jitter_us=20.0, flap_period_us=2_000.0, flap_depth=0.5)
 NETSIM_CHANNEL_H_US = 3_000.0
 NETSIM_CHANNEL_SCHEMES = ("dcqcn", "matchrdma", "rdmacell")
-# the site outage with sdr_rdma in rdmacell's place: rdmacell's site-outage
-# run parts between card and CPU within 4 ms (final sent 1.383e-3 apart on an
-# H100 80GB HBM3 at 700 W), as it parts from JAX at step 401 on its
-# reorder-buffer trace
-NETSIM_SITE_SCHEMES = ("dcqcn", "matchrdma", "sdr_rdma")
+# the site outage: rdmacell's run parts from JAX at step 606 (3.03 ms), where
+# sum(q_src) settles on the source OTN's PFC threshold xoff_otn = 2e7 B, a few
+# bytes to either side (tests/torch_parity.py PARTS), and parts between card
+# and CPU within 4 ms there (final sent 1.383e-3 apart on an H100 80GB HBM3 at
+# 700 W); at this phase's 3 ms it holds (the Fig. 3 columns 1.6e-7 apart on
+# that card). Its reorder-buffer trace reads 2e-6 MB in JAX and 0 in the port
+# from step 401: f32 residue of its ledgers, not a parting.
+NETSIM_SITE_SCHEMES = ("dcqcn", "matchrdma", "sdr_rdma", "rdmacell")
 # graphs vs eager on the channel cases: 192 steps through graphs of 64
 NETSIM_CHANNEL_GRAPH = (192, 64)
 # profiled eager steps a scheme for the phase 12 figures' kernel counts
@@ -327,6 +353,65 @@ OBS_EVENT_SCHEMES = ("dcqcn", "matchrdma", "sdr_rdma")
 OBS_GRAPH = (256, 64)
 # launch.geo_training on the card: its distance grid (with --lossy)
 GEO_DISTANCES = "10,1000"
+# Phase 14, the differentiable engine: tests/test_grad.py's base point (96
+# km, slot_us 112, impairment knobs engaged) at 2 ms (400 steps: the
+# destination OTN's queue reaches its PFC threshold near step 230 and the
+# pause is back at the source a one-way delay later), under
+# throughput_workload(8e6, 4, num_flows=4); the seven schemes on the ideal
+# channel and dcqcn and matchrdma on ``impaired``. Each case is one batch of
+# three cells, at soft_temp 1.0 (tests/test_grad.py's FD temperature), 0.3
+# (the base point's, the tuner's floor) and 0.3 raised by one f32 ulp. The
+# surrogate is netsim.grad_tune's (mean throughput less the buffer and
+# pause penalties).
+GRAD_BASE = dict(distance_km=96.0, slot_us=112.0, soft_step=True,
+                 loss_rate=0.01, loss_burst_len=4.0, jitter_us=20.0,
+                 flap_period_us=1000.0, flap_depth=0.3)
+GRAD_H_US = 2_000.0
+GRAD_CASES = tuple((s, None) for s in NETSIM_ALL) + (("dcqcn", "impaired"),
+                                                     ("matchrdma", "impaired"))
+# Card vs CPU at soft_temp 1.0: the surrogate relative to the CPU's, each FD
+# knob's gradient (netsim.grad_tune.FD_EPS) relative to the larger of the
+# two magnitudes above the FD floor. The card's f32 sums and
+# transcendentals round otherwise; JAX and the port's CPU run agree to 1e-7
+# there (tests/test_torch_netsim_grad_jax.py). At 0.3 over 2 ms the gates
+# are steep enough that one ulp of soft_temp moves JAX's own run by up to
+# 1.1e-4 in the surrogate and 14% in the gradients
+# (tests/test_torch_netsim_grad_cold.py): there the surrogate is held to ten
+# times that move, and the gradients to tests/test_grad.py's gate for
+# slopes through noisy mechanisms (0.75), beside the CPU's own one-ulp move.
+SOFT_GRAD_TOL = {"surrogate": 1e-4, "grad": 1e-2}
+SOFT_COLD_TOL = {"surrogate": 1e-3, "grad": 0.75}
+# the gradient tuner on tests/test_grad_tune.py's cell: matchrdma, 100 km,
+# 6 ms, the congestion workload, budget_headroom; the bracket search 2
+# iterations (10 evaluations), the grad tuner 4 Adam steps (9)
+TUNE_CELL = dict(dists=(100.0,), horizon_us=6_000.0)
+TUNE_ITERS, TUNE_STEPS = 2, 4
+# Phases 10-14 launch none of the port's three kernels. After phases 1-9
+# have run alone, they run as units in child processes of this script, one
+# lane a process, the lanes beside one another on the one card (each lane's
+# units one after another): the netsim is host-bound (eager steps, graph
+# capture, the CPU side of its checks) and leaves the card idle most of the
+# time; one after another the five phases took 857 s, the script 1,081 s
+# (NVIDIA H100 80GB HBM3 at 700 W), beside one another 579 s. Their wall
+# and device times are therefore read beside the other lanes' load. A unit
+# is a phase or a part of one: (phase, title, function).
+NETSIM_UNITS = {
+    "10": (10, "netsim Fig. 3 path", "phase_netsim"),
+    "11": (11, "netsim: seven schemes over the multi-link and multi-site long haul",
+           "phase_netsim_links"),
+    "11g": (11, "", "phase_netsim_links_grids"),
+    "12": (12, "netsim: the impaired, replayed and failing long haul",
+           "phase_netsim_channel"),
+    "12g": (12, "", "phase_netsim_channel_grids"),
+    "13": (13, "observability and training traffic", "phase_obs"),
+    "14": (14, "the differentiable engine and the gradient tuner", "phase_netsim_grad"),
+}
+# the lanes, balanced on the units' times alone (s, same card): 14 222;
+# 12g 184 + 10 66; 13 147 + 11 75; 12 111 + 11g 118
+NETSIM_LANES = (("14",), ("12g", "10"), ("13", "11"), ("12", "11g"))
+# the lanes are stopped, and the run fails, this many seconds after the
+# script's start
+NETSIM_DEADLINE_S = 1_140.0
 
 
 def fail(msg: str) -> None:
@@ -1333,15 +1418,40 @@ def phase_netsim(torch, card: str) -> dict:
     return out
 
 
+def on_cpu(fn, *args):
+    """``fn(torch, *args, "cpu")`` in a worker process of ``cpu_pool``
+    (single-threaded torch, so that the pool's workers do not contend)."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    torch.set_num_threads(1)
+    return fn(torch, *args, "cpu")
+
+
+def cpu_pool():
+    """Three spawned worker processes for the CPU side of a card-vs-CPU
+    check, which then runs while the card does; leaving the ``with`` block
+    stops them."""
+    import concurrent.futures
+    import multiprocessing
+
+    return concurrent.futures.ProcessPoolExecutor(
+        max_workers=3, mp_context=multiprocessing.get_context("spawn"))
+
+
 def netsim_card_vs_cpu(torch, cases, dev) -> dict:
     """Card (CUDA graphs) vs CPU (eager) readings for each (scenario, scheme)
-    of ``cases``; fails the run over NETSIM_TOL. Returns the readings, the
-    CPU runs (the planted faults are read against them) and the card's."""
-    cpu, cards, sound = {}, {}, {}
-    for name, scheme in cases:
-        key = f"{name}/{scheme}"
-        cpu[key] = netsim_golden_run(torch, name, scheme, "cpu")
-        cards[key] = netsim_golden_run(torch, name, scheme, dev)
+    of ``cases`` (the CPU runs in ``cpu_pool``); fails the run over
+    NETSIM_TOL. Returns the readings, the CPU runs (the planted faults are
+    read against them) and the card's."""
+    keys = [f"{name}/{scheme}" for name, scheme in cases]
+    with cpu_pool() as pool:
+        futures = [pool.submit(on_cpu, netsim_golden_run, name, scheme)
+                   for name, scheme in cases]
+        cards = {key: netsim_golden_run(torch, name, scheme, dev)
+                 for key, (name, scheme) in zip(keys, cases)}
+        cpu = {key: f.result() for key, f in zip(keys, futures)}
+    sound = {}
+    for key in keys:
         sound[key] = netsim_readings(cards[key], cpu[key])
         print(f"  card vs CPU {key}: " + ", ".join(
             f"{k} {v:.3e}" for k, v in sound[key].items()), flush=True)
@@ -1443,8 +1553,7 @@ def netsim_figure(torch, card: str, name: str, n_cells: int,
 
 def phase_netsim_links(torch, card: str) -> dict:
     """The seven schemes over the multi-link and multi-site long haul (phase
-    11): card vs CPU, graph vs eager, two planted faults, and the
-    scheme_compare and topology grids of launch.netsim on the card."""
+    11, its checks): card vs CPU, graph vs eager and two planted faults."""
     from repro_torch.netsim import fluid
     from repro_torch.netsim.schemes.base import Scheme
     from repro_torch.netsim.schemes.rdmacell import RdmaCellScheme
@@ -1467,10 +1576,15 @@ def phase_netsim_links(torch, card: str) -> dict:
          (fluid, "link_ring_row", ring_at_link0)),
         ("rdmacell's route_weights returns the base route", "links3/rdmacell",
          (RdmaCellScheme, "route_weights", Scheme.route_weights))), cpu, dev)
-    out["scheme_compare"] = netsim_figure(torch, card, "scheme_compare", 7,
-                                          horizon_us=NETSIM_COMPARE_H_US)
-    out["topology"] = netsim_figure(torch, card, "topology", 9)
     return out
+
+
+def phase_netsim_links_grids(torch, card: str) -> dict:
+    """Phase 11's grids: launch.netsim's scheme_compare and topology on the
+    card."""
+    return {"scheme_compare": netsim_figure(torch, card, "scheme_compare", 7,
+                                            horizon_us=NETSIM_COMPARE_H_US),
+            "topology": netsim_figure(torch, card, "topology", 9)}
 
 
 def prng_kernels_per_step(torch, dev) -> dict:
@@ -1502,10 +1616,10 @@ def prng_kernels_per_step(torch, dev) -> dict:
 
 
 def phase_netsim_channel(torch, card: str) -> dict:
-    """The channel and failure paths (phase 12): threefry card vs CPU, card
-    vs CPU and graph vs eager on the impaired cell, the replayed mesh and
-    the outages, three planted faults, the draws' kernels a step, and the
-    impairment, sites and failover grids of launch.netsim on the card."""
+    """The channel and failure paths (phase 12, its checks): threefry card
+    vs CPU, card vs CPU and graph vs eager on the impaired cell, the
+    replayed mesh and the outages, three planted faults and the draws'
+    kernels a step."""
     import itertools
 
     from repro_torch.netsim import fluid, prng, runner
@@ -1577,8 +1691,13 @@ def phase_netsim_channel(torch, card: str) -> dict:
     check(caught is not None, "strict_conservation does not catch loss notifications "
           "that never reach the retransmit backlog")
     out["planted"] = planted
+    return out
 
-    # 5. the three grids at full width
+
+def phase_netsim_channel_grids(torch, card: str) -> dict:
+    """Phase 12's grids: launch.netsim's impairment, sites and failover at
+    full width on the card."""
+    out = {}
     for name, n_cells in (("impairment", 6), ("sites", 9), ("failover", 6)):
         out[name] = netsim_figure(torch, card, name, n_cells,
                                   profile_steps=NETSIM_CHANNEL_PROFILE_STEPS)
@@ -1713,14 +1832,17 @@ def phase_obs(torch, card: str) -> dict:
 
     # 3. card vs CPU, events and the streamed columns
     t0 = time.perf_counter()
-    cpu, sound = {}, {}
-    for name in OBS_CASES:
-        for scheme in OBS_EVENT_SCHEMES:
-            key = f"{name}/{scheme}"
-            cpu[key] = obs_run(torch, name, scheme, "cpu")
-            sound[key] = obs_readings(torch, obs_run(torch, name, scheme, dev), cpu[key])
-            print(f"  card vs CPU {key}: " + ", ".join(
-                f"{k} {v:.3e}" for k, v in sound[key].items()), flush=True)
+    cases = [(name, scheme) for name in OBS_CASES for scheme in OBS_EVENT_SCHEMES]
+    with cpu_pool() as pool:
+        futures = [pool.submit(on_cpu, obs_run, *case) for case in cases]
+        cards = [obs_run(torch, *case, dev) for case in cases]
+        cpu = {f"{n}/{s}": f.result() for (n, s), f in zip(cases, futures)}
+    sound = {}
+    for (name, scheme), run in zip(cases, cards):
+        key = f"{name}/{scheme}"
+        sound[key] = obs_readings(torch, run, cpu[key])
+        print(f"  card vs CPU {key}: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in sound[key].items()), flush=True)
     bad = {k: over_obs(v) for k, v in sound.items() if over_obs(v)}
     check(not bad, f"window mode card vs CPU over the limits: {bad}")
     out["card_vs_cpu"] = sound
@@ -1792,7 +1914,284 @@ def phase_obs(torch, card: str) -> dict:
     return out
 
 
+def grad_temps(torch) -> tuple:
+    """The soft temperatures of a phase-14 batch: 1.0, 0.3 and 0.3 raised by
+    one f32 ulp."""
+    cold = torch.tensor(0.3)
+    return (1.0, 0.3, float(torch.nextafter(cold, torch.tensor(1.0))))
+
+
+def grad_case(torch, scheme: str, channel, device) -> dict:
+    """One soft-engine batch of GRAD_BASE on ``device``, a cell at each of
+    ``grad_temps``: each cell's surrogate and the gradient of every leaf
+    (``grad_tune.surrogate_grads``, autograd through the whole run), and
+    the forward's and the forward+backward's device ms a step (CUDA events
+    on the card, the host clock on the CPU)."""
+    from repro_torch.config.net import NetConfig, batch_template
+    from repro_torch.netsim import grad_tune
+    from repro_torch.netsim.workload import throughput_workload
+
+    cuda = torch.device(device).type == "cuda"
+    cfgs = [NetConfig(**GRAD_BASE, soft_temp=t, horizon_us=GRAD_H_US)
+            for t in grad_temps(torch)]
+    steps = batch_template(cfgs).horizon_steps(None)
+    marks = []
+
+    def mark():
+        if cuda:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+        else:
+            marks.append(time.perf_counter())
+
+    mark()
+    surr, gp, gw = grad_tune.surrogate_grads(
+        cfgs, throughput_workload(8e6, 4, num_flows=4), scheme, channel=channel,
+        device=device, on_forward=mark)
+    mark()
+    if cuda:
+        marks[-1].synchronize()
+        ms = [marks[i].elapsed_time(marks[i + 1]) for i in (0, 1)]
+    else:
+        ms = [(marks[i + 1] - marks[i]) * 1e3 for i in (0, 1)]
+    return {"surrogate": surr.cpu().tolist(), "steps": steps,
+            "fwd_ms_per_step": ms[0] / steps,
+            "fwd_bwd_ms_per_step": (ms[0] + ms[1]) / steps,
+            "grads": (type(gp)(*(g.detach().cpu() for g in gp)),
+                      type(gw)(*(g.detach().cpu() for g in gw)))}
+
+
+def grad_readings(torch, run: dict, ref: dict, cell: int, ref_cell=None) -> dict:
+    """Cell ``cell`` of ``run`` against cell ``ref_cell`` (default the same)
+    of ``ref``: the surrogate's error relative to the reference's, the
+    worst FD knob's gradient error (``grad_tune.fd_grad_errors``) and the
+    leaves whose gradient is not finite."""
+    from repro_torch.netsim import grad_tune
+
+    ref_cell = cell if ref_cell is None else ref_cell
+    s_ref = ref["surrogate"][ref_cell]
+    errs = grad_tune.fd_grad_errors(run["grads"], ref["grads"], s_ref, cell,
+                                    ref_cell)
+    knob = max(errs, key=errs.get)
+    names = ([(n, g) for n, g in zip(run["grads"][0]._fields, run["grads"][0])]
+             + [(f"wl.{n}", g) for n, g in zip(run["grads"][1]._fields, run["grads"][1])])
+    return {"surrogate": abs(run["surrogate"][cell] - s_ref) / max(abs(s_ref), 1e-30),
+            "grad": errs[knob], "grad_knob": knob,
+            "nonfinite": sorted(n for n, g in names
+                                if not bool(torch.isfinite(g[cell]).all()))}
+
+
+def over_grad(r: dict, cold: bool) -> list:
+    """The limits a reading passes over: ``SOFT_GRAD_TOL`` at soft_temp 1.0,
+    ``SOFT_COLD_TOL`` at 0.3; every gradient finite at both."""
+    tol = SOFT_COLD_TOL if cold else SOFT_GRAD_TOL
+    over = [k for k, lim in tol.items() if not r[k] <= lim]
+    return over + (["nonfinite"] if r["nonfinite"] else [])
+
+
+def phase_netsim_grad(torch, card: str) -> dict:
+    """The differentiable engine and the gradient tuner (phase 14): card vs
+    CPU surrogate and gradients for the GRAD_CASES (the CPU side in worker
+    processes while the card runs), the tuner against the bracket search
+    through launch.grad_tune, and two planted faults that must fail their
+    checks."""
+    from repro_torch.launch import grad_tune as launch_tune
+    from repro_torch.netsim import fluid
+    from repro_torch.netsim.channel import scenario_key
+    from repro_torch.netsim.prng import prng_key
+
+    dev = torch.device("cuda")
+    out = {"tol": SOFT_GRAD_TOL, "cold_tol": SOFT_COLD_TOL,
+           "horizon_us": GRAD_H_US, "soft_temps": grad_temps(torch)}
+    with cpu_pool() as pool:
+        futures = {f"{s}/{c or 'ideal'}": pool.submit(on_cpu, grad_case, s, c)
+                   for s, c in GRAD_CASES}
+        # 1. the card's runs (the CPU's arrive meanwhile)
+        t0 = time.perf_counter()
+        cards = {f"{s}/{c or 'ideal'}": grad_case(torch, s, c, dev)
+                 for s, c in GRAD_CASES}
+        print(f"  card runs, forward and backward: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+        # 2. the tuner on the card against the bracket search
+        t0 = time.perf_counter()
+        hc_val, hc_score, hc_evals = launch_tune.netsim_tune(
+            "headroom", iters=TUNE_ITERS, device=dev, **TUNE_CELL)
+        hc_wall = time.perf_counter() - t0
+        timer = launch_tune.StepTimer(dev)
+        t0 = time.perf_counter()
+        _, g_score, g_evals = launch_tune.netsim_tune(
+            "grad", grad_steps=TUNE_STEPS, device=dev, timer=timer, **TUNE_CELL)
+        out["tuner"] = {"hillclimb": {"knob": hc_val, "objective": hc_score,
+                                      "sim_evals": hc_evals, "wall_s": hc_wall},
+                        "grad": {"objective": g_score, "sim_evals": g_evals,
+                                 "wall_s": time.perf_counter() - t0,
+                                 "adam_wall_s": timer.wall_s,
+                                 "adam_device_ms": timer.device_ms}}
+        print(f"  tuner: bracket search {hc_score:.3f} in {hc_evals} evaluations "
+              f"({hc_wall:.1f} s), grad tuner {g_score:.3f} in {g_evals}; Adam steps "
+              f"wall {[round(x, 2) for x in timer.wall_s]} s, device "
+              f"{[round(x, 1) for x in timer.device_ms]} ms [{card}]", flush=True)
+        check(g_score >= hc_score - 1e-6 and g_evals < hc_evals,
+              f"the grad tuner ({g_score} in {g_evals}) does not reach the bracket "
+              f"search ({hc_score} in {hc_evals}) with fewer evaluations")
+
+        # 3. planted faults on the card, read against the sound CPU runs
+        mods = [m for m in list(sys.modules.values())
+                if getattr(m, "__name__", "").startswith("repro_torch.")
+                and "reset_gate" in getattr(m, "__dict__", {})
+                and not m.__name__.endswith(".soft")]
+        kept = [m.reset_gate for m in mods]
+        for m in mods:
+            m.reset_gate = lambda w: w
+        try:
+            fault_a = grad_case(torch, "dcqcn", None, dev)
+        finally:
+            for m, k in zip(mods, kept):
+                m.reset_gate = k
+        kept_key = fluid._channel_key
+        fluid._channel_key = lambda cfg, params, d: scenario_key(
+            prng_key(cfg.channel_seed, d), params)
+        try:
+            fault_b = grad_case(torch, "matchrdma", "impaired", dev)
+        finally:
+            fluid._channel_key = kept_key
+        t0 = time.perf_counter()
+        cpu = {k: f.result() for k, f in futures.items()}
+        print(f"  waited {time.perf_counter() - t0:.1f} s for the CPU runs", flush=True)
+
+    sound, cold, witness = {}, {}, {}
+    for key, c in cards.items():
+        sound[key] = grad_readings(torch, c, cpu[key], 0)
+        cold[key] = grad_readings(torch, c, cpu[key], 1)
+        witness[key] = grad_readings(torch, cpu[key], cpu[key], 2, 1)
+        w, r0, r1 = witness[key], sound[key], cold[key]
+        print(f"  card vs CPU {key}: at soft_temp 1.0 surrogate {c['surrogate'][0]:.6f} "
+              f"(error {r0['surrogate']:.3e}), worst FD-knob gradient error "
+              f"{r0['grad']:.3e} ({r0['grad_knob']}); at 0.3 surrogate "
+              f"{c['surrogate'][1]:.6f} (error {r1['surrogate']:.3e}), gradient "
+              f"error {r1['grad']:.3e} ({r1['grad_knob']}), the CPU's own move under "
+              f"one ulp of soft_temp {w['surrogate']:.3e} / {w['grad']:.3e} "
+              f"({w['grad_knob']}); non-finite {r0['nonfinite'] + r1['nonfinite']}; "
+              f"device ms a step (3 cells, {c['steps']} steps): forward "
+              f"{c['fwd_ms_per_step']:.3f}, forward+backward "
+              f"{c['fwd_bwd_ms_per_step']:.3f}; CPU forward+backward "
+              f"{cpu[key]['fwd_bwd_ms_per_step']:.3f} [{card}]", flush=True)
+    out["card_vs_cpu"] = {"soft_temp_1.0": sound, "soft_temp_0.3": cold,
+                          "cpu_one_ulp_at_0.3": witness}
+    out["ms_per_step"] = {k: {"fwd": c["fwd_ms_per_step"],
+                              "fwd_bwd": c["fwd_bwd_ms_per_step"],
+                              "cpu_fwd_bwd": cpu[k]["fwd_bwd_ms_per_step"]}
+                          for k, c in cards.items()}
+    bad = {k: over_grad(v, False) + over_grad(cold[k], True) for k, v in sound.items()
+           if over_grad(v, False) + over_grad(cold[k], True)}
+    check(not bad, f"soft engine card vs CPU over the limits {SOFT_GRAD_TOL} at 1.0, "
+          f"{SOFT_COLD_TOL} at 0.3: {bad}")
+    planted = {}
+    for fault, key, run in (
+            ("reset gates not detached", "dcqcn/ideal", fault_a),
+            ("soft mode folds the knob bits into the channel key",
+             "matchrdma/impaired", fault_b)):
+        r0 = grad_readings(torch, run, cpu[key], 0)
+        r1 = grad_readings(torch, run, cpu[key], 1)
+        planted[fault] = {"case": key, "readings": {"1.0": r0, "0.3": r1},
+                          "over": over_grad(r0, False) + over_grad(r1, True)}
+        print(f"  control, {fault} ({key}): at 1.0 surrogate error "
+              f"{r0['surrogate']:.3e}, worst gradient error {r0['grad']:.3e} "
+              f"({r0['grad_knob']}); at 0.3 surrogate error {r1['surrogate']:.3e}, "
+              f"worst gradient error {r1['grad']:.3e} ({r1['grad_knob']}); "
+              f"non-finite {r0['nonfinite'] + r1['nonfinite']}", flush=True)
+        check(bool(planted[fault]["over"]), f"the soft card-vs-CPU check does not "
+              f"catch: {fault}")
+    out["planted"] = planted
+    return out
+
+
+def lane_main(out_dir: Path, units) -> None:
+    """A lane (``chip_smoke.py --lane DIR UNIT...``): each unit of
+    NETSIM_UNITS in turn, its standard output into ``DIR/UNIT.log`` and its
+    record into ``DIR/UNIT.json``; a failed check exits non-zero."""
+    import contextlib
+
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)     # the lanes share the host's cores
+    card = smi_line()
+    for unit in units:
+        fn = globals()[NETSIM_UNITS[unit][2]]
+        t0 = time.perf_counter()
+        with (open(out_dir / f"{unit}.log", "w", buffering=1) as log,
+              contextlib.redirect_stdout(log)):
+            record = fn(torch, card)
+            print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
+        (out_dir / f"{unit}.json").write_text(json.dumps(record))
+        torch.cuda.empty_cache()
+
+
+def run_lanes(t_start: float) -> dict:
+    """Phases 10-14: the NETSIM_LANES as child processes (each in a session
+    of its own, so that stopping it stops its CPU workers too), their logs
+    printed in phase order once all have ended; fails the run if a lane
+    fails or NETSIM_DEADLINE_S passes. Returns each unit's record."""
+    import os
+    import shutil
+    import signal
+
+    out_dir = ROOT / "build" / "chip_smoke"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    lanes, ended = [], {}
+    try:
+        for i, units in enumerate(NETSIM_LANES):
+            with open(out_dir / f"lane{i}.out", "w") as out:
+                lanes.append(subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"), "--lane", str(out_dir),
+                     *units], stdout=out, stderr=subprocess.STDOUT, cwd=ROOT,
+                    start_new_session=True))
+        bad = None
+        while len(ended) < len(lanes) and bad is None:
+            time.sleep(1.0)
+            for i, proc in enumerate(lanes):
+                if i not in ended and proc.poll() is not None:
+                    ended[i] = time.perf_counter() - t0
+                    if proc.returncode != 0:
+                        bad = f"lane {NETSIM_LANES[i]} exited with {proc.returncode}"
+            if time.perf_counter() - t_start > NETSIM_DEADLINE_S:
+                bad = f"the lanes were still running {NETSIM_DEADLINE_S:.0f} s after the start"
+    finally:
+        for proc in lanes:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    for unit, (n, title, _) in NETSIM_UNITS.items():
+        if title:
+            print(f"[{n}/14] {title}", flush=True)
+        lane = next(i for i, u in enumerate(NETSIM_LANES) if unit in u)
+        print(f"  unit {unit}, lane {lane} ({', '.join(NETSIM_LANES[lane])}):", flush=True)
+        log = out_dir / f"{unit}.log"
+        print(log.read_text() if log.exists() else "  (not run)\n", end="", flush=True)
+    for i, units in enumerate(NETSIM_LANES):
+        print(f"  lane {i} ({', '.join(units)}): "
+              + (f"ended after {ended[i]:.1f} s" if i in ended else "stopped"), flush=True)
+    if bad is not None:
+        for i in range(len(lanes)):
+            tail = (out_dir / f"lane{i}.out").read_text()[-4000:]
+            if tail.strip():
+                print(f"--- lane {i} output ---\n{tail}", file=sys.stderr, flush=True)
+        fail(bad)
+    print(f"  (phases 10-14: {time.perf_counter() - t0:.1f} s; total "
+          f"{time.perf_counter() - t_start:.1f} s)", flush=True)
+    return {unit: json.loads((out_dir / f"{unit}.json").read_text())
+            for unit in NETSIM_UNITS}
+
+
 def main() -> None:
+    if len(sys.argv) > 2 and sys.argv[1] == "--lane":
+        return lane_main(Path(sys.argv[2]), sys.argv[3:])
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run chip_smoke.py from a checkout")
     sys.path.insert(0, str(SRC))
@@ -1807,14 +2206,14 @@ def main() -> None:
     card = smi_line()
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
-    print(f"[1/13] card: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
+    print(f"[1/14] card: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{name}, compute capability {cap[0]}.{cap[1]}", flush=True)
     check(cap == (9, 0), f"needs compute capability 9.0 (sm_90a), found {cap}")
 
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build(build.sources())
-    print(f"[2/13] build: {len(logs)} of {len(build.sources())} kernel sources compiled "
+    print(f"[2/14] build: {len(logs)} of {len(build.sources())} kernel sources compiled "
           f"in {time.perf_counter() - t0:.1f} s into {build.BUILD_DIR}", flush=True)
     for src, log in logs.items():
         for line in log.splitlines():
@@ -1835,7 +2234,7 @@ def main() -> None:
           f"the f32 SSD-scan instantiations are not the scalar kernel: {ssd_hgmma}")
 
     t0 = time.perf_counter()
-    print("[3/13] kernels against their plain versions", flush=True)
+    print("[3/14] kernels against their plain versions", flush=True)
     flash = phase_flash(torch, card)
     ssd = phase_ssd(torch, card)
     scan = phase_rglru(torch, card)
@@ -1848,7 +2247,7 @@ def main() -> None:
             (MAMBA, mamba_faults(torch), "state not carried across chunks"),
             (RG, rglru_faults(torch), "recurrence restarted every 256 steps")), start=4):
         t0 = time.perf_counter()
-        print(f"[{i}/13] serve {arch} at full width", flush=True)
+        print(f"[{i}/14] serve {arch} at full width", flush=True)
         served[arch] = phase_serve(torch, card, arch, faults, must_fail)
         print(f"  ({time.perf_counter() - t0:.1f} s; total "
               f"{time.perf_counter() - t_start:.1f} s)", flush=True)
@@ -1857,35 +2256,17 @@ def main() -> None:
     trained, faults = {}, train_faults(torch)
     for i, arch in enumerate((QWEN, MAMBA, RG), start=7):
         t0 = time.perf_counter()
-        print(f"[{i}/13] train {arch} at full width", flush=True)
+        print(f"[{i}/14] train {arch} at full width", flush=True)
         trained[arch] = phase_train(torch, card, arch, faults[arch])
         print(f"  ({time.perf_counter() - t0:.1f} s; total "
               f"{time.perf_counter() - t_start:.1f} s)", flush=True)
 
-    t0 = time.perf_counter()
-    print("[10/13] netsim Fig. 3 path", flush=True)
-    netsim = phase_netsim(torch, card)
-    print(f"  ({time.perf_counter() - t0:.1f} s; total "
-          f"{time.perf_counter() - t_start:.1f} s)", flush=True)
-
-    t0 = time.perf_counter()
-    print("[11/13] netsim: seven schemes over the multi-link and multi-site long haul",
-          flush=True)
-    netsim_links = phase_netsim_links(torch, card)
-    print(f"  ({time.perf_counter() - t0:.1f} s; total "
-          f"{time.perf_counter() - t_start:.1f} s)", flush=True)
-
-    t0 = time.perf_counter()
-    print("[12/13] netsim: the impaired, replayed and failing long haul", flush=True)
-    netsim_channel = phase_netsim_channel(torch, card)
-    print(f"  ({time.perf_counter() - t0:.1f} s; total "
-          f"{time.perf_counter() - t_start:.1f} s)", flush=True)
-
-    t0 = time.perf_counter()
-    print("[13/13] observability and training traffic", flush=True)
-    obs = phase_obs(torch, card)
-    print(f"  ({time.perf_counter() - t0:.1f} s; total "
-          f"{time.perf_counter() - t_start:.1f} s)", flush=True)
+    torch.cuda.empty_cache()
+    units = run_lanes(t_start)
+    netsim = units["10"]
+    netsim_links = {**units["11"], **units["11g"]}
+    netsim_channel = {**units["12"], **units["12g"]}
+    obs, netsim_grad = units["13"], units["14"]
 
     def worst(checks, prefix):
         return max(c["max_abs_err"] for c in checks if c["case"].startswith(prefix))
@@ -1948,6 +2329,7 @@ def main() -> None:
     print(json.dumps({"netsim_links": netsim_links}))
     print(json.dumps({"netsim_channel": netsim_channel}))
     print(json.dumps({"obs": obs}))
+    print(json.dumps({"netsim_grad": netsim_grad}))
     print(smi_line())
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

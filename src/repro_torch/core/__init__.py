@@ -12,7 +12,13 @@ PyTorch (the hard paths of the JAX package's ``core``).
 Every function is shape-agnostic over leading scenario axes: per-scenario
 scalars are 0-d for one scenario and ``[B]`` for a batch; per-flow tensors
 ``[..., F]``, slot rings ``[..., R]``.
+
+The soft-step helpers these modules use live in ``repro_torch.netsim.soft``,
+as the JAX package places them, and the netsim engine imports this package:
+importing the netsim package first lets each side load in that order, from
+whichever end an import starts.
 """
+import repro_torch.netsim  # noqa: F401  (load order; see above)
 from repro_torch.core.budget import BudgetState, fair_share, init_budget, update_budget
 from repro_torch.core.cc_proxy import (
     DcqcnState, init_dcqcn, step_dcqcn, themis_rtt_scale,

@@ -10,12 +10,13 @@
 
 ``MatchRdmaState`` rides in ``SimState.extra``; the ``matchrdma`` scheme's
 ``feedback`` hook runs the per-step parts every fluid step and
-``maybe_slot_update`` at slot boundaries. The hard paths of the JAX
-package's ``core/matchrdma.py``.
+``maybe_slot_update`` at slot boundaries. The JAX package's
+``core/matchrdma.py``; with a temperature (``soft``) the slot update's gates
+are tempered (``netsim.soft``).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -32,6 +33,7 @@ from repro_torch.core.pseudo_ack import PseudoAckState, init_pseudo_ack
 from repro_torch.core.slots import (
     SlotObs, SlotRing, init_ring, ordered_history, push_slot,
 )
+from repro_torch.netsim.soft import clip, soft_gt
 
 _ACC = ("acc_egress", "acc_cnp", "acc_ack_delay", "acc_ack_n", "acc_queue",
         "acc_paused")
@@ -107,51 +109,58 @@ def accumulate_step(state: MatchRdmaState, egress_bytes, cnp_count,
     )
 
 
-def step_channel(state: MatchRdmaState, summary=None) -> MatchRdmaState:
+def step_channel(state: MatchRdmaState, summary=None,
+                 inplace: bool = True) -> MatchRdmaState:
     """Advance the control subchannel by one fluid step (every step).
     ``summary`` is the destination OTN's own overload flag (default: any CNP
-    this slot)."""
+    this slot); ``inplace=False`` writes the lines into new tensors."""
     if summary is None:
         summary = state.acc_cnp > 0
     chan, b_src, s_src = channel_send_recv(
-        state.chan, state.budget.budget, summary.to(torch.float32))
+        state.chan, state.budget.budget, summary.to(torch.float32), inplace)
     return state._replace(chan=chan, budget_at_src=b_src,
                           summary_at_src=s_src)
 
 
 def slot_update(state: MatchRdmaState, cfg, period_slots: int = 0,
-                params: NetParams = None) -> MatchRdmaState:
+                params: NetParams = None, soft=None) -> MatchRdmaState:
     """Run at each slot boundary: classify, estimate, regenerate budget.
     With ``params`` the slot length is each scenario's ``params.slot_us``;
-    without, the static ``cfg.slot_us``."""
+    without, the static ``cfg.slot_us``. ``soft`` (the temperature) relaxes
+    the busy, classifier and budget gates."""
     if params is None:
         slot_s = cfg.slot_us * 1e-6
         steps_per_slot = max(int(round(cfg.slot_us / cfg.dt_us)), 1)
     else:
         slot_s = params.slot_us * 1e-6
-        steps_per_slot = torch.clamp(
-            torch.round(params.slot_us / cfg.dt_us), min=1.0)
+        steps_per_slot = clip(torch.round(params.slot_us / cfg.dt_us), 1.0)
     # pause-corrected egress rate: bytes / UNPAUSED time
     paused_frac = state.acc_paused / steps_per_slot
-    unpaused_s = slot_s * torch.clamp(1.0 - paused_frac, min=1e-3)
+    unpaused_s = slot_s * clip(1.0 - paused_frac, 1e-3)
     mean_queue = state.acc_queue / steps_per_slot
     obs = SlotObs(
         egress_rate=state.acc_egress / unpaused_s,
-        ack_delay_us=state.acc_ack_delay / torch.clamp(state.acc_ack_n, min=1.0),
+        ack_delay_us=state.acc_ack_delay / clip(state.acc_ack_n, 1.0),
         cnp_count=state.acc_cnp,
         local_queue=mean_queue,
     )
     queue_thresh = (cfg.queue_thresh_kb if params is None
                     else params.queue_thresh_kb) * 1024.0
     # capability is only measurable when backlogged AND mostly unpaused
-    busy = ((mean_queue > queue_thresh) & (paused_frac < 0.9)).to(torch.float32)
+    if soft is None:
+        busy = ((mean_queue > queue_thresh)
+                & (paused_frac < 0.9)).to(torch.float32)
+    else:
+        busy = (soft_gt(mean_queue, queue_thresh, soft,
+                        0.05 * queue_thresh + 1.0)
+                * soft_gt(0.9, paused_frac, soft, 0.1))
     ring = push_slot(state.ring, obs, cfg, busy=busy,
-                     queue_thresh_bytes=queue_thresh)
+                     queue_thresh_bytes=queue_thresh, soft=soft)
     history = ordered_history(ring)
     if period_slots > 0:
-        est = periodic_from_history(history, cfg, period_slots)
+        est = periodic_from_history(history, cfg, period_slots, soft=soft)
     else:
-        est = slot_weighted_from_history(history, cfg)
+        est = slot_weighted_from_history(history, cfg, soft=soft)
     # fraction of the last control window flagged congested
     _, congested_hist, _, valid = history
     r = congested_hist.shape[-1]
@@ -168,25 +177,33 @@ def slot_update(state: MatchRdmaState, cfg, period_slots: int = 0,
     cong_recent = ((congested_hist * recent_valid).sum(-1)
                    / torch.clamp(recent_valid.sum(-1), min=1.0))
     budget = update_budget(state.budget, est, state.acc_cnp, cong_recent, cfg,
-                           ctrl_slots=ctrl_slots, params=params)
+                           ctrl_slots=ctrl_slots, params=params, soft=soft)
     z = torch.zeros_like(state.acc_egress)
     return state._replace(ring=ring, budget=budget, **{k: z for k in _ACC})
 
 
 def maybe_slot_update(state: MatchRdmaState, cfg, step_idx,
-                      period_slots: int = 0,
-                      params: NetParams = None) -> MatchRdmaState:
+                      period_slots: int = 0, params: NetParams = None,
+                      soft=None, host_t: Optional[int] = None,
+                      slot_steps: Sequence[int] = ()) -> MatchRdmaState:
     """Branchless slot update: computed every step, selected where
     ``step_idx`` ends a slot, so the step holds no host decision. The
     boundary is an exact integer comparison on each scenario's
-    steps-per-slot."""
+    steps-per-slot, in soft mode too: slot cadence is simulator structure,
+    not a knob threshold. The eager soft step passes its index on the host
+    (``host_t``) and each scenario's steps per slot (``slot_steps``) and
+    skips the update off every boundary, with no device read."""
     if params is None:
         steps_per_slot = max(int(round(cfg.slot_us / cfg.dt_us)), 1)
     else:
         steps_per_slot = torch.clamp(
             torch.round(params.slot_us / cfg.dt_us).to(torch.int32), min=1)
+    if host_t is not None and all((host_t + 1) % n for n in slot_steps):
+        # off every scenario's slot boundary the select below would discard
+        # the update (and send it no gradient), so it is not computed
+        return state
     at = torch.remainder(step_idx + 1, steps_per_slot) == 0
-    new = slot_update(state, cfg, period_slots, params=params)
+    new = slot_update(state, cfg, period_slots, params=params, soft=soft)
     at_r = at[..., None]
     ring = SlotRing(*(torch.where(at_r if a.dim() > at.dim() else at, a, b)
                       for a, b in zip(new.ring, state.ring)))

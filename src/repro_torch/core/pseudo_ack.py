@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.netsim.soft import clip
+
 
 class PseudoAckState(NamedTuple):
     packed: torch.Tensor     # [..., F] bytes pseudo-ACKed so far
@@ -30,7 +32,7 @@ def step_pseudo_ack(state: PseudoAckState, accepted: torch.Tensor,
     """One step. ``accepted``: cumulative bytes accepted at the source OTN;
     ``budget_share``: bytes/s. Returns (new_state, pseudo_acked_cum).
     Credits are capped at ``max_burst_s`` of budget."""
-    backlog = torch.clamp(accepted - state.packed, min=0.0)
+    backlog = clip(accepted - state.packed, 0.0)
     if gated:
         credits = torch.minimum(state.credits + budget_share * dt_s,
                                 budget_share * max_burst_s)

@@ -16,7 +16,11 @@ PyTorch: the JAX package's ``netsim``.
                ``compile_site_graph``) compiled onto the ``[L]`` link axis.
   * fluid    - the scheme-agnostic engine (``simulate``, ``simulate_batch``;
                ``TRACE_MODES`` = full / decimate / metrics / window; CUDA
-               graphs on the card).
+               graphs on the card) and its differentiable mode
+               (``soft_step``: ``soft``'s tempered gates, autograd through
+               ``run_traced_batch``).
+  * grad_tune - Adam through the soft engine (``tune``), scored on the
+               hard engine.
   * obs      - observability: event rings (``EVENT_KINDS``, ``EventRing``,
                ``decode_events``, ``unroll_window``), Perfetto timelines
                (``export_timeline``, ``timeline_from_window``,
@@ -31,8 +35,8 @@ PyTorch: the JAX package's ``netsim``.
                form (``WorkloadParams``).
   * convert  - the JAX package's state, as numpy, into the port's.
 
-``soft_step`` and multi-device sharding raise ``NotImplementedError`` naming
-the ROADMAP item that brings them.
+Multi-device sharding (``devices=``) raises ``NotImplementedError`` naming
+the ROADMAP item that brings it.
 """
 from repro_torch.netsim.channel import (
     CHANNEL_MODELS, ChannelModel, available_channel_models,

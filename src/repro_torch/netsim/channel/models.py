@@ -20,8 +20,10 @@ Every draw is counter-based and bit-equal to the JAX package's: the step key
 is ``fold_in(scenario_key(prng_key(channel_seed), params), t)`` (one more
 ``fold_in`` of the link index at L > 1), the loss and jitter draws use its
 subkeys 0 and 1, derived in one call, and the flap phase is drawn once from
-``fold_in(key, 0xF1A9)``. The soft (differentiable) branches are not ported
-(ROADMAP queue 1 item 16).
+``fold_in(key, 0xF1A9)``. The soft engine (``soft_step``) keys from
+``prng_key(channel_seed)`` alone, without the knob bits, so every knob value
+sees the same noise; there the loss chain's comparisons and the flap dip are
+tempered sigmoids (``netsim.soft``).
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from repro_torch.netsim.channel.base import (
     register_channel_model,
 )
 from repro_torch.netsim.prng import f32_bits, fold_in, uniform
+from repro_torch.netsim.soft import clip, lerp, soft_gt, soft_pos
 
 # fraction of a flap period spent in the dip (the protection-switch hit)
 FLAP_DUTY = 0.1
@@ -91,10 +94,6 @@ class ImpairedChannel(ChannelModel):
 
     def apply_impairments(self, ctx, chan: ImpairState,
                           inp: ChannelInputs) -> ChannelEffects:
-        if ctx.cfg.soft_step:
-            raise NotImplementedError(
-                "soft_step=True: the channel's soft branches come with "
-                "ROADMAP queue 1 item 16")
         p = ctx.params
         arrivals, cap_src = inp.pipe_out, inp.cap_src
         lost = torch.zeros_like(arrivals)
@@ -115,25 +114,34 @@ class ImpairedChannel(ChannelModel):
         if self.loss:
             # Gilbert–Elliott: exit Bad w.p. 1/L, enter Bad so that the
             # stationary Bad fraction is loss_rate
-            r = per_link(torch.clamp(p.loss_rate, 0.0, 0.5), cap_src)[..., None]
-            p_exit = 1.0 / torch.clamp(per_link(p.loss_burst_len, cap_src),
-                                       min=1.0)[..., None]
-            p_enter = torch.clamp(p_exit * r / torch.clamp(1.0 - r, min=0.5),
-                                  0.0, 1.0)
+            r = per_link(clip(p.loss_rate, 0.0, 0.5), cap_src)[..., None]
+            p_exit = 1.0 / clip(per_link(p.loss_burst_len, cap_src),
+                                1.0)[..., None]
+            p_enter = clip(p_exit * r / clip(1.0 - r, 0.5), 0.0, 1.0)
             u = draws[..., subs.index(_LOSS), :]
-            in_bad = torch.where(chan.bad > 0.5, u < 1.0 - p_exit, u < p_enter)
-            bad = in_bad.to(torch.float32)
-            lost = torch.where(in_bad, arrivals, 0.0)     # Bad drops the step
-            arrivals = torch.where(in_bad, 0.0, arrivals)
+            if ctx.soft is None:
+                in_bad = torch.where(chan.bad > 0.5, u < 1.0 - p_exit,
+                                     u < p_enter)
+                bad = in_bad.to(torch.float32)
+                lost = torch.where(in_bad, arrivals, 0.0)  # Bad drops the step
+                arrivals = torch.where(in_bad, 0.0, arrivals)
+            else:
+                # the tempered chain: the draw-vs-probability comparisons
+                # are sigmoids, blended by the previous fractional Bad weight
+                bad = lerp(soft_gt(chan.bad, 0.5, ctx.soft, 0.25),
+                           soft_gt(1.0 - p_exit, u, ctx.soft, 0.05),
+                           soft_gt(p_enter, u, ctx.soft, 0.05))
+                lost = bad * arrivals
+                arrivals = (1.0 - bad) * arrivals
 
         if self.jitter:
             # geometric holding: E[extra delay] = p/(1-p) * dt = jitter_us
             jit = per_link(p.jitter_us, cap_src)[..., None]
-            p_hold = jit / torch.clamp(jit + ctx.dt_us, min=1.0)
+            p_hold = jit / clip(jit + ctx.dt_us, 1.0)
             v = draws[..., subs.index(_JITTER), :]
             income = arrivals + chan.defer
             held = torch.where(p_hold > 0.0,
-                               income * torch.clamp(2.0 * v * p_hold, 0.0, 0.95),
+                               income * clip(2.0 * v * p_hold, 0.0, 0.95),
                                0.0)
             arrivals = torch.where(p_hold > 0.0, income - held, arrivals)
             defer = held
@@ -143,12 +151,18 @@ class ImpairedChannel(ChannelModel):
             # scenario's (link's) random phase
             period = per_link(p.flap_period_us, cap_src)
             pos = torch.fmod(inp.t.to(torch.float32) * ctx.dt_us
-                             / torch.clamp(period, min=ctx.dt_us) + chan.phase,
-                             1.0)
-            dipped = cap_src * (1.0 - torch.clamp(per_link(p.flap_depth, cap_src),
-                                                  0.0, 1.0))
-            in_dip = (pos < FLAP_DUTY) & (period > 0)
-            cap_src = torch.where(in_dip, dipped, cap_src)
+                             / clip(period, ctx.dt_us) + chan.phase, 1.0)
+            dipped = cap_src * (1.0 - clip(per_link(p.flap_depth, cap_src),
+                                           0.0, 1.0))
+            if ctx.soft is None:
+                in_dip = (pos < FLAP_DUTY) & (period > 0)
+                cap_src = torch.where(in_dip, dipped, cap_src)
+            else:
+                # flap_depth's gradient flows through the blend; the dip's
+                # phase keeps its jump in knob space (the mod)
+                w_dip = (soft_gt(FLAP_DUTY, pos, ctx.soft, 0.05)
+                         * soft_pos(period, ctx.soft, ctx.dt_us))
+                cap_src = lerp(w_dip, dipped, cap_src)
 
         return ChannelEffects(arrivals=arrivals, lost=lost, cap_src=cap_src,
                               chan=ImpairState(bad=bad, defer=defer,

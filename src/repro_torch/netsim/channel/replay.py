@@ -30,6 +30,7 @@ from repro_torch.netsim.channel.base import (
     ChannelEffects, ChannelInputs, ChannelModel, per_link,
     register_channel_model,
 )
+from repro_torch.netsim.soft import clip
 
 __all__ = [
     "ReplayState", "TraceReplayChannel", "load_schedule_json",
@@ -75,9 +76,9 @@ class TraceReplayChannel(ChannelModel):
         idx = per_link(idx, cap_src).expand(cap_src.shape)
         row = chan.sched.gather(
             -2, idx[..., None, None].expand(*cap_src.shape, 1, 3))[..., 0, :]
-        loss_f = torch.clamp(row[..., 0], 0.0, 1.0)[..., None]
-        defer_f = torch.clamp(row[..., 1], 0.0, 0.95)[..., None]
-        cap_f = torch.clamp(row[..., 2], 0.0, 1.0)
+        loss_f = clip(row[..., 0], 0.0, 1.0)[..., None]
+        defer_f = clip(row[..., 1], 0.0, 0.95)[..., None]
+        cap_f = clip(row[..., 2], 0.0, 1.0)
 
         lost = torch.where(loss_f > 0.0, arrivals * loss_f, 0.0)
         arrivals = torch.where(loss_f > 0.0, arrivals - lost, arrivals)

@@ -13,10 +13,21 @@ as the scheme decides) and PFC from the destination OTN riding back over D.
 
 What the port runs: one long-haul link or ``num_paths`` parallel links
 (``[L]``, optionally the edges of a site graph), every registered channel
-model (``channel=``), failure schedules, the hard (non-soft) step, and
-``trace_mode`` ``full``, ``decimate``, ``metrics`` and ``window``.
-``soft_step`` raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+model (``channel=``), failure schedules, the hard step and the soft
+(differentiable) one, and ``trace_mode`` ``full``, ``decimate``,
+``metrics`` and ``window``.
+
+Soft step (``cfg.soft_step``): every knob-dependent hard select becomes a
+blend tempered by the per-scenario ``soft_temp`` leaf (``netsim.soft``), so
+``torch.autograd`` differentiates a run's streamed sums with respect to any
+float leaf of ``NetParams`` and ``WorkloadParams`` (``run_traced_batch``);
+the completion latch stays hard. The soft step writes every ring into a new
+tensor (autograd records the writes), keys the channel from
+``prng_key(channel_seed)`` without the knob bits (the same noise for every
+knob value: the common random numbers a gradient needs) and runs eagerly on
+the card too. ``cfg.remat_steps = k > 1`` checkpoints each block of k steps
+of a metrics run (``torch.utils.checkpoint``), so a backward holds the
+tensors of one block and the block boundaries instead of every step's.
 
 ``window`` mode is ``metrics`` (the same streamed ``MetricAcc``, bit for
 bit) plus a ring of the last ``cfg.trace_window_steps`` steps of every trace
@@ -36,6 +47,7 @@ source (delay D), wait in a per-flow retransmit backlog and re-enter the
 source OTN at the scheme's ``retx_rate``, ahead of new data. Every
 impairment joins through a ``where`` whose clean branch is the original
 tensor, so zero knobs and an all-up schedule are the ideal run bit for bit.
+Soft-mode runs take the noise stream of ``prng_key(channel_seed)`` itself.
 
 Multi-link (``cfg.num_paths = L > 1``): the source OTN's release is sprayed
 over the links by the scheme's ``route_weights`` (masked to links with
@@ -51,13 +63,12 @@ leading scenario axis ``[B]`` (per-flow ``[B, F]``, delay rings
 ``retx_backlog [B, F]``, ``retx_line [B, Dp, F]``, ``retx_inflight [B, F]``),
 and one step advances the whole batch. Rings are allocated at the batch's
 padded length ``delay_pad`` and each scenario's (each link's) ring index
-wraps at its own delay. The
+wraps at its own delay. The hard step writes the
 delay rings (the notification ring too), the control subchannel and the
-metrics histograms are written in place; everything else a step makes is
-new.
+metrics histograms in place; everything else a step makes is new.
 
 Execution: on the CPU the steps run eagerly. On the card ``simulate_batch``
-captures a block of steps into a ``torch.cuda.CUDAGraph`` and replays it:
+captures a block of hard steps into a ``torch.cuda.CUDAGraph`` and replays it:
 the state lives in static tensors, the step index ``t`` is a device int32
 advanced inside the graph, and no step reads a value back to the host (the
 counterpart of JAX's one compiled ``lax.scan``). A capture that fails
@@ -70,6 +81,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.net import (
     NetConfig, NetParams, batch_template, stack_net_params,
@@ -90,6 +102,9 @@ from repro_torch.netsim.queues import (
 )
 from repro_torch.netsim.schemes import get_scheme
 from repro_torch.netsim.schemes.base import Scheme, SchemeCtx, SchemeSignals
+from repro_torch.netsim.soft import (
+    clip, lerp, magnitude, reset_gate, soft_gt, soft_pos, ste,
+)
 from repro_torch.netsim.streaming import HIST_BINS, hist_bin_index, kahan_add
 from repro_torch.netsim.topology import validate_site_endpoints
 from repro_torch.netsim.workload import WorkloadParams, as_workload_batch
@@ -184,18 +199,24 @@ def _init_metric_acc(scheme, channel, ctx, state0) -> MetricAcc:
     )
 
 
-def _accumulate_engine(acc: MetricAcc, out: dict, inc) -> MetricAcc:
+def _accumulate_engine(acc: MetricAcc, out: dict, inc,
+                       inplace: bool = True) -> MetricAcc:
     """Fold one step's trace dict into the engine's streamed reductions
     (``inc``: 1.0 past the warm-up cutoff). The histogram is updated in
-    place."""
+    place, or into a new tensor with ``inplace=False`` (the soft step's,
+    whose blocks a checkpointed backward runs again)."""
     x = torch.stack([out[k] for k in STREAM_SUM_KEYS], -1) * inc
     # Kahan-compensated so the streamed mean matches the trace mean to ~ulp
     sum_s, sum_c = kahan_add(acc.sum_s, acc.sum_c, x)
     maxes = torch.maximum(acc.maxes,
                           torch.stack([out[k] for k in STREAM_MAX_KEYS], -1))
-    b = hist_bin_index(out["q_dst"])[..., None]
-    acc.hist.scatter_add_(-1, b, inc.to(torch.int32).expand(b.shape))
-    return acc._replace(sum_s=sum_s, sum_c=sum_c, maxes=maxes)
+    b = hist_bin_index(out["q_dst"].detach())[..., None]
+    ones = inc.to(torch.int32).expand(b.shape)
+    if inplace:
+        acc.hist.scatter_add_(-1, b, ones)
+        return acc._replace(sum_s=sum_s, sum_c=sum_c, maxes=maxes)
+    return acc._replace(sum_s=sum_s, sum_c=sum_c, maxes=maxes,
+                        hist=acc.hist.scatter_add(-1, b, ones))
 
 
 class SimState(NamedTuple):
@@ -230,16 +251,10 @@ class SimState(NamedTuple):
     retx_inflight: Optional[torch.Tensor] = None  # running sum of retx_line
 
 
-def check_main_path(cfg: NetConfig, channel=None, trace_mode: str = "full",
+def check_main_path(channel=None, trace_mode: str = "full",
                     decimate: int = 1) -> None:
-    """Raise ``NotImplementedError`` for an option the port does not run yet,
-    naming the ROADMAP queue 1 item that ports it; ``ValueError`` for an
-    unknown channel model or trace mode."""
+    """Raise ``ValueError`` for an unknown channel model or trace mode."""
     get_channel_model(channel)
-    if cfg.soft_step:
-        raise NotImplementedError(
-            "soft_step=True: the differentiable engine comes with ROADMAP "
-            "queue 1 item 16")
     if trace_mode not in TRACE_MODES:
         raise ValueError(f"unknown trace_mode {trace_mode!r}; expected one of "
                          f"{TRACE_MODES}")
@@ -257,7 +272,6 @@ def init_state(cfg: NetConfig, num_flows: int, params: NetParams = None,
     MatchRDMA block); ``channel`` (a registered name or model, None =
     ideal) owns ``chan``, and the ``retx_*`` slots exist with the repair
     path."""
-    check_main_path(cfg)
     channel = get_channel_model(channel)
     f = num_flows
     n_links = cfg.num_paths
@@ -278,7 +292,7 @@ def init_state(cfg: NetConfig, num_flows: int, params: NetParams = None,
     if _track_chan(channel, params):
         backlog, retx_line, retx_inflight = z(f), z(delay_pad, f), z(f)
     if not channel.is_ideal:
-        base_key = scenario_key(prng_key(cfg.channel_seed, dev), params)
+        base_key = _channel_key(cfg, params, dev)
         if links:
             # one impairment process per link: the link index folded in
             link = torch.arange(n_links, device=dev)
@@ -309,6 +323,27 @@ def init_state(cfg: NetConfig, num_flows: int, params: NetParams = None,
         chan=chan, retx_backlog=backlog, retx_line=retx_line,
         retx_inflight=retx_inflight,
     )
+
+
+def _channel_key(cfg: NetConfig, params: NetParams, dev) -> torch.Tensor:
+    """The run's ``[B, 2]`` channel key: the knob bits folded into
+    ``prng_key(channel_seed)`` (``scenario_key``), or in soft mode that key
+    itself for every scenario, so that a knob's perturbations share one
+    noise stream (bit folding would redraw it, and has no gradient)."""
+    key = prng_key(cfg.channel_seed, dev)
+    if cfg.soft_step:
+        return key.expand(*params.one_way_delay_us.shape, 2)
+    return scenario_key(key, params)
+
+
+def _write_row(ring: torch.Tensor, dim: int, index: torch.Tensor,
+               src: torch.Tensor, inplace: bool) -> torch.Tensor:
+    """``ring`` with ``src`` scattered at ``index`` along ``dim``: in place
+    (the hard step's rings), or into a new tensor (the soft step's, which
+    autograd records)."""
+    if inplace:
+        return ring.scatter_(dim, index, src)
+    return ring.scatter(dim, index, src)
 
 
 def ring_row(t: torch.Tensor, d_steps: torch.Tensor, delay_pad: int):
@@ -362,7 +397,8 @@ def _workload_tensors(wl, device) -> WorkloadParams:
 def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
                  period_slots: int = 0, params: NetParams = None,
                  delay_pad: int = 0, channel=None):
-    """Build the per-step transition ``step(state, t) -> (state, out)``.
+    """Build the per-step transition ``step(state, t, host_t=None) -> (state,
+    out)``; eager soft runs pass ``host_t``, ``t`` on the host.
 
     ``wl``: the per-flow workload leaves (numpy or tensors, the leading shape
     of ``params``'s leaves); ``params``: the per-scenario scalars (None =
@@ -372,7 +408,6 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
     also the per-link ``q_dst_link``, ``link_tx`` and ``link_pause``; with
     the repair path the ``chan_*`` keys; with a failure schedule
     ``fail_live``)."""
-    check_main_path(cfg)
     n_links = cfg.num_paths
     multi = n_links > 1
     if cfg.is_multisite and not multi:
@@ -394,6 +429,9 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
     wl = _workload_tensors(wl, dev)
     dt_us = cfg.dt_us
     dt_s = dt_us * 1e-6
+    # the soft step's temperature, [B] (None: the hard step)
+    soft = params.soft_temp if cfg.soft_step else None
+    inplace = soft is None
     # each scenario's delay, clamped to the ring allocation (an index past it
     # would raise, where JAX would clamp it silently)
     d_steps = torch.clamp(params.delay_steps(dt_us), 1, delay_pad)
@@ -418,7 +456,7 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
     rtt_us = torch.where(inter, 2.0 * d_steps[..., None] * dt_us + 4.0, 4.0)
     # loop invariants of the step, computed once as XLA hoists them
     periodic = wl.period_us > 0
-    period = torch.clamp(wl.period_us, min=1.0)
+    period = clip(wl.period_us, 1.0)
     on_len = wl.duty * wl.period_us
     c_otn_dt = c_otn * dt_s
     c_leaf_dt = c_leaf * dt_s
@@ -442,8 +480,7 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
         xon_link = xoff_link / 2.0
         link_caps_dt = link_caps * dt_s
         link_ids = torch.arange(n_links, device=dev)
-        cap_w = link_caps / torch.clamp(link_caps.sum(-1, keepdim=True),
-                                        min=1e-9)
+        cap_w = link_caps / clip(link_caps.sum(-1, keepdim=True), 1e-9)
         route = wl.route                                          # [B, F, W]
         if route.shape[-1] == 1:
             route = route.expand(*route.shape[:-1], n_links)
@@ -469,19 +506,21 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
         num_links=n_links, link_caps=link_caps, link_d_steps=link_d_steps,
         num_sites=cfg.num_sites, edge_sites=edge_sites,
         flow_src_site=wl.src_site if cfg.is_multisite else None,
-        flow_dst_site=wl.dst_site if cfg.is_multisite else None)
+        flow_dst_site=wl.dst_site if cfg.is_multisite else None, soft=soft,
+        slot_steps=None if soft is None else tuple(torch.clamp(torch.round(
+            params.slot_us.detach() / dt_us).to(torch.int32), min=1).tolist()))
     rtt_scale = scheme.rtt_scale(ctx)
     keyed = impaired and channel.needs_key
     if keyed:
         # the per-scenario stream, built once outside the captured step
-        chan_key0 = scenario_key(prng_key(cfg.channel_seed, dev), params)
+        chan_key0 = _channel_key(cfg, params, dev)
     if has_fail:
         fail_lo = params.fail_windows[..., 0]                     # [B, L, W]
         fail_hi = params.fail_windows[..., 1]
     if repair:
         d_us = d_steps.to(torch.float32) * dt_us
 
-    def step(state: SimState, t: torch.Tensor):
+    def step(state: SimState, t: torch.Tensor, host_t: Optional[int] = None):
         t_us = t.to(torch.float32) * dt_us
         row = ring_row(t, d_steps, delay_pad).to(torch.int64)[..., None]
         row_f = row[..., None].expand(*row.shape[:-1], 1, f)
@@ -498,13 +537,26 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
             hctx = ctx
 
         # ------------------------------------------------ 1. flow phase
-        started = (t_us >= start_us).to(torch.float32)
-        in_period = torch.where(
-            periodic,
-            (torch.fmod(torch.clamp(t_us - start_us, min=0.0), period)
-             < on_len).to(torch.float32),
-            1.0)
-        not_done = (state.delivered < total_bytes).to(torch.float32)
+        if soft is None:
+            started = (t_us >= start_us).to(torch.float32)
+            in_period = torch.where(
+                periodic,
+                (torch.fmod(torch.clamp(t_us - start_us, min=0.0), period)
+                 < on_len).to(torch.float32),
+                1.0)
+            not_done = (state.delivered < total_bytes).to(torch.float32)
+        else:
+            started = soft_gt(t_us, start_us, soft, dt_us)
+            phase = torch.fmod(clip(t_us - start_us, 0.0), period)
+            in_period = lerp(soft_pos(wl.period_us, soft, dt_us),
+                             soft_gt(on_len, phase, soft, dt_us), 1.0)
+            # straight-through on the activity gate: forward the exact live
+            # mask (consistent with the hard completion latch), backward the
+            # tempered one
+            not_done = ste(
+                (state.delivered < total_bytes).to(torch.float32),
+                soft_gt(total_bytes, state.delivered, soft,
+                        clip(1e-3 * total_bytes, MTU)))
         active = started * in_period * not_done * active_mask
 
         # ------------------------------------------------ 2. delayed inputs
@@ -517,16 +569,31 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
             lrow_f = lrow[..., None].expand(*lrow.shape, f)
             pipe_out = state.pipe.gather(-3, lrow_f)[..., 0, :, :]  # [B, L, F]
             pause_sig = state.pause_line.gather(-2, lrow)[..., 0, :]  # [B, L]
-            cap_link = torch.where(pause_sig > 0.5, 0.0, link_caps_dt)
-            if has_fail:
-                cap_link = torch.where(link_down, 0.0, cap_link)
+            if soft is None:
+                cap_link = torch.where(pause_sig > 0.5, 0.0, link_caps_dt)
+                if has_fail:
+                    cap_link = torch.where(link_down, 0.0, cap_link)
+            else:
+                # the delayed pause lives in [0, 1] in soft mode: re-temper
+                # it about its midpoint and scale the capacity; the failure
+                # mask is schedule structure and stays a 0/1 multiplier
+                cap_link = ((1.0 - soft_gt(pause_sig, 0.5, soft, 0.25))
+                            * link_caps * dt_s)
+                if has_fail:
+                    cap_link = cap_link * link_live
             cap_src = cap_link.sum(-1)
         else:
             pipe_out = state.pipe.gather(-2, row_f)[..., 0, :]
             pause_sig = state.pause_line.gather(-1, row)[..., 0]
-            cap_src = torch.where(pause_sig > 0.5, 0.0, c_otn_dt)  # delayed PFC
-            if has_fail:
-                cap_src = torch.where(link_down[..., 0], 0.0, cap_src)
+            if soft is None:
+                cap_src = torch.where(pause_sig > 0.5, 0.0, c_otn_dt)  # delayed PFC
+                if has_fail:
+                    cap_src = torch.where(link_down[..., 0], 0.0, cap_src)
+            else:
+                cap_src = ((1.0 - soft_gt(pause_sig, 0.5, soft, 0.25))
+                           * c_otn * dt_s)
+                if has_fail:
+                    cap_src = cap_src * link_live[..., 0]
 
         # ------------------------------------------------ 2b. channel hook
         # what leaves the pipe is impaired before the destination OTN sees
@@ -571,11 +638,15 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
         acked = torch.minimum(acked, state.sent)
 
         # ------------------------------------------------ 4. sender rates
-        win_avail = torch.clamp(window - (state.sent - acked), min=0.0)
+        win_avail = clip(window - (state.sent - acked), 0.0)
         base_rate = torch.minimum(win_avail / dt_s, nic_col)
         rate = scheme.sender_rate(hctx, state, base_rate)
         # src-OTN -> sender PFC (1 step, from last-step queue)
-        src_nic_pause = (state.q_src.sum(-1) > xoff_otn).to(torch.float32)
+        if soft is None:
+            src_nic_pause = (state.q_src.sum(-1) > xoff_otn).to(torch.float32)
+        else:
+            src_nic_pause = soft_gt(state.q_src.sum(-1), xoff_otn, soft,
+                                    0.05 * xoff_otn + 1.0)
         rate = rate * torch.where(inter, 1.0 - src_nic_pause[..., None], 1.0)
         # -------------------------------------------- 4b. loss repair
         # notified losses are re-sent first, at the rate the scheme grants;
@@ -583,14 +654,13 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
         # the no-repair branch the untouched rate tensor)
         if repair:
             backlog_avail = notified_backlog(state.retx_backlog, retx_arr)
-            retx_bps = torch.clamp(scheme.retx_rate(hctx, state, rate), min=0.0)
+            retx_bps = clip(scheme.retx_rate(hctx, state, rate), 0.0)
             retx_send = (torch.minimum(torch.minimum(backlog_avail,
                                                      retx_bps * dt_s),
                                        nic_col * dt_s)
                          * is_inter * (1.0 - src_nic_pause[..., None]))
             rate = torch.where(retx_send > 0.0,
-                               torch.clamp(rate - retx_send / dt_s, min=0.0),
-                               rate)
+                               clip(rate - retx_send / dt_s, 0.0), rate)
             retx_backlog = backlog_avail - retx_send
         else:
             retx_send, retx_backlog = zero_f, zero_f
@@ -608,25 +678,34 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
             # spray the release over the links: the scheme's weights masked
             # to links with capacity, rows normalised, clipped per link; what
             # a saturated link cannot take spills back into q_src
-            w = torch.clamp(scheme.route_weights(hctx, state, route), min=0.0)
-            w = w * (cap_link > 0.0)[..., None, :]               # [B, F, L]
-            share = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+            w = clip(scheme.route_weights(hctx, state, route), 0.0)
+            if soft is None:
+                w = w * (cap_link > 0.0)[..., None, :]           # [B, F, L]
+            else:
+                # exactly 0 at cap 0: a paused or flapped link attracts
+                # no spray
+                w = w * soft_pos(cap_link, soft, MTU)[..., None, :]
+            share = w / clip(w.sum(-1, keepdim=True), 1e-9)
             want = drained_src[..., None] * share
             link_want = want.sum(-2)                              # [B, L]
-            scale = torch.clamp(
-                cap_link / torch.clamp(link_want, min=1e-9), max=1.0)
+            scale = clip(cap_link / clip(link_want, 1e-9), hi=1.0)
             sent_link = (want * scale[..., None, :]).transpose(-1, -2)
             q_src = q_src + (drained_src - sent_link.sum(-2))
-            state.pipe.scatter_(-3, lrow_f, sent_link[..., None, :, :])
+            pipe = _write_row(state.pipe, -3, lrow_f,
+                              sent_link[..., None, :, :], inplace)
             inflight = (state.inflight + sent_link.sum(-2)
                         - pipe_out.sum(-2))
         else:
-            state.pipe.scatter_(-2, row_f, drained_src[..., None, :])  # at t + D
+            pipe = _write_row(state.pipe, -2, row_f,
+                              drained_src[..., None, :], inplace)  # at t + D
             inflight = state.inflight + drained_src - pipe_out
 
         # ------------------------------------------------ 6. destination OTN
         q_leaf_tot = state.q_leaf.sum(-1)
-        leaf_pfc = (q_leaf_tot > xoff).to(torch.float32)
+        if soft is None:
+            leaf_pfc = (q_leaf_tot > xoff).to(torch.float32)
+        else:
+            leaf_pfc = soft_gt(q_leaf_tot, xoff, soft, 0.05 * xoff + 1.0)
         cap_dst = c_leaf_dt * (1.0 - leaf_pfc)
         if multi:
             q_dst, drained_dst = _drain_links(state.q_dst, pipe_arrivals, cap_dst)
@@ -635,8 +714,9 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
             # per-link backlog -> per-link PFC, riding back at the link's delay
             q_dst_link = q_dst.sum(-1)                            # [B, L]
             pause_dst = pfc_hysteresis(state.pause_dst, q_dst_link, xoff_link,
-                                       xon_link)
-            state.pause_line.scatter_(-2, lrow, pause_dst[..., None, :])
+                                       xon_link, soft=soft)
+            pause_line = _write_row(state.pause_line, -2, lrow,
+                                    pause_dst[..., None, :], inplace)
             drained_dst_f = drained_dst.sum(-2)
         else:
             q_dst, drained_dst = drain_proportional(state.q_dst, pipe_arrivals,
@@ -644,13 +724,14 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
             egress_bytes = drained_dst.sum(-1)
             q_dst_tot = q_dst.sum(-1)
             pause_dst = pfc_hysteresis(state.pause_dst, q_dst_tot, xoff_otn,
-                                       xon_otn)
-            state.pause_line.scatter_(-1, row, pause_dst[..., None])
+                                       xon_otn, soft=soft)
+            pause_line = _write_row(state.pause_line, -1, row,
+                                    pause_dst[..., None], inplace)
             drained_dst_f = drained_dst
 
         # ------------------------------------------------ 7. destination leaf
         arrivals_leaf = drained_dst_f + send * is_intra
-        mark_p = ecn_mark_prob(q_leaf_tot, cfg, params=params)
+        mark_p = ecn_mark_prob(q_leaf_tot, cfg, params=params, soft=soft)
         q_leaf, drained_leaf = drain_proportional(state.q_leaf, arrivals_leaf,
                                                   c_leaf_dt)
         delivered = state.delivered + drained_leaf
@@ -658,10 +739,19 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
 
         # ------------------------------------------------ 8. CNP generation
         cnp_timer = state.cnp_timer + dt_us
-        emit = (marked_acc >= MTU) & (cnp_timer >= cfg.cnp_interval_us)
-        cnp_out = emit.to(torch.float32)
-        cnp_timer = torch.where(emit, 0.0, cnp_timer)
-        marked_acc = torch.where(emit, 0.0, marked_acc)
+        if soft is None:
+            emit = (marked_acc >= MTU) & (cnp_timer >= cfg.cnp_interval_us)
+            cnp_out = emit.to(torch.float32)
+            cnp_timer = torch.where(emit, 0.0, cnp_timer)
+            marked_acc = torch.where(emit, 0.0, marked_acc)
+        else:
+            # fractional CNPs (their consumers read them through gates at
+            # the 0.5 midpoint); the timer's and accumulator's own resets
+            # take the detached gate
+            cnp_out = (soft_gt(marked_acc, MTU, soft, 0.1 * MTU)
+                       * soft_gt(cnp_timer, cfg.cnp_interval_us, soft, dt_us))
+            cnp_timer = lerp(reset_gate(cnp_out), 0.0, cnp_timer)
+            marked_acc = lerp(reset_gate(cnp_out), 0.0, marked_acc)
 
         # ------------------------------------------------ 9. scheme feedback
         fb = scheme.feedback(hctx, state, SchemeSignals(
@@ -671,23 +761,30 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
             link_sent=sent_link if multi else None,
             link_arrivals=pipe_arrivals if multi else None,
             link_want=link_want if multi else None,
-            link_cap=cap_link if multi else None))
+            link_cap=cap_link if multi else None, host_t=host_t))
 
         # ------------------------------------------------ 10. return paths
         thr_inter = drained_leaf * is_inter
-        state.ack_line.scatter_(-2, row_f, thr_inter[..., None, :])
-        state.cnp_line.scatter_(-2, row_f, fb.cnp_wire[..., None, :])
+        ack_line = _write_row(state.ack_line, -2, row_f,
+                              thr_inter[..., None, :], inplace)
+        cnp_line = _write_row(state.cnp_line, -2, row_f,
+                              fb.cnp_wire[..., None, :], inplace)
 
         # ------------------------------------------------ 11. CC update
-        cc = step_dcqcn(state.cc, fb.cnp_in, send, cfg, rtt_scale=rtt_scale)
+        cc = step_dcqcn(state.cc, fb.cnp_in, send, cfg, rtt_scale=rtt_scale,
+                        soft=soft)
 
         # ------------------------------------------------ 12. FCT
+        # the completion latch stays hard in soft mode too: the INF sentinel
+        # makes any blend meaningless (FCT gradients flow through the byte
+        # counters)
         newly_done = (delivered >= total_bytes) & is_unfinished(state.done_at_us)
         done_at = torch.where(newly_done, t_us, state.done_at_us)
 
-        retx_inflight = None
+        retx_line = retx_inflight = None
         if repair:
-            state.retx_line.scatter_(-2, row_f, lost[..., None, :])
+            retx_line = _write_row(state.retx_line, -2, row_f,
+                                   lost[..., None, :], inplace)
             retx_inflight = state.retx_inflight + lost - retx_arr
 
         new_state = SimState(
@@ -695,11 +792,11 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
             cc=cc, cnp_timer=cnp_timer, marked_acc=marked_acc,
             proxy_timer=fb.proxy_timer, proxy_mod=fb.proxy_mod,
             q_src=q_src, q_dst=q_dst, q_leaf=q_leaf,
-            pipe=state.pipe, inflight=inflight,
-            ack_line=state.ack_line, cnp_line=state.cnp_line,
-            pause_line=state.pause_line, pause_dst=pause_dst, extra=fb.extra,
+            pipe=pipe, inflight=inflight,
+            ack_line=ack_line, cnp_line=cnp_line,
+            pause_line=pause_line, pause_dst=pause_dst, extra=fb.extra,
             chan=chan_new, retx_backlog=retx_backlog if repair else None,
-            retx_line=state.retx_line, retx_inflight=retx_inflight)
+            retx_line=retx_line, retx_inflight=retx_inflight)
         # per-flow byte conservation residual: everything the sender emitted
         # is delivered or sits in exactly one queue, the pipe, the
         # notification ring, the retransmit backlog or a channel buffer
@@ -712,7 +809,7 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
             if multi and torch.is_tensor(held):
                 held = held.sum(-2)
             residual = residual - held
-        cons_err = (residual.abs() / torch.clamp(sent, min=1.0)).amax(-1)
+        cons_err = (magnitude(residual) / clip(sent, 1.0)).amax(-1)
         if multi:
             # capacity-weighted pause means keep the scalar keys (and the
             # Fig. 3 pause-ratio column) shape-stable across L
@@ -740,8 +837,8 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
             # granted repair rate (floored at 1 MB/s) and the re-send
             # transit D
             backlog_tot = retx_backlog.sum(-1)
-            serv_cap = torch.clamp(
-                (torch.minimum(retx_bps, nic_col) * is_inter).sum(-1), min=1e6)
+            serv_cap = clip(
+                (torch.minimum(retx_bps, nic_col) * is_inter).sum(-1), 1e6)
             wait_us = torch.where(backlog_tot > 0,
                                   2.0 * d_us + backlog_tot / serv_cap * 1e6,
                                   0.0)
@@ -760,6 +857,7 @@ def make_step_fn(cfg: NetConfig, wl: WorkloadParams, scheme,
     # shared per-run quantities for the metric machinery
     step.ctx, step.channel = ctx, channel
     step.track_chan = repair
+    step.soft = soft
     return step
 
 
@@ -798,6 +896,7 @@ class _Carry(NamedTuple):
                                      # [B, K, W] ring in window mode (a
                                      # per-link key takes L of the K rows)
     events: Optional[EventRing] = None   # window mode's event ring
+    n: Optional[int] = None          # eager soft runs: ``t`` on the host
 
 
 def _make_advance(step, scheme, mode: str, decimate: int, warm: int,
@@ -814,13 +913,14 @@ def _make_advance(step, scheme, mode: str, decimate: int, warm: int,
     and the state after it) into the event ring."""
     ctx, channel = step.ctx, step.channel
     k = decimate if mode == "decimate" else 1
+    inplace = step.soft is None
 
     def advance(c: _Carry) -> _Carry:
-        state, out = step(c.state, c.t)
+        state, out = step(c.state, c.t, c.n)
         acc, traces, ring = c.acc, c.traces, c.events
         if mode in ("metrics", "window"):
             inc = (c.t >= warm).to(torch.float32)
-            acc = _accumulate_engine(acc, out, inc)
+            acc = _accumulate_engine(acc, out, inc, inplace)
             acc = acc._replace(scheme=scheme.accumulate_metrics(
                 ctx, acc.scheme, state, out, inc))
             if step.track_chan:
@@ -842,7 +942,8 @@ def _make_advance(step, scheme, mode: str, decimate: int, warm: int,
                      + list(scheme.emit_events(ctx, c.state, state, out)))
             ring = push_events(ring, slots, c.t.to(torch.float32) * ctx.dt_us,
                                cands, codes)
-        return _Carry(state, c.t + 1, acc, traces, ring)
+        return _Carry(state, c.t + 1, acc, traces, ring,
+                      None if c.n is None else c.n + 1)
 
     return advance
 
@@ -873,12 +974,34 @@ def _capture(advance, carry: _Carry, n: int, pool):
     return graph
 
 
+def _advance_eagerly(advance, carry: _Carry, steps: int, remat: int) -> _Carry:
+    """``steps`` advances, one by one; with ``remat = k > 1`` while autograd
+    records, each block of k under ``torch.utils.checkpoint``: its tensors
+    are dropped after the forward and made again in the backward (the steps
+    are pure functions of the carry: the noise is keyed by the step
+    index), so the grads are those of the plain loop, bit for bit."""
+    if remat > 1 and steps > remat and torch.is_grad_enabled():
+        def block(c: _Carry) -> _Carry:
+            for _ in range(remat):
+                c = advance(c)
+            return c
+
+        for _ in range(steps // remat):
+            carry = checkpoint(block, carry, use_reentrant=False)
+        steps %= remat
+    for _ in range(steps):
+        carry = advance(carry)
+    return carry
+
+
 def _drive(step, scheme, state0: SimState, steps: int, mode: str,
            decimate: int, warm: int, graph_block: int,
            profile: Optional[dict] = None):
     """Run ``steps`` steps from ``state0``; returns ``(final, aux)`` with
     ``aux`` the ``{key: [..., T']}`` trace dict, a ``MetricAcc`` or a
-    ``WindowAux``.
+    ``WindowAux``. Hard steps on the card replay CUDA graphs of
+    ``graph_block`` steps (0: eager); soft steps run eagerly, where autograd
+    can record them (metrics mode checkpointed by ``cfg.remat_steps``).
     ``profile``, when given, receives the run's timings: ``capture_s`` (host
     seconds capturing the graphs) and ``run_ms`` (the steps' device time by
     CUDA events on the card, host time on the CPU)."""
@@ -886,8 +1009,9 @@ def _drive(step, scheme, state0: SimState, steps: int, mode: str,
     ctx = step.ctx
     t0 = torch.zeros((), dtype=torch.int32, device=dev)
     # one step on a copy names the trace keys (and warms the allocator)
-    s0 = _tree_clone(state0)
-    s1, out = step(s0, t0)
+    with torch.no_grad():
+        s0 = _tree_clone(state0)
+        s1, out = step(s0, t0)
     keys = tuple(out)
     bs = out["q_dst"].shape
     # each key's rows [lo, hi) of the trace buffer: one, or L for a
@@ -924,11 +1048,12 @@ def _drive(step, scheme, state0: SimState, steps: int, mode: str,
         if k > 1 and summed:
             sum_rows = torch.tensor(summed, dtype=torch.int64, device=dev)
     del s0, s1
-    carry = _Carry(state0, t0, acc, traces, ring)
+    carry = _Carry(state0, t0, acc, traces, ring,
+                   None if step.soft is None else 0)
     advance = _make_advance(step, scheme, mode, decimate, warm, keys, sum_rows,
                             window_steps, events)
     timer = _Timer(dev)
-    if dev.type == "cuda" and graph_block > 0:
+    if dev.type == "cuda" and graph_block > 0 and step.soft is None:
         carry = _Carry(*_tree_clone(tuple(carry)))
         block = _graph_block(steps, graph_block)
         pool = torch.cuda.graph_pool_handle()
@@ -941,8 +1066,8 @@ def _drive(step, scheme, state0: SimState, steps: int, mode: str,
                 graph.replay()
     else:
         timer.captured()
-        for _ in range(steps):
-            carry = advance(carry)
+        remat = ctx.cfg.remat_steps if mode == "metrics" else 0
+        carry = _advance_eagerly(advance, carry, steps, remat)
     if profile is not None:
         profile.update(timer.done())
     if mode == "metrics":
@@ -1038,8 +1163,7 @@ def build_batch(cfgs: Sequence[NetConfig], workload, scheme,
     cfgs = list(cfgs)
     if not cfgs:
         raise ValueError("simulate_batch: empty config batch")
-    for c in cfgs:
-        check_main_path(c, channel)
+    check_main_path(channel)
     scheme = get_scheme(scheme)
     dev = resolve_device(device)
     tmpl = batch_template(cfgs)
@@ -1055,6 +1179,29 @@ def build_batch(cfgs: Sequence[NetConfig], workload, scheme,
     step = make_step_fn(tmpl, wlp, scheme, period_slots, params=params,
                         delay_pad=delay_pad, channel=channel)
     return tmpl, state0, step
+
+
+def run_traced_batch(cfg: NetConfig, params: NetParams, wlp: WorkloadParams,
+                     scheme, steps: int, period_slots: int, delay_pad: int,
+                     history_slots: int, mode: str = "full",
+                     decimate: int = 1, warm: int = 0, channel=None):
+    """Run ``steps`` steps of a batch given as stacked tensors, eagerly:
+    ``cfg`` the static template (``batch_template``), ``params`` the
+    ``[B]``-leading ``NetParams``, ``wlp`` the ``[B, F]`` ``WorkloadParams``
+    (all on one device), ``delay_pad``/``history_slots`` the batch's ring
+    sizes (``batch_padding``). Any float leaf of ``params`` or ``wlp`` may carry
+    ``requires_grad``: with ``cfg.soft_step`` the streamed sums of
+    ``mode="metrics"`` differentiate through ``torch.autograd`` (the
+    counterpart of the JAX package's ``_run_traced_batch_impl`` under
+    ``jax.grad``). Returns ``(final, aux)`` as ``simulate_batch`` does."""
+    check_main_path(channel, mode, decimate)
+    scheme = get_scheme(scheme)
+    state0 = init_state(cfg, wlp.is_inter.shape[-1], params=params,
+                        delay_pad=delay_pad, history_slots=history_slots,
+                        scheme=scheme, channel=channel)
+    step = make_step_fn(cfg, wlp, scheme, period_slots, params=params,
+                        delay_pad=delay_pad, channel=channel)
+    return _drive(step, scheme, state0, steps, mode, decimate, warm, 0)
 
 
 def simulate_batch(cfgs: Sequence[NetConfig], workload, scheme,
@@ -1082,8 +1229,7 @@ def simulate_batch(cfgs: Sequence[NetConfig], workload, scheme,
     graphs are held to). ``profile``: a dict that receives ``steps``,
     ``cells`` and the run's timings (see ``_drive``)."""
     cfgs = list(cfgs)
-    for c in cfgs:
-        check_main_path(c, channel, trace_mode, decimate)
+    check_main_path(channel, trace_mode, decimate)
     tmpl, state0, step = build_batch(cfgs, workload, scheme, period_slots,
                                      delay_pad, history_slots, device, channel)
     steps = tmpl.horizon_steps(

@@ -565,10 +565,9 @@ def _run_launch(launch: _Launch, cfgs, wlp: WorkloadParams, grid_static,
     return rows[:n_real]
 
 
-def _check_unported(cfgs, channel, trace_mode, decimate, devices,
+def _check_unported(channel, trace_mode, decimate, devices,
                     on_nonfinite) -> None:
-    for c in cfgs:
-        check_main_path(c, channel, trace_mode, decimate)
+    check_main_path(channel, trace_mode, decimate)
     if devices is not None:
         raise NotImplementedError(
             "devices=: sharding a grid over several devices comes with ROADMAP "
@@ -712,7 +711,7 @@ def run_experiment_batch(cfgs: Sequence[NetConfig], workload, scheme,
     (``simulate_batch``'s ``profile``). The hardening knobs are
     ``_execute_plan``'s."""
     cfgs = list(cfgs)
-    _check_unported(cfgs, channel, trace_mode, decimate, devices,
+    _check_unported(channel, trace_mode, decimate, devices,
                     on_nonfinite)
     dev = resolve_device(device)
     scheme = get_scheme(scheme)
@@ -790,7 +789,7 @@ def sweep_grid(scenarios, workload=None, schemes=(),
     if not schemes:
         raise ValueError(
             "sweep_grid: no schemes given - pass schemes=(\"dcqcn\", ...)")
-    _check_unported(cfgs, channel, trace_mode, decimate, devices,
+    _check_unported(channel, trace_mode, decimate, devices,
                     on_nonfinite)
     dev = resolve_device(device)
     scheme_objs = [get_scheme(s) for s in schemes]

@@ -89,6 +89,14 @@ class SchemeCtx(NamedTuple):
     # by the engine each step; None without a schedule. route_weights folds
     # it in through apply_link_live so sprays avoid dead links
     link_live: Optional[torch.Tensor] = None
+    # the soft-step temperature ([B] params.soft_temp) with cfg.soft_step,
+    # else None: hooks thread it into their knob-dependent gates (tempered
+    # sigmoids for hard selects, netsim.soft); None keeps every hard hook
+    soft: Optional[torch.Tensor] = None
+    # soft runs only: each scenario's steps per slot, host ints read once when
+    # the step is built, so the eager soft step finds the slot boundaries of
+    # its host step index with no device read
+    slot_steps: Optional[tuple] = None
 
 
 class SchemeSignals(NamedTuple):
@@ -111,6 +119,7 @@ class SchemeSignals(NamedTuple):
     link_arrivals: Optional[torch.Tensor] = None  # [B, L, F] landed per link
     link_want: Optional[torch.Tensor] = None      # [B, L] pre-clip demand
     link_cap: Optional[torch.Tensor] = None       # [B, L] capacity, bytes
+    host_t: Optional[int] = None  # t on the host: eager soft runs only
 
 
 class Feedback(NamedTuple):

@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.core.cc_proxy import themis_rtt_scale
 from repro_torch.netsim.schemes.base import Scheme, SchemeCtx
+from repro_torch.netsim.soft import clip
 
 
 class DcqcnScheme(Scheme):
@@ -23,7 +24,7 @@ class DcqcnScheme(Scheme):
 
     def accumulate_metrics(self, ctx: SchemeCtx, acc, state, out, inc):
         acc = super().accumulate_metrics(ctx, acc, state, out, inc)
-        n_inter = torch.clamp(ctx.is_inter.sum(-1), min=1.0)
+        n_inter = clip(ctx.is_inter.sum(-1), 1.0)
         rc = (state.cc.rc * ctx.is_inter).sum(-1) / n_inter
         return dict(acc, cc_rate_sum=acc["cc_rate_sum"] + rc * inc)
 

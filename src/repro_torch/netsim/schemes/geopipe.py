@@ -17,7 +17,9 @@ release of pipeline-stage traffic so stage bursts do not collide:
   * ``feedback`` - inter-DC CNPs are consumed at the destination OTN; the
     destination ships the grants on the control subchannel.
 
-The hard paths of the JAX package's ``netsim/schemes/geopipe.py``.
+The JAX package's ``netsim/schemes/geopipe.py``. With a temperature the
+credit gate is a tempered softmin: it binds on nearly every steady-state
+step, so the hard min() sits on its kink in knob space.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from repro_torch.core.budget import (
 from repro_torch.netsim.schemes.base import (
     Feedback, Scheme, SchemeCtx, SchemeSignals, long_haul_bdp,
 )
+from repro_torch.netsim.soft import clip
 
 
 class GeoPipeState(NamedTuple):
@@ -79,8 +82,7 @@ class GeoPipeScheme(Scheme):
         window = ctx.params.geopipe_credit_bdp_frac * long_haul_bdp(ctx)
         released = ((state.sent * ctx.is_inter).sum(-1)
                     - state.q_src.sum(-1))
-        credit = torch.clamp(
-            window - (released - state.extra.granted_at_src), min=0.0)
+        credit = clip(window - (released - state.extra.granted_at_src), 0.0)
         return credit, window
 
     def sender_rate(self, ctx: SchemeCtx, state, base_rate):
@@ -88,8 +90,14 @@ class GeoPipeScheme(Scheme):
                            torch.minimum(state.cc.rc, base_rate))
 
     def src_otn_release(self, ctx: SchemeCtx, state, arrivals, cap, active):
-        credit, _ = self._credit(ctx, state)
-        cap = torch.minimum(cap, credit)         # PFC-free pacing: credit gate
+        credit, window = self._credit(ctx, state)
+        if ctx.soft is None:
+            cap = torch.minimum(cap, credit)     # PFC-free pacing: credit gate
+        else:
+            # a softmin about 1% of the window wide, converging to min()
+            # as the temperature drops
+            w = ctx.soft * (0.01 * window + 1.0)
+            cap = clip(-w * torch.logaddexp(-cap / w, -credit / w), 0.0)
         avail = state.q_src + arrivals
         f = avail.shape[-1]
         stage = torch.remainder(torch.arange(f, device=avail.device),
@@ -99,7 +107,7 @@ class GeoPipeScheme(Scheme):
         w = avail * boost                        # stage-aware weighted drain
         tot_w = w.sum(-1, keepdim=True)
         drained_tot = torch.minimum(avail.sum(-1), cap)[..., None]
-        share = torch.where(tot_w > 0, w / torch.clamp(tot_w, min=1e-12), 0.0)
+        share = torch.where(tot_w > 0, w / clip(tot_w, 1e-12), 0.0)
         drained = torch.minimum(share * drained_tot, avail)
         # work-conserving second pass: what the boosted stage could not
         # absorb goes to the remaining backlog in proportion
@@ -107,16 +115,17 @@ class GeoPipeScheme(Scheme):
         rem = avail - drained
         rem_tot = rem.sum(-1, keepdim=True)
         drained = drained + torch.where(
-            rem_tot > 0, rem / torch.clamp(rem_tot, min=1e-12), 0.0) * leftover
+            rem_tot > 0, rem / clip(rem_tot, 1e-12), 0.0) * leftover
         return avail - drained, drained
 
     def feedback(self, ctx: SchemeCtx, state, sig: SchemeSignals) -> Feedback:
         gp = state.extra
         # grants: drained bytes plus remaining destination headroom
         egress_cum = gp.egress_cum + sig.egress_bytes
-        headroom = torch.clamp(ctx.xoff_otn - sig.q_dst_tot, min=0.0)
+        headroom = clip(ctx.xoff_otn - sig.q_dst_tot, 0.0)
         chan, granted, _ = channel_send_recv(gp.chan, egress_cum + headroom,
-                                             torch.zeros_like(egress_cum))
+                                             torch.zeros_like(egress_cum),
+                                             inplace=ctx.soft is None)
         # stage rotation for the next step's release schedule:
         # floor((t + 1) dt / slice), read as the JAX package's compiled step
         # reads it, one multiply by the f32 constant dt * (1 / slice) (so

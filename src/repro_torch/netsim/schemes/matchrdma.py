@@ -23,6 +23,12 @@ from repro_torch.core.pseudo_ack import step_pseudo_ack
 from repro_torch.netsim.schemes.base import (
     Feedback, Scheme, SchemeCtx, SchemeSignals,
 )
+from repro_torch.netsim.soft import (
+    clip, lerp, reset_gate, soft_gt, soft_or, soft_pos,
+)
+
+# soft-gate byte scale of loss-notification presence
+_MTU = 1500.0
 
 
 class MatchRdmaScheme(Scheme):
@@ -67,7 +73,7 @@ class MatchRdmaScheme(Scheme):
         per_flow_cap = share * state.proxy_mod * ctx.dt_s
         avail = state.q_src + arrivals
         want = torch.minimum(avail, per_flow_cap * ctx.is_inter)
-        scale = torch.clamp(cap / torch.clamp(want.sum(-1), min=1e-9), max=1.0)
+        scale = clip(cap / clip(want.sum(-1), 1e-9), hi=1.0)
         drained = want * scale[..., None]
         return avail - drained, drained
 
@@ -86,13 +92,24 @@ class MatchRdmaScheme(Scheme):
         # a dropping long haul is over-injection the budget estimator only
         # sees a control window later
         proxy_timer = state.proxy_timer + ctx.dt_us
-        cut = torch.clamp(state.proxy_mod * 0.7, min=0.25)
-        recover = torch.clamp(state.proxy_mod * (1.0 + 5e-4 * ctx.dt_us),
-                              max=1.0)
-        fire = (((mr.summary_at_src > 0.5)[..., None] | (sig.retx_arr > 0))
-                & (proxy_timer >= cfg.cnp_interval_us))
-        proxy_mod = torch.where(fire, cut, recover)
-        proxy_timer = torch.where(fire, 0.0, proxy_timer)
+        cut = clip(state.proxy_mod * 0.7, 0.25)
+        recover = clip(state.proxy_mod * (1.0 + 5e-4 * ctx.dt_us), hi=1.0)
+        if ctx.soft is None:
+            fire = (((mr.summary_at_src > 0.5)[..., None] | (sig.retx_arr > 0))
+                    & (proxy_timer >= cfg.cnp_interval_us))
+            proxy_mod = torch.where(fire, cut, recover)
+            proxy_timer = torch.where(fire, 0.0, proxy_timer)
+        else:
+            # the delayed summary is itself a soft weight (gate at the 0.5
+            # midpoint); loss notifications gate through soft_pos (exactly
+            # 0 with no loss); the timer's own reset takes the detached gate
+            w_fire = (soft_or(soft_gt(mr.summary_at_src, 0.5, ctx.soft,
+                                      0.25)[..., None],
+                              soft_pos(sig.retx_arr, ctx.soft, _MTU))
+                      * soft_gt(proxy_timer, cfg.cnp_interval_us, ctx.soft,
+                                ctx.dt_us))
+            proxy_mod = lerp(w_fire, cut, recover)
+            proxy_timer = lerp(reset_gate(w_fire), 0.0, proxy_timer)
 
         # ---- destination loop: slot accumulation, boundary update, channel
         leaf_delay_us = (sig.q_leaf.sum(-1) / ctx.c_leaf * 1e6
@@ -101,9 +118,14 @@ class MatchRdmaScheme(Scheme):
             mr, sig.egress_bytes, (sig.cnp_out * ctx.is_inter).sum(-1),
             leaf_delay_us, 1.0, sig.q_dst_tot, egress_paused=sig.leaf_pfc)
         mr = maybe_slot_update(mr, cfg, sig.t, ctx.period_slots,
-                               params=ctx.params)
-        overrun = (sig.q_dst_tot > 0.5 * ctx.xoff_otn).to(torch.float32)
-        mr = step_channel(mr, overrun)
+                               params=ctx.params, soft=ctx.soft,
+                               host_t=sig.host_t, slot_steps=ctx.slot_steps)
+        if ctx.soft is None:
+            overrun = (sig.q_dst_tot > 0.5 * ctx.xoff_otn).to(torch.float32)
+        else:
+            overrun = soft_gt(sig.q_dst_tot, 0.5 * ctx.xoff_otn, ctx.soft,
+                              0.05 * ctx.xoff_otn + 1.0)
+        mr = step_channel(mr, overrun, inplace=ctx.soft is None)
 
         return Feedback(
             # CNPs are consumed at the destination OTN: the long return wire

@@ -16,6 +16,7 @@ from repro_torch.core.pseudo_ack import step_pseudo_ack
 from repro_torch.netsim.schemes.base import (
     Feedback, Scheme, SchemeCtx, SchemeSignals,
 )
+from repro_torch.netsim.soft import clip
 
 
 class PseudoAckScheme(Scheme):
@@ -31,7 +32,7 @@ class PseudoAckScheme(Scheme):
 
     def accumulate_metrics(self, ctx: SchemeCtx, acc, state, out, inc):
         acc = super().accumulate_metrics(ctx, acc, state, out, inc)
-        lead = (torch.clamp(state.extra.pseudo.packed - state.delivered, min=0.0)
+        lead = (clip(state.extra.pseudo.packed - state.delivered, 0.0)
                 * ctx.is_inter).sum(-1)
         return dict(acc, pseudo_lead_sum=acc["pseudo_lead_sum"] + lead * inc)
 

@@ -14,8 +14,9 @@ senders against the destination reorder buffer (ROB) the spraying creates:
     tx/arrival ledgers the ROB estimate is computed from.
 
 Single-link runs (``num_paths == 1``) carry the default extra state and the
-baseline hooks, so ``rdmacell`` at L = 1 is ``dcqcn`` bit for bit. The hard
-paths of the JAX package's ``netsim/schemes/rdmacell.py``.
+baseline hooks, so ``rdmacell`` at L = 1 is ``dcqcn`` bit for bit. The JAX
+package's ``netsim/schemes/rdmacell.py``; with a temperature the all-dry
+fallback is a tempered gate.
 """
 from __future__ import annotations
 
@@ -28,6 +29,10 @@ from repro_torch.core.matchrdma import MatchRdmaState
 from repro_torch.netsim.schemes.base import (
     Feedback, Scheme, SchemeCtx, SchemeSignals, apply_link_live,
 )
+from repro_torch.netsim.soft import clip, lerp, soft_pos
+
+# soft dry-gate byte scale
+_MTU = 1500.0
 
 
 class RdmaCellState(NamedTuple):
@@ -45,12 +50,11 @@ def rob_bytes(ex: RdmaCellState) -> torch.Tensor:
     frontier, and what arrived beyond it waits in the ROB."""
     tx_tot = ex.tx_cum.sum(-2)                                  # [B, F]
     arr_tot = ex.arr_cum.sum(-2)
-    share = ex.tx_cum / torch.clamp(tx_tot[..., None, :], min=1.0)
-    est = torch.where(share > 1e-6,
-                      ex.arr_cum / torch.clamp(share, min=1e-6), torch.inf)
+    share = ex.tx_cum / clip(tx_tot[..., None, :], 1.0)
+    est = torch.where(share > 1e-6, ex.arr_cum / clip(share, 1e-6), torch.inf)
     frontier = est.amin(-2)
     frontier = torch.where(torch.isfinite(frontier), frontier, arr_tot)
-    return torch.clamp(arr_tot - torch.minimum(frontier, arr_tot), min=0.0)
+    return clip(arr_tot - torch.minimum(frontier, arr_tot), 0.0)
 
 
 class RdmaCellScheme(Scheme):
@@ -72,11 +76,17 @@ class RdmaCellScheme(Scheme):
         ex = state.extra
         if not isinstance(ex, RdmaCellState):
             return apply_link_live(ctx, base_route)
-        tok = torch.clamp(ex.tokens, min=0.0)
+        tok = clip(ex.tokens, 0.0)
         # all (live) buckets dry: fall back to the workload's own weights
         live_tok = (tok * ctx.link_live if ctx.link_live is not None
                     else tok).sum(-1)
-        tok = torch.where((live_tok <= 0.0)[..., None], 1.0, tok)
+        if ctx.soft is None:
+            tok = torch.where((live_tok <= 0.0)[..., None], 1.0, tok)
+        else:
+            # soft_pos is exactly 0 at 0: a fully dry spray still blends
+            # all the way to the uniform fallback
+            w_dry = 1.0 - soft_pos(live_tok, ctx.soft, _MTU)
+            tok = lerp(w_dry[..., None], torch.ones_like(tok), tok)
         return apply_link_live(ctx, base_route * tok[..., None, :])
 
     def sender_rate(self, ctx: SchemeCtx, state, base_rate):
@@ -87,7 +97,7 @@ class RdmaCellScheme(Scheme):
         rob_tot = (rob_bytes(ex) * ctx.is_inter).sum(-1)
         limit = ctx.params.rdmacell_rob_limit_mb * 1e6
         gate = torch.where(rob_tot > limit,
-                           limit / torch.clamp(rob_tot, min=1.0), 1.0)
+                           limit / clip(rob_tot, 1.0), 1.0)
         return torch.where(ctx.is_inter > 0, rate * gate[..., None], rate)
 
     def feedback(self, ctx: SchemeCtx, state, sig: SchemeSignals) -> Feedback:
@@ -99,8 +109,7 @@ class RdmaCellScheme(Scheme):
                   * ctx.link_caps)
         # refill with what the link could carry, drain with what was offered
         tokens = torch.minimum(
-            torch.clamp(ex.tokens + sig.link_cap - sig.link_want, min=0.0),
-            bucket)
+            clip(ex.tokens + sig.link_cap - sig.link_want, 0.0), bucket)
         return fb._replace(extra=ex._replace(
             tokens=tokens, tx_cum=ex.tx_cum + sig.link_sent,
             arr_cum=ex.arr_cum + sig.link_arrivals))

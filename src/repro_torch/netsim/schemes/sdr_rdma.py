@@ -15,8 +15,9 @@ per-scenario knobs:
 ``ack_view`` exposes the coalesced snapshot, ``sender_rate`` applies the
 window cap and the repair reservation, ``feedback`` advances the ACK ledger,
 the coalescing timer and the EWMA, and ``retx_rate`` grants repair the
-reserved budget on top of the congestion-controlled rate. The hard paths of
-the JAX package's ``netsim/schemes/sdr_rdma.py``.
+reserved budget on top of the congestion-controlled rate. The JAX package's
+``netsim/schemes/sdr_rdma.py``; with a temperature the coalescing timer and
+the degradation hit are tempered gates.
 """
 from __future__ import annotations
 
@@ -28,9 +29,14 @@ import torch
 from repro_torch.netsim.schemes.base import (
     Feedback, Scheme, SchemeCtx, SchemeSignals, long_haul_bdp,
 )
+from repro_torch.netsim.soft import (
+    clip, lerp, reset_gate, soft_gt, soft_or, soft_pos,
+)
 
 # the repair-budget reservation can never starve new data entirely
 MAX_RETX_FRAC = 0.9
+# soft-gate byte scale of loss-notification presence
+_MTU = 1500.0
 
 
 class SdrRdmaState(NamedTuple):
@@ -54,8 +60,8 @@ class SdrRdmaScheme(Scheme):
 
     def _retx_frac(self, ctx: SchemeCtx, state):
         """Repair-budget rate share currently engaged, ``[B]``."""
-        return (torch.clamp(ctx.params.sdr_retx_budget_frac, 0.0,
-                            MAX_RETX_FRAC) * state.extra.cong_ewma)
+        return (clip(ctx.params.sdr_retx_budget_frac, 0.0, MAX_RETX_FRAC)
+                * state.extra.cong_ewma)
 
     def ack_view(self, ctx: SchemeCtx, state, ack_arr):
         return state.extra.ack_held
@@ -63,7 +69,7 @@ class SdrRdmaScheme(Scheme):
     def sender_rate(self, ctx: SchemeCtx, state, base_rate):
         swnd = ctx.params.sdr_window_bdp_frac * long_haul_bdp(ctx)
         unacked = state.sent - torch.minimum(state.extra.ack_held, state.sent)
-        sr_avail = torch.clamp(swnd[..., None] - unacked, min=0.0)
+        sr_avail = clip(swnd[..., None] - unacked, 0.0)
         rate = torch.minimum(state.cc.rc, base_rate)      # e2e DCQCN kept
         eff = (torch.minimum(rate, sr_avail / ctx.dt_s)
                * (1.0 - self._retx_frac(ctx, state))[..., None])
@@ -85,13 +91,25 @@ class SdrRdmaScheme(Scheme):
                                             state.ack_line.shape[-1]))[..., 0, :]
         ack_cum = sd.ack_cum + ack_arr * ctx.is_inter
         timer = sd.coalesce_timer + ctx.dt_us
-        fire = timer >= ctx.params.sdr_ack_coalesce_us
-        held = torch.where(fire[..., None], ack_cum, sd.ack_held)
-        timer = torch.where(fire, 0.0, timer)
-        # degradation EWMA (~1 ms) engaging the repair budget: CNP arrivals
-        # or loss notifications (zeros on the ideal channel)
-        hit = (((sig.cnp_arr * ctx.is_inter).sum(-1) > 0)
-               | ((sig.retx_arr * ctx.is_inter).sum(-1) > 0)).to(torch.float32)
+        cnp_in = (sig.cnp_arr * ctx.is_inter).sum(-1)
+        lost_in = (sig.retx_arr * ctx.is_inter).sum(-1)
+        if ctx.soft is None:
+            fire = timer >= ctx.params.sdr_ack_coalesce_us
+            held = torch.where(fire[..., None], ack_cum, sd.ack_held)
+            timer = torch.where(fire, 0.0, timer)
+            # degradation EWMA (~1 ms) engaging the repair budget: CNP
+            # arrivals or loss notifications (zeros on the ideal channel)
+            hit = ((cnp_in > 0) | (lost_in > 0)).to(torch.float32)
+        else:
+            w_fire = soft_gt(timer, ctx.params.sdr_ack_coalesce_us, ctx.soft,
+                             ctx.dt_us)
+            held = lerp(w_fire[..., None], ack_cum, sd.ack_held)
+            # the timer's own reset takes the detached gate
+            timer = lerp(reset_gate(w_fire), 0.0, timer)
+            # soft_pos is exactly 0 at 0: no CNPs and no losses keep the
+            # EWMA at zero
+            hit = soft_or(soft_pos(cnp_in, ctx.soft, 0.25),
+                          soft_pos(lost_in, ctx.soft, _MTU))
         g = min(ctx.dt_us / 1000.0, 1.0)
         cong = (1.0 - g) * sd.cong_ewma + g * hit
         base = super().feedback(ctx, state, sig)           # e2e CNP routing
@@ -101,7 +119,7 @@ class SdrRdmaScheme(Scheme):
 
     def extra_traces(self, ctx: SchemeCtx, state) -> dict:
         sd = state.extra
-        lag = (torch.clamp(sd.ack_cum - sd.ack_held, min=0.0)
+        lag = (clip(sd.ack_cum - sd.ack_held, 0.0)
                * ctx.is_inter).sum(-1)
         return {"sr_ack_lag": lag, "sr_retx_frac": self._retx_frac(ctx, state)}
 
@@ -111,7 +129,7 @@ class SdrRdmaScheme(Scheme):
         # NIC-rate fraction after the crossing
         e0 = prev_state.extra.cong_ewma
         e1 = state.extra.cong_ewma
-        frac = torch.clamp(ctx.params.sdr_retx_budget_frac, 0.0, MAX_RETX_FRAC) * e1
+        frac = clip(ctx.params.sdr_retx_budget_frac, 0.0, MAX_RETX_FRAC) * e1
         return (("scheme_budget_on", 0, frac, (e0 < 0.5) & (e1 >= 0.5)),
                 ("scheme_budget_off", 0, frac, (e0 >= 0.5) & (e1 < 0.5)))
 

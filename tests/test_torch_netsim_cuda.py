@@ -8,7 +8,9 @@ against eager and card against CPU; the step key folded from a capture-time
 step index caught), window mode (the window ring, the event ring and the
 streamed accumulators of graphs bit-equal to eager steps; the card's events
 equal to the CPU's on the golden congestion cell and a site outage), and the
-options outside the ported path raising there too.
+soft (differentiable) engine: its surrogate and every leaf's gradient against
+the CPU's, its checkpointed backward bit-equal to the plain one, and the soft
+step in every mode.
 
 These tests import no JAX, so they run on a machine that has only PyTorch:
 
@@ -19,6 +21,7 @@ by a constant as a multiply by its reciprocal and sums in another order, an
 ulp a step apart, so the runs are held to the Fig. 3 columns and the final
 state with the tolerances the CPU parity tests use (``tests/torch_parity.py``).
 """
+import numpy as np
 import pytest
 import torch
 
@@ -201,13 +204,70 @@ def test_step_key_from_capture_time_is_caught(cuda, monkeypatch):
     assert _graph_vs_eager(cuda, "impaired", "dcqcn")
 
 
-def test_unported_options_raise_on_the_card(cuda):
+# the soft (differentiable) engine: tests/test_grad.py's base point at 2 ms
+# (past the destination OTN's PFC threshold), a cell at soft_temp 1.0 and
+# one at 0.3 in each batch
+SOFT = dict(distance_km=96.0, slot_us=112.0, soft_step=True,
+            loss_rate=0.01, loss_burst_len=4.0, jitter_us=20.0,
+            flap_period_us=1000.0, flap_depth=0.3, horizon_us=2_000.0)
+SOFT_TEMPS = (1.0, 0.3)
+# card vs CPU (chip_smoke.py's phase 14 limits) per cell: the surrogate
+# relative; the gradient of each FD knob (netsim.grad_tune.FD_EPS, the
+# table of tests/test_grad.py and phase 14) relative to the larger
+# magnitude of the two, above the FD floor. At 0.3 one ulp of soft_temp
+# moves JAX's own run by 1.1e-4 and 14% (tests/test_torch_netsim_grad_cold.py)
+SOFT_TOL = ({"surrogate": 1e-4, "grad": 1e-2}, {"surrogate": 1e-3, "grad": 0.75})
+
+
+def _soft(device, scheme, channel=None, **over):
+    from repro_torch.netsim import grad_tune
+    return grad_tune.surrogate_grads(
+        [NetConfig(**{**SOFT, "soft_temp": t, **over}) for t in SOFT_TEMPS],
+        pwork.throughput_workload(8e6, 4, num_flows=4), scheme, channel=channel,
+        device=device)
+
+
+@pytest.mark.parametrize("scheme,channel", [("dcqcn", None), ("matchrdma", "impaired"),
+                                            ("geopipe", None), ("sdr_rdma", "impaired")])
+def test_soft_surrogate_and_grads_card_vs_cpu(cuda, scheme, channel):
+    """The soft engine's surrogate and gradients (autograd through the
+    whole run) on the card against the CPU's: every leaf's gradient finite,
+    each cell's surrogate and FD knobs' gradients within SOFT_TOL."""
+    from repro_torch.netsim.grad_tune import fd_grad_errors
+    sc, pc, wc = _soft(cuda, scheme, channel)
+    s0, p0, w0 = _soft("cpu", scheme, channel)
+    for name, g in leaves((pc, wc)).items():
+        assert np.isfinite(g).all(), name
+    card = (type(pc)(*(g.cpu() for g in pc)), type(wc)(*(g.cpu() for g in wc)))
+    for cell, tol in enumerate(SOFT_TOL):
+        s_cpu = float(s0[cell])
+        assert abs(float(sc[cell]) - s_cpu) <= tol["surrogate"] * abs(s_cpu), cell
+        errs = fd_grad_errors(card, (p0, w0), s_cpu, cell)
+        over = {k: e for k, e in errs.items() if not e <= tol["grad"]}
+        assert not over, (SOFT_TEMPS[cell], over)
+
+
+def test_soft_remat_bit_equal_on_the_card(cuda):
+    """Checkpointed blocks of 16 steps (remat_steps) give the plain run's
+    surrogate and gradients bit for bit on the card."""
+    plain = _soft(cuda, "matchrdma", "impaired")
+    remat = _soft(cuda, "matchrdma", "impaired", remat_steps=16)
+    assert torch.equal(plain[0], remat[0])
+    for a, b in zip(leaves((plain[1], plain[2])).values(),
+                    leaves((remat[1], remat[2])).values()):
+        assert (a == b).all()
+
+
+def test_soft_options_run_on_the_card(cuda):
+    """The soft step in the modes and on the links that raised before ROADMAP
+    queue 1 item 16: rows finite, the card eager."""
     wl = pwork.throughput_workload(1 << 20, 1, 2)
     for cfg, kw in ((NetConfig(num_paths=2, soft_step=True), {"channel": "jitter"}),
                     (NetConfig(soft_step=True), {}),
                     (NetConfig(soft_step=True), {"trace_mode": "window"})):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-            fluid.simulate_batch([cfg], wl, "dcqcn", 100.0, device=cuda, **kw)
+        _, aux = fluid.simulate_batch([cfg], wl, "dcqcn", 100.0, device=cuda, **kw)
+        assert all(np.isfinite(v).all() for v in leaves(aux).values()
+                   if v.dtype.kind == "f")
 
 
 # window mode: an event ring of 32 slots and a window of 64 steps (so that

@@ -6,8 +6,9 @@
   * an all-up schedule bit-equal to no schedule, at L = 1 and L = 3;
   * outages against a live JAX run (three unequal links at 100 km under a
     streaming workload): a link-0 outage for all seven schemes and a site
-    outage (every link down) for four, traces within ``TRACE_REL`` before a
-    recorded parting, the Fig. 3 and channel columns, the final state; the
+    outage (every link down) for five, traces within ``TRACE_REL`` before a
+    recorded parting (rdmacell's reorder-buffer trace against
+    ``ROB_SCALE_MB``), the Fig. 3 and channel columns, the final state; the
     dump into the repair path with conservation, and the re-spray onto the
     survivors (no byte on a dead link);
   * every link down: a stall, nothing non-finite;
@@ -39,7 +40,8 @@ from repro_torch.netsim import fluid as pfl
 from repro_torch.netsim import runner as prunner
 from repro_torch.netsim import workload as pwork
 from torch_parity import (
-    ALL_SCHEMES, COLUMN_FLOORS, PARTS, QUEUE_SCALE, assert_columns_close,
+    ALL_SCHEMES, COLUMN_FLOORS, PARTS, QUEUE_SCALE, ROB_SCALE_MB,
+    assert_columns_close,
     assert_final_close, assert_rows_close, assert_traces_close_before,
     fig3_columns, leaves,
 )
@@ -48,6 +50,7 @@ ALL_UP_1 = (((0.0, 0.0),),)
 MULTI = dict(distance_km=100.0, num_paths=3, path_cap_frac=(0.5, 0.3, 0.2))
 H_US = 3_000.0
 FLOORS = {k: QUEUE_SCALE for k in ("q_src", "q_dst", "q_leaf", "q_dst_link")}
+FLOORS["rdmacell_rob_mb"] = ROB_SCALE_MB
 
 
 def _swl(work):
@@ -166,10 +169,10 @@ def test_all_up_multilink_bit_equal_to_no_schedule():
 # Outages against JAX
 # ---------------------------------------------------------------------------
 
-def _outage_runs(scheme, kind):
+def _outage_runs(scheme, kind, h=H_US):
     jf, jt = jnetsim.simulate_batch([_outage(JNetConfig, jnetsim.FailureSchedule, kind)],
-                                    _swl(jwork), jnetsim.get_scheme(scheme), H_US)
-    pf, pt = _run([_outage(NetConfig, FailureSchedule, kind)], _swl(pwork), scheme)
+                                    _swl(jwork), jnetsim.get_scheme(scheme), h)
+    pf, pt = _run([_outage(NetConfig, FailureSchedule, kind)], _swl(pwork), scheme, h)
     return (jf, {k: np.asarray(v) for k, v in jt.items()},
             pf, {k: v.numpy() for k, v in pt.items()})
 
@@ -205,7 +208,7 @@ def test_link_outage_matches_jax(scheme):
     assert tx[:115, 0].sum() > 0.0
 
 
-@pytest.mark.parametrize("scheme", ("dcqcn", "matchrdma", "sdr_rdma"))
+@pytest.mark.parametrize("scheme", ("dcqcn", "matchrdma", "sdr_rdma", "rdmacell"))
 def test_site_outage_matches_jax(scheme):
     pt = _against_jax(scheme, "site", "site_outage")
     assert pt["link_tx"][0, 125:295].sum() == 0.0
@@ -225,6 +228,25 @@ def test_site_outage_geopipe_parts_at_the_source_pfc():
     a, b = jt["q_src"][0, part - 1], pt["q_src"][0, part - 1]
     assert (a > xoff_otn) != (b > xoff_otn), (a, b, xoff_otn)
     assert pt["link_tx"][0, 125:295].sum() == 0.0
+
+
+def test_site_outage_rdmacell_parts_at_the_source_pfc():
+    """rdmacell's site-outage run parts where the source OTN fills to its PFC
+    threshold after the outage (``PARTS``, step 606, past this file's 3 ms):
+    run on to 3.1 ms, the traces agree before that step (the reorder-buffer
+    trace read against ROB_SCALE_MB), and sum(q_src) lies on either side of
+    xoff_otn in the two runs just before it."""
+    part, _ = PARTS[("site_outage", "rdmacell")]
+    _, jt, _, pt = _outage_runs("rdmacell", "site", h=3_100.0)
+    assert jt["q_src"].shape[1] > part
+    assert_traces_close_before(pt, jt, part, "site_outage/rdmacell", floors=FLOORS)
+    xoff_otn = 0.1 * (NetConfig().otn_capacity_gbps * 1e9 / 8.0) * 2.0 \
+        * NetConfig(**MULTI).one_way_delay_us * 1e-6
+    a, b = jt["q_src"][0, part - 1], pt["q_src"][0, part - 1]
+    assert (a > xoff_otn) != (b > xoff_otn), (a, b, xoff_otn)
+    # the residue the ROB scale reads through: 2e-6 MB in JAX, 0 in the port
+    assert jt["rdmacell_rob_mb"][0, 401] > 0.0
+    assert pt["rdmacell_rob_mb"][0, 401] == 0.0
 
 
 def test_all_links_down_stalls_without_nans():

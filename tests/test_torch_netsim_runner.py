@@ -1,9 +1,9 @@
 """The port's runner against the JAX package's: ``run_experiment_batch`` and
 ``sweep_grid`` rows (``full`` and ``metrics`` modes, heterogeneous scenario
-grids, chunked plans), the options that still raise (several devices,
-``soft_step``) and those that now run (channels, hardening knobs, failure
-schedules, ``window`` mode, run manifests), and the entry point's device
-rule.
+grids, chunked plans), the option that still raises (several devices) and
+those that now run (channels, hardening knobs, failure schedules, ``window``
+mode, run manifests, the soft step in every trace mode), and the entry
+point's device rule.
 
 Row tolerances (the Fig. 3 columns): throughput, goodput, peak / mean / p99
 buffer and intra-DC throughput within ``COLUMN_REL`` (1e-3) relative plus
@@ -95,7 +95,6 @@ def test_chunk_plan_matches_jax():
 @pytest.mark.parametrize("cfg,kw,item", [
     (dict(), dict(devices=["cpu", "cpu"]), "item 17"),
     (dict(), dict(devices=["cpu"], trace_mode="window"), "item 17"),
-    (dict(soft_step=True), dict(trace_mode="window"), "item 16"),
 ])
 def test_unported_runner_options_raise(cfg, kw, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -123,15 +122,21 @@ def test_ported_runner_options_run(kw, tmp_path):
     assert ("retx_frac" in rows[0]) == ("channel" in kw)
 
 
-@pytest.mark.parametrize("cfg,item", [
-    (dict(num_paths=2, soft_step=True), "item 16"),
-    (dict(soft_step=True), "item 16"),
+@pytest.mark.parametrize("cfg,kw", [
+    (dict(num_paths=2, soft_step=True), dict(channel="jitter")),
+    (dict(soft_step=True), dict()),
+    (dict(soft_step=True), dict(trace_mode="window")),
+    (dict(soft_step=True), dict(trace_mode="decimate", decimate=4)),
+    (dict(soft_step=True), dict(trace_mode="metrics")),
 ])
-def test_unported_configs_raise(cfg, item):
-    from repro_torch.netsim.fluid import simulate_batch
-    with pytest.raises(NotImplementedError, match=item):
-        simulate_batch([NetConfig(**cfg)], pwork.throughput_workload(1 << 20, 1, 2),
-                       "dcqcn", 100.0, device="cpu")
+def test_soft_configs_run(cfg, kw):
+    """The soft step (ROADMAP queue 1 item 16) runs in every trace mode, on
+    one link and on two; tests/test_torch_netsim_soft_convergence.py holds
+    its rows against JAX's."""
+    rows = prunner.run_experiment_batch([NetConfig(**cfg)],
+                                        pwork.throughput_workload(1 << 20, 1, 2),
+                                        "matchrdma", 200.0, device="cpu", **kw)
+    assert len(rows) == 1 and np.isfinite(rows[0]["throughput_gbps"])
 
 
 @pytest.mark.parametrize("cfg", [

@@ -7,6 +7,7 @@ tests import it. It imports no JAX itself: leaves are read with numpy.
 import numpy as np
 import torch
 
+from repro_torch.config.net import NetConfig
 from repro_torch.netsim.streaming import HIST_BINS
 
 
@@ -192,6 +193,10 @@ PARTS = {
                                       "on xoff_otn = 2e7 B while every link is "
                                       "down; 20,000,000 B in JAX, 20,000,002 B "
                                       "in the port"),
+    ("site_outage", "rdmacell"): (606, "the same src-OTN -> sender PFC threshold "
+                                       "after the outage: sum(q_src) reaches "
+                                       "19,999,998 B in JAX and 20,000,002 B in "
+                                       "the port at step 605"),
     # scheme_compare's 50 km cell, cut to 3 ms (tests/test_torch_netsim_compare.py)
     ("compare_50km", "dcqcn"): (153, _XOFF_50KM),
     ("compare_50km", "themis"): (153, _XOFF_50KM),
@@ -222,9 +227,22 @@ FINAL_REL = 1e-4         # final sent / delivered, of the largest value
 # size's ulp (a few 1e-3 B, of either sign), so the new tests read queue
 # errors against at least QUEUE_SCALE bytes (1e-6 of it is one byte).
 QUEUE_SCALE = 1e6
+# rdmacell's reorder-buffer trace (MB) is a difference of its cumulative
+# per-link tx and arrival ledgers (1e7 B and more): f32 rounding leaves
+# residues of a few bytes (JAX reads 2e-6 MB where the port reads 0 from step
+# 401 of the site outage), so the new tests read it against its own limit,
+# rdmacell_rob_limit_mb, as the queues are read against QUEUE_SCALE.
+ROB_SCALE_MB = NetConfig().rdmacell_rob_limit_mb
 QUEUE_LEAVES = ("q_src", "q_dst", "q_leaf", "q_dst_link", "out.q_src",
                 "out.q_dst", "out.q_leaf", "out.q_dst_link",
                 "extra.acc_queue", "extra.mr.acc_queue")
+
+
+# PFC pause signals are 0/1 in the hard step and gate weights in [0, 1] in
+# the soft one, where a queue far below its threshold pauses by a residue:
+# their unit is 1 (a hard run that pauses at all reaches it anyway).
+GATE_LEAVES = ("pause_dst", "pause_line", "out.pause_dst", "out.src_paused",
+               "out.link_pause")
 
 
 def golden_configs(name, netconfig):
