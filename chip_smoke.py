@@ -16,7 +16,8 @@ and builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    cores), and the f32 SSD instantiations none (the scalar kernel);
 3. kernels: each kernel against its plain PyTorch version on the card, f32
    and bf16. Flash attention at the serving shape, qwen's training shape
-   (B=8, S=2048, H=16, D=64), a GQA shape and ragged S,
+   (B=8, S=2048, H=16, D=64), a GQA shape and ragged S, the prefill shapes
+   of phase 15's seven archs at their workloads' batch,
    with and without softcap, and at head dims 8 (zero-padded to the D=16
    instantiation) and 192; then kernel, plain version, library call and
    bound timed at S=512 and S=4096. Windowed flash attention against
@@ -165,11 +166,39 @@ and builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    check ("reset gates not detached": the tangents blow up; "soft mode folds
    the knob bits into the channel key": the impaired surrogate parts).
 
-Phases 1-9 run alone. Phases 10-14 (no kernel of the port's three) then run
-as units in four child processes of this script beside one another on the
-card (``NETSIM_LANES``), so that their wall and device times are read beside
-the other lanes' load; each unit's output is printed in phase order once all
-have ended. Their card-vs-CPU checks run the CPU side in three spawned worker
+15. serve the seven other archs through ``repro_torch.launch.serve`` at
+   their published widths and default workloads (batch, prompt, new tokens):
+   internlm2-1.8b, internvl2-2b and granite-moe-1b-a400m (4, 2048, 32),
+   musicgen-large (4, 1500, 32; 30 s of EnCodec frames, a masked tail of the
+   flash kernel), phi3.5-moe-42b-a6.6b (4, 2048, 32) at 8 of its 32 layers,
+   deepseek-67b (1, 4096, 16) at 8 of 95 and nemotron-4-340b (1, 4096, 16)
+   at 2 of 96 (depth cut to fit 80 GB in bf16); internvl2 and musicgen take
+   bf16 embeddings (a stubbed ViT / EnCodec frontend) and are fed the
+   prompt's last one at each decode step. One flash launch per attention
+   layer, tokens in range, finite logits; the card's bf16 prefill (B=1,
+   S=128) and one decode step against the same weights' f32 on the CPU
+   (``CHECK_DEPTH``: phi3.5 at 2 layers, deepseek at 1, nemotron one block
+   alone on a [1, 128, 18432] input); for granite and phi3.5 the routing
+   check of the first MoE layer on one bf16 input on both sides (``MOE_TOL``:
+   top-k sets, drop fractions, the output of the tokens routed alike) at the
+   config's capacity factor, which drops slots there. Planted faults that
+   must fail: "causal mask dropped" (every arch but deepseek, whose check
+   reads one layer's last position), "gates not renormalised over the
+   top-k" and "tokens over capacity kept" (granite, on the routing check,
+   whose drop fraction is printed), "unembed read in the tied table's
+   layout" and "embeds not cast to act_dtype" (internvl2, fed f32
+   embeddings: the bf16 path must refuse them for the dtype mismatch);
+16. train internlm2-1.8b, internvl2-2b, granite-moe-1b-a400m (4 x 2048
+   each) and musicgen-large (4 x 1536) at full width through
+   ``repro_torch.launch.train``, 3 steps each, with phases 7-9's checks: the
+   losses, the launches per step, and the card's loss (with the MoE aux
+   losses) and grads at B=1, S=128 against the CPU's f32.
+
+Phases 1-9 and then 15-16 run alone. Phases 10-14 (no kernel of the port's
+three) then run as units in four child processes of this script beside one
+another on the card (``NETSIM_LANES``), so that their wall and device times
+are read beside the other lanes' load; each unit's output is printed in
+phase order once all have ended. Their card-vs-CPU checks run the CPU side in three spawned worker
 processes while the card runs (``cpu_pool``).
 
 Each serving and training path runs with every kernel's launch count set to
@@ -193,10 +222,19 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 QWEN, MAMBA, RG = "qwen1.5-0.5b", "mamba2-370m", "recurrentgemma-2b"
+INTERNLM, INTERNVL, MUSICGEN = "internlm2-1.8b", "internvl2-2b", "musicgen-large"
+GRANITE, PHI = "granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b"
+DEEPSEEK, NEMOTRON = "deepseek-67b", "nemotron-4-340b"
+NEW_ARCHS = (INTERNLM, INTERNVL, MUSICGEN, GRANITE, PHI, DEEPSEEK, NEMOTRON)
+NEW_TRAINED = (INTERNLM, INTERNVL, GRANITE, MUSICGEN)
 # launch.serve's default workload of each arch: (batch, prompt_len, max_new)
-WORKLOADS = {QWEN: (4, 512, 32), MAMBA: (4, 2048, 32), RG: (4, 4096, 32)}
-# (num_layers, d_model, vocab_size) at the published widths
-FULL_WIDTH = {QWEN: (24, 1024, 151936), MAMBA: (48, 1024, 50280), RG: (26, 2560, 256000)}
+WORKLOADS = {QWEN: (4, 512, 32), MAMBA: (4, 2048, 32), RG: (4, 4096, 32),
+             INTERNLM: (4, 2048, 32), INTERNVL: (4, 2048, 32), MUSICGEN: (4, 1500, 32),
+             GRANITE: (4, 2048, 32), PHI: (4, 2048, 32), DEEPSEEK: (1, 4096, 16),
+             NEMOTRON: (1, 4096, 16)}
+# the depth launch.serve cuts a workload to, to fit 80 GB in bf16 (83.7,
+# 134.9 and 682.1 GB at full depth); the widths stay the published ones
+SERVE_LAYERS = {PHI: 8, DEEPSEEK: 8, NEMOTRON: 2}
 PEAK_FLOPS_BF16 = 989e12   # H100 SXM dense bf16 tensor-core peak
 PEAK_FLOPS_F32 = 67e12     # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
@@ -222,6 +260,10 @@ RGLRU_TOL = 1e-5
 # serving shape, and (b, s, w) of its RG-LRU scan
 WINDOWED_SERVING = (4, 4096, 10, 1, 256, 2048)
 RGLRU_SERVING = (4, 4096, 2560)
+# (b, s, hq, hk, d) of causal flash attention timed at internlm2-1.8b's and
+# internvl2-2b's serving prefill (GQA 16:8, D=128) and nemotron-4-340b's
+# (GQA 96:8, D=192)
+GQA_TIMED = ((4, 2048, 16, 8, 128), (1, 4096, 96, 8, 192))
 # (b, s, h, p, g, n, chunk) of the SSD scan at the mamba2-370m serving shape
 SSD_SERVING = (4, 2048, 32, 64, 1, 128, 128)
 # Card (bf16 activations, kernels) vs CPU (f32, plain path) prefill of the
@@ -274,6 +316,58 @@ TRAIN_READ = {
 # CPU emulation at five layers).
 TRAIN_VS_CPU_TOL = {"bfloat16": {"loss": 1e-3, "grads": 3e-1},
                     "float32": {"loss": 1e-5, "grads": 1e-3}}
+# The seven archs of phases 15-16. Their card-vs-CPU check
+# (the same weights' f32 prefill on the CPU, B=1, NEW_REF_LEN tokens, then one
+# decode step) reads the whole served model, except where its f32 copy would
+# not fit the host beside the card's run: phi3.5-moe at its first 2 layers
+# (42 GB in f32 at 8), deepseek-67b at its first layer (the card model's
+# embedding, first layers, final norm and unembedding), and nemotron-4-340b
+# as its first block alone on the embeddings of NEW_REF_LEN random tokens
+# (its embedding and unembedding alone are 75 GB in f32), read on the
+# block's own contribution (output less input).
+CHECK_DEPTH = {PHI: 2, DEEPSEEK: 1, NEMOTRON: 0}
+NEW_REF_LEN = 128
+# Each reading relative to the largest value of its reference; the limits
+# sit at two to three times the sound readings of an H100 (PERF.md:
+# logits and decode logits 1.68e-2 / 1.68e-2 internlm2, 1.78e-2 / 1.65e-2
+# internvl2, 1.23e-2 / 1.29e-2 musicgen, 2.26e-2 / 3.18e-2 granite, whose
+# routing may flip at near-ties across 24 layers, 4.90e-2 / 3.87e-2 phi3.5,
+# 9.9e-3 / 1.07e-2 deepseek; the nemotron block 8.4e-3). Planted faults
+# read against them (``new_arch_faults``): a causal mask dropped (GQA 16:8,
+# MHA 32:32, 16:8 at D=64, 32:8 and the nemotron block's 96:8 at D=192;
+# not deepseek, whose check's one layer reads only the last position, which
+# attends to every key anyway), internvl2's unembedding read in a tied
+# table's layout, and its embeds left uncast, which the bf16 path refuses
+# for the dtype mismatch.
+CARD_VS_CPU_TOL.update({
+    INTERNLM: {"logits": 4e-2, "decode logits": 4e-2},
+    INTERNVL: {"logits": 4e-2, "decode logits": 4e-2},
+    MUSICGEN: {"logits": 3e-2, "decode logits": 3e-2},
+    GRANITE: {"logits": 8e-2, "decode logits": 8e-2},
+    PHI: {"logits": 1e-1, "decode logits": 1e-1},
+    DEEPSEEK: {"logits": 3e-2, "decode logits": 3e-2},
+    NEMOTRON: {"block out": 2e-2},
+})
+# The MoE routing check: the first MoE layer on the card (bf16) and its f32
+# copy on the CPU, on the same bf16 input (that layer's input in the card's
+# prefill of the workload's first row, T = prompt_len tokens), at the
+# config's capacity factor, where that input drops slots (a fifth of them
+# for granite and phi3.5 with random weights). Readings: the share of
+# tokens whose top-k set differs, the drop fractions' difference, and the
+# layer output (max abs error / max |ref|) over the tokens routed alike
+# (the same top-k set and the same kept slots). Both sides route in f32
+# (TF32 off), so a top-k set differs only at a tie within f32 rounding;
+# the output differs by the card's bf16 expert products (sound: 5.5e-3
+# granite, 7.1e-3 phi3.5). A fault in the gates or the capacity must read
+# above a limit (granite's controls).
+MOE_TOL = {"topk_set_differs": 1e-3, "drop_frac_diff": 1e-3, "layer_out": 2e-2}
+TRAIN_READ.update({
+    INTERNLM: ("embed.tok", "backbone.layers.0.attn.wq", "backbone.layers.23.mlp.w_down"),
+    INTERNVL: ("embed.unembed", "backbone.layers.0.attn.wq", "backbone.layers.23.mlp.w_down"),
+    MUSICGEN: ("embed.unembed", "backbone.layers.0.attn.wq", "backbone.layers.47.mlp.w_down"),
+    GRANITE: ("embed.tok", "backbone.layers.0.attn.wq", "backbone.layers.0.moe.router",
+              "backbone.layers.23.moe.w_down"),
+})
 # Phase 10, the netsim Fig. 3 path: the golden scenarios of
 # tests/golden/generate_goldens.py, (distances km, workload builder and its
 # arguments, horizon us), and the paper's four schemes.
@@ -387,7 +481,7 @@ SOFT_COLD_TOL = {"surrogate": 1e-3, "grad": 0.75}
 TUNE_CELL = dict(dists=(100.0,), horizon_us=6_000.0)
 TUNE_ITERS, TUNE_STEPS = 2, 4
 # Phases 10-14 launch none of the port's three kernels. After phases 1-9
-# have run alone, they run as units in child processes of this script, one
+# and 15-16 have run alone, they run as units in child processes of this script, one
 # lane a process, the lanes beside one another on the one card (each lane's
 # units one after another): the netsim is host-bound (eager steps, graph
 # capture, the CPU side of its checks) and leaves the card idle most of the
@@ -586,6 +680,15 @@ def phase_flash(torch, card: str) -> dict:
         ("head dim 192", 2, 300, 4, 2, 192, "bfloat16", 0.0),
         ("head dim 192", 2, 300, 4, 2, 192, "bfloat16", 20.0),
         ("head dim 192", 2, 300, 4, 2, 192, "float32", 0.0),
+        # the prefill shapes of the seven archs of phase 15, at their
+        # workloads' batch
+        ("internlm2 16/8 d128", 4, 2048, 16, 8, 128, "bfloat16", 0.0),
+        ("phi3.5 32/8 d128", 4, 2048, 32, 8, 128, "bfloat16", 0.0),
+        ("deepseek 64/8 d128", 1, 4096, 64, 8, 128, "bfloat16", 0.0),
+        ("musicgen 32/32 d64", 4, 1500, 32, 32, 64, "bfloat16", 0.0),
+        ("granite 16/8 d64", 4, 2048, 16, 8, 64, "bfloat16", 0.0),
+        ("nemotron 96/8 d192", 1, 4096, 96, 8, 192, "bfloat16", 0.0),
+        ("nemotron 96/8 d192", 1, 1500, 96, 8, 192, "float32", 0.0),
     ]
     checks = []
     for name, b, s, hq, hk, d, dtype, softcap in cases:
@@ -650,6 +753,22 @@ def phase_flash(torch, card: str) -> dict:
         print(f"  flash_attention B={b} S={s} H={h} D={d} bf16: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} "
               f"ms ({bound_by}) [{card}]", flush=True)
+
+    for b, s, hq, hk, d in GQA_TIMED:
+        q, k, v = inputs(b, s, hq, hk, d, torch.bfloat16)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        ms = time_ms(torch, lambda: flash_attention_fwd(q, k, v), 10)
+        plain_ms = time_ms(torch, lambda: attention_ref(q, k, v), 2)
+        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+        bound_ms, bound_by = attention_bound_ms(b, s, hq, hk, d, 2)
+        timings[f"B={b} S={s} Hq={hq} Hk={hk} D={d}"] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+        print(f"  flash_attention B={b} S={s} Hq={hq} Hk={hk} D={d} bf16: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, sdpa (enable_gqa) {library_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}) [{card}]", flush=True)
+        del q, k, v, qt, kt, vt
 
     b, s, hq, hk, d, w = WINDOWED_SERVING
     q, k, v = inputs(b, s, hq, hk, d, torch.bfloat16)
@@ -911,32 +1030,57 @@ def f32_copy(torch, model, device="cpu"):
     return copy
 
 
-def phase_serve(torch, card: str, arch: str, planted: dict, must_fail: str) -> dict:
-    """Serves ``arch`` at full width through launch.serve and checks it.
+def attention_layers(cfg) -> int:
+    from repro_torch.config.base import ATTN, LOCAL_ATTN
+    return sum(mixer in (ATTN, LOCAL_ATTN) for mixer, _ in cfg.layer_blocks())
 
-    ``planted`` maps a fault's name to (module, attribute, replacement): the
-    card-vs-CPU logits check is read again with each in place of the kernel's
-    op, and the reading of ``must_fail`` must exceed the limit."""
-    from repro_torch.config.base import ATTN, LOCAL_ATTN, RGLRU, SSD
+
+def expected_launches(cfg) -> dict:
+    """Each kernel's launches in one prefill: one per layer of its mixer."""
+    from repro_torch.config.base import RGLRU, SSD
+    mixers = [mixer for mixer, _ in cfg.layer_blocks()]
+    return {"flash_attention": attention_layers(cfg),
+            "ssd_scan": mixers.count(SSD), "rglru_scan": mixers.count(RGLRU)}
+
+
+def check_widths(cfg, arch: str, layers=None) -> None:
+    """``cfg`` is the arch's published config, cut to ``layers`` of depth if given."""
+    from repro_torch.config import get_model_config
+    published = get_model_config(arch)
+    check(dataclasses.replace(cfg, num_layers=published.num_layers) == published
+          and cfg.num_layers == (layers or published.num_layers),
+          f"{arch} is not at its published widths and {layers or 'full'} depth: {cfg}")
+
+
+def serve_workload(torch, card: str, arch: str):
+    """Serves ``arch``'s launch.serve default workload on the card with every
+    launch count set to 0 before and read after; checks the launches (one per
+    layer of each kernel's mixer), the tokens and the logits. Returns
+    (model, result, launches, expected launches, prompt)."""
     from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve.decode import greedy_decode
 
     batch, prompt_len, max_new = WORKLOADS[arch]
-    check(tuple(launch_serve.WORKLOADS[arch]) == WORKLOADS[arch],
+    layers = SERVE_LAYERS.get(arch)
+    check(tuple(launch_serve.WORKLOADS[arch]) == (batch, prompt_len, max_new, layers),
           f"chip_smoke's {arch} workload is not launch.serve's default workload")
-    model = launch_serve.build(arch, device="cuda")
+    model = launch_serve.build(arch, device="cuda", layers=layers)
     cfg = model.cfg
-    check((cfg.num_layers, cfg.d_model, cfg.vocab_size) == FULL_WIDTH[arch],
-          f"{arch} is not at full width: {cfg}")
-    mixers = [mixer for mixer, _ in cfg.layer_blocks()]
-    expected = {"flash_attention": mixers.count(ATTN) + mixers.count(LOCAL_ATTN),
-                "ssd_scan": mixers.count(SSD), "rglru_scan": mixers.count(RGLRU)}
+    check_widths(cfg, arch, layers)
+    expected = expected_launches(cfg)
     prompt = launch_serve.random_prompt(model, batch, prompt_len)
-    launch_serve.serve(model, prompt, 2)     # warm-up: cuBLAS handles, allocator
+    # warm-up: cuBLAS handles, and the allocator's blocks at the run's cache
+    # size (a cache of another length made the first run allocate anew)
+    caches, logits = model.prefill(prompt, max_len=prompt_len + max_new)
+    greedy_decode(model, caches, logits.argmax(-1), prompt_len, 1,
+                  None if cfg.embed_inputs else prompt[:, -1:])
+    del caches, logits
 
     reset_counts()
     res = launch_serve.serve(model, prompt, max_new)
     launches = read_counts()
-    print(f"  serve {arch} B={batch} prompt={prompt_len} new={max_new}: prefill "
+    depth = f", {cfg.num_layers} of its layers" if layers else ""
+    print(f"  serve {arch}{depth} B={batch} prompt={prompt_len} new={max_new}: prefill "
           f"{res.prefill_ms:.2f} ms, decode {res.decode_tok_s:.1f} tok/s "
           f"({res.decode_tokens} tokens in {res.decode_ms:.2f} ms), launches {launches} "
           f"[{card}]", flush=True)
@@ -948,66 +1092,153 @@ def phase_serve(torch, card: str, arch: str, planted: dict, must_fail: str) -> d
         check(tuple(t.shape) == (batch, cfg.vocab_size) and t.dtype == torch.float32,
               f"{name} logits {tuple(t.shape)} {t.dtype}")
         check(bool(torch.isfinite(t).all()), f"{name} logits are not finite")
+    return model, res, launches, expected, prompt
 
-    # The same weights' prefill in f32 on the CPU through the plain path.
-    ref_len, limits = REF_LEN[arch], CARD_VS_CPU_TOL[arch]
-    small = launch_serve.random_prompt(model, 1, ref_len, seed=2)
+
+def phase_serve(torch, card: str, arch: str, planted: dict, must_fail=None,
+                moe_planted=None) -> dict:
+    """Serves ``arch`` through launch.serve at its default workload and checks
+    it: launches, tokens, logits (``serve_workload``); then the card's bf16
+    prefill at B=1 (REF_LEN, else NEW_REF_LEN tokens), with one decode step
+    where the limits read "decode logits", against the same weights' f32 on
+    the CPU (plain path), at CHECK_DEPTH where the whole model's f32 copy
+    would not fit; a model of embedding inputs is fed f32 embeddings, which
+    it casts; for an MoE arch the routing check of its first MoE layer
+    (``moe_check``, each fault of ``moe_planted`` must fail it).
+
+    ``planted`` maps a fault's name to (module, attribute, replacement): the
+    card-vs-CPU check is read again with each in place, and each fault named
+    in ``must_fail`` (default: every one) must read above a limit, or make
+    the card's bf16 path refuse its input for a dtype mismatch (no other
+    error counts)."""
+    from repro_torch.launch import serve as launch_serve
+
+    batch, prompt_len, max_new = WORKLOADS[arch]
+    model, res, launches, _, prompt = serve_workload(torch, card, arch)
+    cfg, limits = model.cfg, CARD_VS_CPU_TOL[arch]
+    n, depth = REF_LEN.get(arch, NEW_REF_LEN), CHECK_DEPTH.get(arch)
+    out = {"arch": arch, "layers": cfg.num_layers, "batch": batch, "prompt_len": prompt_len,
+           "max_new": max_new, "launches": launches, "prefill_ms": res.prefill_ms,
+           "decode_ms": res.decode_ms, "decode_tok_s": res.decode_tok_s,
+           "card_vs_cpu_tol": limits, "ref_len": n, "check_depth": depth}
+    t0 = time.perf_counter()
+    if depth == 0:
+        # the first block alone on the embeddings of n random tokens, read on
+        # its own contribution (output less input)
+        view = model.backbone.layers[0]
+        dev = model.device
+        toks = torch.randint(0, cfg.vocab_size, (1, n), device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(2))
+        with torch.no_grad():
+            x = model.embed(toks)
+        counted = expected_launches(dataclasses.replace(cfg, num_layers=1))
+
+        def run(m):
+            xd = x if m is view else x.float().cpu()
+            with torch.no_grad():
+                y = m(xd, mode="prefill", cache=None, pos=None, max_len=n)[0]
+            return {"block out": y - xd}
+
+        cpu_model = f32_block(torch, view, cfg)
+    else:
+        view = first_layers(torch, model, depth) if depth else model
+        decode = int("decode logits" in limits)
+        small = launch_serve.random_prompt(view, 1, n + decode, seed=2)
+        if not cfg.embed_inputs:
+            small = small.float()        # a frontend's f32 output, which the model casts
+        inputs, step = small[:, :n], small[:, n:]     # the decode step's input, if any
+        if small.dim() == 2:
+            step = step[:, 0] if decode else None
+        counted = expected_launches(view.cfg)
+
+        def run(m):
+            caches, logits = m.prefill(inputs.to(m.device), max_len=n + decode)
+            got = {"logits": logits}
+            if "layer-0 state" in limits:
+                got["layer-0 state"] = caches[0][STATE_KEY[arch]]
+            if decode:
+                got["decode logits"] = m.decode_step(caches, step.to(m.device), n)[1]
+            return got
+
+        cpu_model = f32_copy(torch, view)
     reset_counts()
-    card_out = model.prefill(small, max_len=ref_len)
-    check(read_counts() == expected, "reference prefill missed the kernels")
-    cpu_model = f32_copy(torch, model)
-    cpu_caches, cpu_logits = cpu_model.prefill(small.cpu(), max_len=ref_len)
+    card_out = run(view)
+    check(read_counts() == counted, f"the card-vs-CPU check's launches {read_counts()}, "
+                                    f"expected {counted}")
+    refs = run(cpu_model)
+    cpu_moe = next((m for m in cpu_model.modules() if type(m).__name__ == "MoE"), None)
     del cpu_model
-    refs = {"logits": cpu_logits}
-    if "layer-0 state" in limits:
-        refs["layer-0 state"] = cpu_caches[0][STATE_KEY[arch]]
 
-    def readings_of(out) -> dict:
-        caches, logits = out
-        got = {"logits": logits, "layer-0 state": caches[0].get(STATE_KEY.get(arch))}
-        return {k: float((got[k].cpu() - ref).abs().max()) / float(ref.abs().max())
-                for k, ref in refs.items()}
+    def readings_of(got) -> dict:
+        return {k: rel_err(got[k], ref) for k, ref in refs.items()}
 
     sound = readings_of(card_out)
-    same_top = bool((card_out[1].argmax(-1).cpu() == cpu_logits.argmax(-1)).all())
-    print(f"  card bf16 vs CPU f32 prefill (B=1, S={ref_len}), max_abs_err / max|ref|: "
+    what = ("block 0 alone" if depth == 0 else
+            f"first {depth} layers" if depth else f"all {cfg.num_layers} layers")
+    then = ", then a decode step" if "decode logits" in limits else ""
+    same = ""
+    if "logits" in refs:
+        out["same_argmax"] = bool((card_out["logits"].argmax(-1).cpu()
+                                   == refs["logits"].argmax(-1)).all())
+        same = f"; same argmax={out['same_argmax']}"
+    print(f"  card bf16 vs CPU f32 ({what}; B=1, S={n}{then}; "
+          f"{time.perf_counter() - t0:.1f} s), max_abs_err / max|ref|: "
           + ", ".join(f"{k} {v:.3e} (tolerance {limits[k]:g})" for k, v in sound.items())
-          + f"; same argmax={same_top}", flush=True)
+          + same, flush=True)
     check(all(v <= limits[k] for k, v in sound.items()),
-          f"{arch}: card prefill disagrees with the CPU f32 path")
+          f"{arch}: the card disagrees with the CPU f32 path")
+    out["card_vs_cpu"] = sound
 
-    # Controls: the same readings with a fault planted in place of the kernel.
+    # Controls: the same readings with a fault planted in place of the path.
     controls = {}
     for fault, (module, attr, fn) in planted.items():
-        kernel_path = getattr(module, attr)
+        kept = getattr(module, attr)
         setattr(module, attr, fn)
         try:
-            controls[fault] = readings_of(model.prefill(small, max_len=ref_len))
+            controls[fault] = readings_of(run(view))
+        except RuntimeError as err:
+            if "dtype" not in str(err):
+                raise
+            controls[fault] = {"refused": f"{type(err).__name__}: {str(err)[:160]}"}
         finally:
-            setattr(module, attr, kernel_path)
-        print(f"  control, {fault}: " + ", ".join(f"{k} {v:.3e}" for k, v in
-                                                   controls[fault].items()), flush=True)
-    check(any(v > limits[k] for k, v in controls[must_fail].items()),
-          f"the card-vs-CPU check does not catch: {must_fail}")
-    return {"arch": arch, "batch": batch, "prompt_len": prompt_len, "max_new": max_new,
-            "launches": launches, "prefill_ms": res.prefill_ms,
-            "decode_tok_s": res.decode_tok_s, "card_vs_cpu": sound,
-            "card_vs_cpu_tol": limits, "planted": controls}
+            setattr(module, attr, kept)
+        print(f"  control, {fault}: " + ", ".join(
+            f"{k} {v:.3e}" if isinstance(v, float) else f"{k}, {v}"
+            for k, v in controls[fault].items()), flush=True)
+    for fault in planted if must_fail is None else must_fail:
+        check("refused" in controls[fault] or any(
+            v > limits[k] for k, v in controls[fault].items()),
+            f"the card-vs-CPU check does not catch: {fault}")
+    out["planted"] = controls
+    if cfg.num_experts:
+        out["moe"] = moe_check(torch, model, cpu_moe, prompt, moe_planted or {})
+    return out
+
+
+def causal_mask_dropped(torch) -> dict:
+    """The plain path in place of the flash kernel with the causal mask
+    dropped: each position attends to every key (q head h to kv head
+    h // (Hq / Hk), as the kernel groups them)."""
+    from repro_torch.models import transformer
+
+    def mask_dropped(q, k, v):
+        g = q.shape[2] // k.shape[2]
+        k, v = (t.repeat_interleave(g, dim=2).float() for t in (k, v))
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) * q.shape[-1] ** -0.5
+        return torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1), v).to(q.dtype)
+
+    return {"causal mask dropped": (transformer, "flash_attention", mask_dropped)}
 
 
 def qwen_faults(torch) -> dict:
     from repro_torch.kernels.ref import attention_ref
     from repro_torch.models import transformer
 
-    def mask_dropped(q, k, v):   # qwen: Hq = Hk
-        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * q.shape[-1] ** -0.5
-        return torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1), v.float()).to(q.dtype)
-
     def p_bf16(q, k, v):
         return attention_ref(q, k, v, p_dtype=torch.bfloat16)
 
     return {"P rounded to bf16": (transformer, "flash_attention", p_bf16),
-            "causal mask dropped": (transformer, "flash_attention", mask_dropped)}
+            **causal_mask_dropped(torch)}
 
 
 def mamba_faults(torch) -> dict:
@@ -1041,6 +1272,143 @@ def rglru_faults(torch) -> dict:
                           for i in range(0, a.shape[1], 256)], dim=1)
 
     return {"recurrence restarted every 256 steps": (rglru, "rglru_recurrence", restarted)}
+
+
+def first_layers(torch, model, n: int):
+    """A Model of the card model's first ``n`` layers with its embedding,
+    final norm and unembedding: the same parameters, nothing copied."""
+    from repro_torch.models.model import Model
+    view = Model(dataclasses.replace(model.cfg, num_layers=n), device="meta")
+    view.embed, view.backbone.final_norm = model.embed, model.backbone.final_norm
+    view.backbone.layers = torch.nn.ModuleList(list(model.backbone.layers[:n]))
+    return view.eval()
+
+
+def f32_block(torch, block, cfg):
+    """An f32 copy of one Block on the CPU."""
+    from repro_torch.models.transformer import Block
+    cfg32 = dataclasses.replace(cfg, act_dtype="float32", param_dtype="float32")
+    mixer, mlp = cfg.layer_blocks()[0]
+    copy = Block(cfg32, mixer, mlp, device="meta").to_empty(device="cpu")
+    copy.load_state_dict(block.state_dict())
+    return copy.eval()
+
+
+def rel_err(got, ref) -> float:
+    return float((got.float().cpu() - ref).abs().max()) / float(ref.abs().max())
+
+
+def moe_routing(torch, moe_layer, x, factor: float):
+    """The layer's output on x at capacity factor ``factor``, with its routing:
+    (y, aux, top-k sets [T, k] sorted, kept sets [T, k]: the expert where the
+    slot is kept, -1 where dropped, sorted)."""
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(moe_layer.cfg, moe_capacity_factor=factor)
+    kept_cfg, moe_layer.cfg = moe_layer.cfg, cfg
+    try:
+        with torch.no_grad():
+            y, aux = moe_layer(x)
+            xt = x.reshape(-1, x.shape[-1])
+            _, _, idx = moe.route(xt.float() @ moe_layer.router, cfg.num_experts_per_tok)
+            _, keep = moe.slots(idx.reshape(-1), cfg.num_experts,
+                                moe.capacity(cfg, xt.shape[0]))
+    finally:
+        moe_layer.cfg = kept_cfg
+    kept = torch.where(keep.reshape(idx.shape), idx, -1)
+    return (y, {k: float(v) for k, v in aux.items()}, idx.sort(-1).values.cpu(),
+            kept.sort(-1).values.cpu())
+
+
+def moe_readings(torch, card_run, cpu_run) -> dict:
+    """MOE_TOL's readings of a card run against a CPU run (``moe_routing``)."""
+    y, aux, sets, kept = card_run
+    y_ref, aux_ref, sets_ref, kept_ref = cpu_run
+    alike = (sets == sets_ref).all(-1) & (kept == kept_ref).all(-1)
+    d = y.shape[-1]
+    yc, yr = y.reshape(-1, d).float().cpu()[alike], y_ref.reshape(-1, d)[alike]
+    return {"topk_set_differs": 1.0 - float((sets == sets_ref).all(-1).float().mean()),
+            "drop_frac_diff": abs(aux["moe_drop_frac"] - aux_ref["moe_drop_frac"]),
+            "layer_out": rel_err(yc, yr) if bool(alike.any()) else math.inf,
+            "alike_share": float(alike.float().mean()),
+            "drop_frac_card": aux["moe_drop_frac"], "drop_frac_cpu": aux_ref["moe_drop_frac"]}
+
+
+def over_moe(r: dict) -> list:
+    return [k for k, lim in MOE_TOL.items() if r[k] > lim]
+
+
+def moe_check(torch, model, cpu_moe, prompt, planted: dict) -> dict:
+    """The routing check of MOE_TOL on the first MoE layer (see above); each
+    fault of ``planted`` must read above a limit."""
+    layer = next(m for m in model.modules() if type(m).__name__ == "MoE")
+    seen = []
+    hook = layer.register_forward_pre_hook(lambda mod, args: seen.append(args[0]))
+    try:
+        model.prefill(prompt[:1], max_len=prompt.shape[1])
+    finally:
+        hook.remove()
+    x = seen[0]                                 # [1, S, d] bf16, that layer's input
+    factor = layer.cfg.moe_capacity_factor
+    cpu_run = moe_routing(torch, cpu_moe, x.float().cpu(), factor)
+    r = moe_readings(torch, moe_routing(torch, layer, x, factor), cpu_run)
+    print(f"  MoE layer 0 card bf16 vs CPU f32, T={x.shape[1]}, capacity factor "
+          f"{factor:g}: " + ", ".join(f"{k} {v:.3e}" for k, v in r.items())
+          + f" (tolerance {MOE_TOL})", flush=True)
+    check(not over_moe(r), f"the MoE layer disagrees with the CPU f32 path: {over_moe(r)}")
+    check(not planted or r["drop_frac_cpu"] > 0,
+          f"no slot dropped at capacity factor {factor:g}: the capacity control cannot show")
+    out = {"tokens": x.shape[1], "capacity_factor": factor, "readings": r, "planted": {}}
+    for fault, (module, attr, fn) in planted.items():
+        kept = getattr(module, attr)
+        setattr(module, attr, fn)
+        try:
+            rf = moe_readings(torch, moe_routing(torch, layer, x, factor), cpu_run)
+        finally:
+            setattr(module, attr, kept)
+        out["planted"][fault] = rf
+        print(f"  control, {fault}: " + ", ".join(f"{k} {v:.3e}" for k, v in rf.items())
+              + f"; over the limits: {over_moe(rf)}", flush=True)
+        check(bool(over_moe(rf)), f"the MoE routing check does not catch: {fault}")
+    return out
+
+
+def embed_faults(torch) -> dict:
+    from repro_torch.models import layers
+
+    def not_cast(self, inputs):
+        return self.tok[inputs].to(self.tok.dtype) if self.tok is not None else inputs
+
+    def tied_layout(self):
+        """The [d, V] unembedding read as a tied table [V, d] transposed."""
+        return self.unembed.reshape(self.unembed.shape[::-1]).T
+
+    return {"embeds not cast to act_dtype": (layers.Embed, "forward", not_cast),
+            "unembed read in the tied table's layout": (layers.Embed, "weight", tied_layout)}
+
+
+def new_arch_faults(torch) -> dict:
+    """Phase 15's planted faults per arch, each of which must fail the
+    card-vs-CPU check. A dropped causal mask is planted where the check reads
+    more than the last position of one attention layer (deepseek's one layer
+    is that)."""
+    mask = causal_mask_dropped(torch)
+    return {INTERNLM: mask, INTERNVL: embed_faults(torch), MUSICGEN: mask, GRANITE: mask,
+            PHI: mask, NEMOTRON: mask}
+
+
+def moe_faults(torch) -> dict:
+    from repro_torch.models import moe
+
+    def not_renormalised(logits, k):
+        probs = torch.softmax(logits, dim=-1)
+        gates, idx = torch.topk(probs, k, dim=-1)
+        return probs, gates, idx
+
+    def over_capacity_kept(cfg, tokens):
+        return tokens * cfg.num_experts_per_tok     # room for every slot
+
+    return {"gates not renormalised over the top-k": (moe, "route", not_renormalised),
+            "tokens over capacity kept": (moe, "capacity", over_capacity_kept)}
 
 
 def train_faults(torch) -> dict:
@@ -1169,15 +1537,14 @@ def phase_train(torch, card: str, arch: str, planted: dict) -> dict:
     launches = read_counts()
     model, hist = res.model, res.history
     cfg = model.cfg
-    check((cfg.num_layers, cfg.d_model, cfg.vocab_size) == FULL_WIDTH[arch],
-          f"{arch} is not at full width: {cfg}")
+    check_widths(cfg, arch)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     per_step = {k: v / steps for k, v in launches.items()}
     expected = expected_train_launches(cfg)
-    params = sum(p.numel() for p in model.parameters())
+    params, active = sum(p.numel() for p in model.parameters()), model.active_param_count()
     tokens = batch * seq
     for r in hist:
-        r["model_flops_share"] = 6.0 * params * tokens / (r["ms"] / 1e3) / PEAK_FLOPS_BF16
+        r["model_flops_share"] = 6.0 * active * tokens / (r["ms"] / 1e3) / PEAK_FLOPS_BF16
         print(f"  train {arch} step {r['step']}: loss {r['loss']:.4f}, grad norm "
               f"{r['grad_norm']:.4f}, lr {r['lr']:.3e}, {r['ms']:.2f} ms, "
               f"{r['tokens_per_s']:.0f} tokens/s, model-FLOPs share "
@@ -1197,9 +1564,9 @@ def phase_train(torch, card: str, arch: str, planted: dict) -> dict:
     steady = hist[1:] or hist
     step_ms = sum(r["ms"] for r in steady) / len(steady)
     out = {"arch": arch, "batch": batch, "seq": seq, "steps": steps, "params": params,
-           "history": hist, "loss_after_on_step1_batch": after,
+           "active_params": active, "history": hist, "loss_after_on_step1_batch": after,
            "step_ms": step_ms, "tokens_per_s": tokens / (step_ms / 1e3),
-           "model_flops_share": 6.0 * params * tokens / (step_ms / 1e3) / PEAK_FLOPS_BF16,
+           "model_flops_share": 6.0 * active * tokens / (step_ms / 1e3) / PEAK_FLOPS_BF16,
            "launches_per_step": per_step, "restarts": res.restarts, "peak_memory_gb": peak_gb}
     if arch == QWEN:
         out["checkpoint"] = check_checkpoint(torch, model, res.opt_state)
@@ -1207,10 +1574,13 @@ def phase_train(torch, card: str, arch: str, planted: dict) -> dict:
     torch.cuda.empty_cache()
 
     # The same weights' loss and grads in f32 on the CPU (plain path).
-    names, ref_len = TRAIN_READ[arch], REF_LEN[arch]
-    toks = torch.randint(0, cfg.vocab_size, (1, ref_len + 1),
-                         generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    names, ref_len = TRAIN_READ[arch], REF_LEN.get(arch, NEW_REF_LEN)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (1, ref_len + 1), generator=gen, device=dev)
     small = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if not cfg.embed_inputs:    # f32 embeddings, which each side casts to its act dtype
+        small = {"embeds": torch.randn((1, ref_len, cfg.d_model), generator=gen, device=dev),
+                 "labels": toks[:, 1:]}
     t0 = time.perf_counter()
     cpu_model = f32_copy(torch, model)
     cpu_model.remat = "none"
@@ -2169,7 +2539,7 @@ def run_lanes(t_start: float) -> dict:
                 proc.wait()
     for unit, (n, title, _) in NETSIM_UNITS.items():
         if title:
-            print(f"[{n}/14] {title}", flush=True)
+            print(f"[{n}/16] {title}", flush=True)
         lane = next(i for i, u in enumerate(NETSIM_LANES) if unit in u)
         print(f"  unit {unit}, lane {lane} ({', '.join(NETSIM_LANES[lane])}):", flush=True)
         log = out_dir / f"{unit}.log"
@@ -2206,14 +2576,14 @@ def main() -> None:
     card = smi_line()
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
-    print(f"[1/14] card: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
+    print(f"[1/16] card: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{name}, compute capability {cap[0]}.{cap[1]}", flush=True)
     check(cap == (9, 0), f"needs compute capability 9.0 (sm_90a), found {cap}")
 
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build(build.sources())
-    print(f"[2/14] build: {len(logs)} of {len(build.sources())} kernel sources compiled "
+    print(f"[2/16] build: {len(logs)} of {len(build.sources())} kernel sources compiled "
           f"in {time.perf_counter() - t0:.1f} s into {build.BUILD_DIR}", flush=True)
     for src, log in logs.items():
         for line in log.splitlines():
@@ -2234,7 +2604,7 @@ def main() -> None:
           f"the f32 SSD-scan instantiations are not the scalar kernel: {ssd_hgmma}")
 
     t0 = time.perf_counter()
-    print("[3/14] kernels against their plain versions", flush=True)
+    print("[3/16] kernels against their plain versions", flush=True)
     flash = phase_flash(torch, card)
     ssd = phase_ssd(torch, card)
     scan = phase_rglru(torch, card)
@@ -2243,11 +2613,11 @@ def main() -> None:
 
     served = {}
     for i, (arch, faults, must_fail) in enumerate((
-            (QWEN, qwen_faults(torch), "causal mask dropped"),
-            (MAMBA, mamba_faults(torch), "state not carried across chunks"),
-            (RG, rglru_faults(torch), "recurrence restarted every 256 steps")), start=4):
+            (QWEN, qwen_faults(torch), ("causal mask dropped",)),
+            (MAMBA, mamba_faults(torch), ("state not carried across chunks",)),
+            (RG, rglru_faults(torch), ("recurrence restarted every 256 steps",))), start=4):
         t0 = time.perf_counter()
-        print(f"[{i}/14] serve {arch} at full width", flush=True)
+        print(f"[{i}/16] serve {arch} at full width", flush=True)
         served[arch] = phase_serve(torch, card, arch, faults, must_fail)
         print(f"  ({time.perf_counter() - t0:.1f} s; total "
               f"{time.perf_counter() - t_start:.1f} s)", flush=True)
@@ -2256,9 +2626,26 @@ def main() -> None:
     trained, faults = {}, train_faults(torch)
     for i, arch in enumerate((QWEN, MAMBA, RG), start=7):
         t0 = time.perf_counter()
-        print(f"[{i}/14] train {arch} at full width", flush=True)
+        print(f"[{i}/16] train {arch} at full width", flush=True)
         trained[arch] = phase_train(torch, card, arch, faults[arch])
         print(f"  ({time.perf_counter() - t0:.1f} s; total "
+              f"{time.perf_counter() - t_start:.1f} s)", flush=True)
+
+    # Phases 15-16 need the card alone too, so they run before the lanes.
+    print("[15/16] serve the seven other archs at their published widths", flush=True)
+    for arch in NEW_ARCHS:
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        served[arch] = phase_serve(torch, card, arch, new_arch_faults(torch).get(arch, {}),
+                                   moe_planted=moe_faults(torch) if arch == GRANITE else {})
+        print(f"  ({arch}: {time.perf_counter() - t0:.1f} s; total "
+              f"{time.perf_counter() - t_start:.1f} s)", flush=True)
+    print("[16/16] train four of them at full width", flush=True)
+    for arch in NEW_TRAINED:
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        trained[arch] = phase_train(torch, card, arch, {})
+        print(f"  ({arch}: {time.perf_counter() - t0:.1f} s; total "
               f"{time.perf_counter() - t_start:.1f} s)", flush=True)
 
     torch.cuda.empty_cache()
@@ -2294,6 +2681,7 @@ def main() -> None:
         "library_ms": flash_main["library_ms"],
         "shape": f"B={qb} S={qs} H=16 D=64 bf16",
         "s4096": flash["timings"][4096],
+        "gqa": {k: t for k, t in flash["timings"].items() if isinstance(k, str)},
         "windowed_d256": {**flash["windowed"], "max_abs_err": worst(
             flash["checks"], "windowed serving bfloat16")},
         "tensor_core_instr": {"instruction": "HGMMA", "per_bf16_instantiation": hgmma},

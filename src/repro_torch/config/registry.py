@@ -2,9 +2,8 @@
 
 Each module in ``repro_torch.configs`` registers itself on import via
 ``register(full=..., smoke=..., parallel_overrides=...)``. Every arch of the
-JAX package is here as data (its configs and production parallel layout);
-``ported_archs()`` names the archs whose model the port builds, and
-``models.build_model`` refuses the others.
+JAX package is here (its configs and production parallel layout), and the
+port builds, serves and trains the model of each (``ported_archs()``).
 """
 from __future__ import annotations
 
@@ -30,8 +29,8 @@ _ARCH_MODULES = {
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
 }
 
-# Archs whose model (serving and training) the port builds.
-_PORTED = ("qwen1.5-0.5b", "mamba2-370m", "recurrentgemma-2b")
+# Archs whose model (serving and training) the port builds: all of them.
+_PORTED = tuple(_ARCH_MODULES)
 
 
 def register(full: ModelConfig, smoke: ModelConfig,
@@ -55,17 +54,8 @@ def list_archs() -> list:
 
 
 def ported_archs() -> list:
-    """The archs whose model the port builds (the others are data only)."""
+    """The archs whose model the port builds (every registered arch)."""
     return sorted(_PORTED)
-
-
-def arch_of(cfg: ModelConfig) -> Optional[str]:
-    """The registered arch id a config belongs to (its smoke config too), or
-    None for a config of no registered arch."""
-    for name in (cfg.name, cfg.name.removesuffix("-smoke")):
-        if name in _ARCH_MODULES:
-            return name
-    return None
 
 
 def get_model_config(name: str, smoke: bool = False) -> ModelConfig:

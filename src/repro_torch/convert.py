@@ -14,7 +14,11 @@ caller) and returns a state dict for ``Model.load_state_dict``:
 * bfloat16 arrays arrive with the ``ml_dtypes`` dtype, which
   ``torch.from_numpy`` refuses; their bits go across through uint16;
 * matrices keep the JAX ``[in, out]`` orientation, which the port's layers
-  use as they are; a tied model has no ``unembed`` leaf.
+  use as they are; an MoE block's ``moe.router`` [d, E] and its experts
+  ``moe.w_gate``/``moe.w_up`` [E, d, f] and ``moe.w_down`` [E, f, d] too;
+* a tied model has no ``unembed`` leaf, and a model of embedding inputs
+  (``embed_inputs=False``) no ``tok`` leaf: its embed subtree is ``unembed``
+  alone.
 """
 from __future__ import annotations
 

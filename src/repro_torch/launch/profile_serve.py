@@ -4,8 +4,9 @@
         [--arch mamba2-370m] [--trace-dir DIR]
 
 The workload is the one ``python -m repro_torch.launch.serve --arch ARCH``
-runs with no other arguments (``launch.serve.WORKLOADS``; qwen1.5-0.5b by
-default: batch 4, prompt 512, 32 new tokens, cache of prompt + 32): its
+runs with no other arguments (``launch.serve.WORKLOADS``, at its depth;
+qwen1.5-0.5b by default: batch 4, prompt 512, 32 new tokens, cache of
+prompt + 32): its
 prefill, and its greedy decode steps after the first token. Each phase runs
 once unprofiled (host clock after a synchronise: wall time) and once under
 ``torch.profiler`` (kernel time by name, kernel count). Each decode run
@@ -27,7 +28,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.config.registry import ported_archs
+from repro_torch.config.registry import list_archs
 from repro_torch.device import resolve_device
 from repro_torch.launch import serve as launch_serve
 from repro_torch.serve.decode import greedy_decode
@@ -65,13 +66,13 @@ def measure(fn: Callable[[Any], Any], dev: torch.device, trace: Optional[Path] =
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default=launch_serve.ARCH, choices=ported_archs())
+    ap.add_argument("--arch", default=launch_serve.ARCH, choices=list_archs())
     ap.add_argument("--trace-dir", default="")
     args = ap.parse_args(argv)
 
     dev = resolve_device("cuda")
     work = launch_serve.WORKLOADS[args.arch]
-    model = launch_serve.build(args.arch, device=dev)
+    model = launch_serve.build(args.arch, device=dev, layers=work.layers)
     prompt = launch_serve.random_prompt(model, work.batch, work.prompt_len)
     s, steps = work.prompt_len, work.max_new - 1
     max_len = s + work.max_new
@@ -86,11 +87,13 @@ def main(argv=None) -> dict:
     def fresh_caches():
         return [{k: t.clone() for k, t in c.items()} for c in caches]
 
-    decode = measure(lambda c: greedy_decode(model, c, token, s, steps), dev,
+    last = None if model.cfg.embed_inputs else prompt[:, -1:]
+    decode = measure(lambda c: greedy_decode(model, c, token, s, steps, last), dev,
                      trace_dir / "decode.json" if trace_dir else None, setup=fresh_caches)
     decode["per_step_wall_ms"] = decode["wall_ms"] / steps
     decode["launches_per_step"] = decode["kernel_launches"] / steps
-    out = {"arch": args.arch, "batch": work.batch, "prompt_len": s,
+    out = {"arch": args.arch, "layers": model.cfg.num_layers, "batch": work.batch,
+           "prompt_len": s,
            "decode_steps": steps, "device": torch.cuda.get_device_name(dev),
            "prefill": prefill, "decode": decode}
     print(json.dumps(out))

@@ -12,8 +12,9 @@ same batch, as ``launch.profile_serve`` measures a phase. The device's idle
 share is 1 - kernel time / wall time. Also read: the port's kernel launches
 a step (their wrappers' counts) and their device time by name (the
 profiled step), the peak device memory, and the model-FLOPs
-share 6 * parameters * tokens / wall time / 989 TFLOP/s (the bf16 dense peak
-of the H100 SXM). Prints one JSON line. Needs a GPU.
+share 6 * active parameters * tokens / wall time / 989 TFLOP/s (the bf16
+dense peak of the H100 SXM; an MoE's active parameters count k of each
+layer's E experts, ``Model.active_param_count``). Prints one JSON line. Needs a GPU.
 """
 from __future__ import annotations
 
@@ -23,7 +24,6 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.config.registry import ported_archs
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.rglru_scan import rglru_scan_fwd
@@ -43,7 +43,7 @@ PORT_KERNEL_NAMES = ("fa_fwd", "ssd_bf16_kernel", "ssd_f32_kernel", "rglru_")   
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default=launch_train.ARCH,
-                    choices=ported_archs())
+                    choices=sorted(launch_train.TRAIN_WORKLOADS))
     ap.add_argument("--trace-dir", default="")
     args = ap.parse_args(argv)
 
@@ -63,13 +63,13 @@ def main(argv=None) -> dict:
     out = measure(step, dev, trace, top=100_000)  # two steps: wall, then profiled
     out["port_kernels"] = [k for k in out["top"] if any(n in k["name"] for n in PORT_KERNEL_NAMES)]
     out["top"] = out["top"][:12]
-    params = sum(p.numel() for p in model.parameters())
+    params, active = sum(p.numel() for p in model.parameters()), model.active_param_count()
     tokens = train_cfg.global_batch * train_cfg.seq_len
     out.update(
         arch=args.arch, batch=train_cfg.global_batch, seq=train_cfg.seq_len, remat=par.remat,
-        device=torch.cuda.get_device_name(dev), params=params,
+        device=torch.cuda.get_device_name(dev), params=params, active_params=active,
         tokens_per_s=tokens / (out["wall_ms"] / 1e3),
-        model_flops_share=6.0 * params * tokens / (out["wall_ms"] / 1e3) / PEAK_FLOPS_BF16,
+        model_flops_share=6.0 * active * tokens / (out["wall_ms"] / 1e3) / PEAK_FLOPS_BF16,
         kernel_launches_per_step={k: fn.launches / 2 for k, fn in KERNELS.items()},
         peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
     print(json.dumps(out))

@@ -8,19 +8,33 @@ prompt 512, 32 new tokens; mamba2-370m batch 4, prompt 2048 (16 chunks of
 128 carried in order, the long-prompt regime an SSM is chosen for), 32 new
 tokens; recurrentgemma-2b batch 4, prompt 4096 (two windows of its local
 attention, so the band is real, and the decode steps wrap the ring), 32 new
-tokens. Runs on the GPU unless ``--device cpu`` is given; without a GPU it
-raises. Weights are random, drawn from seed 0; prompts from seed 1.
+tokens; internlm2-1.8b, internvl2-2b and granite-moe-1b-a400m batch 4,
+prompt 2048, 32 new tokens; musicgen-large batch 4, 1500 frames (30 s of
+EnCodec's 50 Hz tokens), 32 new; phi3.5-moe-42b-a6.6b batch 4, prompt 2048,
+32 new, at 8 of its 32 layers; deepseek-67b batch 1, prompt 4096, 16 new,
+at 8 of 95 layers; nemotron-4-340b batch 1, prompt 4096, 16 new, at 2 of 96
+layers. Those three are cut in depth only, to fit one 80 GB card in bf16
+(83.7, 134.9 and 682.1 GB at full depth); widths stay the published ones,
+and the depth served is printed with the result.
+
+Weights are random, drawn from seed 0; prompts from seed 1: token ids, or
+for a model of embedding inputs (musicgen-large, internvl2-2b: a stubbed
+EnCodec or ViT frontend) embeddings [B, S, d_model] bf16, N(0, 1); such a
+model is fed the prompt's last embedding at every decode step, and its
+argmax tokens are the output, as ``repro.launch.serve`` does. Runs on the
+GPU unless ``--device cpu`` is given; without a GPU it raises.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.config.registry import get_model_config, ported_archs
+from repro_torch.config.registry import get_model_config, list_archs
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import Model, build_model
 from repro_torch.serve.decode import greedy_decode
@@ -30,6 +44,7 @@ class Workload(NamedTuple):
     batch: int
     prompt_len: int
     max_new: int
+    layers: Optional[int] = None   # a depth cut to fit the card; None: the config's
 
 
 # Each arch's default workload, which launch.profile_serve profiles as it is.
@@ -37,6 +52,13 @@ WORKLOADS = {
     "qwen1.5-0.5b": Workload(batch=4, prompt_len=512, max_new=32),
     "mamba2-370m": Workload(batch=4, prompt_len=2048, max_new=32),
     "recurrentgemma-2b": Workload(batch=4, prompt_len=4096, max_new=32),
+    "internlm2-1.8b": Workload(batch=4, prompt_len=2048, max_new=32),
+    "internvl2-2b": Workload(batch=4, prompt_len=2048, max_new=32),
+    "granite-moe-1b-a400m": Workload(batch=4, prompt_len=2048, max_new=32),
+    "musicgen-large": Workload(batch=4, prompt_len=1500, max_new=32),
+    "phi3.5-moe-42b-a6.6b": Workload(batch=4, prompt_len=2048, max_new=32, layers=8),
+    "deepseek-67b": Workload(batch=1, prompt_len=4096, max_new=16, layers=8),
+    "nemotron-4-340b": Workload(batch=1, prompt_len=4096, max_new=16, layers=2),
 }
 ARCH = "qwen1.5-0.5b"
 
@@ -56,20 +78,28 @@ class ServeResult:
 
 
 def build(arch: str, *, smoke: bool = False, device: DeviceLike = None,
-          seed: int = 0) -> Model:
-    """The arch's model on ``device`` with random weights from ``seed``."""
+          seed: int = 0, layers: Optional[int] = None) -> Model:
+    """The arch's model on ``device`` with random weights from ``seed``, at
+    ``layers`` of depth (None: the config's)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return build_model(get_model_config(arch, smoke=smoke), device=dev, generator=gen)
+    cfg = get_model_config(arch, smoke=smoke)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    return build_model(cfg, device=dev, generator=gen)
 
 
 def random_prompt(model: Model, batch: int, prompt_len: int, *, seed: int = 1
                   ) -> torch.Tensor:
-    """Token ids [batch, prompt_len], uniform over the vocab, on the model's device."""
-    dev = model.embed.tok.device
+    """On the model's device: token ids [batch, prompt_len], uniform over the
+    vocab, or for a model of embedding inputs embeddings [batch, prompt_len,
+    d_model] bf16, N(0, 1)."""
+    dev, cfg = model.device, model.cfg
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return torch.randint(0, model.cfg.vocab_size, (batch, prompt_len),
-                         generator=gen, device=dev)
+    if not cfg.embed_inputs:
+        return torch.randn((batch, prompt_len, cfg.d_model), generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+    return torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen, device=dev)
 
 
 def _sync(dev: torch.device) -> None:
@@ -81,14 +111,15 @@ def serve(model: Model, prompt: torch.Tensor, max_new: int) -> ServeResult:
     """Prefill, then greedy decode; each phase timed on the host clock after
     the device has finished."""
     dev = prompt.device
-    b, s = prompt.shape
+    b, s = prompt.shape[:2]
+    last = None if model.cfg.embed_inputs else prompt[:, -1:]
     _sync(dev)
     t0 = time.perf_counter()
     caches, prefill_logits = model.prefill(prompt, max_len=s + max_new)
     token = torch.argmax(prefill_logits, dim=-1)
     _sync(dev)
     t1 = time.perf_counter()
-    rest, logits = greedy_decode(model, caches, token, s, max_new - 1)
+    rest, logits = greedy_decode(model, caches, token, s, max_new - 1, last)
     _sync(dev)
     t2 = time.perf_counter()
     return ServeResult(
@@ -101,7 +132,7 @@ def serve(model: Model, prompt: torch.Tensor, max_new: int) -> ServeResult:
 
 def main(argv=None) -> ServeResult:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default=ARCH, choices=ported_archs())
+    ap.add_argument("--arch", default=ARCH, choices=list_archs())
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, help="default: the arch's workload")
     ap.add_argument("--prompt-len", type=int, help="default: the arch's workload")
@@ -109,16 +140,21 @@ def main(argv=None) -> ServeResult:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda raises when no GPU is visible")
     args = ap.parse_args(argv)
-    for key, default in WORKLOADS[args.arch]._asdict().items():
+    work = WORKLOADS[args.arch]
+    for key in ("batch", "prompt_len", "max_new"):
         if getattr(args, key) is None:
-            setattr(args, key, default)
+            setattr(args, key, getattr(work, key))
+    layers = None if args.smoke else work.layers   # a depth cut is for the published widths
 
-    model = build(args.arch, smoke=args.smoke, device=args.device)
+    model = build(args.arch, smoke=args.smoke, device=args.device, layers=layers)
     prompt = random_prompt(model, args.batch, args.prompt_len)
     res = serve(model, prompt, args.max_new)
     dev = prompt.device
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"{args.arch}{' (smoke)' if args.smoke else ''} on {name}: "
+    cfg = get_model_config(args.arch, smoke=args.smoke)
+    depth = (f", {model.cfg.num_layers} of {cfg.num_layers} layers"
+             if model.cfg.num_layers != cfg.num_layers else "")
+    print(f"{args.arch}{' (smoke)' if args.smoke else ''}{depth} on {name}: "
           f"prefill {args.batch}x{args.prompt_len} in {res.prefill_ms:.2f} ms, "
           f"{res.decode_tokens} decode tokens in {res.decode_ms:.2f} ms "
           f"({res.decode_tok_s:.1f} tok/s)")

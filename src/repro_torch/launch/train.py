@@ -16,11 +16,22 @@ checkpoint directory defaults to ``build/ckpt/<arch>`` in the checkout; and
 at full width the batch, sequence and steps default to the arch's workload
 (``TRAIN_WORKLOADS``): qwen1.5-0.5b batch 8 x 2048 tokens, 5 steps;
 mamba2-370m batch 4 x 2048, 3 steps; recurrentgemma-2b batch 1 x 4096 (two
-windows of its local attention, so the band is real), 3 steps, with no
+windows of its local attention, so the band is real), 3 steps;
+internlm2-1.8b, internvl2-2b and granite-moe-1b-a400m batch 4 x 2048 and
+musicgen-large 4 x 1536 (30.7 s of EnCodec's 50 Hz frames: the loss runs in
+chunks of 512, which 1500 does not divide, here as in the JAX package), 3
+steps each, with no
 checkpoints unless ``--ckpt-every`` asks (a full-width checkpoint with its
 f32 moments runs to tens of GB, and a run that resumed from the workload's
 last step would take none). With ``--smoke`` they default to the JAX
 launcher's batch 8 x 256, 100 steps, a checkpoint every 50.
+phi3.5-moe-42b-a6.6b, deepseek-67b and nemotron-4-340b train with
+``--smoke`` only: at full width their weights, grads and moments do not fit
+one card (their training waits for the distributed slice). A model of
+embedding inputs (musicgen-large, internvl2-2b) trains on the dataset's
+``embeds``; an MoE model's loss adds its aux losses, and each step logs the
+MoE aux values (``lb_loss``, ``z_loss``, ``drop_frac``), each summed over the
+MoE layers as the JAX backbone sums them.
 After a failed step, training goes back to the latest checkpoint, parameters
 and optimizer state included, and replays from there; with no checkpoint the
 failure is raised, since the step updates its state in place.
@@ -39,9 +50,10 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.config.base import ParallelConfig, TrainConfig
-from repro_torch.config.registry import get_model_config, ported_archs
+from repro_torch.config.registry import get_model_config, list_archs
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.model import Model, build_model, check_ported
+from repro_torch.models.model import Model, build_model
+from repro_torch.models.moe import AUX_KEYS
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.data import SyntheticDataset
 from repro_torch.train.elastic import FailureRecovery, StragglerMonitor
@@ -60,6 +72,10 @@ TRAIN_WORKLOADS = {
     "qwen1.5-0.5b": Workload(batch=8, seq=2048, steps=5),
     "mamba2-370m": Workload(batch=4, seq=2048, steps=3),
     "recurrentgemma-2b": Workload(batch=1, seq=4096, steps=3),
+    "internlm2-1.8b": Workload(batch=4, seq=2048, steps=3),
+    "internvl2-2b": Workload(batch=4, seq=2048, steps=3),
+    "granite-moe-1b-a400m": Workload(batch=4, seq=2048, steps=3),
+    "musicgen-large": Workload(batch=4, seq=1536, steps=3),
 }
 SMOKE_WORKLOAD = Workload(batch=8, seq=256, steps=100)   # the JAX launcher's defaults
 SMOKE_CKPT_EVERY = 50                                     # the JAX launcher's default
@@ -97,7 +113,10 @@ def setup(arch: str, *, smoke: bool = False, device: DeviceLike = None,
           ckpt_every: Optional[int] = None) -> Tuple[Model, TrainConfig, ParallelConfig]:
     """The model, train config and parallel config of a run; what is left
     ``None`` takes the arch's workload default (see the module docstring)."""
-    check_ported(get_model_config(arch, smoke=smoke))
+    if not smoke and arch not in TRAIN_WORKLOADS:
+        raise ValueError(f"{arch} does not train on one card at full width (its "
+                         f"training waits for the distributed slice); pass --smoke "
+                         f"(full width: {sorted(TRAIN_WORKLOADS)})")
     work = SMOKE_WORKLOAD if smoke else TRAIN_WORKLOADS[arch]
     batch, seq, steps = (work.batch if batch is None else batch,
                          work.seq if seq is None else seq,
@@ -122,7 +141,7 @@ def train(model: Model, train_cfg: TrainConfig, par: ParallelConfig = ParallelCo
           log_every: int = 1, log=print) -> TrainResult:
     """Runs ``train_cfg.total_steps`` steps (resuming from the latest checkpoint
     in ``train_cfg.ckpt_dir`` if there is one; none when ``ckpt_every`` is 0)."""
-    dev = model.embed.tok.device
+    dev = model.device
     data = SyntheticDataset(model.cfg, train_cfg, device=dev)
     opt = init_adam(dict(model.named_parameters()), par.opt_state_dtype)
     ckpt_dir = train_cfg.ckpt_dir or str(CKPT_ROOT / model.cfg.name)
@@ -155,7 +174,9 @@ def train(model: Model, train_cfg: TrainConfig, par: ParallelConfig = ParallelCo
                        tokens_per_s=tokens / dt, verdict=verdict)
             res.history.append(row)
             if step % log_every == 0 or step == 1:
-                log(f"step {step:5d} loss {row['loss']:.4f} ce {row['ce']:.4f} "
+                moe = "".join(f" {k.removeprefix('moe_')} {row[k]:.4f}"
+                              for k in AUX_KEYS if k in row)
+                log(f"step {step:5d} loss {row['loss']:.4f} ce {row['ce']:.4f}{moe} "
                     f"gnorm {row['grad_norm']:.3f} lr {row['lr']:.2e} {row['ms']:.0f}ms "
                     f"({row['tokens_per_s']:.0f} tok/s)"
                     f"{' [' + verdict + ']' if verdict != 'ok' else ''}")
@@ -190,7 +211,7 @@ def train(model: Model, train_cfg: TrainConfig, par: ParallelConfig = ParallelCo
 
 def main(argv=None) -> TrainResult:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default=ARCH, choices=ported_archs())
+    ap.add_argument("--arch", default=ARCH, choices=list_archs())
     ap.add_argument("--smoke", action="store_true", help="the reduced config")
     ap.add_argument("--steps", type=int, help="default: the arch's workload")
     ap.add_argument("--batch", type=int, help="default: the arch's workload")
@@ -207,7 +228,7 @@ def main(argv=None) -> TrainResult:
     model, train_cfg, par = setup(
         args.arch, smoke=args.smoke, device=args.device, batch=args.batch, seq=args.seq,
         steps=args.steps, lr=args.lr, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
-    dev = model.embed.tok.device
+    dev = model.device
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"train {args.arch}{' (smoke)' if args.smoke else ''} on {name}: batch "
           f"{train_cfg.global_batch} x {train_cfg.seq_len} tokens, {train_cfg.total_steps} "

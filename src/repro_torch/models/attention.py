@@ -5,6 +5,7 @@ Layout conventions (as in the JAX package)
   q        [B, S, Hq, Dh]
   k, v     [B, S, Hk, Dh]       (GQA: Hq = Hk * G)
   cache    k/v  [B, Smax, Hk, Dh] (rope pre-applied to cached K)
+  time-minor K  [B, Hk, Dh, Smax] (``decode_k_time_minor``; V stays [B, Smax, Hk, Dh])
   ring     k/v  [B, W, Hk, Dh]    (local attention: position p in slot p % W)
 
 Prefill and training in the port go through ``kernels.ops.flash_attention``
@@ -183,6 +184,26 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     """
     valid = torch.arange(k_cache.shape[1], device=q.device) <= pos
     return _attend_one(q, k_cache, v_cache, valid, softcap)
+
+
+def decode_attention_tm(q: torch.Tensor, k_cache_tm: torch.Tensor, v_cache: torch.Tensor,
+                        pos: int, *, softcap: float = 0.0) -> torch.Tensor:
+    """One new token against a time-minor K cache: q.K contracts Dh with S
+    free, so no step transposes the whole cache.
+
+    q [B, Hq, Dh] (rope applied at pos); K [B, Hk, Dh, Smax] and V
+    [B, Smax, Hk, Dh] with the new token already written at ``pos``.
+    Returns [B, Hq, Dh] in q's dtype."""
+    b, hk, dh, smax = k_cache_tm.shape
+    hq = q.shape[1]
+    qg = q.reshape(b, hk, hq // hk, dh)
+    s = torch.einsum("bhgd,bhds->bhgs", qg.float(), k_cache_tm.float()) * dh ** -0.5
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    s = s.masked_fill(~(torch.arange(smax, device=q.device) <= pos), NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype).float(), v_cache.float())
+    return o.reshape(b, hq, dh).to(q.dtype)
 
 
 def decode_local_attention(q: torch.Tensor, k_ring: torch.Tensor, v_ring: torch.Tensor,

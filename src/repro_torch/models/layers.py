@@ -22,7 +22,7 @@ def normal_(p: torch.Tensor, std: float, generator: torch.Generator) -> None:
     draw = torch.randn(p.shape, generator=generator, device=generator.device,
                        dtype=torch.float32)
     with torch.no_grad():
-        p.copy_(draw * std)
+        p.copy_(draw.mul_(std))      # in place: one f32 temporary, not two
 
 
 # ---------------------------------------------------------------------------
@@ -144,36 +144,42 @@ class MLP(nn.Module):
 # ---------------------------------------------------------------------------
 
 class Embed(nn.Module):
-    """Token table ``tok`` [V, d]; ``unembed`` [d, V] only when not tied."""
+    """Token table ``tok`` [V, d], only when ``embed_inputs``; ``unembed``
+    [d, V] unless the model is tied and embeds its own tokens (the logits
+    then read ``tok.T``). With ``embed_inputs=False`` the inputs are
+    precomputed embeddings [..., d] (a stubbed frontend's EnCodec frames or
+    ViT patches), cast to the activation dtype."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if not cfg.embed_inputs:
-            raise NotImplementedError(
-                "precomputed-embedding inputs (embed_inputs=False) come with "
-                "the slice that ports musicgen-large / internvl2-2b")
         pd = dtype_of(cfg.param_dtype)
         self.cfg = cfg
-        self.tok = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model,
-                                            dtype=pd, device=device))
-        if cfg.tie_embeddings:
-            self.unembed = None
-        else:
-            self.unembed = nn.Parameter(torch.empty(cfg.d_model, cfg.vocab_size,
-                                                    dtype=pd, device=device))
+        self.tok = (nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model, dtype=pd,
+                                             device=device))
+                    if cfg.embed_inputs else None)
+        self.unembed = (None if cfg.tie_embeddings and cfg.embed_inputs else
+                        nn.Parameter(torch.empty(cfg.d_model, cfg.vocab_size, dtype=pd,
+                                                 device=device)))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        normal_(self.tok, 0.02, generator)
+        if self.tok is not None:
+            normal_(self.tok, 0.02, generator)
         if self.unembed is not None:
             normal_(self.unembed, self.cfg.d_model ** -0.5, generator)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.tok[tokens].to(dtype_of(self.cfg.act_dtype))
+    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+        """Token ids [...] -> their rows, or embeddings [..., d] as they are,
+        in the activation dtype."""
+        act = dtype_of(self.cfg.act_dtype)
+        return (self.tok[inputs] if self.tok is not None else inputs).to(act)
+
+    def weight(self) -> torch.Tensor:
+        """[d, V]: the tied table transposed, or the separate unembedding."""
+        return self.tok.T if self.unembed is None else self.unembed
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
-        """Logits in f32 (loss-side numerics); tied: x @ tok.T."""
-        w = self.tok.T if self.unembed is None else self.unembed
-        logits = x.float() @ w.float()
+        """Logits in f32 (loss-side numerics)."""
+        logits = x.float() @ self.weight().float()
         c = self.cfg.logit_softcap
         if c > 0:
             logits = c * torch.tanh(logits / c)

@@ -1,8 +1,14 @@
 """Public model API: build_model(cfg, device=) -> Model(loss_fn, prefill,
 decode_step, init_cache).
 
-Input convention: token ids [B, S] (int64); ``batch["labels"]`` [B, S], -1 =
-masked. The loss is computed in sequence chunks of ``LOSS_CHUNK`` so that
+Input conventions, as in the JAX package: ``embed_inputs=True`` takes token
+ids, ``batch["tokens"]`` [B, S] (int64); ``embed_inputs=False`` takes
+precomputed embeddings, ``batch["embeds"]`` [B, S, d_model] (a stubbed
+frontend's EnCodec frames or ViT patches), cast to the activation dtype.
+``batch["labels"]`` [B, S], -1 = masked. With experts (``num_experts``) the
+loss adds ``router_aux_loss * moe_lb_loss + 1e-3 * moe_z_loss``.
+
+The loss is computed in sequence chunks of ``LOSS_CHUNK`` so that
 [B, S, vocab] logits never exist at once (vocab up to 256k): the unembed
 matmul runs inside the chunk loop in f32, as in the JAX package. The f32
 copy of the unembedding is made once per call, outside the loop, and each
@@ -19,9 +25,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.base import ModelConfig
-from repro_torch.config.registry import arch_of, ported_archs
 from repro_torch.device import DeviceLike, dtype_of, resolve_device
 from repro_torch.models.layers import Embed
+from repro_torch.models.moe import MoE
 from repro_torch.models.transformer import Backbone, Cache, init_caches
 
 LOSS_CHUNK = 512
@@ -67,19 +73,33 @@ class Model(nn.Module):
         self.embed = Embed(cfg, device=device)
         self.backbone = Backbone(cfg, device=device)
 
-    def unembed_weight(self) -> torch.Tensor:
-        """[d, V]: the tied table transposed, or the separate unembedding."""
-        return self.embed.tok.T if self.embed.unembed is None else self.embed.unembed
+    @property
+    def device(self) -> torch.device:
+        return self.backbone.final_norm.scale.device
+
+    def active_param_count(self) -> int:
+        """The parameters one token's forward reads: all of them, less the
+        E - k of each MoE layer's E experts that its router passes over."""
+        n = sum(p.numel() for p in self.parameters())
+        e, k = self.cfg.num_experts, self.cfg.num_experts_per_tok
+        experts = sum(p.numel() for m in self.modules() if isinstance(m, MoE)
+                      for p in (m.w_gate, m.w_up, m.w_down))
+        return n - experts * (e - k) // e if e else n
 
     def loss_fn(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, dict]:
-        """Mean next-token cross-entropy over the unmasked labels. Returns
-        (loss, metrics ``loss``, ``ce``, ``tokens``), f32 scalars; the
+        """Mean next-token cross-entropy over the unmasked labels, plus the
+        MoE aux losses with experts. Returns (loss, metrics ``loss``, ``ce``,
+        ``tokens`` and the three ``moe_*`` aux values), f32 scalars; the
         backbone runs in train mode under ``self.remat``."""
-        h, _ = self.backbone(self.embed(batch["tokens"]), mode="train", remat=self.remat)
-        tot, cnt = chunked_ce_loss(h, self.unembed_weight(), batch["labels"],
-                                   self.cfg.logit_softcap)
+        cfg = self.cfg
+        inputs = batch["tokens"] if cfg.embed_inputs else batch["embeds"]
+        h, aux, _ = self.backbone(self.embed(inputs), mode="train", remat=self.remat)
+        tot, cnt = chunked_ce_loss(h, self.embed.weight(), batch["labels"], cfg.logit_softcap)
         ce = tot / torch.clamp(cnt, min=1.0)
-        return ce, {"loss": ce, "ce": ce, "tokens": cnt}
+        loss = ce
+        if cfg.num_experts:
+            loss = loss + cfg.router_aux_loss * aux["moe_lb_loss"] + 1e-3 * aux["moe_z_loss"]
+        return loss, {"loss": loss, "ce": ce, "tokens": cnt, **aux}
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Random init from ``generator`` (the JAX init's distributions)."""
@@ -89,35 +109,24 @@ class Model(nn.Module):
 
     def init_cache(self, batch: int, max_len: int) -> List[Cache]:
         return init_caches(self.cfg, batch, max_len, dtype_of(self.cfg.act_dtype),
-                           device=self.embed.tok.device)
+                           device=self.device)
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, max_len: int
+    def prefill(self, inputs: torch.Tensor, max_len: int
                 ) -> Tuple[List[Cache], torch.Tensor]:
-        """tokens [B, S]. Returns (caches of max_len, last-position logits f32 [B, V])."""
-        h, caches = self.backbone(self.embed(tokens), mode="prefill", max_len=max_len)
+        """inputs: tokens [B, S] or embeds [B, S, d]. Returns (caches of
+        max_len, last-position logits f32 [B, V])."""
+        h, _, caches = self.backbone(self.embed(inputs), mode="prefill", max_len=max_len)
         return caches, self.embed.logits(h[:, -1])
 
     @torch.no_grad()
-    def decode_step(self, caches: List[Cache], tokens: torch.Tensor, pos: int
+    def decode_step(self, caches: List[Cache], inputs: torch.Tensor, pos: int
                     ) -> Tuple[List[Cache], torch.Tensor]:
-        """tokens [B] at position ``pos``; updates ``caches`` in place.
-
-        Returns (caches, logits f32 [B, V])."""
-        h, caches = self.backbone(self.embed(tokens[:, None]), mode="decode",
-                                  caches=caches, pos=int(pos))
+        """inputs: tokens [B] or embeds [B, 1, d] at position ``pos``;
+        updates ``caches`` in place. Returns (caches, logits f32 [B, V])."""
+        x = self.embed(inputs[:, None] if self.cfg.embed_inputs else inputs)
+        h, _, caches = self.backbone(x, mode="decode", caches=caches, pos=int(pos))
         return caches, self.embed.logits(h[:, 0])
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config of a registered arch whose
-    model the port does not build yet (``ported_archs()``)."""
-    arch = arch_of(cfg)
-    if arch is not None and arch not in ported_archs():
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet: its config and traffic are "
-            f"data here, its model comes with ROADMAP queue 1 item 3 (ported: "
-            f"{ported_archs()})")
 
 
 def build_model(cfg: ModelConfig, *, device: DeviceLike = None,
@@ -126,11 +135,8 @@ def build_model(cfg: ModelConfig, *, device: DeviceLike = None,
 
     Parameters are drawn from ``generator`` (default: seed 0 on the model's
     device); on the ``meta`` device they are left unset. ``remat`` is the
-    loss's rematerialisation policy (``Backbone``). A config of a registered
-    arch that is not in ``ported_archs()`` raises ``NotImplementedError``
-    before anything is allocated.
+    loss's rematerialisation policy (``Backbone``).
     """
-    check_ported(cfg)
     dev = resolve_device(device)
     model = Model(cfg, device=dev, remat=remat)
     if dev.type != "meta":

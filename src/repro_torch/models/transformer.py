@@ -1,5 +1,5 @@
 """Block-typed decoder-only backbone: mixer in {attn, local_attn, ssd, rglru},
-mlp in {swiglu, relu2, gelu, none}.
+mlp in {swiglu, relu2, gelu, moe, none}.
 
 The JAX package stacks each pattern position's layers and scans them; the
 port keeps one ``Block`` module per layer in order (layer g*len(pattern)+i is
@@ -11,11 +11,17 @@ runs the whole prompt and returns one cache per layer (K/V of ``max_len``
 for attention, a ring of the last ``local_window`` K/V for local attention,
 the conv windows and the state for SSD and RG-LRU; all but global attention
 ignore ``max_len``); ``decode`` runs one token against those caches and
-updates them in place (SSD and RG-LRU ignore ``pos``). Train and prefill
-attention go through ``kernels.ops.flash_attention`` (local attention with
-its window), the SSD scan through ``kernels.ops.ssd_scan``, the RG-LRU
-recurrence through ``kernels.ops.rglru_recurrence``: autograd Functions
-around the kernels.
+updates them in place (SSD and RG-LRU ignore ``pos``). With
+``decode_k_time_minor`` a global attention layer keeps its K cache
+time-minor, [B, Hk, hd, Smax], so that decode's q.K contracts hd with S
+free (local layers keep their time-major ring, as in the JAX package).
+Each mode also returns the MoE aux values (``moe.AUX_KEYS``) summed over
+the layers, zeros without an MoE layer, as ``apply_backbone`` sums them.
+
+Train and prefill attention go through ``kernels.ops.flash_attention``
+(local attention with its window), the SSD scan through
+``kernels.ops.ssd_scan``, the RG-LRU recurrence through
+``kernels.ops.rglru_recurrence``: autograd Functions around the kernels.
 
 In train mode the backbone rematerialises as the JAX package's
 ``_remat_wrap`` does, with ``torch.utils.checkpoint`` in place of
@@ -43,16 +49,18 @@ from repro_torch.config.base import (
 from repro_torch.device import dtype_of
 from repro_torch.kernels.ops import flash_attention
 from repro_torch.models.attention import (
-    decode_attention, decode_local_attention, local_attention,
+    decode_attention, decode_attention_tm, decode_local_attention, local_attention,
 )
 from repro_torch.models.layers import MLP, Norm, apply_rope, normal_
+from repro_torch.models.moe import AUX_KEYS, MoE, Aux, aux_zero
 from repro_torch.models.rglru import RGLRU as RGLRUMixer
 from repro_torch.models.rglru import init_rglru_cache
 from repro_torch.models.ssm import SSD as SSDMixer
 from repro_torch.models.ssm import init_ssd_cache
 
 # attention: {"k": [B, Smax, Hk, hd], "v": [B, Smax, Hk, hd]} (Smax = local_window
-# for local attention, a ring: position p in slot p % W);
+# for local attention, a ring: position p in slot p % W; "k" [B, Hk, hd, Smax]
+# for a global layer under decode_k_time_minor);
 # SSD: {"conv_x": [B, K-1, d_in], "conv_bc": [B, K-1, 2gn], "ssm": [B, h, n, p] f32};
 # RG-LRU: {"conv": [B, K-1, W], "h": [B, W] f32}
 Cache = dict
@@ -72,6 +80,7 @@ class Attention(nn.Module):
         pd = dtype_of(cfg.param_dtype)
         self.cfg = cfg
         self.mixer = mixer
+        self.time_minor = cfg.decode_k_time_minor and mixer != LOCAL_ATTN
         self.wq = nn.Parameter(torch.empty(d, hq * hd, dtype=pd, device=device))
         self.wk = nn.Parameter(torch.empty(d, hk * hd, dtype=pd, device=device))
         self.wv = nn.Parameter(torch.empty(d, hk * hd, dtype=pd, device=device))
@@ -117,10 +126,14 @@ class Attention(nn.Module):
             # ring (by prefill or init_cache), and is updated in place here,
             # where the JAX package returns an updated copy of it.
             local = self.mixer == LOCAL_ATTN
-            slot = pos % cache["k"].shape[1] if local else pos
-            cache["k"][:, slot] = k.to(cache["k"].dtype)
+            slot = pos % cache["v"].shape[1] if local else pos
+            if self.time_minor:
+                cache["k"][..., slot] = k.to(cache["k"].dtype)
+            else:
+                cache["k"][:, slot] = k.to(cache["k"].dtype)
             cache["v"][:, slot] = v.to(cache["v"].dtype)
-            attend = decode_local_attention if local else decode_attention
+            attend = (decode_local_attention if local else
+                      decode_attention_tm if self.time_minor else decode_attention)
             o = attend(q, cache["k"], cache["v"], pos)[:, None]
         elif mode in ("train", "prefill"):
             if mode == "prefill" and self.mixer == ATTN and max_len < s:
@@ -140,7 +153,10 @@ class Attention(nn.Module):
                     cache["k"][:, :n] = torch.roll(k[:, s - n:], s % w, 1)
                     cache["v"][:, :n] = torch.roll(v[:, s - n:], s % w, 1)
                 else:
-                    cache["k"][:, :s] = k
+                    if self.time_minor:
+                        cache["k"][..., :s] = k.permute(0, 2, 3, 1)
+                    else:
+                        cache["k"][:, :s] = k
                     cache["v"][:, :s] = v
         else:
             raise ValueError(f"unknown mode {mode!r}; expected train, prefill or decode")
@@ -150,10 +166,15 @@ class Attention(nn.Module):
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
                     dtype: torch.dtype, device=None, mixer: str = ATTN) -> Cache:
-    """Zeroed K/V of ``max_len`` rows, or of ``local_window`` for a local layer."""
+    """Zeroed K/V of ``max_len`` rows, or of ``local_window`` for a local
+    layer; a global layer's K time-minor [B, Hk, hd, max_len] under
+    ``decode_k_time_minor``."""
     length = cfg.local_window if mixer == LOCAL_ATTN else max_len
-    shape = (batch, length, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+    hk, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    shape = (batch, length, hk, hd)
+    k_shape = ((batch, hk, hd, length) if cfg.decode_k_time_minor and mixer != LOCAL_ATTN
+               else shape)
+    return {"k": torch.zeros(k_shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
@@ -166,22 +187,19 @@ class Block(nn.Module):
         super().__init__()
         if mixer not in (ATTN, LOCAL_ATTN, SSD, RGLRU):
             raise ValueError(f"unknown mixer {mixer!r}")
-        if mlp == MLP_MOE:
-            raise NotImplementedError(
-                "the MoE MLP is not ported yet; it comes with a slice after slice 3")
         self.norm1 = Norm(cfg, device=device)
         self.attn = (Attention(cfg, mixer, device=device)
                      if mixer in (ATTN, LOCAL_ATTN) else None)
         self.ssd = SSDMixer(cfg, device=device) if mixer == SSD else None
         self.rglru = RGLRUMixer(cfg, device=device) if mixer == RGLRU else None
-        if mlp != MLP_NONE:
-            self.norm2 = Norm(cfg, device=device)
-            self.mlp = MLP(cfg, mlp, device=device)
-        else:
-            self.norm2 = self.mlp = None
+        self.norm2 = Norm(cfg, device=device) if mlp != MLP_NONE else None
+        self.mlp = MLP(cfg, mlp, device=device) if mlp not in (MLP_NONE, MLP_MOE) else None
+        self.moe = MoE(cfg, device=device) if mlp == MLP_MOE else None
 
     def forward(self, x: torch.Tensor, *, mode: str, cache: Optional[Cache],
-                pos: Optional[int], max_len: int = 0) -> Tuple[torch.Tensor, Cache]:
+                pos: Optional[int], max_len: int = 0
+                ) -> Tuple[torch.Tensor, Optional[Aux], Cache]:
+        """(x after the block, its MoE aux or None without an MoE, cache)."""
         h = self.norm1(x)
         if self.attn is not None:
             mx, new_cache = self.attn(h, mode=mode, cache=cache, pos=pos, max_len=max_len)
@@ -190,9 +208,17 @@ class Block(nn.Module):
         else:
             mx, new_cache = self.rglru(h, mode=mode, cache=cache)
         x = x + mx
+        aux = None
         if self.mlp is not None:
             x = x + self.mlp(self.norm2(x))
-        return x, new_cache
+        elif self.moe is not None:
+            y, aux = self.moe(self.norm2(x))
+            x = x + y
+        return x, aux, new_cache
+
+
+def _add_aux(total: Aux, aux: Optional[Aux]) -> Aux:
+    return total if aux is None else {k: total[k] + aux[k] for k in AUX_KEYS}
 
 
 # ---------------------------------------------------------------------------
@@ -202,9 +228,6 @@ class Block(nn.Module):
 class Backbone(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.decode_k_time_minor:
-            raise NotImplementedError(
-                "the time-minor K cache (decode_k_time_minor) comes with a later slice")
         self.cfg = cfg
         self.layers = nn.ModuleList(
             Block(cfg, mixer, mlp, device=device) for mixer, mlp in cfg.layer_blocks())
@@ -212,38 +235,45 @@ class Backbone(nn.Module):
 
     def forward(self, x: torch.Tensor, *, mode: str,
                 caches: Optional[List[Cache]] = None, pos: Optional[int] = None,
-                max_len: int = 0, remat: str = "block") -> Tuple[torch.Tensor, List[Cache]]:
-        """Runs all layers. Returns (hidden after the final norm, caches);
-        in train mode the caches are None and ``remat`` applies."""
+                max_len: int = 0, remat: str = "block"
+                ) -> Tuple[torch.Tensor, Aux, List[Cache]]:
+        """Runs all layers. Returns (hidden after the final norm, the MoE aux
+        summed over the layers, caches); in train mode the caches are None
+        and ``remat`` applies."""
+        aux = aux_zero(x.device)
         if mode == "train":
-            return self.final_norm(self._train(x, remat)), [None] * len(self.layers)
+            x, aux = self._train(x, aux, remat)
+            return self.final_norm(x), aux, [None] * len(self.layers)
         new_caches = []
         for i, layer in enumerate(self.layers):
-            x, c = layer(x, mode=mode, cache=None if caches is None else caches[i],
-                         pos=pos, max_len=max_len)
+            x, a, c = layer(x, mode=mode, cache=None if caches is None else caches[i],
+                            pos=pos, max_len=max_len)
+            aux = _add_aux(aux, a)
             new_caches.append(c)
-        return self.final_norm(x), new_caches
+        return self.final_norm(x), aux, new_caches
 
-    def _train(self, x: torch.Tensor, remat: str) -> torch.Tensor:
+    def _train(self, x: torch.Tensor, aux: Aux, remat: str) -> Tuple[torch.Tensor, Aux]:
         n_pat = len(self.cfg.block_pattern or (None,))
         n_grouped = len(self.layers) - len(self.layers) % n_pat
 
-        def group(x: torch.Tensor, first: int) -> torch.Tensor:
+        def group(x: torch.Tensor, aux: Aux, first: int) -> Tuple[torch.Tensor, Aux]:
             for layer in self.layers[first:first + n_pat]:
-                x, _ = layer(x, mode="train", cache=None, pos=None)
-            return x
+                x, a, _ = layer(x, mode="train", cache=None, pos=None)
+                aux = _add_aux(aux, a)
+            return x, aux
 
         for first in range(0, n_grouped, n_pat):
             if remat == "none":
-                x = group(x, first)
+                x, aux = group(x, aux, first)
             elif remat == "dots":
-                x = checkpoint(group, x, first, use_reentrant=False,
-                               context_fn=_save_matmuls)
+                x, aux = checkpoint(group, x, aux, first, use_reentrant=False,
+                                    context_fn=_save_matmuls)
             else:
-                x = checkpoint(group, x, first, use_reentrant=False)
+                x, aux = checkpoint(group, x, aux, first, use_reentrant=False)
         for layer in self.layers[n_grouped:]:   # the remainder: not rematerialised
-            x, _ = layer(x, mode="train", cache=None, pos=None)
-        return x
+            x, a, _ = layer(x, mode="train", cache=None, pos=None)
+            aux = _add_aux(aux, a)
+        return x, aux
 
 
 # the weight matmuls: x @ w of a [B, S, d] activation is aten.mm on [B*S, d]

@@ -2,11 +2,14 @@
 
 The caches are allocated once by prefill (K/V at ``max_len``, a local
 layer's ring at its window, SSD and RG-LRU states at their fixed sizes), and
-every decode step updates them in place.
+every decode step updates them in place. A model of embedding inputs
+(``embed_inputs=False``) is fed the prompt's last embedding at every decode
+step, as ``repro.launch.serve`` feeds it, and its argmax tokens
+are the output.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -15,13 +18,16 @@ from repro_torch.models.transformer import Cache
 
 
 def greedy_decode(model: Model, caches: List[Cache], token: torch.Tensor,
-                  start_pos: int, steps: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Feeds ``token`` [B] at ``start_pos`` and decodes ``steps`` tokens.
+                  start_pos: int, steps: int, embeds: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Feeds ``token`` [B] at ``start_pos`` and decodes ``steps`` tokens;
+    with ``embeds`` [B, 1, d] that embedding is fed at every step instead.
 
     Returns (tokens [B, steps], logits of the last step [B, V])."""
     out, logits = [], None
     for t in range(steps):
-        caches, logits = model.decode_step(caches, token, start_pos + t)
+        caches, logits = model.decode_step(caches, token if embeds is None else embeds,
+                                           start_pos + t)
         token = torch.argmax(logits, dim=-1)
         out.append(token)
     if not out:
@@ -31,9 +37,11 @@ def greedy_decode(model: Model, caches: List[Cache], token: torch.Tensor,
 
 def greedy_generate(model: Model, prompt: torch.Tensor, *, max_new: int = 32,
                     max_len: int = 0) -> torch.Tensor:
-    """Prefill ``prompt`` [B, S], then decode greedily; returns [B, max_new]."""
+    """Prefill ``prompt`` (tokens [B, S] or embeds [B, S, d]), then decode
+    greedily; returns [B, max_new]."""
     s = prompt.shape[1]
     caches, logits = model.prefill(prompt, max_len=max_len or (s + max_new))
     token = torch.argmax(logits, dim=-1)
-    rest, _ = greedy_decode(model, caches, token, s, max_new - 1)
+    last = None if model.cfg.embed_inputs else prompt[:, -1:]
+    rest, _ = greedy_decode(model, caches, token, s, max_new - 1, last)
     return torch.cat([token[:, None], rest], dim=1)

@@ -2,7 +2,8 @@
 
 One cache per layer: ``{"k", "v"}`` of [B, Smax, Hk, hd] for attention (of
 [B, W, Hk, hd], a ring of the last ``local_window`` positions, for local
-attention), ``{"conv_x", "conv_bc", "ssm"}`` (the conv windows and the f32
+attention; with ``decode_k_time_minor`` a global layer's K is time-minor,
+[B, Hk, hd, Smax]), ``{"conv_x", "conv_bc", "ssm"}`` (the conv windows and the f32
 state) for SSD, ``{"conv", "h"}`` (the conv window and the f32 state) for
 RG-LRU.
 Sharding specs come with the port's ``parallel`` slice.

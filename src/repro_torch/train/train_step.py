@@ -4,9 +4,11 @@ without the pjit shardings and the cross-pod gradient reduction.
 loss + grad (micro-batch accumulation when ``microbatches > 1``: the batch
 is split along its rows, the gradients summed in f32 and divided by the
 number of micro-batches, as the JAX package's ``lax.scan`` accumulation) ->
-clip by the global norm -> AdamW. Metrics: ``loss``, ``ce``, ``grad_norm``,
-``lr``, each a scalar tensor (read them after the step; reading one waits
-for the device).
+clip by the global norm -> AdamW. Metrics: ``loss``, ``ce``, with experts
+the MoE aux values ``moe_lb_loss``, ``moe_z_loss`` and ``moe_drop_frac``
+(which the JAX step computes and does not return), ``grad_norm``, ``lr``,
+each a scalar tensor (read them after the step; reading one waits for the
+device).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 
 from repro_torch.config.base import ParallelConfig, TrainConfig
 from repro_torch.models.model import Model
+from repro_torch.models.moe import AUX_KEYS
 from repro_torch.train.optimizer import AdamState, adam_update, clip_by_global_norm
 
 Batch = Dict[str, torch.Tensor]
@@ -26,13 +29,18 @@ def _split_microbatches(batch: Batch, n: int) -> list:
              for k, v in batch.items()} for i in range(n)]
 
 
+def _logged(model: Model) -> Tuple[str, ...]:
+    """The loss metrics a step reports: with experts, the MoE aux values too."""
+    return ("loss", "ce") + (AUX_KEYS if model.cfg.num_experts else ())
+
+
 def value_and_grad(model: Model, batch: Batch) -> Tuple[dict, Dict[str, torch.Tensor]]:
-    """(metrics ``loss`` and ``ce``, the gradient of every parameter by name)."""
+    """(metrics ``loss``, ``ce`` and with experts the MoE aux values, the
+    gradient of every parameter by name)."""
     names, params = zip(*model.named_parameters())
     loss, metrics = model.loss_fn(batch)
     grads = torch.autograd.grad(loss, params)
-    return ({"loss": metrics["loss"].detach(), "ce": metrics["ce"].detach()},
-            dict(zip(names, grads)))
+    return {k: metrics[k].detach() for k in _logged(model)}, dict(zip(names, grads))
 
 
 def accumulated_grads(model: Model, batch: Batch, micro: int
@@ -41,7 +49,7 @@ def accumulated_grads(model: Model, batch: Batch, micro: int
     grads, and of their metrics, divided by ``micro`` (the batch as it is
     when ``micro`` is 1)."""
     if micro > 1:
-        grads, msum = None, {"loss": 0.0, "ce": 0.0}
+        grads, msum = None, dict.fromkeys(_logged(model), 0.0)
         for one in _split_microbatches(batch, micro):
             m, g = value_and_grad(model, one)
             if grads is None:

@@ -80,18 +80,16 @@ def test_serve_on_cpu_when_asked(arch):
                                              ("granite-moe-1b-a400m", "ROADMAP queue 1 item 3"),
                                              ("deepseek-67b", "ROADMAP queue 1 item 3")])
 def test_archs_not_ported_name_their_slice(arch, slice_name):
-    """Every arch's config is data (``get_model_config`` returns it); the
-    model of an arch the port does not run yet is refused by
-    ``build_model``, before anything is allocated (deepseek-67b is 135 GB),
-    at full width and smoke, and so by ``launch.serve``/``launch.train``."""
+    """The archs that waited for ``slice_name`` (the seven the port did not
+    run before it) are built now: at full width on ``meta``, before anything
+    is allocated (deepseek-67b is 135 GB), and at smoke on the CPU, through
+    ``build_model`` and through ``launch.serve``/``launch.train``."""
     from repro_torch.config import get_model_config
     from repro_torch.launch import serve, train
     from repro_torch.models import build_model
-    for smoke in (False, True):
-        cfg = get_model_config(arch, smoke=smoke)
-        with pytest.raises(NotImplementedError, match=slice_name):
-            build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=slice_name):
-        serve.build(arch, device="cpu")
-    with pytest.raises(NotImplementedError, match=slice_name):
-        train.setup(arch, device="cpu")
+    full = build_model(get_model_config(arch), device="meta")
+    assert sum(p.numel() for p in full.parameters()) > 1e9
+    model = build_model(get_model_config(arch, smoke=True), device="cpu")
+    assert all(torch.isfinite(p).all() for p in model.parameters())
+    assert serve.build(arch, smoke=True, device="cpu").cfg == model.cfg
+    assert train.setup(arch, smoke=True, device="cpu")[0].cfg == model.cfg

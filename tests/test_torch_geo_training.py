@@ -60,9 +60,9 @@ def test_geo_training_rows_match_jax(capsys):
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "granite-moe-1b-a400m"])
 def test_geo_training_runs_every_arch_of_the_registry(arch):
-    """The traffic model needs an arch's config only: a model the port does
-    not build (and an MoE one) still gives its training traffic."""
-    assert arch not in ported_archs() and arch in list_archs()
+    """The traffic model needs an arch's config only: a dense and an MoE
+    arch give their training traffic."""
+    assert arch in ported_archs() and arch in list_archs()
     out = geo_training.main(["--arch", arch, "--device", "cpu", "--horizon-us", "600",
                              "--distances-km", "10", "--schemes", "dcqcn"])
     rows = out["training"]["none"]["rows"]["dcqcn"]
@@ -70,12 +70,14 @@ def test_geo_training_runs_every_arch_of_the_registry(arch):
 
 
 def test_unported_models_refused_by_build_model_and_serve():
+    """No registered arch is refused any more: each builds (on ``meta``) and
+    is a choice of the serving launcher; an unknown arch is refused."""
     from repro_torch.launch import serve
     from repro_torch.models import build_model
-    for arch in sorted(set(list_archs()) - set(ported_archs())):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
-            build_model(get_model_config(arch), device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
-        serve.build("deepseek-67b", device="cpu")
+    assert ported_archs() == list_archs()
+    for arch in list_archs():
+        model = build_model(get_model_config(arch), device="meta")
+        assert len(model.backbone.layers) == get_model_config(arch).num_layers
+        assert arch in serve.WORKLOADS
     with pytest.raises(SystemExit):
-        serve.main(["--arch", "deepseek-67b", "--device", "cpu"])
+        serve.main(["--arch", "gpt-5", "--device", "cpu"])

@@ -39,7 +39,7 @@ def _tc(base):
 
 def test_archs_listed_as_jax():
     assert preg.list_archs() == ARCHS and len(ARCHS) == 10
-    assert set(preg.ported_archs()) < set(ARCHS)
+    assert preg.ported_archs() == ARCHS
 
 
 def test_parallel_config_matches_jax():

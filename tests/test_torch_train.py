@@ -3,8 +3,9 @@ train substrate: optimizer, train step, data, checkpoints, recovery, launcher.
 
 Weights come from the JAX init and go across through numpy
 (``repro_torch.convert.params_from_jax``); batches are made with numpy and
-handed to both. The loss and every gradient are compared for the three
-ported archs' smoke configs under each remat policy of the port.
+handed to both. The loss and every gradient are compared for every arch's
+smoke config under each remat policy of the port: MoE archs with the aux
+losses in the loss, embedding-input archs on f32 ``embeds``.
 """
 import dataclasses
 import os
@@ -34,7 +35,9 @@ from repro_torch.train import (
 )
 from repro_torch.train.train_step import accumulated_grads
 
-ARCHS = ["qwen1.5-0.5b", "mamba2-370m", "recurrentgemma-2b"]
+ARCHS = ["qwen1.5-0.5b", "mamba2-370m", "recurrentgemma-2b", "internlm2-1.8b",
+         "internvl2-2b", "musicgen-large", "granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b",
+         "deepseek-67b", "nemotron-4-340b"]
 LOSS_TOL = 1e-5   # abs, f32 losses of about 5.5
 # f32 gradients, max abs error / max |JAX gradient| per parameter: the same
 # model in other summation orders (attention materialised against blockwise,
@@ -70,6 +73,21 @@ def _torch_batch(tokens, labels):
     return {"tokens": torch.from_numpy(tokens).long(), "labels": torch.from_numpy(labels).long()}
 
 
+def _embeds(b, s, d, seed=0):
+    return np.random.default_rng(seed + 100).standard_normal((b, s, d)).astype(np.float32)
+
+
+def _inputs(cfg, tokens, labels, seed=0):
+    """(JAX batch, port batch) of the tokens, or of f32 embeddings [b, s, d]
+    for a model of embedding inputs, with the labels."""
+    if cfg.embed_inputs:
+        return ({"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)},
+                _torch_batch(tokens, labels))
+    emb = _embeds(*tokens.shape, cfg.d_model, seed)
+    return ({"embeds": jnp.asarray(emb), "labels": jnp.asarray(labels)},
+            {"embeds": torch.from_numpy(emb), "labels": torch.from_numpy(labels).long()})
+
+
 def _rel(a: torch.Tensor, ref: np.ndarray) -> float:
     return float(np.abs(a.detach().numpy() - ref).max() / (np.abs(ref).max() or 1.0))
 
@@ -82,27 +100,31 @@ def jax_reference(request):
     jmodel = jax_build_model(jcfg, remat="block")
     jparams = jmodel.init(jax.random.PRNGKey(0))
     tokens, labels = _batch(2, 40, jcfg.vocab_size, masked=(3, 17))
-    (loss, _), grads = jax.jit(jax.value_and_grad(jmodel.loss_fn, has_aux=True))(
-        jparams, {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)})
+    jbatch, batch = _inputs(jcfg, tokens, labels)
+    (loss, jmetrics), grads = jax.jit(jax.value_and_grad(jmodel.loss_fn, has_aux=True))(
+        jparams, jbatch)
     cfg = _f32_cfg(get_model_config, arch)
     grads = params_from_jax(jax.tree.map(np.asarray, grads), cfg)
-    return (arch, jax.tree.map(np.asarray, jparams), (tokens, labels), float(loss),
-            {k: v.numpy() for k, v in grads.items()})
+    return (arch, jax.tree.map(np.asarray, jparams), batch, float(loss),
+            {k: v.numpy() for k, v in grads.items()},
+            {k: float(v) for k, v in jmetrics.items()})
 
 
 @pytest.mark.parametrize("remat", ["none", "block", "dots"])
 def test_loss_and_every_grad_match_jax(jax_reference, remat):
-    arch, jparams, batch, jloss, jgrads = jax_reference
+    arch, jparams, batch, jloss, jgrads, jmetrics = jax_reference
     cfg = _f32_cfg(get_model_config, arch)
     model = build_model(cfg, device="cpu", remat=remat)
     model.load_state_dict(params_from_jax(jparams, cfg))
     counts = [k.launches for k in (flash_attention_fwd, ssd_scan_fwd, rglru_scan_fwd)]
-    loss, metrics = model.loss_fn(_torch_batch(*batch))
+    loss, metrics = model.loss_fn(batch)
     grads = dict(zip([n for n, _ in model.named_parameters()],
                      torch.autograd.grad(loss, list(model.parameters()))))
     assert [k.launches for k in (flash_attention_fwd, ssd_scan_fwd, rglru_scan_fwd)] == counts
     assert abs(float(loss.detach()) - jloss) <= LOSS_TOL
     assert float(metrics["tokens"]) == 2 * 40 - 2 * 2
+    for key in ("ce", "moe_lb_loss", "moe_z_loss", "moe_drop_frac"):   # JAX's metrics
+        assert abs(float(metrics[key].detach()) - jmetrics[key]) <= LOSS_TOL, key
     assert set(grads) == set(jgrads)
     errs = {k: _rel(g, jgrads[k]) for k, g in grads.items()}
     assert max(errs.values()) <= GRAD_REL_TOL, sorted(errs.items(), key=lambda kv: -kv[1])[:3]
@@ -252,6 +274,24 @@ def test_data_deterministic_and_seekable():
     assert b1["tokens"].shape == (4, 64) and int(b1["tokens"].max()) < cfg.vocab_size
 
 
+def test_data_embeds_for_embedding_inputs():
+    """A model of embedding inputs gets bf16 embeds [B, S, d] in place of the
+    tokens, from their own stream of (seed, step), and the chain's labels."""
+    cfg = get_model_config("musicgen-large", smoke=True)
+    tc = TrainConfig(global_batch=3, seq_len=24, seed=7)
+    b1 = SyntheticDataset(cfg, tc).batch_at(5)
+    assert set(b1) == {"embeds", "labels"}
+    assert b1["embeds"].shape == (3, 24, cfg.d_model) and b1["embeds"].dtype == torch.bfloat16
+    assert b1["labels"].shape == (3, 24) and int(b1["labels"].max()) < cfg.vocab_size
+    b2 = SyntheticDataset(cfg, tc).batch_at(5)
+    assert torch.equal(b1["embeds"], b2["embeds"]) and torch.equal(b1["labels"], b2["labels"])
+    assert not torch.equal(b1["embeds"], SyntheticDataset(cfg, tc).batch_at(6)["embeds"])
+    assert abs(float(b1["embeds"].float().std()) - 1.0) < 0.1
+    # the labels are the token stream's, as a token model's of the same vocab
+    tok_cfg = dataclasses.replace(cfg, embed_inputs=True)
+    assert torch.equal(b1["labels"], SyntheticDataset(tok_cfg, tc).batch_at(5)["labels"])
+
+
 def test_data_is_learnable_markov():
     """The bigram distribution is far from uniform (there is a signal)."""
     cfg = get_model_config("qwen1.5-0.5b", smoke=True)
@@ -390,6 +430,34 @@ def test_launch_train_on_cpu_reduces_loss(capsys):
     assert all(np.isfinite(losses))
     assert losses[-1] < losses[0] - 0.5, (losses[0], losses[-1])
     assert "step    60 loss" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "musicgen-large"])
+def test_launch_train_new_archs_on_cpu(arch, capsys):
+    """An MoE arch logs its aux values each step; an embedding-input arch
+    trains on the dataset's embeds. Eight steps lower the loss."""
+    res = launch_train.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "8",
+                             "--batch", "4", "--seq", "64", "--lr", "3e-3",
+                             "--ckpt-every", "0"])
+    losses = [r["loss"] for r in res.history]
+    assert len(losses) == 8 and all(np.isfinite(losses)) and losses[-1] < losses[0]
+    out = capsys.readouterr().out
+    moe = arch == "granite-moe-1b-a400m"
+    assert ("lb_loss" in out) == moe and ("moe_drop_frac" in res.history[0]) == moe
+    if moe:
+        row = res.history[0]
+        assert row["moe_lb_loss"] > 0 and row["moe_z_loss"] > 0
+        assert 0.0 <= row["moe_drop_frac"] < 1.0
+        # the loss holds the aux terms: router_aux_loss * lb + 1e-3 * z over ce
+        extra = 0.01 * row["moe_lb_loss"] + 1e-3 * row["moe_z_loss"]
+        assert row["loss"] == pytest.approx(row["ce"] + extra, rel=1e-5)
+
+
+def test_launch_train_full_width_needs_a_workload():
+    """The archs too large for one card train with --smoke only."""
+    for arch in ("phi3.5-moe-42b-a6.6b", "deepseek-67b", "nemotron-4-340b"):
+        with pytest.raises(ValueError, match="does not train on one card"):
+            launch_train.setup(arch, device="meta")
 
 
 def test_launch_train_resumes_from_its_checkpoint(tmp_path):
