@@ -41,7 +41,14 @@ and builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    and ragged S=1000; and each Function's forward and forward+backward timed;
 4. serve qwen1.5-0.5b at full width, bf16, random weights from a seed, through
    ``repro_torch.launch.serve`` (its default workload: batch 4, prompt 512, 32
-   new tokens); the flash kernel's launch count over that run must be one per
+   new tokens), whose decode replays ``make_serve_step``'s captured CUDA
+   graph: a first request captures it, and the measured second request
+   through the same step must not capture again; a second decode from a copy
+   of the prefill's caches through the eager steps must give the same tokens
+   and last logits (bit-equal, else within ``GRAPH_VS_EAGER_TOL``), with
+   decode tok/s of both and the whole request's ms (the first with its
+   capture, the second, and prefill plus eager decode) printed (so in phases
+   5, 6 and 15); the flash kernel's launch count over the measured request must be one per
    attention layer, and the card's prefill logits must agree with the same
    weights' f32 prefill on the CPU (plain path) at B=1, S=128. As a control,
    the same check is read with the plain path in place of the kernel, with
@@ -182,29 +189,46 @@ and builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    check of the first MoE layer on one bf16 input on both sides (``MOE_TOL``:
    top-k sets, drop fractions, the output of the tokens routed alike) at the
    config's capacity factor, which drops slots there. Planted faults that
-   must fail: "causal mask dropped" (every arch but deepseek, whose check
-   reads one layer's last position), "gates not renormalised over the
-   top-k" and "tokens over capacity kept" (granite, on the routing check,
-   whose drop fraction is printed), "unembed read in the tied table's
-   layout" and "embeds not cast to act_dtype" (internvl2, fed f32
-   embeddings: the bf16 path must refuse them for the dtype mismatch);
+   must fail: "causal mask dropped" (every arch; deepseek's check reads its
+   one layer's hidden states at every position), "gates not renormalised
+   over the top-k" and "tokens over capacity kept" (granite, on the routing
+   check, whose drop fraction is printed), "unembed read in the tied
+   table's layout" and "embeds not cast to act_dtype" (internvl2, fed f32
+   embeddings: the assertion on the first layer's input dtype, made in
+   every checked prefill, must refuse them);
 16. train internlm2-1.8b, internvl2-2b, granite-moe-1b-a400m (4 x 2048
    each) and musicgen-large (4 x 1536) at full width through
    ``repro_torch.launch.train``, 3 steps each, with phases 7-9's checks: the
    losses, the launches per step, and the card's loss (with the MoE aux
    losses) and grads at B=1, S=128 against the CPU's f32.
+17. the parallel layer on the card: (a) qwen1.5-0.5b's default training
+   workload (8 x 2048, bf16) 3 steps through ``make_train_step`` on a
+   one-rank NCCL ``DeviceMesh`` (the model's own parameters, DTensor
+   moments) and 3 steps of the plain ``train_step`` from the same seed:
+   losses and grad norms within 1e-6 relative per step, the flash launches
+   per step as phase 7 counts them, both step times printed; (b) int8
+   error-feedback compression of that model's whole gradient, as it is,
+   card against CPU: payloads equal but at rounding ties, scales within 1
+   ulp; the average of 50 error-feedback rounds within ``EF_SCALED_TOL`` of
+   each chunk's scale from the gradient, which the planted fault "residual
+   not carried" must fail; (c) ``hierarchical_grad_reduce``
+   with ``compress=True`` on a one-rank (pod, data, model) mesh bit-equal to
+   compress-then-dequantize over two rounds; (d) granite-moe-1b-a400m's
+   grouped MoE layer under a one-rank (pod, data) mesh against the no-mesh
+   grouped path: bit-equal at B=1 and the config's capacity factor, within
+   ``MOE_TOL``'s layer limit at B=4 with room for every slot, in under 90 s.
 
 Phases 1-9 and then 15-16 run alone. Phases 10-14 (no kernel of the port's
-three) then run as units in four child processes of this script beside one
-another on the card (``NETSIM_LANES``), so that their wall and device times
-are read beside the other lanes' load; each unit's output is printed in
-phase order once all have ended. Their card-vs-CPU checks run the CPU side in three spawned worker
+three) and 17 (whose checks are exact) then run as units in four child
+processes of this script beside one another on the card (``NETSIM_LANES``),
+so that their wall and device times are read beside the other lanes' load;
+each unit's output is printed in phase order once all have ended. Their card-vs-CPU checks run the CPU side in three spawned worker
 processes while the card runs (``cpu_pool``).
 
 Each serving and training path runs with every kernel's launch count set to
 0 just before it and read just after. The last lines are the serving,
-training, netsim, multi-link, channel netsim, observability and
-differentiable-engine JSON records, the card's
+training, netsim, multi-link, channel netsim, observability,
+differentiable-engine and parallel-layer JSON records, the card's
 ``name, power.limit``, the kernels' JSON record, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -334,18 +358,19 @@ NEW_REF_LEN = 128
 # routing may flip at near-ties across 24 layers, 4.90e-2 / 3.87e-2 phi3.5,
 # 9.9e-3 / 1.07e-2 deepseek; the nemotron block 8.4e-3). Planted faults
 # read against them (``new_arch_faults``): a causal mask dropped (GQA 16:8,
-# MHA 32:32, 16:8 at D=64, 32:8 and the nemotron block's 96:8 at D=192;
-# not deepseek, whose check's one layer reads only the last position, which
-# attends to every key anyway), internvl2's unembedding read in a tied
-# table's layout, and its embeds left uncast, which the bf16 path refuses
-# for the dtype mismatch.
+# MHA 32:32, 16:8 at D=64, 32:8, deepseek's 64:8 at D=128 and the nemotron
+# block's 96:8 at D=192; deepseek's check reads its one layer's hidden
+# states at every position, as the last position attends to every key with
+# or without the mask), internvl2's unembedding read in a tied table's
+# layout, and its embeds left uncast, which the assertion on the first
+# layer's input dtype refuses.
 CARD_VS_CPU_TOL.update({
     INTERNLM: {"logits": 4e-2, "decode logits": 4e-2},
     INTERNVL: {"logits": 4e-2, "decode logits": 4e-2},
     MUSICGEN: {"logits": 3e-2, "decode logits": 3e-2},
     GRANITE: {"logits": 8e-2, "decode logits": 8e-2},
     PHI: {"logits": 1e-1, "decode logits": 1e-1},
-    DEEPSEEK: {"logits": 3e-2, "decode logits": 3e-2},
+    DEEPSEEK: {"logits": 3e-2, "decode logits": 3e-2, "hidden, every position": 3e-2},
     NEMOTRON: {"block out": 2e-2},
 })
 # The MoE routing check: the first MoE layer on the card (bf16) and its f32
@@ -361,6 +386,21 @@ CARD_VS_CPU_TOL.update({
 # granite, 7.1e-3 phi3.5). A fault in the gates or the capacity must read
 # above a limit (granite's controls).
 MOE_TOL = {"topk_set_differs": 1e-3, "drop_frac_diff": 1e-3, "layer_out": 2e-2}
+# Phases 4-6 and 15: the captured decode graph against the eager steps from
+# a copy of the same prefill's caches. The graph replays the eager step's
+# kernels, so the tokens must be equal and the last step's logits bit-equal;
+# a difference (max abs / max |eager logit|) is printed with its cause and
+# may not pass this limit.
+GRAPH_VS_EAGER_TOL = 1e-5
+# Phase 17(b): the average of EF_ROUNDS error-feedback rounds is g - e_R / R,
+# e_R the last residual, at most half a quantization step of its chunk: so
+# each chunk's largest error is at most 1 / (2 R) = 0.01 of its scale
+# (amax / 127; the scale of g + e is g's within 1/254). The limit is that
+# bound with a quarter's room for f32 sums (0.01001 on a heavy-tailed CPU
+# draw); without the residual (the planted fault) the average is one
+# rounding of g, up to half a step: ~0.5.
+EF_ROUNDS = 50
+EF_SCALED_TOL = 0.0125
 TRAIN_READ.update({
     INTERNLM: ("embed.tok", "backbone.layers.0.attn.wq", "backbone.layers.23.mlp.w_down"),
     INTERNVL: ("embed.unembed", "backbone.layers.0.attn.wq", "backbone.layers.23.mlp.w_down"),
@@ -499,10 +539,12 @@ NETSIM_UNITS = {
     "12g": (12, "", "phase_netsim_channel_grids"),
     "13": (13, "observability and training traffic", "phase_obs"),
     "14": (14, "the differentiable engine and the gradient tuner", "phase_netsim_grad"),
+    "17": (17, "the parallel layer on the card", "phase_parallel"),
 }
-# the lanes, balanced on the units' times alone (s, same card): 14 222;
-# 12g 184 + 10 66; 13 147 + 11 75; 12 111 + 11g 118
-NETSIM_LANES = (("14",), ("12g", "10"), ("13", "11"), ("12", "11g"))
+# the lanes, balanced on the units' times alone (s, same card): 14 222 + 17
+# 23; 12g 184 + 10 66; 13 147 + 11 75; 12 111 + 11g 118. Phase 17's checks
+# are exact or bit-equal, so the other lanes' load moves only its times.
+NETSIM_LANES = (("14", "17"), ("12g", "10"), ("13", "11"), ("12", "11g"))
 # the lanes are stopped, and the run fails, this many seconds after the
 # script's start
 NETSIM_DEADLINE_S = 1_140.0
@@ -1057,8 +1099,9 @@ def serve_workload(torch, card: str, arch: str):
     launch count set to 0 before and read after; checks the launches (one per
     layer of each kernel's mixer), the tokens and the logits. Returns
     (model, result, launches, expected launches, prompt)."""
+    from repro_torch.config.base import ParallelConfig
     from repro_torch.launch import serve as launch_serve
-    from repro_torch.serve.decode import greedy_decode
+    from repro_torch.serve.decode import make_serve_step
 
     batch, prompt_len, max_new = WORKLOADS[arch]
     layers = SERVE_LAYERS.get(arch)
@@ -1069,23 +1112,37 @@ def serve_workload(torch, card: str, arch: str):
     check_widths(cfg, arch, layers)
     expected = expected_launches(cfg)
     prompt = launch_serve.random_prompt(model, batch, prompt_len)
-    # warm-up: cuBLAS handles, and the allocator's blocks at the run's cache
-    # size (a cache of another length made the first run allocate anew)
+    # the first request through a new step captures its graph (and warms up
+    # cuBLAS handles and the allocator's blocks at the run's cache size); a
+    # prefill after it finds the blocks that the capture took (nemotron's f32
+    # table is 18.9 GB, once on the capture's side stream and once in the
+    # graph's pool) released; the measured request is the next one, which
+    # copies its prefill's caches into the graph's
+    step, _, _ = make_serve_step(model, ParallelConfig(data=1, model=1), None, batch,
+                                 prompt_len + max_new)
+    first = launch_serve.serve(model, prompt, max_new, step=step)
     caches, logits = model.prefill(prompt, max_len=prompt_len + max_new)
-    greedy_decode(model, caches, logits.argmax(-1), prompt_len, 1,
-                  None if cfg.embed_inputs else prompt[:, -1:])
     del caches, logits
 
     reset_counts()
-    res = launch_serve.serve(model, prompt, max_new)
+    res = launch_serve.serve(model, prompt, max_new, step=step, keep_prefill=True)
     launches = read_counts()
     depth = f", {cfg.num_layers} of its layers" if layers else ""
     print(f"  serve {arch}{depth} B={batch} prompt={prompt_len} new={max_new}: prefill "
-          f"{res.prefill_ms:.2f} ms, decode {res.decode_tok_s:.1f} tok/s "
-          f"({res.decode_tokens} tokens in {res.decode_ms:.2f} ms), launches {launches} "
+          f"{res.prefill_ms:.2f} ms, decode (captured graph) {res.decode_tok_s:.1f} tok/s "
+          f"({res.decode_tokens} tokens in {res.decode_ms:.2f} ms; cache copy "
+          f"{res.load_ms:.2f} ms), request {res.request_ms:.2f} ms; the first request "
+          f"{first.request_ms:.2f} ms (prefill {first.prefill_ms:.2f}, capture "
+          f"{first.load_ms:.2f}, decode {first.decode_ms:.2f}); launches {launches} "
           f"[{card}]", flush=True)
+    check(first.captured and not res.captured and step.captures == 1,
+          f"the decode step was captured {step.captures} times for one (batch, cache length)")
     check(launches == expected, f"kernel launches {launches} in one prefill, expected "
-          f"{expected} (one per layer of the kernel's mixer)")
+          f"{expected} (one per layer of the kernel's mixer; the captured decode step "
+          f"launches none of the three kernels)")
+    res.eager = graph_vs_eager(torch, model, res, prompt, prompt_len, max_new)
+    res.eager.update(first_request_ms=first.request_ms, first_capture_ms=first.load_ms)
+    del step
     check(tuple(res.tokens.shape) == (batch, max_new), f"tokens {tuple(res.tokens.shape)}")
     check(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()), "token out of range")
     for name, t in (("prefill", res.prefill_logits), ("last decode", res.logits)):
@@ -1093,6 +1150,44 @@ def serve_workload(torch, card: str, arch: str):
               f"{name} logits {tuple(t.shape)} {t.dtype}")
         check(bool(torch.isfinite(t).all()), f"{name} logits are not finite")
     return model, res, launches, expected, prompt
+
+
+def graph_vs_eager(torch, model, res, prompt, prompt_len: int, max_new: int) -> dict:
+    """Decodes again from the copy of the prefill's caches through the eager
+    steps: the tokens must equal the captured graph's, and the last step's
+    logits be bit-equal, or else within GRAPH_VS_EAGER_TOL of each other
+    (max abs difference / max |eager logit|, printed with its cause)."""
+    from repro_torch.serve.decode import greedy_decode
+
+    last = None if model.cfg.embed_inputs else prompt[:, -1:]
+    token = res.tokens[:, 0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rest, logits = greedy_decode(model, res.prefill_caches, token, prompt_len, max_new - 1,
+                                 last, graph=False)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3
+    res.prefill_caches = None
+    same_tokens = bool(torch.equal(rest, res.tokens[:, 1:]))
+    diff = float((logits - res.logits).abs().max()) / float(logits.abs().max())
+    eager_tok_s = res.decode_tokens / (eager_ms / 1e3)
+    eager_request_ms = res.prefill_ms + eager_ms
+    cause = ("bit-equal" if diff == 0.0 else
+             "the graph's kernels are the eager step's; a difference is a kernel that "
+             "chose another algorithm or reduction order at capture")
+    print(f"  decode through the eager steps from a copy of the prefill's caches: "
+          f"{eager_tok_s:.1f} tok/s ({eager_ms:.2f} ms) against the graph's "
+          f"{res.decode_tok_s:.1f} tok/s ({res.decode_tok_s / eager_tok_s:.2f}x); request "
+          f"with eager decode {eager_request_ms:.2f} ms against {res.request_ms:.2f} ms; "
+          f"tokens equal: {same_tokens}; last logits {diff:.3e} ({cause}; limit "
+          f"{GRAPH_VS_EAGER_TOL:g})", flush=True)
+    check(same_tokens, "the captured decode's tokens differ from the eager steps'")
+    check(diff <= GRAPH_VS_EAGER_TOL, f"the captured decode's logits differ from the eager "
+                                      f"steps' by {diff:.3e}")
+    return {"eager_ms": eager_ms, "eager_tok_s": eager_tok_s, "graph_ms": res.decode_ms,
+            "graph_tok_s": res.decode_tok_s, "cache_copy_ms": res.load_ms,
+            "request_ms": res.request_ms, "eager_request_ms": eager_request_ms,
+            "tokens_equal": same_tokens, "last_logits_diff": diff}
 
 
 def phase_serve(torch, card: str, arch: str, planted: dict, must_fail=None,
@@ -1111,6 +1206,7 @@ def phase_serve(torch, card: str, arch: str, planted: dict, must_fail=None,
     in ``must_fail`` (default: every one) must read above a limit, or make
     the card's bf16 path refuse its input for a dtype mismatch (no other
     error counts)."""
+    from repro_torch.device import dtype_of
     from repro_torch.launch import serve as launch_serve
 
     batch, prompt_len, max_new = WORKLOADS[arch]
@@ -1120,6 +1216,7 @@ def phase_serve(torch, card: str, arch: str, planted: dict, must_fail=None,
     out = {"arch": arch, "layers": cfg.num_layers, "batch": batch, "prompt_len": prompt_len,
            "max_new": max_new, "launches": launches, "prefill_ms": res.prefill_ms,
            "decode_ms": res.decode_ms, "decode_tok_s": res.decode_tok_s,
+           "decode_graph_vs_eager": res.eager,
            "card_vs_cpu_tol": limits, "ref_len": n, "check_depth": depth}
     t0 = time.perf_counter()
     if depth == 0:
@@ -1152,8 +1249,22 @@ def phase_serve(torch, card: str, arch: str, planted: dict, must_fail=None,
         counted = expected_launches(view.cfg)
 
         def run(m):
-            caches, logits = m.prefill(inputs.to(m.device), max_len=n + decode)
+            # the first layer's input must be in the model's act dtype; the
+            # final norm's output is every position's hidden state
+            seen = []
+            hooks = [m.backbone.layers[0].register_forward_pre_hook(
+                lambda mod, args, want=dtype_of(m.cfg.act_dtype): first_layer_dtype(args[0],
+                                                                                     want)),
+                m.backbone.final_norm.register_forward_hook(
+                    lambda mod, args, y: seen.append(y))]
+            try:
+                caches, logits = m.prefill(inputs.to(m.device), max_len=n + decode)
+            finally:
+                for hook in hooks:
+                    hook.remove()
             got = {"logits": logits}
+            if "hidden, every position" in limits:
+                got["hidden, every position"] = seen[0]
             if "layer-0 state" in limits:
                 got["layer-0 state"] = caches[0][STATE_KEY[arch]]
             if decode:
@@ -1213,6 +1324,14 @@ def phase_serve(torch, card: str, arch: str, planted: dict, must_fail=None,
     if cfg.num_experts:
         out["moe"] = moe_check(torch, model, cpu_moe, prompt, moe_planted or {})
     return out
+
+
+def first_layer_dtype(x, want) -> None:
+    """The assertion on the first layer's input in a prefill: ``want`` (the
+    model's act dtype), or a RuntimeError naming the dtype (a refusal)."""
+    if x.dtype != want:
+        raise RuntimeError(f"the first layer's input dtype is {x.dtype}, not the act dtype "
+                           f"{want}")
 
 
 def causal_mask_dropped(torch) -> dict:
@@ -1388,12 +1507,11 @@ def embed_faults(torch) -> dict:
 
 def new_arch_faults(torch) -> dict:
     """Phase 15's planted faults per arch, each of which must fail the
-    card-vs-CPU check. A dropped causal mask is planted where the check reads
-    more than the last position of one attention layer (deepseek's one layer
-    is that)."""
+    card-vs-CPU check (deepseek's on its one layer's hidden states at every
+    position)."""
     mask = causal_mask_dropped(torch)
     return {INTERNLM: mask, INTERNVL: embed_faults(torch), MUSICGEN: mask, GRANITE: mask,
-            PHI: mask, NEMOTRON: mask}
+            PHI: mask, DEEPSEEK: mask, NEMOTRON: mask}
 
 
 def moe_faults(torch) -> dict:
@@ -1622,6 +1740,211 @@ def phase_train(torch, card: str, arch: str, planted: dict) -> dict:
     del card_models, model
     torch.cuda.empty_cache()
     out.update(card_vs_cpu=sound, card_vs_cpu_tol=TRAIN_VS_CPU_TOL, planted=controls)
+    return out
+
+
+def ulps_apart(torch, a, b):
+    """How many f32 ulps each element of ``a`` is from ``b`` (same shape)."""
+    ia, ib = _bits(torch, a.float().contiguous()), _bits(torch, b.float().contiguous())
+    return (ia.long() - ib.long()).abs()
+
+
+def ef_average_error(torch, g, scale, rounds: int, carried: bool = True) -> tuple:
+    """(max over the quantization chunks of max |mean of ``rounds``
+    error-feedback dequantizations - g| over the chunk's ``scale`` (g's
+    scales), the same unscaled); with ``carried`` False the residual is
+    reset to 0 each round (a planted fault)."""
+    from repro_torch.parallel import compress_with_feedback, dequantize_int8
+    from repro_torch.parallel.compression import CHUNK
+    err, total = torch.zeros_like(g), torch.zeros_like(g)
+    for _ in range(rounds):
+        q, s, new_err = compress_with_feedback(g, err)
+        err = new_err if carried else torch.zeros_like(g)
+        total += dequantize_int8(q, s, g.shape, torch.float32)
+        del q, s, new_err
+    d = (total / rounds - g).abs()
+    d = torch.nn.functional.pad(d, (0, (-d.numel()) % CHUNK)).reshape(-1, CHUNK).amax(dim=1)
+    return float((d / scale).max()), float(d.max())
+
+
+def phase_parallel(torch, card: str) -> dict:
+    """Phase 17, the parallel layer on the card: (a) qwen's train step through
+    ``make_train_step`` on a one-rank NCCL mesh against the plain
+    ``train_step``; (b) int8 error-feedback compression of qwen's whole
+    gradient, card against CPU, and its long-run average; (c) the
+    hierarchical reduce on a one-rank (pod, data, model) mesh against
+    compress-then-dequantize; (d) granite's grouped MoE under a one-rank mesh
+    against the no-mesh grouped path."""
+    from repro_torch.config import get_model_config
+    from repro_torch.config.base import ParallelConfig
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models.moe import MoE
+    from repro_torch.parallel import (
+        dequantize_int8, hierarchical_grad_reduce, quantize_int8, use_mesh,
+    )
+    from repro_torch.parallel.compression import CHUNK as CHUNK_INT8
+    from repro_torch.train import SyntheticDataset, init_adam, train_step
+    from repro_torch.train.train_step import make_train_step, value_and_grad
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    # (a) the mesh step against the plain step, 3 steps each from the same seed
+    steps = 3
+    runs = {}
+    for how in ("mesh", "plain"):
+        model, train_cfg, par = launch_train.setup(QWEN, device=dev, steps=steps)
+        data = SyntheticDataset(model.cfg, train_cfg, device=dev)
+        opt = init_adam(dict(model.named_parameters()), par.opt_state_dtype)
+        if how == "mesh":
+            mesh = make_mesh_for(par, dev)
+            _, _, jit_step, rules = make_train_step(model, par, train_cfg, mesh)
+            sstep = jit_step(dict(model.named_parameters()))
+            params, opt = sstep.place(dict(model.named_parameters()), opt)
+            kinds = {"params": sorted({type(p).__name__ for p in params.values()}),
+                     "moments": sorted({type(t).__name__ for t in opt.m.values()})}
+            own = all(params[k] is p for k, p in model.named_parameters())
+        hist = []
+        for i in range(steps):
+            batch = data.batch_at(i)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            if how == "mesh":
+                params, opt, m = sstep(params, opt, batch)
+            else:
+                opt, m = train_step(model, opt, batch, par, train_cfg)
+            row = {k: float(v) for k, v in m.items()}
+            torch.cuda.synchronize()
+            row.update(ms=(time.perf_counter() - t0) * 1e3, launches=read_counts())
+            hist.append(row)
+        runs[how] = hist
+        if how == "plain":
+            # (b)'s gradient: the trained model's on step 1's batch, flat, f32
+            _, grads = value_and_grad(model, data.batch_at(0))
+            g = torch.cat([t.float().reshape(-1) for t in grads.values()])
+            del grads
+        del model, opt, data
+        if how == "mesh":
+            del params, sstep
+        torch.cuda.empty_cache()
+    expected = expected_train_launches(get_model_config(QWEN))
+    rel = [{k: abs(a[k] - b[k]) / abs(b[k]) for k in ("loss", "grad_norm")}
+           for a, b in zip(runs["mesh"], runs["plain"])]
+    for i, (a, b, r) in enumerate(zip(runs["mesh"], runs["plain"], rel), start=1):
+        print(f"  (a) qwen step {i} (8 x 2048, bf16): mesh loss {a['loss']:.6f} grad norm "
+              f"{a['grad_norm']:.6f} {a['ms']:.2f} ms; plain {b['loss']:.6f} "
+              f"{b['grad_norm']:.6f} {b['ms']:.2f} ms; relative {r['loss']:.3e} / "
+              f"{r['grad_norm']:.3e}; flash launches {a['launches']['flash_attention']} / "
+              f"{b['launches']['flash_attention']} [{card}]", flush=True)
+    print(f"  (a) on the mesh: parameters {kinds['params']} (the model's own: {own}), "
+          f"moments {kinds['moments']}", flush=True)
+    check(own and kinds == {"params": ["Parameter"], "moments": ["DTensor"]},
+          f"the mesh step's parameters and moments are {kinds} (the model's own: {own})")
+    check(all(v <= 1e-6 for r in rel for v in r.values()),
+          f"the mesh step parts from the plain step: {rel}")
+    check(all(r["launches"] == expected for r in runs["mesh"] + runs["plain"]),
+          f"kernel launches per step {[r['launches'] for r in runs['mesh']]}, expected "
+          f"{expected} (phase 7's count)")
+    out["train_step"] = {"mesh": runs["mesh"], "plain": runs["plain"], "relative": rel,
+                         "placements": kinds}
+
+    # (b) int8 error feedback on the whole gradient as it is
+    t0 = time.perf_counter()
+    n = g.numel()
+    q, scale = quantize_int8(g)
+    g_cpu = g.cpu()
+    q_cpu, scale_cpu = quantize_int8(g_cpu)
+    differ = q.cpu() != q_cpu
+    n_diff = int(differ.sum())
+    flat = torch.nn.functional.pad(g_cpu, (0, (-n) % CHUNK_INT8))
+    ratio = (flat.reshape(q_cpu.shape) / scale_cpu[:, None])[differ].abs()
+    # at a tie: within 4 f32 ulps (relative) of a .5, where a scale an ulp
+    # apart may round the other way
+    ties = int(((ratio - ratio.floor() - 0.5).abs() <= ratio * 2.0 ** -21).sum())
+    scale_ulps = int(ulps_apart(torch, scale.cpu(), scale_cpu).max())
+    del q, flat, ratio, differ, q_cpu
+    ef, ef_abs = ef_average_error(torch, g, scale, EF_ROUNDS)
+    no_residual, _ = ef_average_error(torch, g, scale, EF_ROUNDS, carried=False)
+    print(f"  (b) int8 payloads of qwen's gradient ({g.numel()} values, {scale.numel()} "
+          f"chunks): card vs CPU {n_diff} differ, {ties} of them at a rounding tie; scales "
+          f"at most {scale_ulps} ulp apart; error-feedback average over {EF_ROUNDS} rounds "
+          f"within {ef:.4e} of its chunk's scale from the gradient (limit {EF_SCALED_TOL:g}; "
+          f"{ef_abs:.3e} absolute); control, residual not carried: {no_residual:.4e} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(n_diff == ties, f"{n_diff - ties} int8 payload values differ off a rounding tie")
+    check(scale_ulps <= 1, f"scales {scale_ulps} ulps apart")
+    check(ef <= EF_SCALED_TOL, f"the error-feedback average is {ef:.3e} scales from the "
+                               f"gradient")
+    check(no_residual > EF_SCALED_TOL,
+          "the long-run check does not catch: residual not carried")
+    out["compression"] = {"values": g.numel(), "chunks": scale.numel(),
+                          "payloads_differ": n_diff, "at_ties": ties,
+                          "scale_ulps": scale_ulps, "ef_average_scaled_error": ef,
+                          "ef_average_abs_error": ef_abs, "limit": EF_SCALED_TOL,
+                          "planted": {"residual not carried": no_residual}}
+    del g_cpu, scale, scale_cpu
+
+    # (c) the hierarchical reduce on a one-rank (pod, data, model) mesh
+    mesh3 = make_mesh_for(ParallelConfig(multi_pod=True, pods=1, data=1, model=1), dev)
+    err = torch.zeros_like(g)
+    same = []
+    for _ in range(2):   # the second round with the first's residual
+        got, new_err = hierarchical_grad_reduce(g, mesh3, compress=True, err=err)
+        corrected = g + err
+        qq, ss = quantize_int8(corrected)
+        want = dequantize_int8(qq, ss, g.shape, g.dtype)
+        same.append(bool(torch.equal(got, want))
+                    and bool(torch.equal(new_err, corrected - want)))
+        err = new_err
+        del got, corrected, qq, ss, want
+    print(f"  (c) hierarchical_grad_reduce(compress=True) on a one-rank (pod, data, model) "
+          f"mesh, two rounds: equal to compress-then-dequantize bit for bit {same}",
+          flush=True)
+    check(all(same), "the hierarchical reduce differs from compress-then-dequantize")
+    out["hierarchical_reduce"] = {"rounds_bit_equal": same}
+    del g, err, new_err
+    torch.cuda.empty_cache()
+
+    # (d) granite's grouped dispatch under a one-rank (pod, data) mesh
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_model_config(GRANITE), moe_group_by_batch=True)
+    layer = MoE(cfg, device=dev)
+    layer.reset_parameters(torch.Generator(device=dev).manual_seed(0))
+    mesh_pd = make_mesh_for(ParallelConfig(multi_pod=True, pods=1, data=1, model=1), dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((4, 2048, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    cases = {}
+    for name, xin, factor in (("B=1, the config's capacity factor", x[:1],
+                               cfg.moe_capacity_factor),
+                              ("B=4, capacity for every slot", x, cfg.num_experts)):
+        layer.cfg = dataclasses.replace(cfg, moe_capacity_factor=float(factor))
+        with torch.no_grad():
+            y0, aux0 = layer(xin)
+            with use_mesh(mesh_pd):
+                y1, aux1 = layer(xin)
+        torch.cuda.synchronize()
+        d = float((y1 - y0).abs().max()) / float(y0.abs().max())
+        cases[name] = {"y_diff": d, "bit_equal": bool(torch.equal(y0, y1)),
+                       "aux_no_mesh": {k: float(v) for k, v in aux0.items()},
+                       "aux_mesh": {k: float(v) for k, v in aux1.items()}}
+        print(f"  (d) granite MoE layer, {name}: mesh vs no mesh {d:.3e} (bit-equal "
+              f"{cases[name]['bit_equal']}); drop fraction {float(aux1['moe_drop_frac']):.4f}"
+              f" / {float(aux0['moe_drop_frac']):.4f}; z-loss {float(aux1['moe_z_loss']):.6f}"
+              f" / {float(aux0['moe_z_loss']):.6f}; lb-loss {float(aux1['moe_lb_loss']):.6f}"
+              f" / {float(aux0['moe_lb_loss']):.6f} (one rank's flat tokens / the mean of "
+              f"per-row values)", flush=True)
+    one, four = cases.values()
+    check(one["bit_equal"] and one["aux_mesh"] == one["aux_no_mesh"],
+          "the grouped MoE under a one-rank mesh differs from the no-mesh path at B=1")
+    check(four["y_diff"] <= MOE_TOL["layer_out"] and four["aux_mesh"]["moe_drop_frac"] == 0.0
+          and four["aux_no_mesh"]["moe_drop_frac"] == 0.0,
+          "the grouped MoE under a one-rank mesh differs from the no-mesh path at B=4")
+    d_s = time.perf_counter() - t0
+    check(d_s < 90.0, f"(d) took {d_s:.1f} s")
+    out["grouped_moe"] = dict(cases, seconds=d_s)
+    del layer, x
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2502,7 +2825,7 @@ def lane_main(out_dir: Path, units) -> None:
 
 
 def run_lanes(t_start: float) -> dict:
-    """Phases 10-14: the NETSIM_LANES as child processes (each in a session
+    """Phases 10-14 and 17: the NETSIM_LANES as child processes (each in a session
     of its own, so that stopping it stops its CPU workers too), their logs
     printed in phase order once all have ended; fails the run if a lane
     fails or NETSIM_DEADLINE_S passes. Returns each unit's record."""
@@ -2539,7 +2862,7 @@ def run_lanes(t_start: float) -> dict:
                 proc.wait()
     for unit, (n, title, _) in NETSIM_UNITS.items():
         if title:
-            print(f"[{n}/16] {title}", flush=True)
+            print(f"[{n}/17] {title}", flush=True)
         lane = next(i for i, u in enumerate(NETSIM_LANES) if unit in u)
         print(f"  unit {unit}, lane {lane} ({', '.join(NETSIM_LANES[lane])}):", flush=True)
         log = out_dir / f"{unit}.log"
@@ -2553,7 +2876,7 @@ def run_lanes(t_start: float) -> dict:
             if tail.strip():
                 print(f"--- lane {i} output ---\n{tail}", file=sys.stderr, flush=True)
         fail(bad)
-    print(f"  (phases 10-14: {time.perf_counter() - t0:.1f} s; total "
+    print(f"  (phases 10-14 and 17: {time.perf_counter() - t0:.1f} s; total "
           f"{time.perf_counter() - t_start:.1f} s)", flush=True)
     return {unit: json.loads((out_dir / f"{unit}.json").read_text())
             for unit in NETSIM_UNITS}
@@ -2576,14 +2899,14 @@ def main() -> None:
     card = smi_line()
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
-    print(f"[1/16] card: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
+    print(f"[1/17] card: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{name}, compute capability {cap[0]}.{cap[1]}", flush=True)
     check(cap == (9, 0), f"needs compute capability 9.0 (sm_90a), found {cap}")
 
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build(build.sources())
-    print(f"[2/16] build: {len(logs)} of {len(build.sources())} kernel sources compiled "
+    print(f"[2/17] build: {len(logs)} of {len(build.sources())} kernel sources compiled "
           f"in {time.perf_counter() - t0:.1f} s into {build.BUILD_DIR}", flush=True)
     for src, log in logs.items():
         for line in log.splitlines():
@@ -2604,7 +2927,7 @@ def main() -> None:
           f"the f32 SSD-scan instantiations are not the scalar kernel: {ssd_hgmma}")
 
     t0 = time.perf_counter()
-    print("[3/16] kernels against their plain versions", flush=True)
+    print("[3/17] kernels against their plain versions", flush=True)
     flash = phase_flash(torch, card)
     ssd = phase_ssd(torch, card)
     scan = phase_rglru(torch, card)
@@ -2617,7 +2940,7 @@ def main() -> None:
             (MAMBA, mamba_faults(torch), ("state not carried across chunks",)),
             (RG, rglru_faults(torch), ("recurrence restarted every 256 steps",))), start=4):
         t0 = time.perf_counter()
-        print(f"[{i}/16] serve {arch} at full width", flush=True)
+        print(f"[{i}/17] serve {arch} at full width", flush=True)
         served[arch] = phase_serve(torch, card, arch, faults, must_fail)
         print(f"  ({time.perf_counter() - t0:.1f} s; total "
               f"{time.perf_counter() - t_start:.1f} s)", flush=True)
@@ -2626,13 +2949,13 @@ def main() -> None:
     trained, faults = {}, train_faults(torch)
     for i, arch in enumerate((QWEN, MAMBA, RG), start=7):
         t0 = time.perf_counter()
-        print(f"[{i}/16] train {arch} at full width", flush=True)
+        print(f"[{i}/17] train {arch} at full width", flush=True)
         trained[arch] = phase_train(torch, card, arch, faults[arch])
         print(f"  ({time.perf_counter() - t0:.1f} s; total "
               f"{time.perf_counter() - t_start:.1f} s)", flush=True)
 
     # Phases 15-16 need the card alone too, so they run before the lanes.
-    print("[15/16] serve the seven other archs at their published widths", flush=True)
+    print("[15/17] serve the seven other archs at their published widths", flush=True)
     for arch in NEW_ARCHS:
         t0 = time.perf_counter()
         torch.cuda.empty_cache()
@@ -2640,7 +2963,7 @@ def main() -> None:
                                    moe_planted=moe_faults(torch) if arch == GRANITE else {})
         print(f"  ({arch}: {time.perf_counter() - t0:.1f} s; total "
               f"{time.perf_counter() - t_start:.1f} s)", flush=True)
-    print("[16/16] train four of them at full width", flush=True)
+    print("[16/17] train four of them at full width", flush=True)
     for arch in NEW_TRAINED:
         t0 = time.perf_counter()
         torch.cuda.empty_cache()
@@ -2653,7 +2976,7 @@ def main() -> None:
     netsim = units["10"]
     netsim_links = {**units["11"], **units["11g"]}
     netsim_channel = {**units["12"], **units["12g"]}
-    obs, netsim_grad = units["13"], units["14"]
+    obs, netsim_grad, parallel = units["13"], units["14"], units["17"]
 
     def worst(checks, prefix):
         return max(c["max_abs_err"] for c in checks if c["case"].startswith(prefix))
@@ -2718,6 +3041,7 @@ def main() -> None:
     print(json.dumps({"netsim_channel": netsim_channel}))
     print(json.dumps({"obs": obs}))
     print(json.dumps({"netsim_grad": netsim_grad}))
+    print(json.dumps({"parallel": parallel}))
     print(smi_line())
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -21,8 +21,13 @@ Weights are random, drawn from seed 0; prompts from seed 1: token ids, or
 for a model of embedding inputs (musicgen-large, internvl2-2b: a stubbed
 EnCodec or ViT frontend) embeddings [B, S, d_model] bf16, N(0, 1); such a
 model is fed the prompt's last embedding at every decode step, and its
-argmax tokens are the output, as ``repro.launch.serve`` does. Runs on the
-GPU unless ``--device cpu`` is given; without a GPU it raises.
+argmax tokens are the output, as ``repro.launch.serve`` does. Decode runs
+through ``serve.decode.make_serve_step``'s step: on the card one CUDA graph
+of the whole step, captured at the first request of a (batch, cache length)
+and replayed per token, later requests copying their prefill's caches into
+the graph's; on the CPU the same step eagerly. The request's time is
+printed: prefill, the capture (or cache copy), decode, and their sum. Runs
+on the GPU unless ``--device cpu`` is given; without a GPU it raises.
 """
 from __future__ import annotations
 
@@ -34,10 +39,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.config.base import ParallelConfig
 from repro_torch.config.registry import get_model_config, list_archs
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import Model, build_model
-from repro_torch.serve.decode import greedy_decode
+from repro_torch.serve.decode import ServeStep, greedy_decode, make_serve_step
 
 
 class Workload(NamedTuple):
@@ -71,10 +77,21 @@ class ServeResult:
     prefill_ms: float
     decode_ms: float
     decode_tokens: int            # tokens made by the decode steps (B * (max_new - 1))
+    # on the card, between prefill and decode: the step's graph capture (the
+    # first request of its shape: ``captured``) or the copy of the prefill's
+    # caches into the graph's
+    load_ms: float = 0.0
+    captured: bool = False
+    prefill_caches: Optional[list] = None   # a copy of the prefill's caches, if asked for
 
     @property
     def decode_tok_s(self) -> float:
         return self.decode_tokens / (self.decode_ms / 1e3) if self.decode_ms else 0.0
+
+    @property
+    def request_ms(self) -> float:
+        """The whole request: prefill, capture or cache copy, decode."""
+        return self.prefill_ms + self.load_ms + self.decode_ms
 
 
 def build(arch: str, *, smoke: bool = False, device: DeviceLike = None,
@@ -107,27 +124,44 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def serve(model: Model, prompt: torch.Tensor, max_new: int) -> ServeResult:
-    """Prefill, then greedy decode; each phase timed on the host clock after
-    the device has finished."""
+def serve(model: Model, prompt: torch.Tensor, max_new: int, *,
+          step: Optional[ServeStep] = None, keep_prefill: bool = False) -> ServeResult:
+    """Prefill, then greedy decode through ``step`` (default: a new one from
+    ``make_serve_step``; on the card its CUDA graph, captured at its first
+    request of this shape, else loaded with the prefill's caches, timed
+    apart); each phase timed on the host clock after the device has
+    finished. ``keep_prefill`` keeps a copy of the prefill's caches in the
+    result (for a second decode from them)."""
     dev = prompt.device
     b, s = prompt.shape[:2]
     last = None if model.cfg.embed_inputs else prompt[:, -1:]
+    if step is None:
+        step, _, _ = make_serve_step(model, ParallelConfig(data=1, model=1), None, b,
+                                     s + max_new)
+    captures = step.captures
     _sync(dev)
     t0 = time.perf_counter()
     caches, prefill_logits = model.prefill(prompt, max_len=s + max_new)
     token = torch.argmax(prefill_logits, dim=-1)
     _sync(dev)
     t1 = time.perf_counter()
-    rest, logits = greedy_decode(model, caches, token, s, max_new - 1, last)
+    kept = [{k: t.clone() for k, t in c.items()} for c in caches] if keep_prefill else None
+    _sync(dev)
+    t1b = time.perf_counter()
+    if dev.type == "cuda" and max_new > 1:
+        caches = step.load(caches, token if last is None else last)
     _sync(dev)
     t2 = time.perf_counter()
+    rest, logits = greedy_decode(model, caches, token, s, max_new - 1, last, step=step)
+    _sync(dev)
+    t3 = time.perf_counter()
     return ServeResult(
         tokens=torch.cat([token[:, None], rest], dim=1),
         prefill_logits=prefill_logits,
         logits=prefill_logits if logits is None else logits,
-        prefill_ms=(t1 - t0) * 1e3, decode_ms=(t2 - t1) * 1e3,
-        decode_tokens=b * (max_new - 1))
+        prefill_ms=(t1 - t0) * 1e3, decode_ms=(t3 - t2) * 1e3,
+        decode_tokens=b * (max_new - 1), load_ms=(t2 - t1b) * 1e3,
+        captured=step.captures > captures, prefill_caches=kept)
 
 
 def main(argv=None) -> ServeResult:
@@ -154,10 +188,11 @@ def main(argv=None) -> ServeResult:
     cfg = get_model_config(args.arch, smoke=args.smoke)
     depth = (f", {model.cfg.num_layers} of {cfg.num_layers} layers"
              if model.cfg.num_layers != cfg.num_layers else "")
+    load = f"graph capture {res.load_ms:.2f} ms" if dev.type == "cuda" else "eager steps"
     print(f"{args.arch}{' (smoke)' if args.smoke else ''}{depth} on {name}: "
-          f"prefill {args.batch}x{args.prompt_len} in {res.prefill_ms:.2f} ms, "
+          f"prefill {args.batch}x{args.prompt_len} in {res.prefill_ms:.2f} ms, {load}, "
           f"{res.decode_tokens} decode tokens in {res.decode_ms:.2f} ms "
-          f"({res.decode_tok_s:.1f} tok/s)")
+          f"({res.decode_tok_s:.1f} tok/s); request {res.request_ms:.2f} ms")
     print("sample:", res.tokens[0, :16].tolist())
     return res
 

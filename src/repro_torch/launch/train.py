@@ -1,16 +1,22 @@
-"""Training entry point: AdamW steps on the synthetic Markov stream, one device.
+"""Training entry point: AdamW steps on the synthetic Markov stream, on a mesh.
 
     PYTHONPATH=src python -m repro_torch.launch.train [--arch mamba2-370m] \
         [--smoke] [--steps N] [--batch B] [--seq S] [--lr LR] [--ckpt-dir DIR] \
-        [--ckpt-every K] [--log-every K] [--device cpu]
+        [--ckpt-every K] [--log-every K] [--data D] [--model M] [--device cpu]
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --data 2 --model 2 ...
 
-The port of ``repro.launch.train`` for one device: config -> model (random
-weights from the train seed) -> train step (loss, grad, clip, AdamW) in a
-checkpointed loop under ``FailureRecovery``, with straggler monitoring. Its
-flags and defaults are the JAX launcher's, with these differences: the mesh
-flags (``--data``, ``--model``) wait for the distributed slice; ``--device``
-is added (cuda by default, raising without a GPU); the ``ParallelConfig``
-defaults hold (remat "block", one micro-batch); each step is logged
+The port of ``repro.launch.train``: config -> model (random weights from the
+train seed) -> a ``DeviceMesh`` of ``--data`` x ``--model`` ranks
+(``launch.mesh.make_mesh_for``; without ``torchrun`` a world of one) -> the
+train step of ``train_step.make_train_step`` on that mesh, the moments
+placed by ``ShardingRules`` (on a 1 x 1 mesh no collective runs and the step
+is the one-device step's arithmetic), the batch split over the data ranks
+(loss, grad, clip, AdamW) in a checkpointed loop under ``FailureRecovery``,
+with straggler monitoring. Every run takes that path, a 1 x 1 mesh included.
+Its flags and defaults are the JAX launcher's, with these differences:
+``--device`` is added (cuda by default, raising without a GPU; gloo process
+groups on the CPU, NCCL on the card); the ``ParallelConfig`` defaults hold
+(remat "block", one micro-batch); each step is logged
 (``--log-every 1``); ``--ckpt-every 0`` turns checkpoints off; the
 checkpoint directory defaults to ``build/ckpt/<arch>`` in the checkout; and
 at full width the batch, sequence and steps default to the arch's workload
@@ -34,7 +40,9 @@ MoE aux values (``lb_loss``, ``z_loss``, ``drop_frac``), each summed over the
 MoE layers as the JAX backbone sums them.
 After a failed step, training goes back to the latest checkpoint, parameters
 and optimizer state included, and replays from there; with no checkpoint the
-failure is raised, since the step updates its state in place.
+failure is raised, since the step updates its state in place. Checkpoints
+hold the parameters and the full (gathered) moments and are written by rank 0;
+only rank 0 logs.
 A step is timed on the host clock around work that ends in a synchronise,
 from the batch on the device to the metrics read; making the batch is timed
 apart (``data_ms``).
@@ -48,17 +56,19 @@ from pathlib import Path
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.config.base import ParallelConfig, TrainConfig
 from repro_torch.config.registry import get_model_config, list_archs
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import make_mesh_for
 from repro_torch.models.model import Model, build_model
 from repro_torch.models.moe import AUX_KEYS
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.data import SyntheticDataset
 from repro_torch.train.elastic import FailureRecovery, StragglerMonitor
 from repro_torch.train.optimizer import AdamState, init_adam
-from repro_torch.train.train_step import train_step
+from repro_torch.train.train_step import make_train_step
 
 
 class Workload(NamedTuple):
@@ -110,9 +120,11 @@ def build(arch: str, *, smoke: bool = False, device: DeviceLike = None,
 def setup(arch: str, *, smoke: bool = False, device: DeviceLike = None,
           batch: Optional[int] = None, seq: Optional[int] = None,
           steps: Optional[int] = None, lr: float = 3e-4, ckpt_dir: Optional[str] = None,
-          ckpt_every: Optional[int] = None) -> Tuple[Model, TrainConfig, ParallelConfig]:
-    """The model, train config and parallel config of a run; what is left
-    ``None`` takes the arch's workload default (see the module docstring)."""
+          ckpt_every: Optional[int] = None, data: int = 1, model: int = 1
+          ) -> Tuple[Model, TrainConfig, ParallelConfig]:
+    """The model, train config and parallel config (a ``data`` x ``model``
+    mesh) of a run; what is left ``None`` takes the arch's workload default
+    (see the module docstring)."""
     if not smoke and arch not in TRAIN_WORKLOADS:
         raise ValueError(f"{arch} does not train on one card at full width (its "
                          f"training waits for the distributed slice); pass --smoke "
@@ -123,39 +135,60 @@ def setup(arch: str, *, smoke: bool = False, device: DeviceLike = None,
                          work.steps if steps is None else steps)
     if ckpt_every is None:
         ckpt_every = SMOKE_CKPT_EVERY if smoke else 0
-    par = ParallelConfig()
+    par = ParallelConfig(multi_pod=False, data=data, model=model)
     train_cfg = TrainConfig(
         global_batch=batch, seq_len=seq, lr=lr, total_steps=steps,
         warmup_steps=max(steps // 10, 1), ckpt_every=ckpt_every,
         ckpt_dir=ckpt_dir or str(CKPT_ROOT / (arch + ("-smoke" if smoke else ""))))
-    model = build(arch, smoke=smoke, device=device, par=par, seed=train_cfg.seed)
-    return model, train_cfg, par
+    net = build(arch, smoke=smoke, device=device, par=par, seed=train_cfg.seed)
+    return net, train_cfg, par
 
 
-def _state(model: Model, opt: AdamState) -> dict:
-    return {"params": dict(model.named_parameters()),
-            "opt": {"step": opt.step, "m": opt.m, "v": opt.v}}
+def _full(tree: dict) -> dict:
+    """Each DTensor of a name -> tensor dict gathered whole."""
+    return {k: t.full_tensor() for k, t in tree.items()}
 
 
-def train(model: Model, train_cfg: TrainConfig, par: ParallelConfig = ParallelConfig(), *,
-          log_every: int = 1, log=print) -> TrainResult:
-    """Runs ``train_cfg.total_steps`` steps (resuming from the latest checkpoint
-    in ``train_cfg.ckpt_dir`` if there is one; none when ``ckpt_every`` is 0)."""
+def _state(params: dict, opt: AdamState) -> dict:
+    """The checkpoint tree: the parameters and the moments (gathered)."""
+    return {"params": params,
+            "opt": {"step": opt.step, "m": _full(opt.m), "v": _full(opt.v)}}
+
+
+def train(model: Model, train_cfg: TrainConfig, par: ParallelConfig = ParallelConfig(data=1, model=1),
+          *, log_every: int = 1, log=print, mesh=None) -> TrainResult:
+    """Runs ``train_cfg.total_steps`` steps through ``make_train_step`` on
+    ``mesh`` (default: ``make_mesh_for(par)`` on the model's device),
+    resuming from the latest checkpoint in ``train_cfg.ckpt_dir`` if there is
+    one (none when ``ckpt_every`` is 0). The result holds the model with the
+    final parameters and the final moments, gathered whole."""
     dev = model.device
+    mesh = mesh if mesh is not None else make_mesh_for(par, dev)
+    rank0 = dist.get_rank() == 0
+    log = log if rank0 else (lambda line: None)
+    _, _, jit_step, _ = make_train_step(model, par, train_cfg, mesh)
+    params = dict(model.named_parameters())
+    step_fn = jit_step(params)
     data = SyntheticDataset(model.cfg, train_cfg, device=dev)
-    opt = init_adam(dict(model.named_parameters()), par.opt_state_dtype)
+    state = {}
+    state["params"], state["opt"] = step_fn.place(params, init_adam(params, par.opt_state_dtype))
     ckpt_dir = train_cfg.ckpt_dir or str(CKPT_ROOT / model.cfg.name)
     ckpt = (CheckpointManager(ckpt_dir, keep=train_cfg.ckpt_keep,
                               async_save=train_cfg.ckpt_async)
             if train_cfg.ckpt_every > 0 else None)
     monitor = StragglerMonitor()
     tokens = train_cfg.global_batch * train_cfg.seq_len
-    res = TrainResult(model=model, opt_state=opt, final_step=0, restarts=0,
+    res = TrainResult(model=model, opt_state=state["opt"], final_step=0, restarts=0,
                       tokens_per_step=tokens)
 
     def sync() -> None:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+
+    def save(step: int) -> None:
+        tree = _state(state["params"], state["opt"])     # a collective on every rank
+        if rank0:
+            ckpt.save(step, tree)
 
     def run(start: int) -> int:
         step = start
@@ -164,7 +197,8 @@ def train(model: Model, train_cfg: TrainConfig, par: ParallelConfig = ParallelCo
             batch = data.batch_at(step)
             sync()
             t1 = time.perf_counter()
-            res.opt_state, metrics = train_step(model, res.opt_state, batch, par, train_cfg)
+            state["params"], state["opt"], metrics = step_fn(state["params"], state["opt"],
+                                                             batch)
             row = {k: float(v) for k, v in metrics.items()}
             sync()
             dt = time.perf_counter() - t1
@@ -181,18 +215,19 @@ def train(model: Model, train_cfg: TrainConfig, par: ParallelConfig = ParallelCo
                     f"({row['tokens_per_s']:.0f} tok/s)"
                     f"{' [' + verdict + ']' if verdict != 'ok' else ''}")
             if ckpt is not None and step % train_cfg.ckpt_every == 0:
-                ckpt.save(step, _state(model, res.opt_state))
+                save(step)
         return step
 
     def restore(step: int) -> None:
         """Parameters and optimizer state from checkpoint ``step``."""
         ckpt.wait()
-        _, state = ckpt.restore(step, _state(model, res.opt_state))
-        with torch.no_grad():
-            for name, p in model.named_parameters():
-                p.copy_(state["params"][name])
-        o = state["opt"]
-        res.opt_state = AdamState(step=o["step"], m=o["m"], v=o["v"])
+        like = {"params": {k: p.detach() for k, p in model.named_parameters()},
+                "opt": {"step": state["opt"].step, "m": _full(state["opt"].m),
+                        "v": _full(state["opt"].v)}}
+        _, tree = ckpt.restore(step, like)
+        o = tree["opt"]
+        state["params"], state["opt"] = step_fn.place(
+            tree["params"], AdamState(step=o["step"], m=o["m"], v=o["v"]))
         log(f"restored checkpoint step {step}")
 
     recovery = FailureRecovery(ckpt or _NoCheckpoints(), max_restarts=train_cfg.max_restarts,
@@ -203,8 +238,10 @@ def train(model: Model, train_cfg: TrainConfig, par: ParallelConfig = ParallelCo
     res.final_step = recovery.run(run, start or 0, train_cfg.total_steps)
     res.restarts = recovery.restarts
     if ckpt is not None:
-        ckpt.save(res.final_step, _state(model, res.opt_state))
+        save(res.final_step)
         ckpt.wait()
+    o = state["opt"]
+    res.opt_state = AdamState(step=o.step, m=_full(o.m), v=_full(o.v))
     log(f"done at step {res.final_step}")
     return res
 
@@ -222,19 +259,25 @@ def main(argv=None) -> TrainResult:
                     help=f"0: no checkpoints (default: 0 at full width, {SMOKE_CKPT_EVERY} "
                          "with --smoke)")
     ap.add_argument("--log-every", type=int, default=1)
+    ap.add_argument("--data", type=int, default=1, help="data-parallel ranks of the mesh")
+    ap.add_argument("--model", type=int, default=1, help="model-parallel ranks of the mesh")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda raises when no GPU is visible")
     args = ap.parse_args(argv)
     model, train_cfg, par = setup(
         args.arch, smoke=args.smoke, device=args.device, batch=args.batch, seq=args.seq,
-        steps=args.steps, lr=args.lr, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
+        steps=args.steps, lr=args.lr, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+        data=args.data, model=args.model)
     dev = model.device
+    mesh = make_mesh_for(par, dev)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"train {args.arch}{' (smoke)' if args.smoke else ''} on {name}: batch "
-          f"{train_cfg.global_batch} x {train_cfg.seq_len} tokens, {train_cfg.total_steps} "
-          f"steps, remat {par.remat}", flush=True)
+    if dist.get_rank() == 0:
+        print(f"train {args.arch}{' (smoke)' if args.smoke else ''} on {name}: batch "
+              f"{train_cfg.global_batch} x {train_cfg.seq_len} tokens, {train_cfg.total_steps} "
+              f"steps, remat {par.remat}, mesh {dict(zip(par.axis_names(), par.mesh_shape()))}",
+              flush=True)
     return train(model, train_cfg, par, log_every=args.log_every,
-                 log=lambda line: print(line, flush=True))
+                 log=lambda line: print(line, flush=True), mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -23,6 +23,7 @@ there.
 from __future__ import annotations
 
 import math
+from typing import Union
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +32,7 @@ from repro_torch.kernels.ops import flash_attention
 from repro_torch.kernels.ref import attention_ref
 
 NEG_INF = -1e30
+PosLike = Union[int, torch.Tensor]   # a decode position: an int or a 0-d int tensor
 
 
 def _split_gqa(q: torch.Tensor, num_kv: int) -> torch.Tensor:
@@ -176,7 +178,7 @@ def _attend_one(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     pos: int, *, softcap: float = 0.0) -> torch.Tensor:
+                     pos: PosLike, *, softcap: float = 0.0) -> torch.Tensor:
     """One new token against the cache.
 
     q [B, Hq, Dh] (rope applied at pos); k/v cache [B, Smax, Hk, Dh] with the
@@ -187,7 +189,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
 
 
 def decode_attention_tm(q: torch.Tensor, k_cache_tm: torch.Tensor, v_cache: torch.Tensor,
-                        pos: int, *, softcap: float = 0.0) -> torch.Tensor:
+                        pos: PosLike, *, softcap: float = 0.0) -> torch.Tensor:
     """One new token against a time-minor K cache: q.K contracts Dh with S
     free, so no step transposes the whole cache.
 
@@ -207,7 +209,7 @@ def decode_attention_tm(q: torch.Tensor, k_cache_tm: torch.Tensor, v_cache: torc
 
 
 def decode_local_attention(q: torch.Tensor, k_ring: torch.Tensor, v_ring: torch.Tensor,
-                           pos: int, *, softcap: float = 0.0) -> torch.Tensor:
+                           pos: PosLike, *, softcap: float = 0.0) -> torch.Tensor:
     """One new token against a ring of the last W positions.
 
     q [B, Hq, Dh] (rope applied at pos); k/v ring [B, W, Hk, Dh] with slot

@@ -9,6 +9,8 @@ JAX ``init_*`` functions (not the same numbers).
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -143,6 +145,17 @@ class MLP(nn.Module):
 # Embedding / unembedding
 # ---------------------------------------------------------------------------
 
+def as_f32(module: nn.Module, name: str, t: torch.Tensor) -> torch.Tensor:
+    """``t`` in f32: the exact f32 copy of the module's ``name`` that the
+    serve step installs in ``module.f32_copies`` while it runs
+    (``serve.decode.ServeStep``), else a cast (the same values)."""
+    copies = getattr(module, "f32_copies", None)
+    return copies[name] if copies and name in copies else t.float()
+
+
+LOGITS_BLOCK_BYTES = 1 << 30
+
+
 class Embed(nn.Module):
     """Token table ``tok`` [V, d], only when ``embed_inputs``; ``unembed``
     [d, V] unless the model is tied and embeds its own tokens (the logits
@@ -177,9 +190,42 @@ class Embed(nn.Module):
         """[d, V]: the tied table transposed, or the separate unembedding."""
         return self.tok.T if self.unembed is None else self.unembed
 
+    def weight_blocks(self) -> Tuple[int, list]:
+        """(dim, blocks): ``weight()`` cut along ``dim`` into the blocks that
+        ``logits`` casts to f32 one at a time, each at most
+        ``LOGITS_BLOCK_BYTES`` in f32 (one block for a table that small;
+        nemotron-4-340b's 18.9 GB takes 18). A block is a run of whole
+        memory rows: of the vocab (dim 1) for the tied table's transpose, of
+        d_model (dim 0) for a separate unembedding, whose f32 cast is then a
+        dense copy."""
+        w = self.weight()
+        dim = 1 if w.stride(0) == 1 else 0
+        n = max(1, LOGITS_BLOCK_BYTES // (4 * w.shape[1 - dim]))
+        return dim, [w.narrow(dim, i, min(n, w.shape[dim] - i))
+                     for i in range(0, w.shape[dim], n)]
+
     def logits(self, x: torch.Tensor) -> torch.Tensor:
-        """Logits in f32 (loss-side numerics)."""
-        logits = x.float() @ self.weight().float()
+        """Logits in f32 (loss-side numerics) of x [B, d]: against each block
+        of the table in f32 (``weight_blocks``; a step holds one block's
+        cast, not the whole table's), or against the exact f32 copies of
+        those blocks that the serve step installs (``f32_copies["weight"]``):
+        vocab blocks side by side, d_model blocks summed in order."""
+        copies = getattr(self, "f32_copies", None)
+        dim, blocks = self.weight_blocks()
+        if copies and "weight" in copies:
+            blocks = copies["weight"]
+        xf = x.float()
+        if len(blocks) == 1:
+            logits = xf @ blocks[0].float()
+        elif dim == 1:
+            logits = torch.cat([xf @ w.float() for w in blocks], dim=-1)
+        else:
+            logits, i = None, 0
+            for w in blocks:
+                part = xf[:, i:i + w.shape[0]]
+                logits = (part @ w.float() if logits is None
+                          else torch.addmm(logits, part, w.float()))
+                i += w.shape[0]
         c = self.cfg.logit_softcap
         if c > 0:
             logits = c * torch.tanh(logits / c)

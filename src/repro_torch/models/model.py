@@ -18,7 +18,7 @@ residuals; the values are the same).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -120,12 +120,15 @@ class Model(nn.Module):
         return caches, self.embed.logits(h[:, -1])
 
     @torch.no_grad()
-    def decode_step(self, caches: List[Cache], inputs: torch.Tensor, pos: int
-                    ) -> Tuple[List[Cache], torch.Tensor]:
-        """inputs: tokens [B] or embeds [B, 1, d] at position ``pos``;
-        updates ``caches`` in place. Returns (caches, logits f32 [B, V])."""
+    def decode_step(self, caches: List[Cache], inputs: torch.Tensor,
+                    pos: Union[int, torch.Tensor]) -> Tuple[List[Cache], torch.Tensor]:
+        """inputs: tokens [B] or embeds [B, 1, d] at position ``pos``, an int
+        or a 0-d int tensor on the model's device (never read on the host, so
+        the step can be captured in a CUDA graph); updates ``caches`` in
+        place. Returns (caches, logits f32 [B, V])."""
+        pos = torch.as_tensor(pos, dtype=torch.int64, device=self.device)
         x = self.embed(inputs[:, None] if self.cfg.embed_inputs else inputs)
-        h, _, caches = self.backbone(x, mode="decode", caches=caches, pos=int(pos))
+        h, _, caches = self.backbone(x, mode="decode", caches=caches, pos=pos)
         return caches, self.embed.logits(h[:, 0])
 
 

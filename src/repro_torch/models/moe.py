@@ -24,8 +24,9 @@ each call.
 
 With ``moe_group_by_batch`` each row of a [B, S, d] input is routed alone
 (capacity per row) and the aux values are averaged over the rows: what the
-JAX package runs on one device without a mesh. Its ``shard_map`` over the
-batch axes and the sharding constraints come with the distributed slice.
+JAX package runs on one device without a mesh. Under a mesh (``forward``)
+each rank routes its own rows as flat tokens, as the JAX package's
+``shard_map`` over the batch axes does.
 """
 from __future__ import annotations
 
@@ -38,6 +39,8 @@ from torch import nn
 from repro_torch.config.base import ModelConfig
 from repro_torch.device import dtype_of
 from repro_torch.models.layers import normal_
+from repro_torch.parallel.collectives import all_reduce_sum, gather_rows
+from repro_torch.parallel.sharding import batch_dims, get_ambient_mesh
 
 Aux = Dict[str, torch.Tensor]
 AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
@@ -133,11 +136,57 @@ class MoE(nn.Module):
         normal_(self.w_down, f ** -0.5, generator)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Aux]:
-        """x [..., d] -> (y of x's shape, aux)."""
+        """x [..., d] -> (y of x's shape, aux).
+
+        Under an ambient mesh with batch dims (``parallel.use_mesh``), a
+        [B, S, d] ``x`` is this rank's rows of a batch split over those dims:
+        with ``moe_group_by_batch`` the rank
+        routes its rows as flat tokens and the aux values are averaged over
+        the batch dims (the JAX package's ``shard_map`` over them; the expert
+        weights are replicated there); without it every rank's rows are
+        gathered and routed together, as GSPMD partitions the JAX package's
+        global dispatch, and the rank keeps its own rows' outputs."""
+        mesh = get_ambient_mesh()
+        dims = batch_dims(mesh)
         weights = (self.router, self.w_gate, self.w_up, self.w_down)
+        if dims and x.dim() == 3:
+            b, s, d = x.shape
+            if self.cfg.moe_group_by_batch:
+                y, aux = moe_tokens(x.reshape(b * s, d), *weights, self.cfg)
+                return y.reshape(b, s, d), {k: _mean_over(v, mesh, dims)
+                                            for k, v in aux.items()}
+            xs = _gather_rows(x, mesh, dims)
+            y, aux = moe_tokens(xs.reshape(-1, d), *weights, self.cfg)
+            r = _row_block(mesh, dims)
+            return y.reshape(xs.shape)[r * b:(r + 1) * b], aux
         if self.cfg.moe_group_by_batch and x.dim() == 3:
             rows = [moe_tokens(row, *weights, self.cfg) for row in x]
             return (torch.stack([y for y, _ in rows]),
                     {key: torch.stack([a[key] for _, a in rows]).mean() for key in AUX_KEYS})
         y, aux = moe_tokens(x.reshape(-1, x.shape[-1]), *weights, self.cfg)
         return y.reshape(x.shape), aux
+
+
+def _row_block(mesh, dims: tuple) -> int:
+    """This rank's block of rows along the batch dims (major to minor)."""
+    r = 0
+    for name in dims:
+        r = r * mesh.size(mesh.mesh_dim_names.index(name)) + mesh.get_local_rank(name)
+    return r
+
+
+def _gather_rows(x: torch.Tensor, mesh, dims: tuple) -> torch.Tensor:
+    """Every rank's rows in batch order (an all-gather over each batch dim,
+    minor first; its backward reduce-scatters the gradients)."""
+    for name in reversed(dims):
+        x = gather_rows(x, mesh.get_group(name))
+    return x
+
+
+def _mean_over(v: torch.Tensor, mesh, dims: tuple) -> torch.Tensor:
+    """The mean of ``v`` over the batch dims' ranks (differentiable)."""
+    n = 1
+    for name in dims:
+        v = all_reduce_sum(v, mesh.get_group(name))
+        n *= mesh.size(mesh.mesh_dim_names.index(name))
+    return v / n

@@ -26,7 +26,7 @@ from torch import nn
 from repro_torch.config.base import ModelConfig
 from repro_torch.device import dtype_of
 from repro_torch.kernels.ops import rglru_recurrence
-from repro_torch.models.layers import conv_window, normal_
+from repro_torch.models.layers import as_f32, conv_window, normal_
 
 RglruCache = dict  # {"conv": [B, K-1, W] act dtype, "h": [B, W] f32}
 
@@ -37,8 +37,8 @@ _SQRT_EPS = 1e-6
 def _gates(p: "RGLRU", x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [..., W] (post-conv). Returns (log_a, gated input) in f32."""
     xf = x.float()
-    r = torch.sigmoid(xf @ p.w_a.float() + p.b_a)
-    i = torch.sigmoid(xf @ p.w_i.float() + p.b_i)
+    r = torch.sigmoid(xf @ as_f32(p, "w_a", p.w_a) + p.b_a)
+    i = torch.sigmoid(xf @ as_f32(p, "w_i", p.w_i) + p.b_i)
     log_a = -_C * F.softplus(p.lam) * r                       # [..., W] <= 0
     a2 = torch.exp(2.0 * log_a)
     beta = torch.sqrt(torch.clamp(1.0 - a2, min=_SQRT_EPS))

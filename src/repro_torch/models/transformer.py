@@ -114,24 +114,27 @@ class Attention(nn.Module):
                 v.reshape(*shp, cfg.num_kv_heads, hd))
 
     def forward(self, x: torch.Tensor, *, mode: str, cache: Optional[Cache],
-                pos: Optional[int], max_len: int = 0) -> Tuple[torch.Tensor, Cache]:
+                pos=None, max_len: int = 0) -> Tuple[torch.Tensor, Cache]:
         theta = self.cfg.rope_theta
         b, s, _ = x.shape
         if mode == "decode":
             q, k, v = self._qkv(x[:, 0])                         # [B,H,hd]
-            positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+            # pos: an int, or a 0-d int tensor on x's device that no host
+            # code reads, so that the step can be captured in a CUDA graph
+            pos = torch.as_tensor(pos, dtype=torch.int64, device=x.device)
+            positions = pos.to(torch.int32).expand(b, 1)
             q = apply_rope(q[:, None], positions, theta)[:, 0]
             k = apply_rope(k[:, None], positions, theta)[:, 0]
             # The cache was preallocated at max_len, or at the window for a
             # ring (by prefill or init_cache), and is updated in place here,
             # where the JAX package returns an updated copy of it.
             local = self.mixer == LOCAL_ATTN
-            slot = pos % cache["v"].shape[1] if local else pos
+            slot = (pos % cache["v"].shape[1] if local else pos).reshape(1)
             if self.time_minor:
-                cache["k"][..., slot] = k.to(cache["k"].dtype)
+                cache["k"].index_copy_(3, slot, k.to(cache["k"].dtype)[..., None])
             else:
-                cache["k"][:, slot] = k.to(cache["k"].dtype)
-            cache["v"][:, slot] = v.to(cache["v"].dtype)
+                cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype)[:, None])
+            cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype)[:, None])
             attend = (decode_local_attention if local else
                       decode_attention_tm if self.time_minor else decode_attention)
             o = attend(q, cache["k"], cache["v"], pos)[:, None]
@@ -197,7 +200,7 @@ class Block(nn.Module):
         self.moe = MoE(cfg, device=device) if mlp == MLP_MOE else None
 
     def forward(self, x: torch.Tensor, *, mode: str, cache: Optional[Cache],
-                pos: Optional[int], max_len: int = 0
+                pos: Optional[torch.Tensor], max_len: int = 0
                 ) -> Tuple[torch.Tensor, Optional[Aux], Cache]:
         """(x after the block, its MoE aux or None without an MoE, cache)."""
         h = self.norm1(x)
@@ -234,7 +237,7 @@ class Backbone(nn.Module):
         self.final_norm = Norm(cfg, device=device)
 
     def forward(self, x: torch.Tensor, *, mode: str,
-                caches: Optional[List[Cache]] = None, pos: Optional[int] = None,
+                caches: Optional[List[Cache]] = None, pos: Optional[torch.Tensor] = None,
                 max_len: int = 0, remat: str = "block"
                 ) -> Tuple[torch.Tensor, Aux, List[Cache]]:
         """Runs all layers. Returns (hidden after the final norm, the MoE aux

@@ -1204,6 +1204,36 @@ def run_traced_batch(cfg: NetConfig, params: NetParams, wlp: WorkloadParams,
     return _drive(step, scheme, state0, steps, mode, decimate, warm, 0)
 
 
+def shard_scenario_axis(params: NetParams, wlp: WorkloadParams,
+                        devices: Optional[Sequence] = None):
+    """Split the stacked ``[B]``-leading scenario leaves evenly over
+    ``devices``: the port of the JAX package's placement of the batch axis
+    over a ``("scenario",)`` mesh. The batch is embarrassingly parallel
+    along [B], so each device runs its share with no traffic between them.
+
+    On one device (or ``devices`` None) it is a no-op and returns
+    ``(params, wlp)``; with more it returns one ``(params, wlp)`` per
+    device, its [B / n] rows of every leaf (tensors moved to the device,
+    numpy leaves sliced). An uneven split raises."""
+    devices = list(devices) if devices is not None else []
+    if len(devices) <= 1:
+        return params, wlp
+    b = int(np.shape(params.one_way_delay_us)[0])
+    if b % len(devices):
+        raise ValueError(
+            f"shard_scenario_axis: {len(devices)} devices do not evenly "
+            f"split a batch of {b} scenarios — pad the batch to a device "
+            f"multiple (runner launch plans do this automatically)")
+    n = b // len(devices)
+
+    def part(tree, i, dev):
+        return type(tree)(*(x[i * n:(i + 1) * n].to(dev) if torch.is_tensor(x)
+                            else x[i * n:(i + 1) * n] for x in tree))
+
+    return [(part(params, i, torch.device(d)), part(wlp, i, torch.device(d)))
+            for i, d in enumerate(devices)]
+
+
 def simulate_batch(cfgs: Sequence[NetConfig], workload, scheme,
                    horizon_us: Optional[float] = None, period_slots: int = 0,
                    trace_mode: str = "full", decimate: int = 1,

@@ -35,9 +35,9 @@ runs out of device memory is split in two, down to single cells.
 ``manifest_path`` writes a JSONL run manifest in the JAX package's schema
 (``netsim.obs.profile``): a header with the plan's fingerprint and one record
 per launch, its graph-capture and replay times and device memory figures,
-which ``tools/obs_report.py`` summarizes and diffs. ``devices=`` (sharding a
-grid over several devices) comes with ROADMAP queue 1 item 17 and raises
-``NotImplementedError``.
+which ``tools/obs_report.py`` summarizes and diffs. ``devices=`` splits each
+launch evenly over several devices (the plan pads launches to a device
+multiple), each running its share, the rows in cell order.
 """
 from __future__ import annotations
 
@@ -285,14 +285,17 @@ def _trace_float_budget(device: torch.device) -> int:
 def chunk_cells(steps: int, trace_mode: str = "full", decimate: int = 1,
                 chunk_cells: Optional[int] = None,
                 device: Optional[torch.device] = None,
-                num_links: int = 1, schedule_floats: int = 0) -> int:
+                num_links: int = 1, schedule_floats: int = 0,
+                n_devices: int = 1) -> int:
     """Scenario cells per launch: the explicit ``chunk_cells`` override, or
     the bounded-memory auto size (full/decimate: the materialized trace
     block stays under the trace-float budget of ``device``, counting the
     three ``[L]`` trace keys of a multi-link grid; metrics: the flat
     ``METRICS_CHUNK_CELLS`` ceiling, window mode's O(B W) ring included).
     ``schedule_floats`` is a cell's
-    resident schedule tables (``_sched_floats``), counted in every mode."""
+    resident schedule tables (``_sched_floats``), counted in every mode.
+    The result is rounded up to a multiple of ``n_devices``, so that a
+    launch splits evenly over the devices."""
     if chunk_cells is None:
         if trace_mode in ("metrics", "window"):
             chunk_cells = METRICS_CHUNK_CELLS
@@ -306,7 +309,8 @@ def chunk_cells(steps: int, trace_mode: str = "full", decimate: int = 1,
             budget = _trace_float_budget(device or torch.device("cpu"))
             chunk_cells = max(
                 budget // (t * keys + max(schedule_floats, 0)), 1)
-    return max(int(chunk_cells), 1)
+    chunk_cells = max(int(chunk_cells), 1)
+    return -(-chunk_cells // n_devices) * n_devices
 
 
 def _sched_floats(cfg: NetConfig) -> int:
@@ -321,10 +325,12 @@ def _sched_floats(cfg: NetConfig) -> int:
 _auto_chunk_cells = chunk_cells
 
 
-def _plan_launches(n_cells: int, schemes: Sequence, chunk: int) -> List[_Launch]:
+def _plan_launches(n_cells: int, schemes: Sequence, chunk: int,
+                   n_devices: int = 1) -> List[_Launch]:
     """Flatten (scheme x chunk) into the launch list; every launch pads to
-    the plan's chunk size so all share one set of ring sizes."""
-    pad_to = min(chunk, n_cells)
+    the plan's chunk size so all share one set of ring sizes, and to a
+    multiple of ``n_devices`` so that it splits evenly over them."""
+    pad_to = -(-min(chunk, n_cells) // n_devices) * n_devices
     return [_Launch(s, lo, min(lo + chunk, n_cells), pad_to)
             for s in schemes for lo in range(0, n_cells, chunk)]
 
@@ -498,14 +504,17 @@ def _is_oom_error(e: Exception) -> bool:
 
 
 def _run_launch(launch: _Launch, cfgs, wlp: WorkloadParams, grid_static,
-                period_slots, trace_mode, decimate, device, channel,
+                period_slots, trace_mode, decimate, devices, channel,
                 strict_conservation: bool = False,
                 conservation_tol: float = 1e-3,
                 profile: Optional[list] = None,
                 record: Optional[dict] = None) -> List[dict]:
-    """One launch -> its real cells' rows (grid order); its timings are
-    appended to ``profile`` when given, and ``record`` (a run manifest's
-    launch record) is filled by ``obs.profiled_traced_batch``. A launch
+    """One launch -> its real cells' rows (grid order). ``devices``: each
+    runs an equal share of the padded launch, one after another from this
+    thread, and the rows come back in cell order. Its timings are appended
+    to ``profile`` when given (one entry per device's share), and ``record``
+    (a run manifest's launch record) is filled by
+    ``obs.profiled_traced_batch`` (times summed over the shares). A launch
     that runs out of device memory is retried as two half-size launches,
     down to single cells. The conservation guard runs per launch, so the
     error names the first violation of the first offending chunk."""
@@ -514,25 +523,38 @@ def _run_launch(launch: _Launch, cfgs, wlp: WorkloadParams, grid_static,
     sub_wlp = WorkloadParams(*(v[launch.lo:launch.hi] for v in wlp))
     n_real = len(sub_cfgs)
     sub_cfgs, sub_wlp = _pad_chunk(sub_cfgs, sub_wlp, launch.pad_to)
-    timing = ({"scheme": launch.scheme.name, "real_cells": n_real}
-              if profile is not None else None)
+    n = launch.pad_to // len(devices)
     kw = dict(trace_mode=trace_mode, decimate=decimate, delay_pad=delay_pad,
-              history_slots=history_slots, warm_steps=warm, channel=channel,
-              device=device)
+              history_slots=history_slots, warm_steps=warm, channel=channel)
+    outs = []
     try:
-        if record is not None:
-            final, aux = profiled_traced_batch(
-                sub_cfgs, sub_wlp, launch.scheme, horizon, period_slots,
-                record, timing=timing, **kw)
-        else:
-            final, aux = simulate_batch(
-                sub_cfgs, sub_wlp, launch.scheme, horizon, period_slots,
-                profile=timing, **kw)
+        for i, device in enumerate(devices):
+            part_cfgs = sub_cfgs[i * n:(i + 1) * n]
+            part_wlp = WorkloadParams(*(v[i * n:(i + 1) * n] for v in sub_wlp))
+            timing = ({"scheme": launch.scheme.name,
+                       "real_cells": min(max(n_real - i * n, 0), n)}
+                      if profile is not None else None)
+            if record is not None:
+                rec = {}
+                final, aux = profiled_traced_batch(
+                    part_cfgs, part_wlp, launch.scheme, horizon, period_slots,
+                    rec, timing=timing, device=device, **kw)
+                for k, v in rec.items():
+                    record[k] = (record[k] + v if k in ("compile_s", "execute_s")
+                                 and k in record else record.get(k, v))
+            else:
+                final, aux = simulate_batch(
+                    part_cfgs, part_wlp, launch.scheme, horizon, period_slots,
+                    profile=timing, device=device, **kw)
+            if profile is not None:
+                profile.append(timing)
+            outs.append((part_cfgs, part_wlp, final, aux))
     except Exception as e:  # noqa: BLE001 - filtered to device OOM here
         if not _is_oom_error(e) or n_real <= 1:
             raise
-        if device.type == "cuda":
-            torch.cuda.empty_cache()
+        for device in devices:
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
         mid = launch.lo + (n_real + 1) // 2
         warnings.warn(
             f"launch ({launch.scheme.name}, cells [{launch.lo}, "
@@ -542,36 +564,41 @@ def _run_launch(launch: _Launch, cfgs, wlp: WorkloadParams, grid_static,
             record["oom_split"] = True
         rows = []
         for lo, hi in ((launch.lo, mid), (mid, launch.hi)):
+            pad = -(-(hi - lo) // len(devices)) * len(devices)
             rows.extend(_run_launch(
-                _Launch(launch.scheme, lo, hi, hi - lo), cfgs, wlp,
-                grid_static, period_slots, trace_mode, decimate, device,
+                _Launch(launch.scheme, lo, hi, pad), cfgs, wlp,
+                grid_static, period_slots, trace_mode, decimate, devices,
                 channel, strict_conservation, conservation_tol, profile))
         return rows
-    if profile is not None:
-        profile.append(timing)
-    if strict_conservation:
-        _check_conservation(launch.scheme.name, aux, launch.lo, n_real,
-                            trace_mode, decimate, conservation_tol)
-    final_np = {"delivered": final.delivered.cpu().numpy(),
-                "done_at_us": final.done_at_us.cpu().numpy()}
-    if trace_mode in ("metrics", "window"):
-        acc = aux if trace_mode == "metrics" else aux.acc
-        rows = _metrics_streaming(sub_cfgs, sub_wlp, launch.scheme, channel,
-                                  final_np, acc, steps, warm)
-    else:
-        traces_np = {k: v.cpu().numpy() for k, v in aux.items()}
-        rows = _metrics_batch(sub_cfgs, sub_wlp, launch.scheme.name, final_np,
-                              traces_np, decimate if trace_mode == "decimate" else 1)
+    rows = []
+    for i, (part_cfgs, part_wlp, final, aux) in enumerate(outs):
+        real = min(max(n_real - i * n, 0), n)
+        if strict_conservation and real:
+            _check_conservation(launch.scheme.name, aux, launch.lo + i * n, real,
+                                trace_mode, decimate, conservation_tol)
+        final_np = {"delivered": final.delivered.cpu().numpy(),
+                    "done_at_us": final.done_at_us.cpu().numpy()}
+        if trace_mode in ("metrics", "window"):
+            acc = aux if trace_mode == "metrics" else aux.acc
+            rows += _metrics_streaming(part_cfgs, part_wlp, launch.scheme, channel,
+                                       final_np, acc, steps, warm)
+        else:
+            traces_np = {k: v.cpu().numpy() for k, v in aux.items()}
+            rows += _metrics_batch(part_cfgs, part_wlp, launch.scheme.name, final_np,
+                                   traces_np, decimate if trace_mode == "decimate" else 1)
     return rows[:n_real]
 
 
-def _check_unported(channel, trace_mode, decimate, devices,
-                    on_nonfinite) -> None:
+def _devices(device, devices) -> List[torch.device]:
+    """The devices a plan's launches split over: ``devices`` if given, else
+    the one ``device`` (``cuda`` unless the caller says)."""
+    if devices is not None and len(devices) == 0:
+        raise ValueError("devices=: an empty device list")
+    return [resolve_device(d) for d in (devices if devices is not None else [device])]
+
+
+def _check_unported(channel, trace_mode, decimate, on_nonfinite) -> None:
     check_main_path(channel, trace_mode, decimate)
-    if devices is not None:
-        raise NotImplementedError(
-            "devices=: sharding a grid over several devices comes with ROADMAP "
-            "queue 1 item 17; pass device= for the one device to run on")
     if on_nonfinite not in ("keep", "quarantine", "raise"):
         raise ValueError(
             f"on_nonfinite must be 'keep', 'quarantine' or 'raise', "
@@ -579,7 +606,7 @@ def _check_unported(channel, trace_mode, decimate, devices,
 
 
 def _execute_plan(plan: Sequence[_Launch], cfgs, wlp: WorkloadParams,
-                  grid_static, period_slots, trace_mode, decimate, device,
+                  grid_static, period_slots, trace_mode, decimate, devices,
                   channel=None, profile=None, *,
                   checkpoint_dir: Optional[str] = None, resume: bool = False,
                   on_nonfinite: str = "keep",
@@ -634,7 +661,7 @@ def _execute_plan(plan: Sequence[_Launch], cfgs, wlp: WorkloadParams,
         rec = {} if manifest is not None else None
         sub_rows = _guard_nonfinite(
             _run_launch(launch, cfgs, wlp, grid_static, period_slots,
-                        trace_mode, decimate, device, channel,
+                        trace_mode, decimate, devices, channel,
                         strict_conservation, conservation_tol, profile, rec),
             launch.lo, on_nonfinite)
         if ckpt is not None:
@@ -649,8 +676,8 @@ def _execute_plan(plan: Sequence[_Launch], cfgs, wlp: WorkloadParams,
         executed_recs = [m for m in manifest if not m.get("resumed")]
         header = {
             "fingerprint": fingerprint,
-            "backend": device.type,
-            "n_devices": 1,
+            "backend": devices[0].type,
+            "n_devices": len(devices),
             "trace_mode": trace_mode,
             "decimate": int(decimate),
             "horizon_us": float(grid_static[0]),
@@ -711,18 +738,17 @@ def run_experiment_batch(cfgs: Sequence[NetConfig], workload, scheme,
     (``simulate_batch``'s ``profile``). The hardening knobs are
     ``_execute_plan``'s."""
     cfgs = list(cfgs)
-    _check_unported(channel, trace_mode, decimate, devices,
-                    on_nonfinite)
-    dev = resolve_device(device)
+    _check_unported(channel, trace_mode, decimate, on_nonfinite)
+    devs = _devices(device, devices)
     scheme = get_scheme(scheme)
     wlp = as_workload_batch(workload, len(cfgs))
     grid_static = _grid_static(cfgs, horizon_us, delay_pad, history_slots)
     chunk = _auto_chunk_cells(grid_static[1], trace_mode, decimate,
-                              chunk_cells, dev, cfgs[0].num_paths,
-                              _sched_floats(cfgs[0]))
-    plan = _plan_launches(len(cfgs), (scheme,), chunk)
+                              chunk_cells, devs[0], cfgs[0].num_paths,
+                              _sched_floats(cfgs[0]), len(devs))
+    plan = _plan_launches(len(cfgs), (scheme,), chunk, len(devs))
     return _execute_plan(
-        plan, cfgs, wlp, grid_static, period_slots, trace_mode, decimate, dev,
+        plan, cfgs, wlp, grid_static, period_slots, trace_mode, decimate, devs,
         channel, profile, checkpoint_dir=checkpoint_dir, resume=resume,
         on_nonfinite=on_nonfinite, strict_conservation=strict_conservation,
         conservation_tol=conservation_tol,
@@ -789,18 +815,17 @@ def sweep_grid(scenarios, workload=None, schemes=(),
     if not schemes:
         raise ValueError(
             "sweep_grid: no schemes given - pass schemes=(\"dcqcn\", ...)")
-    _check_unported(channel, trace_mode, decimate, devices,
-                    on_nonfinite)
-    dev = resolve_device(device)
+    _check_unported(channel, trace_mode, decimate, on_nonfinite)
+    devs = _devices(device, devices)
     scheme_objs = [get_scheme(s) for s in schemes]
     wlp = as_workload_batch(wl, len(cfgs))
     grid_static = _grid_static(cfgs, horizon_us, 0, 0)
     chunk = _auto_chunk_cells(grid_static[1], trace_mode, decimate,
-                              chunk_cells, dev, cfgs[0].num_paths,
-                              _sched_floats(cfgs[0]))
-    plan = _plan_launches(len(cfgs), scheme_objs, chunk)
+                              chunk_cells, devs[0], cfgs[0].num_paths,
+                              _sched_floats(cfgs[0]), len(devs))
+    plan = _plan_launches(len(cfgs), scheme_objs, chunk, len(devs))
     by_scheme = _execute_plan(
-        plan, cfgs, wlp, grid_static, period_slots, trace_mode, decimate, dev,
+        plan, cfgs, wlp, grid_static, period_slots, trace_mode, decimate, devs,
         channel, profile, checkpoint_dir=checkpoint_dir, resume=resume,
         on_nonfinite=on_nonfinite, strict_conservation=strict_conservation,
         conservation_tol=conservation_tol,

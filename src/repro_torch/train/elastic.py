@@ -1,18 +1,46 @@
-"""Failure recovery and straggler mitigation: the port of ``repro.train.elastic``.
+"""Elastic scaling, failure recovery and straggler mitigation: the port of
+``repro.train.elastic``.
 
+  * ``resharding_plan``  -- the mesh to run on after losing pods or data-axis
+                            rows, with the batch and LR rescaling rules;
   * ``FailureRecovery``  -- wraps the train loop: on failure, go back to the
                             latest checkpoint's step and replay; bounded
                             restarts.
   * ``StragglerMonitor`` -- per-step deadline from a running p50; flags
                             persistent stragglers for replica eviction.
-
-``resharding_plan`` (a new mesh after losing pods or data rows) comes with
-the distributed slice, with the mesh it plans for.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional
+
+from repro_torch.config.base import ParallelConfig
+
+
+@dataclass(frozen=True)
+class ReshardingPlan:
+    old_mesh: tuple
+    new_mesh: tuple
+    batch_scale: float        # keep the global batch (1.0) or scale it down
+    lr_scale: float           # linear-scaling rule when the batch changes
+    reason: str
+
+
+def resharding_plan(par: ParallelConfig, *, lost_pods: int = 0, lost_data_rows: int = 0,
+                    keep_global_batch: bool = True) -> ReshardingPlan:
+    """The mesh to run on after losing pods / data-axis rows. The model axis
+    is never shrunk (parameter shards would be lost: a failure inside a
+    model-axis group restarts the group from a checkpoint)."""
+    old = par.mesh_shape()
+    pods = (par.pods if par.multi_pod else 1) - lost_pods
+    data = par.data - lost_data_rows
+    if pods < 1 or data < 1:
+        raise ValueError("cannot reshard below one pod / one data row")
+    new = (pods, data, par.model) if par.multi_pod else (data, par.model)
+    frac = (pods * data) / ((par.pods if par.multi_pod else 1) * par.data)
+    scale = 1.0 if keep_global_batch else frac
+    return ReshardingPlan(old_mesh=old, new_mesh=new, batch_scale=scale, lr_scale=scale,
+                          reason=f"lost_pods={lost_pods} lost_rows={lost_data_rows}")
 
 
 @dataclass

@@ -14,7 +14,7 @@ first).
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -57,8 +57,11 @@ def global_norm(tree: Tree) -> torch.Tensor:
     return torch.sqrt(sq)
 
 
-def clip_by_global_norm(grads: Tree, max_norm: float) -> Tuple[Tree, torch.Tensor]:
-    norm = global_norm(grads)
+def clip_by_global_norm(grads: Tree, max_norm: float, norm: Optional[torch.Tensor] = None
+                        ) -> Tuple[Tree, torch.Tensor]:
+    """(grads scaled to at most ``max_norm``, the norm): ``norm`` the global
+    norm when ``grads`` are shards of a larger tree, else theirs."""
+    norm = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return {k: (g.float() * scale).to(g.dtype) for k, g in grads.items()}, norm
 

@@ -1,7 +1,6 @@
-"""One training step on one device: the port of ``repro.train.train_step``
-without the pjit shardings and the cross-pod gradient reduction.
+"""Train steps: the port of ``repro.train.train_step``.
 
-loss + grad (micro-batch accumulation when ``microbatches > 1``: the batch
+``train_step`` is one step on one device: loss + grad (micro-batch accumulation when ``microbatches > 1``: the batch
 is split along its rows, the gradients summed in f32 and divided by the
 number of micro-batches, as the JAX package's ``lax.scan`` accumulation) ->
 clip by the global norm -> AdamW. Metrics: ``loss``, ``ce``, with experts
@@ -9,17 +8,48 @@ the MoE aux values ``moe_lb_loss``, ``moe_z_loss`` and ``moe_drop_frac``
 (which the JAX step computes and does not return), ``grad_norm``, ``lr``,
 each a scalar tensor (read them after the step; reading one waits for the
 device).
+
+``make_train_step(model, par, train, mesh)`` returns ``(step, init_fn,
+jit_step, rules)`` as the JAX package's does. ``jit_step(params)`` gives the
+step on ``mesh``. The parameters stay the model's own tensors, whole on
+every rank, since every rank computes on them whole: the model dims shard
+storage of the optimizer, not compute (GSPMD's tensor-parallel split of the
+matmuls is not reproduced). The AdamW moments are DTensors placed by
+``ShardingRules`` (``Shard`` on a "model" dim, and on a "data" dim under
+``fsdp``; replicated over "pod"), and the batch is split over
+``par.batch_axes()``. A step runs the forward and the backward on this
+rank's rows of the batch with the loss normalised by the whole batch's
+token count, all-reduces the gradients over the batch dims, and from there
+works on this rank's shard of each parameter (a view, as the rules place
+it): the global norm from one all-reduce of the shards' sums of squares,
+the clip, and AdamW (elementwise) on the shard and its moments in place;
+then it all-gathers each parameter that a dim of more than one rank splits.
+On a mesh of one rank every shard is the whole tensor: no collective runs
+and no parameter is copied, so the step is ``train_step``'s arithmetic.
+Mixing across batch rows goes through explicit collectives under the
+ambient mesh (``parallel.use_mesh``): the MoE's routing (each rank its rows
+with ``moe_group_by_batch``, else every row together) and its aux values.
+With micro-batches each rank splits its own rows, which is the JAX split
+(global row chunks) when every micro-batch has the same unmasked token count
+and no MoE routes across rows.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Shard
 
-from repro_torch.config.base import ParallelConfig, TrainConfig
-from repro_torch.models.model import Model
+from repro_torch.config.base import ModelConfig, ParallelConfig, TrainConfig
+from repro_torch.models.model import Model, chunked_ce_loss
 from repro_torch.models.moe import AUX_KEYS
-from repro_torch.train.optimizer import AdamState, adam_update, clip_by_global_norm
+from repro_torch.parallel.sharding import (
+    ShardingRules, batch_dims, named, use_mesh,
+)
+from repro_torch.train.optimizer import (
+    AdamState, adam_update, clip_by_global_norm, global_norm, init_adam,
+)
 
 Batch = Dict[str, torch.Tensor]
 
@@ -34,16 +64,27 @@ def _logged(model: Model) -> Tuple[str, ...]:
     return ("loss", "ce") + (AUX_KEYS if model.cfg.num_experts else ())
 
 
-def value_and_grad(model: Model, batch: Batch) -> Tuple[dict, Dict[str, torch.Tensor]]:
-    """(metrics ``loss``, ``ce`` and with experts the MoE aux values, the
-    gradient of every parameter by name)."""
-    names, params = zip(*model.named_parameters())
+Objective = Callable[[Model, Batch], Tuple[torch.Tensor, dict]]
+
+
+def model_loss(model: Model, batch: Batch) -> Tuple[torch.Tensor, dict]:
+    """(the loss, the metrics a step reports): ``Model.loss_fn``."""
     loss, metrics = model.loss_fn(batch)
+    return loss, {k: metrics[k].detach() for k in _logged(model)}
+
+
+def value_and_grad(model: Model, batch: Batch, objective: Objective = model_loss
+                   ) -> Tuple[dict, Dict[str, torch.Tensor]]:
+    """(metrics ``loss``, ``ce`` and with experts the MoE aux values, the
+    gradient of ``objective``'s loss for every parameter by name)."""
+    names, params = zip(*model.named_parameters())
+    loss, metrics = objective(model, batch)
     grads = torch.autograd.grad(loss, params)
-    return {k: metrics[k].detach() for k in _logged(model)}, dict(zip(names, grads))
+    return metrics, dict(zip(names, grads))
 
 
-def accumulated_grads(model: Model, batch: Batch, micro: int
+def accumulated_grads(model: Model, batch: Batch, micro: int,
+                      objective: Objective = model_loss
                       ) -> Tuple[dict, Dict[str, torch.Tensor]]:
     """``value_and_grad`` over ``micro`` micro-batches: f32 sums of their
     grads, and of their metrics, divided by ``micro`` (the batch as it is
@@ -51,7 +92,7 @@ def accumulated_grads(model: Model, batch: Batch, micro: int
     if micro > 1:
         grads, msum = None, dict.fromkeys(_logged(model), 0.0)
         for one in _split_microbatches(batch, micro):
-            m, g = value_and_grad(model, one)
+            m, g = value_and_grad(model, one, objective)
             if grads is None:
                 grads = {k: torch.zeros(t.shape, dtype=torch.float32, device=t.device)
                          for k, t in g.items()}
@@ -60,7 +101,7 @@ def accumulated_grads(model: Model, batch: Batch, micro: int
             msum = {k: msum[k] + m[k] for k in msum}
         grads = {k: t / micro for k, t in grads.items()}
         return {k: v / micro for k, v in msum.items()}, grads
-    return value_and_grad(model, batch)
+    return value_and_grad(model, batch, objective)
 
 
 def train_step(model: Model, opt_state: AdamState, batch: Batch, par: ParallelConfig,
@@ -71,3 +112,197 @@ def train_step(model: Model, opt_state: AdamState, batch: Batch, par: ParallelCo
     params = dict(model.named_parameters())
     _, opt_state, om = adam_update(params, grads, opt_state, train)
     return opt_state, dict(metrics, grad_norm=gnorm, **om)
+
+
+# ---------------------------------------------------------------------------
+# The step on a mesh
+# ---------------------------------------------------------------------------
+
+def batch_specs(model: ModelConfig, rules: ShardingRules) -> dict:
+    key = "tokens" if model.embed_inputs else "embeds"
+    ndim = 2 if model.embed_inputs else 3
+    return {key: rules.data_spec(ndim), "labels": rules.data_spec(2)}
+
+
+def _dim_size(mesh, name: str) -> int:
+    return mesh.size(mesh.mesh_dim_names.index(name))
+
+
+def _sum_over(t: torch.Tensor, mesh, dims: tuple) -> torch.Tensor:
+    """``t`` summed over the ranks of the batch dims (in place)."""
+    for name in dims:
+        if _dim_size(mesh, name) > 1:
+            dist.all_reduce(t, group=mesh.get_group(name))
+    return t
+
+
+def _rank_objective(model: Model, batch: Batch, mesh, dims: tuple) -> Tuple[torch.Tensor, dict]:
+    """(this rank's share of the loss, the loss metrics of the whole batch).
+
+    The shares sum to the loss over all ranks' rows: the token losses of the
+    rank's rows over the whole batch's unmasked tokens, plus the MoE aux
+    terms (the same on every rank) over the number of batch ranks."""
+    cfg = model.cfg
+    inputs = batch["tokens"] if cfg.embed_inputs else batch["embeds"]
+    h, aux, _ = model.backbone(model.embed(inputs), mode="train", remat=model.remat)
+    tot, cnt = chunked_ce_loss(h, model.embed.weight(), batch["labels"], cfg.logit_softcap)
+    counts = _sum_over(torch.stack([tot.detach(), cnt.detach()]), mesh, dims)
+    denom = torch.clamp(counts[1], min=1.0)
+    ce = counts[0] / denom
+    share, loss = tot / denom, ce
+    if cfg.num_experts:
+        extra = cfg.router_aux_loss * aux["moe_lb_loss"] + 1e-3 * aux["moe_z_loss"]
+        n = 1
+        for name in dims:
+            n *= _dim_size(mesh, name)
+        share = share + extra / n
+        loss = loss + cfg.router_aux_loss * aux["moe_lb_loss"].detach() \
+            + 1e-3 * aux["moe_z_loss"].detach()          # the order of Model.loss_fn
+    metrics = {"loss": loss, "ce": ce, **{k: aux[k].detach() for k in AUX_KEYS}}
+    return share, {k: metrics[k] for k in _logged(model)}
+
+
+def _rank_grads(model: Model, batch: Batch, micro: int, mesh, dims: tuple
+                ) -> Tuple[dict, Dict[str, torch.Tensor]]:
+    """(metrics, gradients of the loss over the whole batch): this rank's
+    ``accumulated_grads`` of its share, summed over the batch dims."""
+    with use_mesh(mesh):    # the backward's recompute (remat) runs under it too
+        metrics, grads = accumulated_grads(
+            model, batch, micro, lambda m, b: _rank_objective(m, b, mesh, dims))
+    return metrics, {n: _sum_over(g.contiguous(), mesh, dims) for n, g in grads.items()}
+
+
+def _split_dims(mesh, placements) -> tuple:
+    """The mesh dims of more than one rank that split a tensor so placed."""
+    return tuple(m for m, p in enumerate(placements)
+                 if isinstance(p, Shard) and mesh.size(m) > 1)
+
+
+def _shard_of(t: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's shard of ``t`` (a view): DTensor's split of each ``Shard``
+    dim, ``torch.chunk``'s, in mesh-dim order; ``t`` itself when no dim of
+    more than one rank splits it."""
+    for m in _split_dims(mesh, placements):
+        d, n, i = placements[m].dim, mesh.size(m), mesh.get_local_rank(m)
+        parts = t.chunk(n, dim=d)
+        t = parts[i] if i < len(parts) else t.narrow(d, 0, 0)
+    return t
+
+
+class ShardedStep:
+    """The train step on a mesh (see the module docstring):
+    ``step(params, opt_state, batch) -> (params, opt_state, metrics)`` with
+    ``params`` the model's parameters by name and the moments DTensors, both
+    updated in place, and ``batch`` the whole batch on every rank (each rank
+    keeps its rows, split over the batch dims, no collective)."""
+
+    def __init__(self, model: Model, par: ParallelConfig, train: TrainConfig, mesh,
+                 rules: ShardingRules, param_specs: dict):
+        self.model, self.par, self.train, self.mesh = model, par, train, mesh
+        self.param_pl = {k: s.placements for k, s in named(mesh, param_specs).items()}
+        self.batch_pl = {k: s.placements
+                         for k, s in named(mesh, batch_specs(model.cfg, rules)).items()}
+        self.dims = batch_dims(mesh)
+        self.split = {k: _split_dims(mesh, pl) for k, pl in self.param_pl.items()}
+        # a rank adds its shards' squares to the global norm when it is the
+        # first of their replicas (coordinate 0 on every dim not splitting them)
+        coords = [mesh.get_local_rank(m) for m in range(mesh.ndim)]
+        self.counts = {k: all(coords[m] == 0 for m in range(mesh.ndim) if m not in sd)
+                       for k, sd in self.split.items()}
+
+    def place(self, params: Dict[str, torch.Tensor], opt_state: AdamState
+              ) -> Tuple[Dict[str, torch.Tensor], AdamState]:
+        """(the model's parameters, holding ``params``' values; the moments
+        (the same on every rank) as DTensors placed by the rules: each rank
+        keeps its shard, no collective)."""
+        own = dict(self.model.named_parameters())
+        with torch.no_grad():
+            for k, t in params.items():
+                if t is not own[k]:
+                    own[k].copy_(t)
+
+        def put(tree):
+            out = {}
+            for k, t in tree.items():
+                local = _shard_of(t.detach(), self.mesh, self.param_pl[k])
+                if local.shape != t.shape:
+                    local = local.clone()      # frees the whole tensor's storage
+                out[k] = DTensor.from_local(local, self.mesh, self.param_pl[k],
+                                            run_check=False, shape=t.shape, stride=t.stride())
+            return out
+        return own, AdamState(step=opt_state.step, m=put(opt_state.m), v=put(opt_state.v))
+
+    def _rows(self, batch: Batch) -> Batch:
+        """This rank's rows of the batch."""
+        return {k: _shard_of(v, self.mesh, self.batch_pl[k]) for k, v in batch.items()}
+
+    def _global_norm(self, shards: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The norm of the whole gradient tree from the shards: each rank's
+        sums of squares, by the set of mesh dims splitting them, summed over
+        the mesh in one all-reduce (``global_norm``'s sum on one rank)."""
+        if self.mesh.size() == 1:
+            return global_norm(shards)
+        sums: dict = {}
+        for k, g in shards.items():
+            part = torch.sum(torch.square(g.float()))
+            sums[self.split[k]] = sums.get(self.split[k], 0) + (part if self.counts[k]
+                                                               else torch.zeros_like(part))
+        vec = torch.stack(list(sums.values()))
+        dist.all_reduce(vec)
+        return torch.sqrt(sum(vec.unbind()))
+
+    @torch.no_grad()
+    def _gather(self, params: Dict[str, torch.Tensor], shards: Dict[str, torch.Tensor]) -> None:
+        """Writes every rank's shard into each parameter that a dim of more
+        than one rank splits (an all-gather over those dims)."""
+        for k, p in params.items():
+            if self.split[k]:
+                whole = DTensor.from_local(shards[k].contiguous(), self.mesh, self.param_pl[k],
+                                           run_check=False, shape=p.shape, stride=p.stride())
+                p.copy_(whole.full_tensor())
+
+    def __call__(self, params: Dict[str, torch.Tensor], opt_state: AdamState, batch: Batch):
+        metrics, grads = _rank_grads(self.model, self._rows(batch),
+                                     max(self.par.microbatches, 1), self.mesh, self.dims)
+        grads = {k: _shard_of(g, self.mesh, self.param_pl[k]) for k, g in grads.items()}
+        grads, gnorm = clip_by_global_norm(grads, self.train.grad_clip,
+                                           self._global_norm(grads))
+        # AdamW is elementwise: it runs on this rank's shards of the
+        # parameters (views) and its shards of the moments, in place
+        shards = {k: _shard_of(p.detach(), self.mesh, self.param_pl[k])
+                  for k, p in params.items()}
+        _, state, om = adam_update(
+            shards, grads, AdamState(step=opt_state.step,
+                                     m={k: t.to_local() for k, t in opt_state.m.items()},
+                                     v={k: t.to_local() for k, t in opt_state.v.items()}),
+            self.train)
+        del grads
+        self._gather(params, shards)
+        opt_state = AdamState(step=state.step, m=opt_state.m, v=opt_state.v)
+        return params, opt_state, dict(metrics, grad_norm=gnorm, **om)
+
+
+def make_train_step(model: Model, par: ParallelConfig, train: TrainConfig, mesh):
+    """Returns (step, init_fn, jit_step, rules):
+
+    * ``step(opt_state, batch) -> (opt_state, metrics)``: ``train_step`` on
+      one device, the model's parameters updated in place;
+    * ``init_fn(seed) -> (params, opt_state)``: the model's parameters drawn
+      from ``seed`` (a name -> tensor dict of them) and zero moments;
+    * ``jit_step(params) -> ShardedStep``: the step on ``mesh`` for a
+      parameter tree of that structure;
+    * ``rules``: the ``ShardingRules`` of (model, par)."""
+    rules = ShardingRules(model.cfg, par)
+
+    def step(opt_state: AdamState, batch: Batch):
+        return train_step(model, opt_state, batch, par, train)
+
+    def init_fn(seed: int):
+        model.reset_parameters(torch.Generator(device=model.device).manual_seed(seed))
+        params = dict(model.named_parameters())
+        return params, init_adam(params, par.opt_state_dtype)
+
+    def jit_step(params: Dict[str, torch.Tensor]) -> ShardedStep:
+        return ShardedStep(model, par, train, mesh, rules, rules.params_tree_specs(params))
+
+    return step, init_fn, jit_step, rules

@@ -1,7 +1,7 @@
 """The port's runner against the JAX package's: ``run_experiment_batch`` and
 ``sweep_grid`` rows (``full`` and ``metrics`` modes, heterogeneous scenario
-grids, chunked plans), the option that still raises (several devices) and
-those that now run (channels, hardening knobs, failure schedules, ``window``
+grids, chunked plans), malformed options, which raise, and the options
+that run (channels, hardening knobs, failure schedules, ``window``
 mode, run manifests, the soft step in every trace mode), and the entry
 point's device rule.
 
@@ -93,11 +93,13 @@ def test_chunk_plan_matches_jax():
 
 
 @pytest.mark.parametrize("cfg,kw,item", [
-    (dict(), dict(devices=["cpu", "cpu"]), "item 17"),
-    (dict(), dict(devices=["cpu"], trace_mode="window"), "item 17"),
+    (dict(), dict(devices=[]), "empty device list"),
+    (dict(), dict(devices=["cpu"], on_nonfinite="drop"), "on_nonfinite"),
 ])
 def test_unported_runner_options_raise(cfg, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """Every runner option is ported (``devices=`` since the parallel
+    slice: tests/test_torch_train_mesh.py); a malformed one raises."""
+    with pytest.raises(ValueError, match=item):
         prunner.run_experiment_batch([NetConfig(**cfg)], pwork.throughput_workload(1 << 20, 1, 2),
                                      "dcqcn", 100.0, device="cpu", **kw)
 

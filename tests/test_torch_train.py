@@ -471,9 +471,11 @@ def test_launch_train_resumes_from_its_checkpoint(tmp_path):
 
 
 def _fail_after_step(monkeypatch, at_call: int):
-    """launch.train's step runs in full (params and moments updated in place)
-    and then raises, once, on its ``at_call``-th call."""
-    real, calls = launch_train.train_step, {"n": 0}
+    """launch.train's step (``make_train_step``'s step on its mesh) runs in
+    full (params and moments updated in place) and then raises, once, on its
+    ``at_call``-th call."""
+    from repro_torch.train.train_step import ShardedStep
+    real, calls = ShardedStep.__call__, {"n": 0}
 
     def faulty(*args, **kwargs):
         out = real(*args, **kwargs)
@@ -482,7 +484,7 @@ def _fail_after_step(monkeypatch, at_call: int):
             raise RuntimeError("simulated fault after the update")
         return out
 
-    monkeypatch.setattr(launch_train, "train_step", faulty)
+    monkeypatch.setattr(ShardedStep, "__call__", faulty)
 
 
 def test_launch_train_replays_a_failed_step_from_its_checkpoint(tmp_path, monkeypatch):

@@ -1,0 +1,170 @@
+"""Multi-rank harness of the parallel-layer tests: the port on 8 gloo ranks
+of a (2, 2, 2) ("pod", "data", "model") mesh, and the JAX package on 8
+forced host devices, each in a subprocess.
+
+``run_ranks(job, args, out)`` spawns 8 CPU processes (``torch.distributed``
+with gloo over localhost) that each run ``JOBS[job](mesh, args)``; rank 0's
+return value is saved with ``torch.save`` to ``out``. ``run_jax(script,
+out)`` runs a JAX script with 8 host devices, which writes its results to
+``out``. Both raise with the subprocess's output when it fails.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import socket
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+WORLD = 8
+TIMEOUT_S = 300     # each subprocess's limit, as tests/test_parallel.py's
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank: int, job: str, args: dict, out: str, port: int) -> None:
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=WORLD)
+    try:
+        mesh = init_device_mesh("cpu", (2, 2, 2), mesh_dim_names=("pod", "data", "model"))
+        result = JOBS[job](mesh, args)
+        if rank == 0:
+            torch.save(result, out)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(job: str, args: dict, out: Path):
+    """Runs ``job`` on 8 gloo ranks in a subprocess; returns rank 0's result."""
+    script = textwrap.dedent(f"""
+        import sys, warnings
+        warnings.simplefilter("ignore")
+        sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT / 'tests')!r}]
+        import torch.multiprocessing as mp
+        import torch_mesh_harness as h
+        if __name__ == "__main__":
+            mp.spawn(h._rank_main, args=({job!r}, h.load_args({str(out)!r}), {str(out)!r},
+                                         h._free_port()), nprocs=h.WORLD)
+    """)
+    torch.save(args, str(out) + ".args")
+    _run([sys.executable, "-c", script])
+    return torch.load(out, weights_only=False)
+
+
+def load_args(out: str) -> dict:
+    return torch.load(out + ".args", weights_only=False)
+
+
+def run_jax(script: str, out: Path) -> dict:
+    """Runs a JAX script on 8 host devices; it saves a dict of numpy arrays
+    to ``OUT`` (a name it is given) with ``np.savez``."""
+    head = textwrap.dedent(f"""
+        import os, sys, warnings
+        warnings.simplefilter("ignore")
+        os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count={WORLD}"
+        os.environ["JAX_PLATFORMS"] = "cpu"
+        sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT / 'tests')!r}]
+        OUT = {str(out)!r}
+    """)
+    _run([sys.executable, "-c", head + textwrap.dedent(script)])
+    with np.load(str(out), allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _run(cmd) -> None:
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    r = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT, timeout=TIMEOUT_S,
+                       env=env)
+    if r.returncode != 0:
+        raise AssertionError(f"subprocess exited {r.returncode}\n{r.stdout[-4000:]}\n"
+                             f"{r.stderr[-8000:]}")
+
+
+# ---------------------------------------------------------------------------
+# Jobs: each runs on every rank; rank 0's return value is kept
+# ---------------------------------------------------------------------------
+
+def job_hierarchical(mesh, args: dict) -> dict:
+    """tests/test_parallel.py's all-reduce inputs, plain and compressed."""
+    from repro_torch.parallel import make_hierarchical_allreduce
+    g = args["g"]
+    errs = {k: torch.zeros(v.shape, dtype=torch.float32) for k, v in g.items()}
+    out, _ = make_hierarchical_allreduce(mesh)(g, errs)
+    outc, errc = make_hierarchical_allreduce(mesh, compress=True)(g, errs)
+    return {"plain": out, "compressed": outc, "err": errc}
+
+
+def job_grouped_moe(mesh, args: dict) -> dict:
+    """The grouped MoE under the mesh (each rank its row of x) against the
+    flat dispatch of the whole x (tests/test_parallel.py's MoE case)."""
+    import torch.distributed as dist
+    from repro_torch.config import get_model_config
+    from repro_torch.models.moe import MoE
+    from repro_torch.parallel import use_mesh
+    from repro_torch.parallel.sharding import batch_dims
+    from repro_torch.models.moe import _row_block
+
+    cfg = dataclasses.replace(get_model_config("phi3.5-moe-42b-a6.6b", smoke=True),
+                              act_dtype="float32", param_dtype="float32",
+                              moe_capacity_factor=8.0)
+    layer = MoE(cfg, device="cpu")
+    layer.reset_parameters(torch.Generator().manual_seed(0))
+    x = torch.randn((4, 32, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    y_flat, aux_flat = layer(x)
+    grouped = MoE(dataclasses.replace(cfg, moe_group_by_batch=True), device="cpu")
+    grouped.load_state_dict(layer.state_dict())
+    r = _row_block(mesh, batch_dims(mesh))
+    with use_mesh(mesh):
+        y, aux = grouped(x[r:r + 1])
+    ys = [torch.empty_like(y) for _ in range(dist.get_world_size())]
+    dist.all_gather(ys, y.contiguous())
+    # world ranks in mesh order: pod, data, model; rows by (pod, data)
+    rows = torch.cat([ys[i * 2] for i in range(4)])
+    return {"y_flat": y_flat.detach(), "y_grouped": rows.detach(),
+            "aux": {k: float(v) for k, v in aux.items()}}
+
+
+def job_all(mesh, args: dict) -> dict:
+    return {"hierarchical": job_hierarchical(mesh, args),
+            "grouped_moe": job_grouped_moe(mesh, args)}
+
+
+def job_train(mesh, args: dict) -> dict:
+    """One ``make_train_step`` step per arch on the mesh, from the given
+    weights and batch: {arch: {"metrics", "params"}} (the full params)."""
+    from repro_torch.config import ParallelConfig, TrainConfig
+    from repro_torch.models import build_model
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.optimizer import init_adam
+
+    par = ParallelConfig(multi_pod=True, pods=2, data=2, model=2)
+    out = {}
+    for arch, (cfg, state, batch) in args["cases"].items():
+        model = build_model(cfg, device="cpu")
+        model.load_state_dict(state)
+        _, _, jit_step, _ = make_train_step(model, par, TrainConfig(**args["train"]), mesh)
+        params = dict(model.named_parameters())
+        step = jit_step(params)
+        params, opt = step.place(params, init_adam(params))
+        params, opt, metrics = step(params, opt, batch)
+        out[arch] = {"metrics": {k: float(v) for k, v in metrics.items()},
+                     "params": {k: p.detach().clone() for k, p in model.named_parameters()}}
+    return out
+
+
+JOBS = {"all": job_all, "train": job_train}
