@@ -75,7 +75,9 @@ and builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    last step (on step 1's batch) below step 1's, no restart, and the
    kernels' launches per step as the remat policy makes them (a kernel in a
    rematerialised group runs twice, in the forward and in the recompute; the
-   RG-LRU backward runs the kernel once more). qwen's trained state is
+   RG-LRU backward runs the kernel once more), and the last step's own
+   peak bytes (its arguments plus ``max_memory_allocated`` over the step
+   above its start; phase 18 predicts qwen's). qwen's trained state is
    saved as a checkpoint under ``build/``, restored and compared bit for
    bit. Then the card's loss and grads at B=1 (the serving checks' length)
    against the same weights' f32 loss and grads on the CPU (plain path):
@@ -218,17 +220,33 @@ and builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    grouped path: bit-equal at B=1 and the config's capacity factor, within
    ``MOE_TOL``'s layer limit at B=4 with room for every slot, in under 90 s.
 
+18. the dry run (``repro_torch.launch.dryrun``: each cell's step on meta
+   tensors as rank 0 of a fake process group of the production mesh, with
+   its per-rank memory, FLOPs, HBM and collective bytes and roofline):
+   qwen1.5-0.5b at train_4k, prefill_32k and decode_32k and mamba2-370m at
+   long_500k on both meshes, qwen1.5-0.5b at long_500k (which must read
+   ``SKIP(full-attention)``) and granite-moe-1b-a400m at train_4k on
+   2 x 16 x 16, each ``OK`` with positive, finite counts; then the card
+   check: the dry run of phase 7's workload on a 1 x 1 mesh predicts the
+   step's peak bytes (its arguments plus phase 7's ``max_memory_allocated``
+   over one step above its start) within ``DRYRUN_PEAK_TOL``, and its
+   flash calls a step equal phase 7's launches; the prediction under remat
+   "none" (the planted control) must fail that comparison.
+
 Phases 1-9 and then 15-16 run alone. Phases 10-14 (no kernel of the port's
 three) and 17 (whose checks are exact) then run as units in four child
 processes of this script beside one another on the card (``NETSIM_LANES``),
 so that their wall and device times are read beside the other lanes' load;
 each unit's output is printed in phase order once all have ended. Their card-vs-CPU checks run the CPU side in three spawned worker
-processes while the card runs (``cpu_pool``).
+processes while the card runs (``cpu_pool``). Phase 18's dry run, host
+work on meta tensors, runs in a child process of its own (its fake process
+group is global to its process) from the start, beside phases 2-17; its
+checks are read at the end.
 
 Each serving and training path runs with every kernel's launch count set to
 0 just before it and read just after. The last lines are the serving,
 training, netsim, multi-link, channel netsim, observability,
-differentiable-engine and parallel-layer JSON records, the card's
+differentiable-engine, parallel-layer and dry-run JSON records, the card's
 ``name, power.limit``, the kernels' JSON record, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -259,9 +277,6 @@ WORKLOADS = {QWEN: (4, 512, 32), MAMBA: (4, 2048, 32), RG: (4, 4096, 32),
 # the depth launch.serve cuts a workload to, to fit 80 GB in bf16 (83.7,
 # 134.9 and 682.1 GB at full depth); the widths stay the published ones
 SERVE_LAYERS = {PHI: 8, DEEPSEEK: 8, NEMOTRON: 2}
-PEAK_FLOPS_BF16 = 989e12   # H100 SXM dense bf16 tensor-core peak
-PEAK_FLOPS_F32 = 67e12     # H100 SXM f32 outside the tensor cores
-PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 # (atol, rtol) of flash attention against the plain version computed in f32
 # on the same input values: f32 sums in another order; bf16 adds one output
 # rounding (2^-9 relative) to that.
@@ -548,6 +563,22 @@ NETSIM_LANES = (("14", "17"), ("12g", "10"), ("13", "11"), ("12", "11g"))
 # the lanes are stopped, and the run fails, this many seconds after the
 # script's start
 NETSIM_DEADLINE_S = 1_140.0
+# Phase 18, the dry run's cells: (arch, shape, multi_pod) and the status
+# each must read
+DRYRUN_CELLS = tuple((QWEN, shape, mp, "OK") for shape in ("train_4k", "prefill_32k",
+                                                           "decode_32k") for mp in (False, True)) + (
+    (MAMBA, "long_500k", False, "OK"), (MAMBA, "long_500k", True, "OK"),
+    (QWEN, "long_500k", False, "SKIP(full-attention)"), (GRANITE, "train_4k", True, "OK"))
+# The card check: the dry run's peak bytes of phase 7's step (qwen, 8 x
+# 2048, remat "block", a 1 x 1 mesh) relative to the card's (the step's
+# arguments plus max_memory_allocated over one step above its start). Both
+# count the same tensors of the same program (the meta branch allocates the
+# kernel's output, as the kernel does); the card adds cuBLAS and allocator
+# rounding (512 B a block) and whatever the kernels allocate beside their
+# outputs. The control, remat "none", keeps every layer's activations: it
+# predicts about twice the bytes (38.9 GB against 19.4 GB on the CPU) and
+# must read over the limit.
+DRYRUN_PEAK_TOL = 0.05
 
 
 def fail(msg: str) -> None:
@@ -582,45 +613,6 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def bound(flops: float, nbytes: float, peak_flops: float = PEAK_FLOPS_BF16):
-    """(least time in ms, what bounds it): operations at the peak of their
-    type (bf16 unless said) or bytes at the memory rate, whichever takes longer."""
-    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def attention_bound_ms(b: int, s: int, hq: int, hk: int, d: int, itemsize: int,
-                       window: int = 0):
-    """Least time for causal attention on these inputs: its operations (QK^T and
-    P.V over the (query, key) pairs in the causal band: S(S+1)/2, or with a
-    window W < S, W(W+1)/2 + (S-W)W) and its bytes (q, k, v read once, o
-    written once)."""
-    w = window if 0 < window < s else s
-    pairs = w * (w + 1) / 2 + (s - w) * w
-    return bound(4.0 * b * hq * d * pairs, 2.0 * b * s * (hq + hk) * d * itemsize)
-
-
-def rglru_bound_ms(b: int, s: int, w: int, itemsize: int):
-    """Least time for the RG-LRU recurrence on these inputs: a multiply and an
-    add an element in f32, and its bytes (a and b read once in their dtype, h
-    written once in f32)."""
-    n = b * s * w
-    return bound(2.0 * n, n * (2 * itemsize + 4), PEAK_FLOPS_F32)
-
-
-def ssd_bound_ms(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
-                 itemsize: int):
-    """Least time for the SSD scan on these inputs: its operations (per head
-    and chunk, C B^T and its product with xdt, 2L^2(n+p), and C.state and
-    the state update, 4Lnp) and its bytes (x, B, C read once in their dtype,
-    dt and A in f32; y written once in x's dtype, the final state in f32)."""
-    nc = -(-s // chunk)
-    flops = b * h * nc * (2.0 * chunk ** 2 * (n + p) + 4.0 * chunk * n * p)
-    nbytes = (2 * b * s * h * p * itemsize + 2 * b * s * g * n * itemsize
-              + 4 * (b * s * h + h) + 4 * b * h * n * p)
-    return bound(flops, nbytes)
 
 
 def tensor_core_instr(source: str, key) -> dict:
@@ -692,6 +684,7 @@ def phase_flash(torch, card: str) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
+    from repro_torch.kernels.cost import attention_bound_ms
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.ref import attention_ref
     from repro_torch.launch.train import TRAIN_WORKLOADS
@@ -838,6 +831,7 @@ def phase_flash(torch, card: str) -> dict:
 
 def phase_ssd(torch, card: str) -> dict:
     from repro_torch.kernels import ops
+    from repro_torch.kernels.cost import ssd_bound_ms
     from repro_torch.kernels.ref import ssd_ref
     from repro_torch.kernels.ssd_scan import ssd_scan_fwd
 
@@ -910,6 +904,7 @@ def phase_ssd(torch, card: str) -> dict:
 
 def phase_rglru(torch, card: str) -> dict:
     from repro_torch.kernels import ops
+    from repro_torch.kernels.cost import rglru_bound_ms
     from repro_torch.kernels.ref import rglru_chunked_ref, rglru_ref
     from repro_torch.kernels.rglru_scan import CHUNK, rglru_scan_fwd
 
@@ -1644,6 +1639,7 @@ def phase_train(torch, card: str, arch: str, planted: dict) -> dict:
     the module docstring); every fault in ``planted`` must fail the card-vs-CPU
     gradient check."""
     from repro_torch.config.base import TrainConfig
+    from repro_torch.kernels.cost import PEAK_FLOPS_BF16
     from repro_torch.launch import train as launch_train
     from repro_torch.train import SyntheticDataset
 
@@ -1686,6 +1682,16 @@ def phase_train(torch, card: str, arch: str, planted: dict) -> dict:
            "step_ms": step_ms, "tokens_per_s": tokens / (step_ms / 1e3),
            "model_flops_share": 6.0 * active * tokens / (step_ms / 1e3) / PEAK_FLOPS_BF16,
            "launches_per_step": per_step, "restarts": res.restarts, "peak_memory_gb": peak_gb}
+    # the last step's own peak, which phase 18's dry run predicts: its
+    # arguments (parameters, moments, one batch) and the most it allocated
+    # above the bytes allocated at its start
+    args_bytes = sum(t.numel() * t.element_size() for t in (
+        *model.parameters(), *res.opt_state.m.values(), *res.opt_state.v.values(),
+        *data.batch_at(0).values()))
+    grow = hist[-1]["peak_over_start_bytes"]
+    out["step_memory"] = {"args_bytes": args_bytes, "peak_over_start_bytes": grow,
+                          "peak_bytes": args_bytes + grow,
+                          "flash_launches": per_step["flash_attention"]}
     if arch == QWEN:
         out["checkpoint"] = check_checkpoint(torch, model, res.opt_state)
     del res
@@ -2800,6 +2806,132 @@ def phase_netsim_grad(torch, card: str) -> dict:
     return out
 
 
+def dryrun_main(out: Path) -> None:
+    """Phase 18's child (``chip_smoke.py --dryrun OUT``): the dry run of
+    phase 7's workload on a 1 x 1 mesh (remat "block" and the control
+    "none"), then DRYRUN_CELLS; the results as JSON into ``OUT``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    torch.set_num_threads(2)
+    from repro_torch.config import ParallelConfig, ShapeSpec, get_model_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_mesh
+    from repro_torch.launch.train import TRAIN_WORKLOADS
+
+    t0 = time.perf_counter()
+    b, s, _ = TRAIN_WORKLOADS[QWEN]
+    mesh = fake_mesh((1, 1), ("data", "model"), "cuda")
+    predicted = {}
+    for remat in ("block", "none"):
+        par = ParallelConfig(multi_pod=False, data=1, model=1, remat=remat)
+        r = dryrun.run_train(get_model_config(QWEN), par, ShapeSpec("phase 7", s, b, "train"),
+                             mesh)
+        rec = r.pop("rec")
+        predicted[remat] = dict(r, kernel_ops=rec.kernel_ops)
+    cells = {}
+    for arch, shape, mp, _ in DRYRUN_CELLS:
+        cells[dryrun.cell_name(arch, shape, mp)] = dryrun.run_cell(arch, shape, mp)
+    out.write_text(json.dumps({"predicted": predicted, "cells": cells,
+                               "s": time.perf_counter() - t0}))
+
+
+def start_dryrun():
+    """Starts phase 18's child process (in a session of its own); it is
+    stopped when this script exits."""
+    import atexit
+    import os
+    import signal
+
+    out_dir = ROOT / "build" / "chip_smoke_dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    out = out_dir / "dryrun.json"
+    out.unlink(missing_ok=True)
+    with open(out_dir / "dryrun.out", "w") as log:
+        proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun",
+                                 str(out)], stdout=log, stderr=subprocess.STDOUT, cwd=ROOT,
+                                start_new_session=True)
+
+    def stop():
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    atexit.register(stop)
+    return proc, out
+
+
+def phase_dryrun(torch, card: str, child, trained: dict, t_start: float) -> dict:
+    """Phase 18's checks (the module docstring) on the child's results."""
+    proc, out = child
+    t0 = time.perf_counter()
+    try:
+        proc.wait(timeout=max(NETSIM_DEADLINE_S - (time.perf_counter() - t_start), 1.0))
+    except subprocess.TimeoutExpired:
+        fail("the dry run's child was still running at the deadline")
+    log = (out.parent / "dryrun.out").read_text()
+    if proc.returncode != 0 or not out.exists():
+        print(log[-4000:], file=sys.stderr, flush=True)
+        fail(f"the dry run's child exited with {proc.returncode}")
+    res = json.loads(out.read_text())
+    print(f"  child: {res['s']:.1f} s (beside phases 2-17; waited {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    for arch, shape, mp, status in DRYRUN_CELLS:
+        c = res["cells"][f"{arch}__{shape}__{'multi' if mp else 'single'}"]
+        check(c["status"] == status, f"dry run {arch} {shape} {c['mesh']}: {c['status']}")
+        if status != "OK":
+            print(f"  {arch} {shape} {c['mesh']}: {c['status']}", flush=True)
+            continue
+        counts = [c[k] for k in ("hlo_dot_flops_per_device", "hlo_hbm_bytes_per_device",
+                                 "peak_bytes", "argument_size_in_bytes", "model_flops")]
+        check(all(math.isfinite(x) and x > 0 for x in counts),
+              f"dry run {arch} {shape} {c['mesh']}: a count is not positive and finite: {counts}")
+        check(math.isfinite(c["collective_bytes_per_device"]), "collective bytes not finite")
+        rf = c["roofline"]
+        print(f"  {arch} {shape} {c['mesh']}: peak {c['peak_bytes'] / 1e9:.3f} GB a rank "
+              f"(arguments {c['argument_size_in_bytes'] / 1e9:.3f}, under the rules "
+              f"{c['argument_size_in_bytes_under_rules'] / 1e9:.3f}), "
+              f"{c['hlo_dot_flops_per_device']:.4e} FLOPs, "
+              f"{c['hlo_hbm_bytes_per_device']:.4e} HBM bytes, collectives intra "
+              f"{c['intra_pod_bytes_per_device']:.4e} / inter {c['inter_pod_bytes_per_device']:.4e} "
+              f"B; roofline {rf['t_compute_s']:.4f} / {rf['t_memory_s']:.4f} / "
+              f"{rf['t_collective_s']:.4f} s ({rf['dominant']}); kernel ops "
+              f"{ {k: v['calls'] for k, v in c['kernel_ops'].items()} }; "
+              f"{c['lower_s']} + {c['compile_s']} s", flush=True)
+    mem = trained[QWEN]["step_memory"]
+    readings = {}
+    for remat, p in res["predicted"].items():
+        readings[remat] = {"peak_bytes": p["peak_bytes"],
+                           "argument_size_in_bytes": p["argument_size_in_bytes"],
+                           "rel_err": abs(p["peak_bytes"] - mem["peak_bytes"]) / mem["peak_bytes"],
+                           "flash_calls": p["kernel_ops"].get("flash_attention", {}).get("calls", 0)}
+        print(f"  card check, remat {remat!r}: predicted peak {p['peak_bytes']} B (arguments "
+              f"{p['argument_size_in_bytes']}), card {mem['peak_bytes']} B (arguments "
+              f"{mem['args_bytes']}, + {mem['peak_over_start_bytes']} over the step's start): "
+              f"relative {readings[remat]['rel_err']:.4e} (limit {DRYRUN_PEAK_TOL}); flash calls "
+              f"a step {readings[remat]['flash_calls']} against {mem['flash_launches']} "
+              f"launches [{card}]", flush=True)
+    sound, control = readings["block"], readings["none"]
+    check(sound["argument_size_in_bytes"] == mem["args_bytes"],
+          f"the dry run's arguments {sound['argument_size_in_bytes']} B are not the card "
+          f"step's {mem['args_bytes']} B")
+    check(sound["rel_err"] <= DRYRUN_PEAK_TOL,
+          f"the dry run's peak is {sound['rel_err']:.3e} from the card's (limit {DRYRUN_PEAK_TOL})")
+    check(sound["flash_calls"] == mem["flash_launches"],
+          f"the dry run counts {sound['flash_calls']} flash calls a step, the card "
+          f"{mem['flash_launches']}")
+    check(control["rel_err"] > DRYRUN_PEAK_TOL,
+          "the card check does not catch the control: the peak under remat 'none'")
+    keys = ("status", "peak_bytes", "argument_size_in_bytes", "argument_size_in_bytes_under_rules",
+            "hlo_dot_flops_per_device", "hlo_hbm_bytes_per_device", "intra_pod_bytes_per_device",
+            "inter_pod_bytes_per_device", "compile_s")
+    cells = {name: {k: c[k] for k in keys if k in c} | (
+        {"dominant": c["roofline"]["dominant"]} if "roofline" in c else {})
+        for name, c in res["cells"].items()}
+    return {"cells": cells, "card_check": {"card": mem, "predicted": readings,
+                                           "tol": DRYRUN_PEAK_TOL},
+            "child_s": res["s"]}
+
+
 def lane_main(out_dir: Path, units) -> None:
     """A lane (``chip_smoke.py --lane DIR UNIT...``): each unit of
     NETSIM_UNITS in turn, its standard output into ``DIR/UNIT.log`` and its
@@ -2862,7 +2994,7 @@ def run_lanes(t_start: float) -> dict:
                 proc.wait()
     for unit, (n, title, _) in NETSIM_UNITS.items():
         if title:
-            print(f"[{n}/17] {title}", flush=True)
+            print(f"[{n}/18] {title}", flush=True)
         lane = next(i for i, u in enumerate(NETSIM_LANES) if unit in u)
         print(f"  unit {unit}, lane {lane} ({', '.join(NETSIM_LANES[lane])}):", flush=True)
         log = out_dir / f"{unit}.log"
@@ -2885,6 +3017,8 @@ def run_lanes(t_start: float) -> dict:
 def main() -> None:
     if len(sys.argv) > 2 and sys.argv[1] == "--lane":
         return lane_main(Path(sys.argv[2]), sys.argv[3:])
+    if len(sys.argv) > 2 and sys.argv[1] == "--dryrun":
+        return dryrun_main(Path(sys.argv[2]))
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run chip_smoke.py from a checkout")
     sys.path.insert(0, str(SRC))
@@ -2899,14 +3033,15 @@ def main() -> None:
     card = smi_line()
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
-    print(f"[1/17] card: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
+    print(f"[1/18] card: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{name}, compute capability {cap[0]}.{cap[1]}", flush=True)
     check(cap == (9, 0), f"needs compute capability 9.0 (sm_90a), found {cap}")
+    dryrun_child = start_dryrun()
 
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build(build.sources())
-    print(f"[2/17] build: {len(logs)} of {len(build.sources())} kernel sources compiled "
+    print(f"[2/18] build: {len(logs)} of {len(build.sources())} kernel sources compiled "
           f"in {time.perf_counter() - t0:.1f} s into {build.BUILD_DIR}", flush=True)
     for src, log in logs.items():
         for line in log.splitlines():
@@ -2927,7 +3062,7 @@ def main() -> None:
           f"the f32 SSD-scan instantiations are not the scalar kernel: {ssd_hgmma}")
 
     t0 = time.perf_counter()
-    print("[3/17] kernels against their plain versions", flush=True)
+    print("[3/18] kernels against their plain versions", flush=True)
     flash = phase_flash(torch, card)
     ssd = phase_ssd(torch, card)
     scan = phase_rglru(torch, card)
@@ -2940,7 +3075,7 @@ def main() -> None:
             (MAMBA, mamba_faults(torch), ("state not carried across chunks",)),
             (RG, rglru_faults(torch), ("recurrence restarted every 256 steps",))), start=4):
         t0 = time.perf_counter()
-        print(f"[{i}/17] serve {arch} at full width", flush=True)
+        print(f"[{i}/18] serve {arch} at full width", flush=True)
         served[arch] = phase_serve(torch, card, arch, faults, must_fail)
         print(f"  ({time.perf_counter() - t0:.1f} s; total "
               f"{time.perf_counter() - t_start:.1f} s)", flush=True)
@@ -2949,13 +3084,13 @@ def main() -> None:
     trained, faults = {}, train_faults(torch)
     for i, arch in enumerate((QWEN, MAMBA, RG), start=7):
         t0 = time.perf_counter()
-        print(f"[{i}/17] train {arch} at full width", flush=True)
+        print(f"[{i}/18] train {arch} at full width", flush=True)
         trained[arch] = phase_train(torch, card, arch, faults[arch])
         print(f"  ({time.perf_counter() - t0:.1f} s; total "
               f"{time.perf_counter() - t_start:.1f} s)", flush=True)
 
     # Phases 15-16 need the card alone too, so they run before the lanes.
-    print("[15/17] serve the seven other archs at their published widths", flush=True)
+    print("[15/18] serve the seven other archs at their published widths", flush=True)
     for arch in NEW_ARCHS:
         t0 = time.perf_counter()
         torch.cuda.empty_cache()
@@ -2963,7 +3098,7 @@ def main() -> None:
                                    moe_planted=moe_faults(torch) if arch == GRANITE else {})
         print(f"  ({arch}: {time.perf_counter() - t0:.1f} s; total "
               f"{time.perf_counter() - t_start:.1f} s)", flush=True)
-    print("[16/17] train four of them at full width", flush=True)
+    print("[16/18] train four of them at full width", flush=True)
     for arch in NEW_TRAINED:
         t0 = time.perf_counter()
         torch.cuda.empty_cache()
@@ -2977,6 +3112,9 @@ def main() -> None:
     netsim_links = {**units["11"], **units["11g"]}
     netsim_channel = {**units["12"], **units["12g"]}
     obs, netsim_grad, parallel = units["13"], units["14"], units["17"]
+    print("[18/18] the dry run on fake groups of the production mesh", flush=True)
+    dry = phase_dryrun(torch, card, dryrun_child, trained, t_start)
+    print(f"  (total {time.perf_counter() - t_start:.1f} s)", flush=True)
 
     def worst(checks, prefix):
         return max(c["max_abs_err"] for c in checks if c["case"].startswith(prefix))
@@ -3042,6 +3180,7 @@ def main() -> None:
     print(json.dumps({"obs": obs}))
     print(json.dumps({"netsim_grad": netsim_grad}))
     print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"dryrun": dry}))
     print(smi_line())
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -6,13 +6,20 @@ nothing of that package. ``TrainConfig.ckpt_dir`` has no fixed default:
 checkpoints go under the checkout's ``build/ckpt/``, not to a path that
 other checkouts share. ``ParallelConfig`` is the JAX dataclass whole: the
 traffic model (``repro_torch.traffic``) reads its mesh, pod and compression
-fields; training on one device reads only ``remat``, ``microbatches`` and
-``opt_state_dtype``, and the mesh the other fields plan for is not built.
+fields; the mesh step (``train.train_step``) and the dry run
+(``launch.dryrun``) read the rest. ``RunConfig`` (with the port's
+``NetConfig``), ``ShapeSpec``, ``SHAPES`` and ``shape_applicable`` are JAX's
+as they are.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+import dataclasses
+import hashlib
+import json
+from dataclasses import dataclass, field
+from typing import Mapping, Optional
+
+from repro_torch.config.net import NetConfig
 
 # Block kinds understood by repro_torch.models.transformer
 ATTN = "attn"            # global causal GQA attention
@@ -210,3 +217,46 @@ class TrainConfig:
     # straggler mitigation (simulated policy knobs)
     step_deadline_ms: float = 0.0   # 0 = disabled
     max_restarts: int = 3
+
+
+# ---------------------------------------------------------------------------
+# Run = everything
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    net: NetConfig = field(default_factory=NetConfig)
+
+    def fingerprint(self) -> str:
+        blob = json.dumps(dataclasses.asdict(self), sort_keys=True, default=str)
+        return hashlib.sha256(blob.encode()).hexdigest()[:16]
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (the assigned shape grid)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode | long_decode
+
+
+SHAPES: Mapping[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "long_decode"),
+}
+
+
+def shape_applicable(model: ModelConfig, shape: ShapeSpec) -> bool:
+    """long_500k only for sub-quadratic archs."""
+    if shape.kind == "long_decode":
+        return model.subquadratic
+    return True

@@ -18,6 +18,12 @@ backward Pallas kernel, and each backward mirrors what it differentiates:
 
 Each forward hands the raw launchers ``.detach()``ed tensors; the launchers
 themselves raise on tensors that require grad.
+
+On ``meta`` tensors (every input on ``meta``: the dry run, ``launch.dryrun``)
+a forward does no arithmetic: it returns empty tensors of the output's shape
+and dtype and records the kernel's operations and bytes (``kernels.cost``)
+with the analysis that is recording. Neither a CPU nor a CUDA tensor reaches
+that branch.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import cost
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.ref import attention_ref, rglru_ref
 from repro_torch.kernels.rglru_scan import rglru_scan_fwd
@@ -33,6 +40,10 @@ from repro_torch.kernels.ssd_scan import ssd_scan_fwd
 
 def _all_cpu(*ts: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in ts)
+
+
+def _all_meta(*ts: torch.Tensor) -> bool:
+    return all(t.device.type == "meta" for t in ts)
 
 
 def _leaves(*ts: torch.Tensor):
@@ -50,6 +61,11 @@ class FlashAttention(torch.autograd.Function):
         ctx.save_for_backward(q, k, v)
         ctx.softcap, ctx.window = softcap, window
         q, k, v = q.detach(), k.detach(), v.detach()
+        if _all_meta(q, k, v):
+            b, s, hq, d = q.shape
+            cost.record("flash_attention", cost.attention_cost(
+                b, s, hq, k.shape[2], d, q.element_size(), window))
+            return torch.empty_like(q)
         if _all_cpu(q, k, v):   # the plain version: P in f32, as the kernel keeps it
             return attention_ref(q, k, v, softcap=softcap, window=window)
         return flash_attention_fwd(q, k, v, softcap=softcap, window=window)
@@ -97,6 +113,12 @@ class SSDScan(torch.autograd.Function):
         ctx.chunk = chunk
         ctx.set_materialize_grads(False)   # an unused final state's grad stays None
         args = [t.detach() for t in (x, dt, A, B, C)]
+        if _all_meta(*args):
+            b, s, h, p = x.shape
+            g, n = B.shape[2:]
+            cost.record("ssd_scan", cost.ssd_cost(b, s, h, p, g, n, chunk, x.element_size()))
+            return (torch.empty_like(x),
+                    torch.empty((b, h, n, p), dtype=torch.float32, device=x.device))
         if _all_cpu(*args):
             return ssd_scan_plain(*args, chunk=chunk)
         return ssd_scan_fwd(*args, chunk=chunk)
@@ -128,7 +150,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor
 
 def _recurrence(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """h_t = a_t h_{t-1} + b_t from h = 0: the kernel on the card, the
-    step-by-step plain version on the CPU."""
+    step-by-step plain version on the CPU; on meta, an empty h and the
+    kernel's cost recorded."""
+    if _all_meta(a, b):
+        cost.record("rglru_scan", cost.rglru_cost(*a.shape, a.element_size()))
+        return torch.empty(a.shape, dtype=torch.float32, device=a.device)
     if _all_cpu(a, b):
         return rglru_ref(a, b)
     return rglru_scan_fwd(a, b)

@@ -25,6 +25,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.cost import PEAK_FLOPS_BF16
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.rglru_scan import rglru_scan_fwd
 from repro_torch.kernels.ssd_scan import ssd_scan_fwd
@@ -34,7 +35,6 @@ from repro_torch.train.data import SyntheticDataset
 from repro_torch.train.optimizer import init_adam
 from repro_torch.train.train_step import train_step
 
-PEAK_FLOPS_BF16 = 989e12
 KERNELS = {"flash_attention": flash_attention_fwd, "ssd_scan": ssd_scan_fwd,
            "rglru_scan": rglru_scan_fwd}
 PORT_KERNEL_NAMES = ("fa_fwd", "ssd_bf16_kernel", "ssd_f32_kernel", "rglru_")   # in csrc/

@@ -45,7 +45,10 @@ hold the parameters and the full (gathered) moments and are written by rank 0;
 only rank 0 logs.
 A step is timed on the host clock around work that ends in a synchronise,
 from the batch on the device to the metrics read; making the batch is timed
-apart (``data_ms``).
+apart (``data_ms``). On the card each step also records
+``peak_over_start_bytes``: the most bytes allocated during the step above
+those allocated at its start (its parameters, optimizer state and batch are
+allocated then), which the dry run predicts (``launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -196,12 +199,17 @@ def train(model: Model, train_cfg: TrainConfig, par: ParallelConfig = ParallelCo
             t0 = time.perf_counter()
             batch = data.batch_at(step)
             sync()
+            if dev.type == "cuda":
+                start_bytes = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
             t1 = time.perf_counter()
             state["params"], state["opt"], metrics = step_fn(state["params"], state["opt"],
                                                              batch)
             row = {k: float(v) for k, v in metrics.items()}
             sync()
             dt = time.perf_counter() - t1
+            if dev.type == "cuda":
+                row["peak_over_start_bytes"] = torch.cuda.max_memory_allocated(dev) - start_bytes
             verdict = monitor.observe(dt)
             step += 1
             row.update(step=step, ms=dt * 1e3, data_ms=(t1 - t0) * 1e3,

@@ -262,7 +262,12 @@ class ShardedStep:
                 p.copy_(whole.full_tensor())
 
     def __call__(self, params: Dict[str, torch.Tensor], opt_state: AdamState, batch: Batch):
-        metrics, grads = _rank_grads(self.model, self._rows(batch),
+        return self.step_rows(params, opt_state, self._rows(batch))
+
+    def step_rows(self, params: Dict[str, torch.Tensor], opt_state: AdamState, rows: Batch):
+        """The step on this rank's rows of the batch (``__call__`` takes them
+        from the whole batch; the dry run gives them alone)."""
+        metrics, grads = _rank_grads(self.model, rows,
                                      max(self.par.microbatches, 1), self.mesh, self.dims)
         grads = {k: _shard_of(g, self.mesh, self.param_pl[k]) for k, g in grads.items()}
         grads, gnorm = clip_by_global_norm(grads, self.train.grad_clip,
@@ -306,3 +311,23 @@ def make_train_step(model: Model, par: ParallelConfig, train: TrainConfig, mesh)
         return ShardedStep(model, par, train, mesh, rules, rules.params_tree_specs(params))
 
     return step, init_fn, jit_step, rules
+
+
+def lower_train_step(model: Model, par: ParallelConfig, train: TrainConfig, mesh,
+                     params_spec_tree, batch_specs_tree):
+    """The dry run's entry (``launch.dryrun``), with JAX's signature and
+    result ``(step, rules)``: ``step`` is the ``ShardedStep`` of ``model``'s
+    parameters (on ``meta`` there) on ``mesh``, the step that
+    ``launch.train`` runs, so the dry run measures it. ``params_spec_tree``
+    must be the rules' specs of those parameters (it is checked);
+    ``batch_specs_tree`` is the batch's, which the step takes from the rules
+    too (each rank keeps its rows of the batch dims). JAX's dry run writes a
+    step of its own and calls nothing of this name."""
+    _, _, jit_step, rules = make_train_step(model, par, train, mesh)
+    params = dict(model.named_parameters())
+    if rules.params_tree_specs(params) != params_spec_tree:
+        raise ValueError("params_spec_tree is not the rules' specs of the model's parameters")
+    if set(batch_specs_tree) != set(batch_specs(model.cfg, rules)):
+        raise ValueError(f"batch keys {sorted(batch_specs_tree)} are not the model's "
+                         f"{sorted(batch_specs(model.cfg, rules))}")
+    return jit_step(params), rules

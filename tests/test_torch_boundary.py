@@ -48,6 +48,7 @@ def test_no_import_statement_names_jax_or_repro():
     ("profile_serve", ["--arch", "recurrentgemma-2b"]),
     ("geo_training", ["--horizon-us", "100"]),
     ("profile_netsim", ["--schemes", "dcqcn"]),
+    ("dryrun", ["--arch", "qwen1.5-0.5b", "--shape", "decode_32k", "--mesh", "single"]),
 ])
 def test_entry_points_raise_without_gpu(entry, argv):
     if torch.cuda.is_available():

@@ -4,7 +4,10 @@ forced host devices, each in a subprocess.
 
 ``run_ranks(job, args, out)`` spawns 8 CPU processes (``torch.distributed``
 with gloo over localhost) that each run ``JOBS[job](mesh, args)``; rank 0's
-return value is saved with ``torch.save`` to ``out``. ``run_jax(script,
+return value is saved with ``torch.save`` to ``out``. ``run_fake(job, args,
+out, shape, axes)`` runs the job once, as rank 0 of a fake process group of
+the mesh's ranks (``launch.mesh.fake_mesh``; its collectives move no data),
+in a subprocess. ``run_jax(script,
 out)`` runs a JAX script with 8 host devices, which writes its results to
 ``out``. Both raise with the subprocess's output when it fails.
 """
@@ -60,6 +63,25 @@ def run_ranks(job: str, args: dict, out: Path):
         if __name__ == "__main__":
             mp.spawn(h._rank_main, args=({job!r}, h.load_args({str(out)!r}), {str(out)!r},
                                          h._free_port()), nprocs=h.WORLD)
+    """)
+    torch.save(args, str(out) + ".args")
+    _run([sys.executable, "-c", script])
+    return torch.load(out, weights_only=False)
+
+
+def run_fake(job: str, args: dict, out: Path, shape=(2, 2, 2),
+             axes=("pod", "data", "model")):
+    """Runs ``job`` as rank 0 of a fake group of ``shape``'s ranks in a
+    subprocess; returns its result."""
+    script = textwrap.dedent(f"""
+        import sys, warnings
+        warnings.simplefilter("ignore")
+        sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT / 'tests')!r}]
+        import torch
+        import torch_mesh_harness as h
+        from repro_torch.launch.mesh import fake_mesh
+        mesh = fake_mesh({tuple(shape)!r}, {tuple(axes)!r}, "cpu")
+        torch.save(h.JOBS[{job!r}](mesh, h.load_args({str(out)!r})), {str(out)!r})
     """)
     torch.save(args, str(out) + ".args")
     _run([sys.executable, "-c", script])
@@ -167,4 +189,58 @@ def job_train(mesh, args: dict) -> dict:
     return out
 
 
-JOBS = {"all": job_all, "train": job_train}
+def job_record_step(mesh, args: dict) -> dict:
+    """The smoke qwen's mesh step on this rank's rows, under
+    ``op_analysis.record``: on ``args["device"]`` ("cpu" on gloo ranks,
+    "meta" on a fake group). Returns the collectives and the summary."""
+    from repro_torch.config import ParallelConfig, TrainConfig
+    from repro_torch.launch.op_analysis import collective_summary, record
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import init_adam
+    from repro_torch.train.train_step import make_train_step
+
+    dev = args["device"]
+    par = ParallelConfig(multi_pod=True, pods=2, data=2, model=2)
+    model = build_model(args["cfg"], device=dev)
+    _, _, jit_step, _ = make_train_step(model, par, TrainConfig(), mesh)
+    params = dict(model.named_parameters())
+    step = jit_step(params)
+    params, opt = step.place(params, init_adam({k: p.detach() for k, p in params.items()}))
+    b, s = args["batch"]
+    tokens = torch.zeros((b, s), dtype=torch.int64, device=dev)
+    rows = step._rows({"tokens": tokens, "labels": tokens})
+    with record(mesh) as rec:
+        step.step_rows(params, opt, rows)
+    return {"collectives": sorted((c.kind, c.dims, c.group_size, c.result_bytes, c.count)
+                                  for c in rec.collectives),
+            "summary": collective_summary(rec, multi_pod=True)}
+
+
+def job_synthetic(mesh, args: dict) -> dict:
+    """tests/test_hlo_analysis.py's SYNTHETIC module as a torch program on
+    meta, instruction for instruction as JAX's analysis walks it: a
+    [128, 256] @ [256, 32] matmul, an all-gather over "pod" of f32[64], and a
+    loop of 12 all-reduces of f32[64] over "model", each with its reducer
+    and the loop's s32 count. The reducer (``%add.1``) adds the all-reduce's
+    elements in registers; JAX's walk counts it through ``to_apply`` as one
+    f32[] add of 2 x 4 bytes, which the program has as an f32[] added to
+    itself (one operand, one result)."""
+    import torch.distributed._functional_collectives as funcol
+    from repro_torch.launch.op_analysis import collective_summary, record
+
+    meta = torch.device("meta")
+    p0, p1, p2, r = (torch.empty(s, device=meta) for s in ((64,), (128, 256), (256, 32), ()))
+    i = torch.empty((), dtype=torch.int32, device=meta)
+    with record(mesh, (p0, p1, p2, r, i)) as rec:
+        p1 @ p2
+        funcol.all_gather_tensor(p0, 0, mesh.get_group("pod"))
+        x = p0
+        for _ in range(12):
+            x = funcol.all_reduce(x, "sum", mesh.get_group("model"))
+            r + r
+            i = i + 1
+    return {mp: collective_summary(rec, mp) for mp in (True, False)}
+
+
+JOBS = {"all": job_all, "train": job_train, "record_step": job_record_step,
+        "synthetic": job_synthetic}
