@@ -218,7 +218,22 @@ and builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    compress-then-dequantize over two rounds; (d) granite-moe-1b-a400m's
    grouped MoE layer under a one-rank (pod, data) mesh against the no-mesh
    grouped path: bit-equal at B=1 and the config's capacity factor, within
-   ``MOE_TOL``'s layer limit at B=4 with room for every slot, in under 90 s.
+   ``MOE_TOL``'s layer limit at B=4 with room for every slot, in under 90 s;
+   (e) the model split over two ranks of "model" on the one card (two
+   processes of this script, gloo over CUDA tensors, since NCCL refuses two
+   ranks on one GPU; any collective that gloo refuses on a CUDA tensor would
+   be named and staged through host memory in these processes only, and on
+   the H100 gloo took them all): qwen1.5-0.5b (8 x 2048), mamba2-370m
+   (4 x 2048) and recurrentgemma-2b (1 x 4096) at full width, bf16, one step
+   of the tensor-parallel ``make_train_step`` on a (1, 1, 2) ("pod", "data",
+   "model") mesh each: its loss and grad norm against the one-rank step's on
+   the same batch and weights within ``TP_TOL``, equal on both ranks, each
+   rank holding only its shards, the flash kernel on each rank's heads (8 of
+   qwen's 16, 5 of recurrentgemma's 10), the kernels' launches a step as
+   phase 7 counts them, each rank's step peak (phase 18 predicts qwen's),
+   and the planted faults "wo all-reduce dropped" (qwen), "gated-norm sum not
+   reduced over model" (mamba2) and "RG-LRU gates read the local width only"
+   (recurrentgemma), each of which must fail the check.
 
 18. the dry run (``repro_torch.launch.dryrun``: each cell's step on meta
    tensors as rank 0 of a fake process group of the production mesh, with
@@ -231,10 +246,14 @@ and builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    step's peak bytes (its arguments plus phase 7's ``max_memory_allocated``
    over one step above its start) within ``DRYRUN_PEAK_TOL``, and its
    flash calls a step equal phase 7's launches; the prediction under remat
-   "none" (the planted control) must fail that comparison.
+   "none" (the planted control) must fail that comparison; and the dry run
+   of phase 17(e)'s qwen step on a fake (1, 1, 2) group predicts each of the
+   two ranks' step peak within ``DRYRUN_PEAK_TOL``, with the ranks'
+   arguments exactly and their flash launches.
 
 Phases 1-9 and then 15-16 run alone. Phases 10-14 (no kernel of the port's
-three) and 17 (whose checks are exact) then run as units in four child
+three) and 17 (whose checks are exact or read against limits set with room
+for the other lanes' load) then run as units in four child
 processes of this script beside one another on the card (``NETSIM_LANES``),
 so that their wall and device times are read beside the other lanes' load;
 each unit's output is printed in phase order once all have ended. Their card-vs-CPU checks run the CPU side in three spawned worker
@@ -555,11 +574,14 @@ NETSIM_UNITS = {
     "13": (13, "observability and training traffic", "phase_obs"),
     "14": (14, "the differentiable engine and the gradient tuner", "phase_netsim_grad"),
     "17": (17, "the parallel layer on the card", "phase_parallel"),
+    "17t": (17, "", "phase_tensor_parallel"),
 }
 # the lanes, balanced on the units' times alone (s, same card): 14 222 + 17
-# 23; 12g 184 + 10 66; 13 147 + 11 75; 12 111 + 11g 118. Phase 17's checks
-# are exact or bit-equal, so the other lanes' load moves only its times.
-NETSIM_LANES = (("14", "17"), ("12g", "10"), ("13", "11"), ("12", "11g"))
+# 23 + 17t ~50; 12g 184 + 10 66; 13 147 + 11 75; 12 111 + 11g 118 (under
+# the lanes' load the lanes ended at 302, 418, 472 and 348 s with 17t, 97 s
+# there, in the third; NVIDIA H100 80GB HBM3, 700 W). Phase 17's checks are
+# exact or read against limits that load does not move.
+NETSIM_LANES = (("14", "17", "17t"), ("12g", "10"), ("13", "11"), ("12", "11g"))
 # the lanes are stopped, and the run fails, this many seconds after the
 # script's start
 NETSIM_DEADLINE_S = 1_140.0
@@ -1954,6 +1976,294 @@ def phase_parallel(torch, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17(e): the two-rank model split on the one card
+# ---------------------------------------------------------------------------
+
+# arch -> the planted fault that must fail its two-rank check
+TP_FAULTS = {QWEN: "wo all-reduce dropped", MAMBA: "gated-norm sum not reduced over model",
+             RG: "RG-LRU gates read the local width only"}
+# The two-rank step's loss and grad norm against the one-rank step's on the
+# same batch and weights, relative: the split sums the same bf16 products in
+# another order (each row-parallel matmul's two partial sums are rounded to
+# bf16 and added after; the vocab-parallel CE sums its exponentials in two
+# halves). On an H100 80GB HBM3 at 700 W that moved the loss / grad norm by
+# 1.6e-6 / 1.4e-5 to 2.5e-5 (qwen), 4.0e-5 / 3.0e-4 to 3.5e-4 (mamba2) and
+# 3.2e-5 / 4.4e-4 to 4.7e-4 (recurrentgemma) over three runs; the planted
+# faults by 3.2e-4 / 1.5 ("wo all-reduce dropped"), 9.1e-5 / 1.5e-2
+# ("gated-norm sum not reduced over model") and 6.1e-4 / 3.4e-3 to 3.7e-3
+# ("RG-LRU gates read the local width only").
+TP_TOL = {"loss": 2e-4, "grad_norm": 2e-3}
+TP_TIMEOUT_S = 600.0
+
+
+def tp_plant(fault: str):
+    """A context that plants ``fault`` (TP_FAULTS) in the port's modules."""
+    import contextlib
+    import torch
+    from repro_torch.models import rglru, ssm, transformer
+
+    def local_width_only(x, dim, tp):
+        parts = [torch.zeros_like(x)] * tp.size
+        parts[tp.rank] = x
+        return torch.cat(parts, dim=dim)
+
+    mod, name, fn = {
+        "wo all-reduce dropped": (transformer, "reduce_from_model", lambda x, tp: x),
+        "gated-norm sum not reduced over model": (ssm, "sum_over_model",
+                                                  lambda x, tp: x * tp.size),
+        "RG-LRU gates read the local width only": (rglru, "gather_from_model",
+                                                   local_width_only)}[fault]
+
+    @contextlib.contextmanager
+    def ctx():
+        old = getattr(mod, name)
+        setattr(mod, name, fn)
+        try:
+            yield
+        finally:
+            setattr(mod, name, old)
+    return ctx()
+
+
+def tp_stage_refused(torch, dist) -> dict:
+    """Tries each collective that the split step calls on a CUDA tensor over
+    gloo; each one gloo refuses is staged through host memory from here on,
+    in this process only (copied to the CPU, run there, copied back).
+    Returns {collective: gloo's error} of the staged ones."""
+    x = torch.ones(4, device="cuda")
+    trials = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_reduce max": lambda: dist.all_reduce(x.clone(), op=dist.ReduceOp.MAX),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(4 * dist.get_world_size(), device="cuda"), x),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(4 // dist.get_world_size(), device="cuda"), x),
+    }
+    refused = {}
+    for name, fn in trials.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 - the refusal is the reading
+            refused[name] = f"{type(e).__name__}: {e}"[:300]
+    for name in {n.split()[0] for n in refused}:
+        orig = getattr(dist, name)
+
+        def staged(*args, _orig=orig, **kwargs):
+            host = [a.cpu() if torch.is_tensor(a) else a for a in args]
+            work = _orig(*host, **kwargs)
+            for a, h in zip(args, host):
+                if torch.is_tensor(a):
+                    a.copy_(h)
+            return work
+        setattr(dist, name, staged)
+    return refused
+
+
+def tp_arch(torch, dist, mesh, arch: str, rank: int) -> dict:
+    """One rank's readings of ``arch``'s two-rank step (phase 17(e))."""
+    from repro_torch.config.base import ParallelConfig, TrainConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import SyntheticDataset
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.train_step import accumulated_grads, make_train_step
+
+    dev = torch.device("cuda", 0)
+    b, s, _ = launch_train.TRAIN_WORKLOADS[arch]
+    par = ParallelConfig(multi_pod=True, pods=1, data=1, model=2)
+    model = launch_train.build(arch, device=dev, par=par, seed=0)
+    train_cfg = TrainConfig(global_batch=b, seq_len=s, total_steps=3, warmup_steps=1)
+    batch = SyntheticDataset(model.cfg, train_cfg, device=dev).batch_at(0)
+    out = {"batch": b, "seq": s}
+    if rank == 0:   # the one-rank step's loss and grad norm (before its update)
+        t0 = time.perf_counter()
+        metrics, grads = accumulated_grads(model, batch, 1)
+        out["one_rank"] = {"loss": float(metrics["loss"]), "grad_norm": float(global_norm(grads)),
+                           "ms": (time.perf_counter() - t0) * 1e3}
+        del grads
+    torch.cuda.empty_cache()
+    dist.barrier()
+    _, _, jit_step, _ = make_train_step(model, par, train_cfg, mesh)
+    step = jit_step(dict(model.named_parameters()))
+    params, opt = step.place(dict(model.named_parameters()))
+    torch.cuda.empty_cache()
+    out["shards"] = {"parameters": sum(p.numel() for p in params.values()),
+                     "whole": sum(math.prod(sh) for sh in step.shapes.values())}
+    kept = {k: p.detach().clone() for k, p in params.items()}
+    heads, fwd = [], ops.flash_attention_fwd
+
+    def counted(q, k, v, **kw):
+        heads.append(int(q.shape[2]))
+        return fwd(q, k, v, **kw)
+
+    def run(fault=None) -> dict:
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(kept[k])
+            for t in (*opt.m.values(), *opt.v.values()):
+                t.to_local().zero_()
+        torch.cuda.synchronize()
+        args_bytes = sum(t.numel() * t.element_size() for t in (
+            *params.values(), *(t.to_local() for t in opt.m.values()),
+            *(t.to_local() for t in opt.v.values()), *batch.values()))
+        start = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        heads.clear()
+        reset_counts()
+        ops.flash_attention_fwd = counted
+        t0 = time.perf_counter()
+        try:
+            if fault is None:
+                _, _, m = step(params, opt, batch)
+            else:
+                with tp_plant(fault):
+                    _, _, m = step(params, opt, batch)
+            r = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+            torch.cuda.synchronize()
+        finally:
+            ops.flash_attention_fwd = fwd
+        r.update(ms=(time.perf_counter() - t0) * 1e3, launches=read_counts(),
+                 flash_heads=sorted(set(heads)), args_bytes=args_bytes,
+                 peak_over_start_bytes=torch.cuda.max_memory_allocated(dev) - start)
+        r["peak_bytes"] = args_bytes + r["peak_over_start_bytes"]
+        return r
+
+    out["split"] = run()
+    out["planted"] = {TP_FAULTS[arch]: run(TP_FAULTS[arch])}
+    del model, params, opt, step, kept
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank_main(rank: int, port: int, out_dir: Path) -> None:
+    """A rank of phase 17(e) (``chip_smoke.py --tp-rank RANK PORT DIR``):
+    gloo over CUDA tensors, a (1, 1, 2) ("pod", "data", "model") mesh, the
+    readings of each arch into ``DIR/rankRANK.json``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=2)
+    try:
+        res = {"staged": tp_stage_refused(torch, dist)}
+        mesh = init_device_mesh("cuda", (1, 1, 2), mesh_dim_names=("pod", "data", "model"))
+        res["archs"] = {}
+        for arch in TP_FAULTS:
+            t0 = time.perf_counter()
+            res["archs"][arch] = tp_arch(torch, dist, mesh, arch, rank)
+            res["archs"][arch]["s"] = time.perf_counter() - t0
+        (out_dir / f"rank{rank}.json").write_text(json.dumps(res))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tensor_parallel(torch, card: str) -> dict:
+    """Phase 17(e): qwen, mamba2 and recurrentgemma at full width on their
+    phase 7-9 workloads, each split over two ranks of "model" on the one card
+    (two processes, gloo over CUDA tensors: NCCL refuses two ranks on one
+    GPU), one step: the loss and grad norm against the one-rank step's on
+    the same batch and weights (TP_TOL), the flash kernel on each rank's
+    heads, the kernels' launches a step on each rank, each rank's step peak
+    (phase 18 predicts qwen's), and a planted fault per arch that must fail
+    the check."""
+    import os
+    import shutil
+    import signal
+    import socket
+
+    from repro_torch.config import get_model_config
+
+    t0 = time.perf_counter()
+    out_dir = ROOT / "build" / "chip_smoke_tp"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    try:
+        for rank in range(2):
+            with open(out_dir / f"rank{rank}.out", "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"), "--tp-rank", str(rank),
+                     str(port), str(out_dir)], stdout=log, stderr=subprocess.STDOUT, cwd=ROOT,
+                    start_new_session=True))
+        for proc in procs:
+            proc.wait(timeout=max(TP_TIMEOUT_S - (time.perf_counter() - t0), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    if any(p.returncode != 0 for p in procs):
+        for rank in range(2):
+            print((out_dir / f"rank{rank}.out").read_text()[-3000:], file=sys.stderr)
+        fail(f"phase 17(e): the ranks exited with {[p.returncode for p in procs]}")
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(2)]
+    staged = ranks[0]["staged"]
+    print("  (e) two ranks of \"model\" on the one card, gloo over CUDA tensors; "
+          + (f"gloo refused {sorted(staged)}, staged through host memory in this phase "
+             f"only: {staged}" if staged else "gloo took every collective of the split step "
+             "(all_reduce sum and max, all_gather_into_tensor, reduce_scatter_tensor)"),
+          flush=True)
+    out = {"staged": staged, "tol": TP_TOL, "archs": {}}
+    for arch, fault in TP_FAULTS.items():
+        cfg = get_model_config(arch)
+        r0, r1 = ranks[0]["archs"][arch], ranks[1]["archs"][arch]
+        one = r0["one_rank"]
+
+        def rel(r):
+            return {k: abs(r[k] - one[k]) / abs(one[k]) for k in ("loss", "grad_norm")}
+
+        sound, planted = rel(r0["split"]), rel(r0["planted"][fault])
+        expected = expected_train_launches(cfg)
+        heads = cfg.num_heads // 2 if cfg.num_heads % 2 == 0 else cfg.num_heads
+        for rank, r in enumerate((r0, r1)):
+            print(f"  (e) {arch} ({r['batch']} x {r['seq']}, bf16) rank {rank}: loss "
+                  f"{r['split']['loss']:.6f} grad norm {r['split']['grad_norm']:.6f} "
+                  f"{r['split']['ms']:.1f} ms; shards {r['shards']['parameters']} of "
+                  f"{r['shards']['whole']} parameters; flash heads {r['split']['flash_heads']}; "
+                  f"launches {r['split']['launches']}; step peak {r['split']['peak_bytes']} B "
+                  f"(arguments {r['split']['args_bytes']}) [{card}]", flush=True)
+        print(f"  (e) {arch}: one rank loss {one['loss']:.6f} grad norm {one['grad_norm']:.6f} "
+              f"({one['ms']:.1f} ms); two ranks relative {sound['loss']:.3e} / "
+              f"{sound['grad_norm']:.3e} (limits {TP_TOL['loss']:g} / {TP_TOL['grad_norm']:g}); "
+              f"control, {fault}: {planted['loss']:.3e} / {planted['grad_norm']:.3e} "
+              f"({r0['s']:.1f} s)", flush=True)
+        check(r0["split"]["loss"] == r1["split"]["loss"]
+              and r0["split"]["grad_norm"] == r1["split"]["grad_norm"],
+              f"{arch}: the two ranks' losses or grad norms differ")
+        check(all(sound[k] <= TP_TOL[k] for k in TP_TOL),
+              f"{arch}: the two-rank step parts from the one-rank step: {sound}")
+        check(any(planted[k] > TP_TOL[k] for k in TP_TOL),
+              f"{arch}: the two-rank check does not catch: {fault} ({planted})")
+        for r in (r0, r1):
+            check(r["split"]["launches"] == expected,
+                  f"{arch}: launches a step {r['split']['launches']}, expected {expected}")
+            check(r["shards"]["parameters"] < r["shards"]["whole"],
+                  f"{arch}: a rank holds every parameter whole")
+            if expected["flash_attention"]:
+                check(r["split"]["flash_heads"] == [heads],
+                      f"{arch}: flash ran on {r['split']['flash_heads']} heads a rank, "
+                      f"expected {heads}")
+        out["archs"][arch] = {"one_rank": one, "ranks": [r0, r1], "relative": sound,
+                              "planted": {fault: planted}}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  (e) {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def netsim_scenario(name: str):
     """(configs, workload, horizon us, channel) of a golden scenario
     (NETSIM_GOLDEN), ``links3`` or ``mesh`` (NETSIM_LINKS3, the 3-site
@@ -2829,6 +3139,14 @@ def dryrun_main(out: Path) -> None:
                              mesh)
         rec = r.pop("rec")
         predicted[remat] = dict(r, kernel_ops=rec.kernel_ops)
+    # phase 17(e)'s qwen step, split over two ranks of "model": rank 0 of a
+    # fake group of two
+    mesh = fake_mesh((1, 1, 2), ("pod", "data", "model"), "cuda")
+    par = ParallelConfig(multi_pod=True, pods=1, data=1, model=2)
+    r = dryrun.run_train(get_model_config(QWEN), par, ShapeSpec("phase 17(e)", s, b, "train"),
+                         mesh)
+    rec = r.pop("rec")
+    predicted["split"] = dict(r, kernel_ops=rec.kernel_ops)
     cells = {}
     for arch, shape, mp, _ in DRYRUN_CELLS:
         cells[dryrun.cell_name(arch, shape, mp)] = dryrun.run_cell(arch, shape, mp)
@@ -2860,8 +3178,9 @@ def start_dryrun():
     return proc, out
 
 
-def phase_dryrun(torch, card: str, child, trained: dict, t_start: float) -> dict:
-    """Phase 18's checks (the module docstring) on the child's results."""
+def phase_dryrun(torch, card: str, child, trained: dict, split: dict, t_start: float) -> dict:
+    """Phase 18's checks (the module docstring) on the child's results;
+    ``split`` is phase 17(e)'s record."""
     proc, out = child
     t0 = time.perf_counter()
     try:
@@ -2899,6 +3218,7 @@ def phase_dryrun(torch, card: str, child, trained: dict, t_start: float) -> dict
               f"{c['lower_s']} + {c['compile_s']} s", flush=True)
     mem = trained[QWEN]["step_memory"]
     readings = {}
+    split_pred = res["predicted"].pop("split")
     for remat, p in res["predicted"].items():
         readings[remat] = {"peak_bytes": p["peak_bytes"],
                            "argument_size_in_bytes": p["argument_size_in_bytes"],
@@ -2921,6 +3241,30 @@ def phase_dryrun(torch, card: str, child, trained: dict, t_start: float) -> dict
           f"{mem['flash_launches']}")
     check(control["rel_err"] > DRYRUN_PEAK_TOL,
           "the card check does not catch the control: the peak under remat 'none'")
+    # phase 17(e)'s qwen step on each of its two ranks
+    split_readings = []
+    for rank, r in enumerate(split["archs"][QWEN]["ranks"]):
+        card_split = r["split"]
+        rel = abs(split_pred["peak_bytes"] - card_split["peak_bytes"]) / card_split["peak_bytes"]
+        calls = split_pred["kernel_ops"].get("flash_attention", {}).get("calls", 0)
+        split_readings.append({"rank": rank, "predicted_peak_bytes": split_pred["peak_bytes"],
+                               "card_peak_bytes": card_split["peak_bytes"], "rel_err": rel,
+                               "predicted_args": split_pred["argument_size_in_bytes"],
+                               "card_args": card_split["args_bytes"], "flash_calls": calls})
+        print(f"  card check, qwen split over two ranks of \"model\" (phase 17(e)), rank "
+              f"{rank}: predicted peak {split_pred['peak_bytes']} B (arguments "
+              f"{split_pred['argument_size_in_bytes']}), card {card_split['peak_bytes']} B "
+              f"(arguments {card_split['args_bytes']}): relative {rel:.4e} (limit "
+              f"{DRYRUN_PEAK_TOL}); flash calls a step {calls} against "
+              f"{card_split['launches']['flash_attention']} launches [{card}]", flush=True)
+        check(split_pred["argument_size_in_bytes"] == card_split["args_bytes"],
+              f"the dry run's split arguments {split_pred['argument_size_in_bytes']} B are not "
+              f"rank {rank}'s {card_split['args_bytes']} B")
+        check(rel <= DRYRUN_PEAK_TOL, f"the dry run's split peak is {rel:.3e} from rank "
+                                      f"{rank}'s (limit {DRYRUN_PEAK_TOL})")
+        check(calls == card_split["launches"]["flash_attention"],
+              f"the dry run counts {calls} flash calls a split step, rank {rank} "
+              f"{card_split['launches']['flash_attention']}")
     keys = ("status", "peak_bytes", "argument_size_in_bytes", "argument_size_in_bytes_under_rules",
             "hlo_dot_flops_per_device", "hlo_hbm_bytes_per_device", "intra_pod_bytes_per_device",
             "inter_pod_bytes_per_device", "compile_s")
@@ -2928,7 +3272,7 @@ def phase_dryrun(torch, card: str, child, trained: dict, t_start: float) -> dict
         {"dominant": c["roofline"]["dominant"]} if "roofline" in c else {})
         for name, c in res["cells"].items()}
     return {"cells": cells, "card_check": {"card": mem, "predicted": readings,
-                                           "tol": DRYRUN_PEAK_TOL},
+                                           "split": split_readings, "tol": DRYRUN_PEAK_TOL},
             "child_s": res["s"]}
 
 
@@ -3019,6 +3363,8 @@ def main() -> None:
         return lane_main(Path(sys.argv[2]), sys.argv[3:])
     if len(sys.argv) > 2 and sys.argv[1] == "--dryrun":
         return dryrun_main(Path(sys.argv[2]))
+    if len(sys.argv) > 4 and sys.argv[1] == "--tp-rank":
+        return tp_rank_main(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run chip_smoke.py from a checkout")
     sys.path.insert(0, str(SRC))
@@ -3111,9 +3457,10 @@ def main() -> None:
     netsim = units["10"]
     netsim_links = {**units["11"], **units["11g"]}
     netsim_channel = {**units["12"], **units["12g"]}
-    obs, netsim_grad, parallel = units["13"], units["14"], units["17"]
+    obs, netsim_grad = units["13"], units["14"]
+    parallel = dict(units["17"], tensor_parallel=units["17t"])
     print("[18/18] the dry run on fake groups of the production mesh", flush=True)
-    dry = phase_dryrun(torch, card, dryrun_child, trained, t_start)
+    dry = phase_dryrun(torch, card, dryrun_child, trained, units["17t"], t_start)
     print(f"  (total {time.perf_counter() - t_start:.1f} s)", flush=True)
 
     def worst(checks, prefix):
@@ -3128,8 +3475,13 @@ def main() -> None:
                    if r["launches"][kernel]}
         per_train_step = {arch: r["launches_per_step"][kernel] for arch, r in trained.items()
                           if r["launches_per_step"][kernel]}
+        # phase 17(e): a step split over two ranks of "model", each rank's count
+        per_split_step = {arch: r["ranks"][0]["split"]["launches"][kernel]
+                          for arch, r in units["17t"]["archs"].items()
+                          if r["ranks"][0]["split"]["launches"][kernel]}
         return {"launches": sum(by_arch.values()), "launches_by_arch": by_arch,
-                "launches_per_train_step": per_train_step}
+                "launches_per_train_step": per_train_step,
+                "launches_per_split_train_step_a_rank": per_split_step}
 
     record = {"kernels": [{
         "name": "flash_attention", "route": "cuda",

@@ -19,6 +19,10 @@ caller) and returns a state dict for ``Model.load_state_dict``:
 * a tied model has no ``unembed`` leaf, and a model of embedding inputs
   (``embed_inputs=False``) no ``tok`` leaf: its embed subtree is ``unembed``
   alone.
+
+The state dict holds whole tensors. On a mesh, ``train_step.ShardedStep.
+place`` takes them as they are and keeps each rank's shard under the
+``ShardingRules`` (the step then computes tensor-parallel on those shards).
 """
 from __future__ import annotations
 

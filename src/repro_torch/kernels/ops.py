@@ -17,7 +17,10 @@ backward Pallas kernel, and each backward mirrors what it differentiates:
   sequence, then ``dL/db_t = g_t`` and ``dL/da_t = g_t h_{t-1}``.
 
 Each forward hands the raw launchers ``.detach()``ed tensors; the launchers
-themselves raise on tensors that require grad.
+themselves raise on tensors that require grad. Under tensor-parallel compute
+(``parallel.tensor``) a Function takes each rank's local tensors as they
+are: flash attention its q heads and the kv heads they read, the SSD scan
+its heads, the RG-LRU its slice of the width; no DTensor reaches a kernel.
 
 On ``meta`` tensors (every input on ``meta``: the dry run, ``launch.dryrun``)
 a forward does no arithmetic: it returns empty tensors of the output's shape

@@ -16,16 +16,21 @@ measures the port's own step:
 
   * train cells run the step ``launch.train`` runs (``train_step.
     lower_train_step``: the ``ShardedStep``), with ``par.microbatches``,
-    remat ``par.remat`` and this rank's rows of the global batch. Every rank
-    holds the parameters whole and computes on them whole; the model dims
-    shard the optimizer only (GSPMD's tensor-parallel split of the matmuls
-    is not reproduced: ``"tensor_parallel": false``);
+    remat ``par.remat`` and this rank's rows of the global batch. Each rank
+    holds exactly the rules' shards of the parameters and the moments and
+    computes on them as GSPMD partitions the JAX step: tensor-parallel over
+    "model" (heads, d_ff, experts, SSD heads, the RG-LRU width, the vocab;
+    ``parallel.tensor``) and, under ``fsdp``, ZeRO-3 over "data"
+    (``"tensor_parallel": true``). The kernel ops record each rank's local
+    shapes (flash on its heads, the SSD scan on its heads, the RG-LRU on its
+    width);
   * prefill cells run ``model.prefill(inputs, max_len=S)``, decode and
     long_decode cells one ``decode_step`` at position S - 1 (a Python int)
     and the argmax. Serving in the port runs on no mesh: a serve cell is
     one rank's rows (the batch split over the batch axes where it divides,
     else replicated, as ``specs._batch_axes_or_none``), with the parameters
-    and caches whole for those rows and no collective.
+    and caches whole for those rows and no collective
+    (``"tensor_parallel": false``).
 
 Each cell's record keeps JAX's keys and adds ``argument_size_in_bytes_under_
 rules`` (what the shards of the rules' specs hold, as GSPMD would place
@@ -96,18 +101,19 @@ def run_train(model_cfg: ModelConfig, par: ParallelConfig, shape: ShapeSpec, mes
     batch_s, batch_p = train_input_specs(model_cfg, par, shape)
     train = TrainConfig(global_batch=shape.global_batch, seq_len=shape.seq_len)
     step, _ = lower_train_step(model, par, train, mesh, params_p, batch_p)
-    params, opt = step.place(params_s, opt_s)
     sizes = mesh_sizes(par)
+    under_rules = (tree_bytes(params_s, params_p, sizes) + tree_bytes(opt_s, opt_p, sizes)
+                   + tree_bytes(batch_s, batch_p, sizes))
+    n_params = _count(model)
+    params, opt = step.place(params_s, opt_s)      # the model now holds its shards
     rows = {k: _rows(v, batch_p[k], sizes) for k, v in batch_s.items()}
     moments = [t.to_local() for tree in (opt.m, opt.v) for t in tree.values()]
     state = tree_bytes(params) + sum(t.numel() * t.element_size() for t in moments)
     args = state + tree_bytes(rows)
-    under_rules = (tree_bytes(params_s, params_p, sizes) + tree_bytes(opt_s, opt_p, sizes)
-                   + tree_bytes(batch_s, batch_p, sizes))
     t0 = time.perf_counter()
     with record(mesh, (model, *moments, *rows.values())) as rec:
         step.step_rows(params, opt, rows)
-    return {"rec": rec, "run_s": time.perf_counter() - t0, "params_init": _count(model),
+    return {"rec": rec, "run_s": time.perf_counter() - t0, "params_init": n_params,
             "argument_size_in_bytes_under_rules": under_rules,
             **_memory(rec, args, outputs=state, alias=state)}
 
@@ -166,7 +172,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, device: DeviceLike = N
         "kind": shape.kind,
         "params": model_cfg.param_count(),
         "active_params": model_cfg.active_param_count(),
-        "tensor_parallel": False,
+        "tensor_parallel": shape.kind == "train",
     }
     if not shape_applicable(model_cfg, shape):
         result["status"] = "SKIP(full-attention)"

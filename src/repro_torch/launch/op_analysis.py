@@ -23,7 +23,10 @@ and, beside the mode, the kernel ops' operations and bytes by formula
 What is not equivalent:
 
   * Collectives are classified by the mesh dims of their group, read from
-    its ranks: a group that spans "pod" is inter-pod. That is exact, where
+    its ranks: a group that spans "pod" is inter-pod. The tensor-parallel
+    step's own (``parallel.tensor``: activations all-reduced over "model",
+    ZeRO-3's gathers and reduce-scatters over "data") are c10d collectives
+    on the mesh's groups like the gradients', and are counted so. That is exact, where
     JAX infers the dims from group sizes ({2, 32, 512} span the pod).
   * No loop needs a trip count: an eager step runs every iteration, and each
     collective is recorded each time it runs. ``num_collectives`` counts the

@@ -6,7 +6,11 @@ A ``meta`` tensor has a shape and a dtype and no storage, as JAX's
 The partition specs are the port's ``P`` tuples with JAX's meaning. Token ids
 and labels are int64, the port's convention (``models.model``), where JAX's
 are int32. ``shard_shape`` gives a leaf's per-rank shard under its spec, as
-GSPMD would place it.
+GSPMD would place it. A train cell's ranks hold exactly those shards
+(``train_step.ShardedStep``), so its ``argument_size_in_bytes`` equals
+``argument_size_in_bytes_under_rules``, and JAX's differs from both by the
+token ids' and labels' 4 bytes a token (int32 there) and by JAX's step
+count, an int32 scalar argument that the port keeps as a host int.
 """
 from __future__ import annotations
 

@@ -40,9 +40,12 @@ MoE aux values (``lb_loss``, ``z_loss``, ``drop_frac``), each summed over the
 MoE layers as the JAX backbone sums them.
 After a failed step, training goes back to the latest checkpoint, parameters
 and optimizer state included, and replays from there; with no checkpoint the
-failure is raised, since the step updates its state in place. Checkpoints
-hold the parameters and the full (gathered) moments and are written by rank 0;
-only rank 0 logs.
+failure is raised, since the step updates its state in place. On a mesh of more
+than one "model" rank (``--model M``) the step computes tensor-parallel:
+each rank holds and updates only its shards of the parameters and moments
+(``train_step``; with ``fsdp``, ZeRO-3 over "data" too), and the model is
+put back whole when training ends. Checkpoints hold the parameters and the
+moments gathered whole and are written by rank 0; only rank 0 logs.
 A step is timed on the host clock around work that ends in a synchronise,
 from the batch on the device to the metrics read; making the batch is timed
 apart (``data_ms``). On the card each step also records
@@ -70,7 +73,7 @@ from repro_torch.models.moe import AUX_KEYS
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.data import SyntheticDataset
 from repro_torch.train.elastic import FailureRecovery, StragglerMonitor
-from repro_torch.train.optimizer import AdamState, init_adam
+from repro_torch.train.optimizer import AdamState
 from repro_torch.train.train_step import make_train_step
 
 
@@ -152,9 +155,9 @@ def _full(tree: dict) -> dict:
     return {k: t.full_tensor() for k, t in tree.items()}
 
 
-def _state(params: dict, opt: AdamState) -> dict:
-    """The checkpoint tree: the parameters and the moments (gathered)."""
-    return {"params": params,
+def _state(step_fn, params: dict, opt: AdamState) -> dict:
+    """The checkpoint tree: the parameters and the moments, gathered whole."""
+    return {"params": step_fn.full(params),
             "opt": {"step": opt.step, "m": _full(opt.m), "v": _full(opt.v)}}
 
 
@@ -174,7 +177,7 @@ def train(model: Model, train_cfg: TrainConfig, par: ParallelConfig = ParallelCo
     step_fn = jit_step(params)
     data = SyntheticDataset(model.cfg, train_cfg, device=dev)
     state = {}
-    state["params"], state["opt"] = step_fn.place(params, init_adam(params, par.opt_state_dtype))
+    state["params"], state["opt"] = step_fn.place(params)    # zero moments, each its shard
     ckpt_dir = train_cfg.ckpt_dir or str(CKPT_ROOT / model.cfg.name)
     ckpt = (CheckpointManager(ckpt_dir, keep=train_cfg.ckpt_keep,
                               async_save=train_cfg.ckpt_async)
@@ -189,7 +192,7 @@ def train(model: Model, train_cfg: TrainConfig, par: ParallelConfig = ParallelCo
             torch.cuda.synchronize(dev)
 
     def save(step: int) -> None:
-        tree = _state(state["params"], state["opt"])     # a collective on every rank
+        tree = _state(step_fn, state["params"], state["opt"])   # collectives on every rank
         if rank0:
             ckpt.save(step, tree)
 
@@ -229,9 +232,7 @@ def train(model: Model, train_cfg: TrainConfig, par: ParallelConfig = ParallelCo
     def restore(step: int) -> None:
         """Parameters and optimizer state from checkpoint ``step``."""
         ckpt.wait()
-        like = {"params": {k: p.detach() for k, p in model.named_parameters()},
-                "opt": {"step": state["opt"].step, "m": _full(state["opt"].m),
-                        "v": _full(state["opt"].v)}}
+        like = _state(step_fn, state["params"], state["opt"])
         _, tree = ckpt.restore(step, like)
         o = tree["opt"]
         state["params"], state["opt"] = step_fn.place(
@@ -250,6 +251,7 @@ def train(model: Model, train_cfg: TrainConfig, par: ParallelConfig = ParallelCo
         ckpt.wait()
     o = state["opt"]
     res.opt_state = AdamState(step=o.step, m=_full(o.m), v=_full(o.v))
+    step_fn.unplace(state["params"])          # the model whole again
     log(f"done at step {res.final_step}")
     return res
 

@@ -17,6 +17,7 @@ from torch import nn
 
 from repro_torch.config.base import MLP_GELU, MLP_RELU2, MLP_SWIGLU, ModelConfig
 from repro_torch.device import dtype_of
+from repro_torch.parallel.tensor import copy_to_model, reduce_from_model, split_of, weight
 
 
 def normal_(p: torch.Tensor, std: float, generator: torch.Generator) -> None:
@@ -110,7 +111,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 # ---------------------------------------------------------------------------
 
 class MLP(nn.Module):
-    """SwiGLU (w_gate, w_up, w_down) or a 2-matrix relu2 / gelu MLP."""
+    """SwiGLU (w_gate, w_up, w_down) or a 2-matrix relu2 / gelu MLP.
+
+    Split over "model" (``parallel.tensor``), d_ff is: w_gate and w_up are
+    column-parallel, w_down row-parallel, its partial sums reduced."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device=None):
         super().__init__()
@@ -132,13 +136,16 @@ class MLP(nn.Module):
         normal_(self.w_down, f ** -0.5, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        tp = split_of(self)
+        x = copy_to_model(x, tp)
+        w_up = weight(self, "w_up")
         if self.kind == MLP_SWIGLU:
-            h = F.silu(x @ self.w_gate) * (x @ self.w_up)
+            h = F.silu(x @ weight(self, "w_gate")) * (x @ w_up)
         elif self.kind == MLP_RELU2:
-            h = F.relu(x @ self.w_up).square()
+            h = F.relu(x @ w_up).square()
         else:
-            h = F.gelu(x @ self.w_up, approximate="tanh")  # jax.nn.gelu's default
-        return h @ self.w_down
+            h = F.gelu(x @ w_up, approximate="tanh")  # jax.nn.gelu's default
+        return reduce_from_model(h @ weight(self, "w_down"), tp)
 
 
 # ---------------------------------------------------------------------------
@@ -161,7 +168,12 @@ class Embed(nn.Module):
     [d, V] unless the model is tied and embeds its own tokens (the logits
     then read ``tok.T``). With ``embed_inputs=False`` the inputs are
     precomputed embeddings [..., d] (a stubbed frontend's EnCodec frames or
-    ViT patches), cast to the activation dtype."""
+    ViT patches), cast to the activation dtype.
+
+    Split over "model" (``vocab_shardable``), a rank holds a slice of the
+    vocab: it looks up the ids it owns, zeros the others' rows and sums the
+    rows over "model"; ``weight`` is its [d, V/M] slice, and ``logits`` and
+    the loss (``models.model.chunked_ce_loss``) compute that slice's logits."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -184,11 +196,21 @@ class Embed(nn.Module):
         """Token ids [...] -> their rows, or embeddings [..., d] as they are,
         in the activation dtype."""
         act = dtype_of(self.cfg.act_dtype)
-        return (self.tok[inputs] if self.tok is not None else inputs).to(act)
+        if self.tok is None:
+            return inputs.to(act)
+        tok, tp = weight(self, "tok"), split_of(self)
+        if tp is None:
+            return tok[inputs].to(act)
+        off, n = tp.part(self.cfg.vocab_size)
+        local = inputs - off
+        own = (local >= 0) & (local < n)
+        rows = tok[local.clamp(0, n - 1)] * own[..., None].to(tok.dtype)
+        return reduce_from_model(rows, tp).to(act)
 
     def weight(self) -> torch.Tensor:
-        """[d, V]: the tied table transposed, or the separate unembedding."""
-        return self.tok.T if self.unembed is None else self.unembed
+        """[d, V]: the tied table transposed, or the separate unembedding
+        (split over "model", this rank's [d, V/M] slice of it)."""
+        return weight(self, "tok").T if self.unembed is None else weight(self, "unembed")
 
     def weight_blocks(self) -> Tuple[int, list]:
         """(dim, blocks): ``weight()`` cut along ``dim`` into the blocks that

@@ -15,6 +15,13 @@ copy of the unembedding is made once per call, outside the loop, and each
 chunk's body is checkpointed, so that one chunk's logits are alive at a time
 in the backward (where the JAX package's ``lax.scan`` stores per-chunk
 residuals; the values are the same).
+
+The cross-entropy has its own backward (softmax minus the one-hot, in the
+buffer of the saved softmax). With the vocab split over "model" (``Embed``'s
+split) it is vocab-parallel: each rank computes its vocab slice's logits
+(the softcap applied first), the max and the sum of exponentials are
+reduced over "model", and the label's logit comes from the rank that owns
+it; the MoE aux terms are the same on every rank.
 """
 from __future__ import annotations
 
@@ -29,26 +36,60 @@ from repro_torch.device import DeviceLike, dtype_of, resolve_device
 from repro_torch.models.layers import Embed
 from repro_torch.models.moe import MoE
 from repro_torch.models.transformer import Backbone, Cache, init_caches
+from repro_torch.parallel.tensor import (
+    Split, copy_to_model, max_over_model, reduce_from_model, split_of,
+)
 
 LOSS_CHUNK = 512
 
 
-def _ce_chunk(xch: torch.Tensor, w32: torch.Tensor, lch: torch.Tensor, softcap: float
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(sum of the chunk's token losses, its unmasked tokens), in f32."""
-    logits = xch.float() @ w32
+class _CrossEntropy(torch.autograd.Function):
+    """Each token's loss, log-sum-exp minus the label's logit, from f32
+    logits [..., V] or, with ``tp``, [..., V/M] of the vocab split over
+    "model" (the max and the sum of exponentials reduced over "model", the
+    label's logit from the rank that owns it). The backward is softmax minus
+    the one-hot in one buffer (the saved softmax, scaled in place), as
+    Megatron's vocab-parallel cross-entropy."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, tp: Optional[Split]):
+        off, n = tp.part(logits.shape[-1] * tp.size) if tp is not None else (0, logits.shape[-1])
+        local = labels - off
+        own = ((local >= 0) & (local < n)).to(logits.dtype)
+        idx = local.clamp(0, n - 1)[..., None]
+        m = max_over_model(logits.amax(dim=-1), tp)
+        e = torch.exp(logits - m[..., None])
+        total = reduce_from_model(e.sum(dim=-1), tp)
+        picked = reduce_from_model(torch.gather(logits, -1, idx)[..., 0] * own, tp)
+        e.div_(total[..., None])
+        ctx.save_for_backward(e, idx, own)
+        return torch.log(total) + m - picked
+
+    @staticmethod
+    def backward(ctx, g):
+        p, idx, own = ctx.saved_tensors
+        grad = p.mul_(g[..., None])
+        grad.scatter_add_(-1, idx, -(g * own)[..., None])
+        return grad, None, None
+
+
+def _ce_chunk(xch: torch.Tensor, w32: torch.Tensor, lch: torch.Tensor, softcap: float,
+              tp: Optional[Split]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the chunk's token losses, its unmasked tokens), in f32; with
+    ``tp``, ``w32`` is this rank's [d, V/M] slice of the vocab."""
+    logits = copy_to_model(xch, tp).float() @ w32
     if softcap > 0:
         logits = softcap * torch.tanh(logits / softcap)
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1, lch.clamp(min=0)[..., None])[..., 0]
     mask = (lch >= 0).float()
-    return torch.sum((lse - picked) * mask), torch.sum(mask)
+    return torch.sum(_CrossEntropy.apply(logits, lch, tp) * mask), torch.sum(mask)
 
 
 def chunked_ce_loss(x: torch.Tensor, w_un: torch.Tensor, labels: torch.Tensor,
-                    softcap: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, S, d]; w_un [d, V]; labels [B, S] (-1 = pad). Returns (sum_loss,
-    n_tokens), f32 scalars."""
+                    softcap: float = 0.0, tp: Optional[Split] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, S, d]; w_un [d, V] (with ``tp``, this rank's [d, V/M] slice
+    of a vocab split over "model"); labels [B, S] (-1 = pad). Returns
+    (sum_loss, n_tokens), f32 scalars."""
     b, s, d = x.shape
     c = min(LOSS_CHUNK, s)
     assert s % c == 0
@@ -56,7 +97,7 @@ def chunked_ce_loss(x: torch.Tensor, w_un: torch.Tensor, labels: torch.Tensor,
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, s, c):
-        args = (x[:, i:i + c], w32, labels[:, i:i + c], softcap)
+        args = (x[:, i:i + c], w32, labels[:, i:i + c], softcap, tp)
         if torch.is_grad_enabled() and (x.requires_grad or w32.requires_grad):
             t, n = checkpoint(_ce_chunk, *args, use_reentrant=False)
         else:
@@ -94,7 +135,8 @@ class Model(nn.Module):
         cfg = self.cfg
         inputs = batch["tokens"] if cfg.embed_inputs else batch["embeds"]
         h, aux, _ = self.backbone(self.embed(inputs), mode="train", remat=self.remat)
-        tot, cnt = chunked_ce_loss(h, self.embed.weight(), batch["labels"], cfg.logit_softcap)
+        tot, cnt = chunked_ce_loss(h, self.embed.weight(), batch["labels"], cfg.logit_softcap,
+                                   split_of(self.embed))
         ce = tot / torch.clamp(cnt, min=1.0)
         loss = ce
         if cfg.num_experts:
@@ -111,11 +153,19 @@ class Model(nn.Module):
         return init_caches(self.cfg, batch, max_len, dtype_of(self.cfg.act_dtype),
                            device=self.device)
 
+    def _check_whole(self) -> None:
+        """Serving computes on whole parameters: a model whose parameters
+        ``parallel.tensor.shard_model`` split trains only."""
+        if getattr(self, "sharded", False):
+            raise ValueError("this model holds shards of its parameters (a mesh train step "
+                             "placed them); serving needs the whole parameters")
+
     @torch.no_grad()
     def prefill(self, inputs: torch.Tensor, max_len: int
                 ) -> Tuple[List[Cache], torch.Tensor]:
         """inputs: tokens [B, S] or embeds [B, S, d]. Returns (caches of
         max_len, last-position logits f32 [B, V])."""
+        self._check_whole()
         h, _, caches = self.backbone(self.embed(inputs), mode="prefill", max_len=max_len)
         return caches, self.embed.logits(h[:, -1])
 
@@ -126,6 +176,7 @@ class Model(nn.Module):
         or a 0-d int tensor on the model's device (never read on the host, so
         the step can be captured in a CUDA graph); updates ``caches`` in
         place. Returns (caches, logits f32 [B, V])."""
+        self._check_whole()
         pos = torch.as_tensor(pos, dtype=torch.int64, device=self.device)
         x = self.embed(inputs[:, None] if self.cfg.embed_inputs else inputs)
         h, _, caches = self.backbone(x, mode="decode", caches=caches, pos=pos)

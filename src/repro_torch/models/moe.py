@@ -6,16 +6,19 @@ each (token, slot) takes the next free position of its expert, in the flat
 token-major [T*k] order, and is dropped past the expert's capacity
 C = max(int(moe_capacity_factor * T * k / E), k), with T the tokens of this
 call (B*S in a prefill or a training step, B in a decode step) -> the kept
-tokens are scattered into per-expert buffers [E, C, d] -> batched SwiGLU
-experts -> gathered back and weighted by the gates. A dropped slot adds 0:
-the residual stream carries its token through (GShard / Switch semantics).
+tokens are gathered into per-expert buffers [E, C, d] -> batched SwiGLU
+experts -> each token sums its slots' outputs weighted by the gates. A
+dropped slot adds 0: the residual stream carries its token through (GShard /
+Switch semantics).
 
-The scatter writes into [E, C+1, d], whose last row is a drop bin that is
-cut off: kept slots are unique (an expert takes one token per position), so
-only the discarded bin ever sums several rows, and the result does not
-depend on the order of the accumulation. An expert appears at most once in
-a token's top k, so a slot's position depends only on the set of experts of
-the tokens before it, not on the order ``torch.topk`` gives ties.
+Each expert's buffer has one row more, [E, C+1, d], kept zero: a dropped
+slot reads it back. Kept slots are unique (an expert takes one token per
+position), so each buffer row is one token's copy and each output row one
+slot's; a token's k slots are summed in slot order, forward and backward,
+never by an accumulating scatter, so a step repeats bit for bit. An expert
+appears at most once in a token's top k, so a slot's position depends only
+on the set of experts of the tokens before it, not on the order
+``torch.topk`` gives ties.
 
 The JAX package computes the scatter, the gather and the expert products
 outside any Pallas kernel; here they are PyTorch ops on every device.
@@ -30,7 +33,7 @@ each rank routes its own rows as flat tokens, as the JAX package's
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +44,9 @@ from repro_torch.device import dtype_of
 from repro_torch.models.layers import normal_
 from repro_torch.parallel.collectives import all_reduce_sum, gather_rows
 from repro_torch.parallel.sharding import batch_dims, get_ambient_mesh
+from repro_torch.parallel.tensor import (
+    Split, copy_to_model, reduce_from_model, split_of, weight,
+)
 
 Aux = Dict[str, torch.Tensor]
 AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
@@ -75,9 +81,14 @@ def slots(flat_e: torch.Tensor, e: int, cap: int) -> Tuple[torch.Tensor, torch.T
 
 
 def moe_tokens(xt: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
-               w_up: torch.Tensor, w_down: torch.Tensor, cfg: ModelConfig
-               ) -> Tuple[torch.Tensor, Aux]:
-    """xt [T, d] flat tokens -> (y [T, d] in xt's dtype, aux f32 scalars)."""
+               w_up: torch.Tensor, w_down: torch.Tensor, cfg: ModelConfig,
+               tp: Optional[Split] = None) -> Tuple[torch.Tensor, Aux]:
+    """xt [T, d] flat tokens -> (y [T, d] in xt's dtype, aux f32 scalars).
+
+    With ``tp`` the experts are split over "model" (``experts_shardable``):
+    the routing is the same on every rank, each rank runs the experts of its
+    E/M slice of the dispatch on its expert weights, and the combine sums
+    the ranks' outputs over "model"."""
     t, d = xt.shape
     e, k = cfg.num_experts, cfg.num_experts_per_tok
     cap = capacity(cfg, t)
@@ -94,21 +105,81 @@ def moe_tokens(xt: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
     z_loss = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
 
     pos, keep = slots(flat_e, e, cap)
-    slot = torch.where(keep, pos, cap).long()                      # cap: the drop bin
-
-    # dispatch into [E, C+1, d], the last row the drop bin
-    buf = xt.new_zeros((e, cap + 1, d)).index_put(
-        (flat_e, slot), xt.repeat_interleave(k, dim=0), accumulate=True)[:, :cap]
-    h = F.silu(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up)      # [E, C, f]
-    out = torch.bmm(h, w_down)                                     # [E, C, d]
-
-    # combine: gather back, weight by the gates, dropped slots 0
-    out = torch.cat([out, out.new_zeros((e, 1, d))], dim=1)
-    w = (gates.reshape(-1) * keep.float()).to(out.dtype)
-    y = (out[flat_e, slot] * w[:, None]).reshape(t, k, d).sum(dim=1)
     aux = {"moe_lb_loss": lb_loss, "moe_z_loss": z_loss,
            "moe_drop_frac": 1.0 - keep.float().mean()}
-    return y, aux
+    return _experts(xt, gates, flat_e, pos, keep, cap, w_gate, w_up, w_down, tp), aux
+
+
+def _experts(xt, gates, flat_e, pos, keep, cap, w_gate, w_up, w_down, tp: Optional[Split]):
+    """``moe_tokens``' dispatch, experts and combine on this rank's experts
+    (all of them without ``tp``).
+
+    Each of the rank's buffer rows [E/M, C+1] is told which (token, slot)
+    pair it holds (an int scatter); the last row of an expert holds none and
+    stays zero. The rank copies only those pairs' tokens into the buffer,
+    about T*k/M rows, and each token's output sums its k slots' rows of the
+    gate-weighted expert output (a dropped slot, or another rank's expert,
+    reads a zero row). So no [T*k, d] tensor exists."""
+    t, d = xt.shape
+    k = gates.shape[-1]
+    n = w_gate.shape[0]
+    first = tp.rank * n if tp is not None else 0
+    local_e = flat_e - first
+    mine = keep & (local_e >= 0) & (local_e < n)
+    at = torch.where(mine, local_e * (cap + 1) + pos, cap)         # [T*k]; cap: a zero row
+    pair = torch.full((n * (cap + 1),), t * k, dtype=torch.long, device=xt.device)
+    pair.scatter_(0, at, torch.arange(t * k, device=xt.device))
+    pair.view(n, cap + 1)[:, cap] = t * k                          # only dropped pairs went there
+    full = pair < t * k
+    tok, at = torch.where(full, pair // k, 0), at.view(t, k)
+    buf = _Dispatch.apply(copy_to_model(xt, tp), tok, full, at).view(n, cap + 1, d)
+    h = F.silu(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up)      # [E/M, C+1, f]
+    out = torch.bmm(h, w_down).view(-1, d)                         # [E/M * (C+1), d]
+    g = copy_to_model(gates, tp).reshape(-1)[pair.clamp(max=t * k - 1)]
+    out = out * torch.where(full, g, 0).to(out.dtype)[:, None]
+    return reduce_from_model(_Combine.apply(out, tok, full, at), tp)
+
+
+def _sum_slots(rows: torch.Tensor, at: torch.Tensor) -> torch.Tensor:
+    """rows [R, d] -> [T, d]: each token's rows ``at`` [T, k] summed in slot
+    order, in f32, cast back to ``rows``' dtype."""
+    y = rows[at[:, 0]].float()
+    for j in range(1, at.shape[1]):
+        y = y + rows[at[:, j]]
+    return y.to(rows.dtype)
+
+
+class _Dispatch(torch.autograd.Function):
+    """x [T, d] -> buffer rows [R, d], row r token ``tok[r]`` where
+    ``full[r]``, else zeros. The backward sums each token's slot rows
+    (``_sum_slots``) rather than scatter-adding them, whose order varies
+    between runs where the adds are atomic; so do ``_Combine``'s two
+    directions, the adjoints of these."""
+
+    @staticmethod
+    def forward(ctx, x, tok, full, at):
+        ctx.save_for_backward(full, at)
+        return x[tok].masked_fill_(~full[:, None], 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        full, at = ctx.saved_tensors
+        return _sum_slots(g.masked_fill(~full[:, None], 0), at), None, None, None
+
+
+class _Combine(torch.autograd.Function):
+    """rows [R, d] -> y [T, d], ``_sum_slots``; the backward gives row r
+    token ``tok[r]``'s gradient where ``full[r]`` (a zero row takes none)."""
+
+    @staticmethod
+    def forward(ctx, rows, tok, full, at):
+        ctx.save_for_backward(tok, full)
+        return _sum_slots(rows, at)
+
+    @staticmethod
+    def backward(ctx, g):
+        tok, full = ctx.saved_tensors
+        return g[tok].masked_fill_(~full[:, None], 0), None, None, None
 
 
 def aux_zero(device=None) -> Aux:
@@ -145,10 +216,11 @@ class MoE(nn.Module):
         the batch dims (the JAX package's ``shard_map`` over them; the expert
         weights are replicated there); without it every rank's rows are
         gathered and routed together, as GSPMD partitions the JAX package's
-        global dispatch, and the rank keeps its own rows' outputs."""
+        global dispatch, and the rank keeps its own rows' outputs; with the
+        experts split over "model" each rank runs its own (``moe_tokens``)."""
         mesh = get_ambient_mesh()
         dims = batch_dims(mesh)
-        weights = (self.router, self.w_gate, self.w_up, self.w_down)
+        weights = tuple(weight(self, n) for n in ("router", "w_gate", "w_up", "w_down"))
         if dims and x.dim() == 3:
             b, s, d = x.shape
             if self.cfg.moe_group_by_batch:
@@ -156,14 +228,14 @@ class MoE(nn.Module):
                 return y.reshape(b, s, d), {k: _mean_over(v, mesh, dims)
                                             for k, v in aux.items()}
             xs = _gather_rows(x, mesh, dims)
-            y, aux = moe_tokens(xs.reshape(-1, d), *weights, self.cfg)
+            y, aux = moe_tokens(xs.reshape(-1, d), *weights, self.cfg, split_of(self))
             r = _row_block(mesh, dims)
             return y.reshape(xs.shape)[r * b:(r + 1) * b], aux
         if self.cfg.moe_group_by_batch and x.dim() == 3:
             rows = [moe_tokens(row, *weights, self.cfg) for row in x]
             return (torch.stack([y for y, _ in rows]),
                     {key: torch.stack([a[key] for _, a in rows]).mean() for key in AUX_KEYS})
-        y, aux = moe_tokens(x.reshape(-1, x.shape[-1]), *weights, self.cfg)
+        y, aux = moe_tokens(x.reshape(-1, x.shape[-1]), *weights, self.cfg, split_of(self))
         return y.reshape(x.shape), aux
 
 

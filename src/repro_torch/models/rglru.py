@@ -27,6 +27,9 @@ from repro_torch.config.base import ModelConfig
 from repro_torch.device import dtype_of
 from repro_torch.kernels.ops import rglru_recurrence
 from repro_torch.models.layers import as_f32, conv_window, normal_
+from repro_torch.parallel.tensor import (
+    copy_to_model, gather_from_model, reduce_from_model, split_of, weight,
+)
 
 RglruCache = dict  # {"conv": [B, K-1, W] act dtype, "h": [B, W] f32}
 
@@ -35,10 +38,16 @@ _SQRT_EPS = 1e-6
 
 
 def _gates(p: "RGLRU", x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [..., W] (post-conv). Returns (log_a, gated input) in f32."""
+    """x: [..., W] (post-conv). Returns (log_a, gated input) in f32.
+
+    Split over "model", x is this rank's slice of the width and w_a, w_i
+    are split on their output dim only: the gates read the whole width,
+    gathered over "model" (its gradient summed back over "model")."""
     xf = x.float()
-    r = torch.sigmoid(xf @ as_f32(p, "w_a", p.w_a) + p.b_a)
-    i = torch.sigmoid(xf @ as_f32(p, "w_i", p.w_i) + p.b_i)
+    tp = split_of(p)
+    xg = xf if tp is None else copy_to_model(gather_from_model(xf, -1, tp), tp)
+    r = torch.sigmoid(xg @ as_f32(p, "w_a", weight(p, "w_a")) + p.b_a)
+    i = torch.sigmoid(xg @ as_f32(p, "w_i", weight(p, "w_i")) + p.b_i)
     log_a = -_C * F.softplus(p.lam) * r                       # [..., W] <= 0
     a2 = torch.exp(2.0 * log_a)
     beta = torch.sqrt(torch.clamp(1.0 - a2, min=_SQRT_EPS))
@@ -77,6 +86,11 @@ class RGLRU(nn.Module):
 
     ``b_a``, ``b_i`` and ``lam`` are f32 whatever ``param_dtype`` is. Prefill
     returns a new cache; decode updates the cache it is given in place.
+
+    Split over "model" (``rglru_shardable``), a rank computes its slice of
+    the width: w_x and w_gate are column-parallel, the conv, lam, b_a and
+    b_i are its slices, w_a and w_i their output columns (``_gates``), w_out
+    is row-parallel. Split layers train only.
     """
 
     def __init__(self, cfg: ModelConfig, device=None):
@@ -114,8 +128,10 @@ class RGLRU(nn.Module):
 
     def forward(self, x: torch.Tensor, *, mode: str, cache: Optional[RglruCache] = None
                 ) -> Tuple[torch.Tensor, RglruCache]:
-        gate = F.gelu(x @ self.w_gate, approximate="tanh")   # jax.nn.gelu's default
-        xr = x @ self.w_x
+        tp = split_of(self)
+        xc = copy_to_model(x, tp)
+        gate = F.gelu(xc @ weight(self, "w_gate"), approximate="tanh")  # jax.nn.gelu's default
+        xr = xc @ weight(self, "w_x")
         if mode == "decode":
             # cache: the last K-1 conv inputs and the f32 state, updated in
             # place here, where the JAX package returns new arrays.
@@ -132,7 +148,7 @@ class RGLRU(nn.Module):
                 "conv": conv_window(xr, self.cfg.rglru_conv - 1), "h": h_last}
         else:
             raise ValueError(f"unknown mode {mode!r}; expected train, prefill or decode")
-        return (y * gate) @ self.w_out, cache
+        return reduce_from_model((y * gate) @ weight(self, "w_out"), tp), cache
 
 
 def init_rglru_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,

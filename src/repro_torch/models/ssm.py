@@ -26,6 +26,9 @@ from repro_torch.config.base import ModelConfig
 from repro_torch.device import dtype_of
 from repro_torch.kernels.ops import ssd_scan
 from repro_torch.models.layers import conv_window, normal_
+from repro_torch.parallel.tensor import (
+    copy_to_model, reduce_from_model, scatter_to_model, split_of, sum_over_model, weight,
+)
 
 SsdCache = dict  # {"conv_x" [B,K-1,d_in], "conv_bc" [B,K-1,2gn], "ssm" [B,h,n,p] f32}
 
@@ -154,11 +157,21 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.T
     return F.silu(out + b[None, None, :])
 
 
-def _gated_rms_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """mamba2's RMSNormGated, norm(y * silu(z)), in f32, cast back to y's dtype."""
+def _gated_rms_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, tp=None
+                    ) -> torch.Tensor:
+    """mamba2's RMSNormGated, norm(y * silu(z)), in f32, cast back to y's dtype.
+
+    With ``tp`` y, z and scale are this rank's slice of d_inner: the mean of
+    squares is over the whole d_inner, its sum reduced over "model"."""
     gated = (y * F.silu(z.float()).to(y.dtype)).float()
-    out = gated * torch.rsqrt(gated.square().mean(dim=-1, keepdim=True) + GATED_NORM_EPS)
+    if tp is None:
+        ms = gated.square().mean(dim=-1, keepdim=True)
+    else:
+        ms = sum_over_model(gated.square().sum(dim=-1, keepdim=True), tp) / (
+            gated.shape[-1] * tp.size)
+    out = gated * torch.rsqrt(ms + GATED_NORM_EPS)
     return (out * scale.float()).to(y.dtype)
+
 
 
 class SSD(nn.Module):
@@ -167,6 +180,12 @@ class SSD(nn.Module):
     Projections are separate (w_z, w_x, w_bc, w_dt) as there; ``A_log``,
     ``D`` and ``dt_bias`` are f32 whatever ``param_dtype`` is. Prefill
     returns a new cache; decode updates the cache it is given in place.
+
+    Split over "model" (``ssd_shardable``), a rank computes its heads: w_z,
+    w_x (column-parallel), conv_x, A_log, D, dt_bias and the norm's scale
+    are its slices; w_bc, w_dt and conv_bc are whole (B and C feed every
+    head; the rank takes its heads of dt); the gated norm's mean of squares
+    is summed over "model"; w_out is row-parallel. Split layers train only.
     """
 
     def __init__(self, cfg: ModelConfig, device=None):
@@ -217,9 +236,14 @@ class SSD(nn.Module):
         d_in, nheads, g = ssd_dims(cfg)
         n, hp = cfg.ssm_state, cfg.ssm_headdim
         b, s, _ = x.shape
-        z, xr = x @ self.w_z, x @ self.w_x
-        bc, dt_raw = x @ self.w_bc, x @ self.w_dt
+        tp = split_of(self)
+        xc = copy_to_model(x, tp)
+        z, xr = xc @ weight(self, "w_z"), xc @ weight(self, "w_x")
+        bc, dt_raw = x @ weight(self, "w_bc"), x @ weight(self, "w_dt")
         A = -torch.exp(self.A_log)
+        if tp is not None:
+            d_in, nheads = d_in // tp.size, nheads // tp.size
+            dt_raw = scatter_to_model(dt_raw, -1, tp)
 
         if mode == "decode":
             # cache: the last K-1 conv inputs and the f32 state, updated in
@@ -241,7 +265,7 @@ class SSD(nn.Module):
             cache["ssm"].copy_(new_state)
         elif mode in ("train", "prefill"):
             cx = _causal_conv(xr, self.conv_x_w, self.conv_x_b)
-            cbc = _causal_conv(bc, self.conv_bc_w, self.conv_bc_b)
+            cbc = copy_to_model(_causal_conv(bc, self.conv_bc_w, self.conv_bc_b), tp)
             x_ = cx.reshape(b, s, nheads, hp)
             B_, C_ = (t.reshape(b, s, g, n) for t in cbc.split(g * n, dim=-1))
             dt = F.softplus(dt_raw.float() + self.dt_bias)
@@ -254,7 +278,8 @@ class SSD(nn.Module):
                 "ssm": final_state}
         else:
             raise ValueError(f"unknown mode {mode!r}; expected train, prefill or decode")
-        return _gated_rms_norm(y, z, self.norm_scale) @ self.w_out, cache
+        return reduce_from_model(
+            _gated_rms_norm(y, z, self.norm_scale, tp) @ weight(self, "w_out"), tp), cache
 
 
 def init_ssd_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,

@@ -57,6 +57,7 @@ from repro_torch.models.rglru import RGLRU as RGLRUMixer
 from repro_torch.models.rglru import init_rglru_cache
 from repro_torch.models.ssm import SSD as SSDMixer
 from repro_torch.models.ssm import init_ssd_cache
+from repro_torch.parallel.tensor import copy_to_model, reduce_from_model, split_of, weight
 
 # attention: {"k": [B, Smax, Hk, hd], "v": [B, Smax, Hk, hd]} (Smax = local_window
 # for local attention, a ring: position p in slot p % W; "k" [B, Hk, hd, Smax]
@@ -71,7 +72,15 @@ Cache = dict
 # ---------------------------------------------------------------------------
 
 class Attention(nn.Module):
-    """Global causal (``mixer=ATTN``) or sliding-window (``LOCAL_ATTN``) attention."""
+    """Global causal (``mixer=ATTN``) or sliding-window (``LOCAL_ATTN``) attention.
+
+    Split over "model" (``q_shardable``), a rank projects its own q heads
+    (column-parallel wq, bq) and its kv heads when ``kv_shardable``; when
+    the kv heads do not divide, wk and wv are whole on every rank, and the
+    rank keeps the kv heads that its q heads read (one a rank when its q
+    heads share a group, else one per q head). ``wo`` is row-parallel. When
+    the q heads do not divide, nothing is split and the attention runs whole
+    on every rank. Split layers train only."""
 
     def __init__(self, cfg: ModelConfig, mixer: str = ATTN, device=None):
         super().__init__()
@@ -105,13 +114,48 @@ class Attention(nn.Module):
     def _qkv(self, x: torch.Tensor):
         cfg = self.cfg
         hd = cfg.resolved_head_dim
-        q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
+        tp = split_of(self)
+        if tp is not None:
+            return self._qkv_split(x, tp)
+        q, k, v = (x @ weight(self, w) for w in ("wq", "wk", "wv"))
         if self.bq is not None:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
         shp = x.shape[:-1]
         return (q.reshape(*shp, cfg.num_heads, hd),
                 k.reshape(*shp, cfg.num_kv_heads, hd),
                 v.reshape(*shp, cfg.num_kv_heads, hd))
+
+    def _qkv_split(self, x: torch.Tensor, tp):
+        """This rank's q heads and the kv heads they read."""
+        cfg = self.cfg
+        hd, hq, hk = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+        shp = x.shape[:-1]
+        xc = copy_to_model(x, tp)
+        q = xc @ weight(self, "wq")
+        if self.bq is not None:
+            q = q + self.bq
+        q = q.reshape(*shp, -1, hd)
+        kv = []
+        for w, b in (("wk", self.bk), ("wv", self.bv)):
+            t = (xc if self.wk.shape[-1] < hk * hd else x) @ weight(self, w)
+            if b is not None:
+                t = t + b
+            kv.append(t.reshape(*shp, -1, hd))
+        k, v = kv
+        if k.shape[-2] == hk:
+            # whole kv heads on every rank (whole compute, whole gradients):
+            # keep the ones this rank's q heads read, their gradient summed
+            # over "model" where the kept heads are used
+            first, n = tp.part(hq)
+            used = [(first + i) // (hq // hk) for i in range(n)]
+            keep = sorted(set(used))
+            k, v = copy_to_model(k, tp), copy_to_model(v, tp)
+            if used == [h for h in keep for _ in range(n // len(keep))]:
+                k, v = k.narrow(-2, keep[0], len(keep)), v.narrow(-2, keep[0], len(keep))
+            else:       # one kv head per q head
+                idx = torch.tensor(used, device=x.device)
+                k, v = k.index_select(-2, idx), v.index_select(-2, idx)
+        return q, k, v
 
     def forward(self, x: torch.Tensor, *, mode: str, cache: Optional[Cache],
                 pos=None, max_len: int = 0) -> Tuple[torch.Tensor, Cache]:
@@ -164,7 +208,7 @@ class Attention(nn.Module):
         else:
             raise ValueError(f"unknown mode {mode!r}; expected train, prefill or decode")
         o = o.reshape(b, o.shape[1], -1)
-        return o @ self.wo, cache
+        return reduce_from_model(o @ weight(self, "wo"), split_of(self)), cache
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int,

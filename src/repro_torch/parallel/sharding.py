@@ -224,6 +224,35 @@ def named(mesh, spec_tree):
     return _tree_map(lambda s: Sharding(mesh, placements(mesh, s)), spec_tree)
 
 
+def split_dims(mesh, placements) -> tuple:
+    """The mesh dims of more than one rank that split a tensor so placed."""
+    from torch.distributed.tensor import Shard
+
+    return tuple(m for m, p in enumerate(placements)
+                 if isinstance(p, Shard) and mesh.size(m) > 1)
+
+
+def shard_of(t, mesh, placements):
+    """This rank's shard of ``t`` (a view): DTensor's split of each ``Shard``
+    dim, ``torch.chunk``'s, in mesh-dim order; ``t`` itself when no dim of
+    more than one rank splits it. Its shape and offset along each split dim
+    are ``shard_range``'s."""
+    for m in split_dims(mesh, placements):
+        d, n, i = placements[m].dim, mesh.size(m), mesh.get_local_rank(m)
+        off, length = shard_range(t.shape[d], n, i)
+        t = t.narrow(d, off, length)
+    return t
+
+
+def shard_range(size: int, n: int, i: int) -> tuple:
+    """(offset, length) of part ``i`` of a dim of ``size`` cut into ``n`` as
+    ``torch.chunk`` cuts it (parts of ceil(size / n), the last ones short or
+    empty)."""
+    c = -(-size // n)
+    off = min(i * c, size)
+    return off, max(0, min(c, size - off))
+
+
 # ---------------------------------------------------------------------------
 # The ambient mesh (the JAX package's ``set_mesh`` / ``get_ambient_mesh``)
 # ---------------------------------------------------------------------------

@@ -11,42 +11,49 @@ device).
 
 ``make_train_step(model, par, train, mesh)`` returns ``(step, init_fn,
 jit_step, rules)`` as the JAX package's does. ``jit_step(params)`` gives the
-step on ``mesh``. The parameters stay the model's own tensors, whole on
-every rank, since every rank computes on them whole: the model dims shard
-storage of the optimizer, not compute (GSPMD's tensor-parallel split of the
-matmuls is not reproduced). The AdamW moments are DTensors placed by
-``ShardingRules`` (``Shard`` on a "model" dim, and on a "data" dim under
-``fsdp``; replicated over "pod"), and the batch is split over
+step on ``mesh``, which computes as GSPMD runs the JAX step under
+``ShardingRules``: ``place`` puts this rank's shard of each parameter into
+the model (``parallel.tensor.shard_model``: exactly the rules' shard shapes)
+and the layers compute on those shards, tensor-parallel over "model"
+(heads, d_ff, experts, SSD heads, the RG-LRU width and the vocab; Megatron's
+column- and row-parallel matmuls, the vocab-parallel embedding and
+cross-entropy, expert parallelism) and, under ``fsdp``, ZeRO-3 over "data"
+(a parameter's "data" shards gathered just before its layer uses it, its
+gradient reduce-scattered). The AdamW moments are DTensors placed by the
+same rules (replicated over "pod"), and the batch is split over
 ``par.batch_axes()``. A step runs the forward and the backward on this
 rank's rows of the batch with the loss normalised by the whole batch's
-token count, all-reduces the gradients over the batch dims, and from there
-works on this rank's shard of each parameter (a view, as the rules place
-it): the global norm from one all-reduce of the shards' sums of squares,
-the clip, and AdamW (elementwise) on the shard and its moments in place;
-then it all-gathers each parameter that a dim of more than one rank splits.
-On a mesh of one rank every shard is the whole tensor: no collective runs
-and no parameter is copied, so the step is ``train_step``'s arithmetic.
-Mixing across batch rows goes through explicit collectives under the
-ambient mesh (``parallel.use_mesh``): the MoE's routing (each rank its rows
-with ``moe_group_by_batch``, else every row together) and its aux values.
-With micro-batches each rank splits its own rows, which is the JAX split
-(global row chunks) when every micro-batch has the same unmasked token count
-and no MoE routes across rows.
+token count; the gradient of a split parameter comes out of the backward as
+this rank's shard, and each gradient is all-reduced over the batch dims
+that do not split it (under ZeRO-3 the backward's reduce-scatter has summed
+it over "data"). Then the global norm from one all-reduce of the shards'
+sums of squares, the clip, and AdamW (elementwise) on the shards of the
+parameters and moments in place. No parameter is gathered whole; ``full``
+gathers them for a checkpoint and ``unplace`` puts them back whole into the
+model. On a mesh of one rank every shard is the whole tensor: no collective
+runs and no parameter is copied, so the step is ``train_step``'s
+arithmetic. Mixing across batch rows goes through explicit collectives under
+the ambient mesh (``parallel.use_mesh``): the MoE's routing (each rank its
+rows with ``moe_group_by_batch``, else every row together) and its aux
+values. With micro-batches each rank splits its own rows, which is the JAX
+split (global row chunks) when every micro-batch has the same unmasked token
+count and no MoE routes across rows.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor import DTensor
 
 from repro_torch.config.base import ModelConfig, ParallelConfig, TrainConfig
 from repro_torch.models.model import Model, chunked_ce_loss
 from repro_torch.models.moe import AUX_KEYS
 from repro_torch.parallel.sharding import (
-    ShardingRules, batch_dims, named, use_mesh,
+    ShardingRules, batch_dims, named, shard_of, split_dims, use_mesh,
 )
+from repro_torch.parallel.tensor import shard_model, split_of, unshard_model
 from repro_torch.train.optimizer import (
     AdamState, adam_update, clip_by_global_norm, global_norm, init_adam,
 )
@@ -145,7 +152,8 @@ def _rank_objective(model: Model, batch: Batch, mesh, dims: tuple) -> Tuple[torc
     cfg = model.cfg
     inputs = batch["tokens"] if cfg.embed_inputs else batch["embeds"]
     h, aux, _ = model.backbone(model.embed(inputs), mode="train", remat=model.remat)
-    tot, cnt = chunked_ce_loss(h, model.embed.weight(), batch["labels"], cfg.logit_softcap)
+    tot, cnt = chunked_ce_loss(h, model.embed.weight(), batch["labels"], cfg.logit_softcap,
+                               split_of(model.embed))
     counts = _sum_over(torch.stack([tot.detach(), cnt.detach()]), mesh, dims)
     denom = torch.clamp(counts[1], min=1.0)
     ce = counts[0] / denom
@@ -162,79 +170,110 @@ def _rank_objective(model: Model, batch: Batch, mesh, dims: tuple) -> Tuple[torc
     return share, {k: metrics[k] for k in _logged(model)}
 
 
-def _rank_grads(model: Model, batch: Batch, micro: int, mesh, dims: tuple
+def _rank_grads(model: Model, batch: Batch, micro: int, mesh, dims: tuple, reduce: dict
                 ) -> Tuple[dict, Dict[str, torch.Tensor]]:
     """(metrics, gradients of the loss over the whole batch): this rank's
-    ``accumulated_grads`` of its share, summed over the batch dims."""
+    ``accumulated_grads`` of its share, each summed over the batch dims
+    ``reduce`` names for it."""
     with use_mesh(mesh):    # the backward's recompute (remat) runs under it too
         metrics, grads = accumulated_grads(
             model, batch, micro, lambda m, b: _rank_objective(m, b, mesh, dims))
-    return metrics, {n: _sum_over(g.contiguous(), mesh, dims) for n, g in grads.items()}
+    return metrics, {n: _sum_over(g.contiguous(), mesh, reduce[n]) for n, g in grads.items()}
 
 
-def _split_dims(mesh, placements) -> tuple:
-    """The mesh dims of more than one rank that split a tensor so placed."""
-    return tuple(m for m, p in enumerate(placements)
-                 if isinstance(p, Shard) and mesh.size(m) > 1)
-
-
-def _shard_of(t: torch.Tensor, mesh, placements) -> torch.Tensor:
-    """This rank's shard of ``t`` (a view): DTensor's split of each ``Shard``
-    dim, ``torch.chunk``'s, in mesh-dim order; ``t`` itself when no dim of
-    more than one rank splits it."""
-    for m in _split_dims(mesh, placements):
-        d, n, i = placements[m].dim, mesh.size(m), mesh.get_local_rank(m)
-        parts = t.chunk(n, dim=d)
-        t = parts[i] if i < len(parts) else t.narrow(d, 0, 0)
-    return t
+_shard_of = shard_of     # the name it had when it lived in this module
 
 
 class ShardedStep:
     """The train step on a mesh (see the module docstring):
     ``step(params, opt_state, batch) -> (params, opt_state, metrics)`` with
-    ``params`` the model's parameters by name and the moments DTensors, both
-    updated in place, and ``batch`` the whole batch on every rank (each rank
-    keeps its rows, split over the batch dims, no collective)."""
+    ``params`` the model's parameters by name (this rank's shards once
+    ``place`` has run) and the moments DTensors, both updated in place, and
+    ``batch`` the whole batch on every rank (each rank keeps its rows, split
+    over the batch dims, no collective)."""
 
     def __init__(self, model: Model, par: ParallelConfig, train: TrainConfig, mesh,
                  rules: ShardingRules, param_specs: dict):
         self.model, self.par, self.train, self.mesh = model, par, train, mesh
+        self.rules = rules
         self.param_pl = {k: s.placements for k, s in named(mesh, param_specs).items()}
         self.batch_pl = {k: s.placements
                          for k, s in named(mesh, batch_specs(model.cfg, rules)).items()}
         self.dims = batch_dims(mesh)
-        self.split = {k: _split_dims(mesh, pl) for k, pl in self.param_pl.items()}
+        self.split = {k: split_dims(mesh, pl) for k, pl in self.param_pl.items()}
+        names = mesh.mesh_dim_names
+        self.reduce = {k: tuple(a for a in self.dims if names.index(a) not in sd)
+                       for k, sd in self.split.items()}
+        self.shapes = dict(getattr(model, "whole_shapes", None)
+                           or {k: p.shape for k, p in model.named_parameters()})
         # a rank adds its shards' squares to the global norm when it is the
         # first of their replicas (coordinate 0 on every dim not splitting them)
         coords = [mesh.get_local_rank(m) for m in range(mesh.ndim)]
         self.counts = {k: all(coords[m] == 0 for m in range(mesh.ndim) if m not in sd)
                        for k, sd in self.split.items()}
 
-    def place(self, params: Dict[str, torch.Tensor], opt_state: AdamState
+    def place(self, params: Dict[str, torch.Tensor], opt_state: Optional[AdamState] = None
               ) -> Tuple[Dict[str, torch.Tensor], AdamState]:
-        """(the model's parameters, holding ``params``' values; the moments
-        (the same on every rank) as DTensors placed by the rules: each rank
-        keeps its shard, no collective)."""
+        """(the model's parameters, holding this rank's shards of ``params``'
+        whole values; the moments as DTensors placed by the rules). The
+        moments are ``opt_state``'s (whole, the same on every rank: each rank
+        keeps its shard, no collective), or without it zeros in
+        ``par.opt_state_dtype`` of which each rank allocates only its shard.
+        The first call splits the model (``shard_model``)."""
         own = dict(self.model.named_parameters())
         with torch.no_grad():
             for k, t in params.items():
-                if t is not own[k]:
-                    own[k].copy_(t)
+                t, p = t.detach(), own[k]
+                if t.shape != p.shape:          # whole values for a model already split
+                    t = shard_of(t, self.mesh, self.param_pl[k])
+                if t.device.type == "meta" or t.data_ptr() != p.data_ptr():
+                    p.copy_(t)
+        if not getattr(self.model, "sharded", False):
+            shard_model(self.model, self.mesh, self.rules)
 
         def put(tree):
             out = {}
             for k, t in tree.items():
-                local = _shard_of(t.detach(), self.mesh, self.param_pl[k])
+                local = shard_of(t.detach(), self.mesh, self.param_pl[k])
                 if local.shape != t.shape:
                     local = local.clone()      # frees the whole tensor's storage
-                out[k] = DTensor.from_local(local, self.mesh, self.param_pl[k],
-                                            run_check=False, shape=t.shape, stride=t.stride())
+                out[k] = self._dtensor(k, local)
             return out
+        if opt_state is None:
+            zeros = init_adam({k: p.detach() for k, p in own.items()}, self.par.opt_state_dtype)
+            return own, AdamState(step=zeros.step,
+                                  m={k: self._dtensor(k, t) for k, t in zeros.m.items()},
+                                  v={k: self._dtensor(k, t) for k, t in zeros.v.items()})
         return own, AdamState(step=opt_state.step, m=put(opt_state.m), v=put(opt_state.v))
+
+    def _dtensor(self, k: str, local: torch.Tensor) -> DTensor:
+        """``local``, this rank's shard of the whole parameter ``k``'s shape,
+        as a DTensor placed by the rules."""
+        shape = torch.Size(self.shapes[k])
+        return DTensor.from_local(local, self.mesh, self.param_pl[k], run_check=False,
+                                  shape=shape, stride=torch.empty(shape, device="meta").stride())
+
+    def full(self, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Each parameter whole (an all-gather over the dims that split it;
+        the parameter itself where none does)."""
+        out = {}
+        for k, p in params.items():
+            p = p.detach()
+            if self.split[k]:
+                p = self._dtensor(k, p.contiguous()).full_tensor()
+            out[k] = p
+        return out
+
+    def unplace(self, params: Dict[str, torch.Tensor]) -> None:
+        """Puts every parameter back whole into the model (``full``), which
+        then computes whole again."""
+        if getattr(self.model, "sharded", False):
+            unshard_model(self.model, {k: t for k, t in self.full(params).items()
+                                       if self.split[k]})
 
     def _rows(self, batch: Batch) -> Batch:
         """This rank's rows of the batch."""
-        return {k: _shard_of(v, self.mesh, self.batch_pl[k]) for k, v in batch.items()}
+        return {k: shard_of(v, self.mesh, self.batch_pl[k]) for k, v in batch.items()}
 
     def _global_norm(self, shards: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The norm of the whole gradient tree from the shards: each rank's
@@ -251,38 +290,25 @@ class ShardedStep:
         dist.all_reduce(vec)
         return torch.sqrt(sum(vec.unbind()))
 
-    @torch.no_grad()
-    def _gather(self, params: Dict[str, torch.Tensor], shards: Dict[str, torch.Tensor]) -> None:
-        """Writes every rank's shard into each parameter that a dim of more
-        than one rank splits (an all-gather over those dims)."""
-        for k, p in params.items():
-            if self.split[k]:
-                whole = DTensor.from_local(shards[k].contiguous(), self.mesh, self.param_pl[k],
-                                           run_check=False, shape=p.shape, stride=p.stride())
-                p.copy_(whole.full_tensor())
-
     def __call__(self, params: Dict[str, torch.Tensor], opt_state: AdamState, batch: Batch):
         return self.step_rows(params, opt_state, self._rows(batch))
 
     def step_rows(self, params: Dict[str, torch.Tensor], opt_state: AdamState, rows: Batch):
         """The step on this rank's rows of the batch (``__call__`` takes them
         from the whole batch; the dry run gives them alone)."""
-        metrics, grads = _rank_grads(self.model, rows,
-                                     max(self.par.microbatches, 1), self.mesh, self.dims)
-        grads = {k: _shard_of(g, self.mesh, self.param_pl[k]) for k, g in grads.items()}
+        metrics, grads = _rank_grads(self.model, rows, max(self.par.microbatches, 1),
+                                     self.mesh, self.dims, self.reduce)
         grads, gnorm = clip_by_global_norm(grads, self.train.grad_clip,
                                            self._global_norm(grads))
         # AdamW is elementwise: it runs on this rank's shards of the
-        # parameters (views) and its shards of the moments, in place
-        shards = {k: _shard_of(p.detach(), self.mesh, self.param_pl[k])
-                  for k, p in params.items()}
+        # parameters and of the moments, in place
         _, state, om = adam_update(
-            shards, grads, AdamState(step=opt_state.step,
-                                     m={k: t.to_local() for k, t in opt_state.m.items()},
-                                     v={k: t.to_local() for k, t in opt_state.v.items()}),
+            {k: p.detach() for k, p in params.items()}, grads,
+            AdamState(step=opt_state.step,
+                      m={k: t.to_local() for k, t in opt_state.m.items()},
+                      v={k: t.to_local() for k, t in opt_state.v.items()}),
             self.train)
         del grads
-        self._gather(params, shards)
         opt_state = AdamState(step=state.step, m=opt_state.m, v=opt_state.v)
         return params, opt_state, dict(metrics, grad_norm=gnorm, **om)
 

@@ -73,13 +73,16 @@ def test_fake_group_counts_equal_gloo_ranks(tmp_path):
     """The smoke qwen's mesh step on a fake (2, 2, 2) group on meta and on 8
     real gloo ranks on the CPU: the same collectives (kind, mesh dims, group,
     result bytes, count) and the same bytes. FLOPs differ by design (the CPU
-    runs the flash op's plain version; meta counts the kernel's formula)."""
+    runs the flash op's plain version; meta counts the kernel's formula).
+    The split step gathers no parameter: every collective is an all-reduce
+    (the gradients over the batch dims, the activations over "model")."""
     args = {"cfg": get_model_config("qwen1.5-0.5b", smoke=True), "batch": (8, 64)}
     fake = harness.run_fake("record_step", dict(args, device="meta"), tmp_path / "fake.pt")
     real = harness.run_ranks("record_step", dict(args, device="cpu"), tmp_path / "real.pt")
     assert fake["collectives"] == real["collectives"]
     kinds = {c[0] for c in fake["collectives"]}
-    assert kinds == {"all-reduce", "all-gather"}
+    assert kinds == {"all-reduce"}
+    assert any(c[1] == ("model",) for c in fake["collectives"])
     for key in ("collective_bytes_per_device", "inter_pod_bytes_per_device",
                 "intra_pod_bytes_per_device", "by_kind", "num_collectives"):
         assert fake["summary"][key] == real["summary"][key], key

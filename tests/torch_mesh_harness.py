@@ -4,7 +4,9 @@ forced host devices, each in a subprocess.
 
 ``run_ranks(job, args, out)`` spawns 8 CPU processes (``torch.distributed``
 with gloo over localhost) that each run ``JOBS[job](mesh, args)``; rank 0's
-return value is saved with ``torch.save`` to ``out``. ``run_fake(job, args,
+return value is saved with ``torch.save`` to ``out``. ``shape`` and ``axes``
+give another mesh (the ranks are its size): the tensor-parallel layer cases
+run on 2 ranks of a (1, 2) ("data", "model") mesh. ``run_fake(job, args,
 out, shape, axes)`` runs the job once, as rank 0 of a fake process group of
 the mesh's ranks (``launch.mesh.fake_mesh``; its collectives move no data),
 in a subprocess. ``run_jax(script,
@@ -35,15 +37,17 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(rank: int, job: str, args: dict, out: str, port: int) -> None:
+def _rank_main(rank: int, job: str, args: dict, out: str, port: int,
+               shape=(2, 2, 2), axes=("pod", "data", "model")) -> None:
+    import math
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
-                            world_size=WORLD)
+                            world_size=math.prod(shape))
     try:
-        mesh = init_device_mesh("cpu", (2, 2, 2), mesh_dim_names=("pod", "data", "model"))
+        mesh = init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(axes))
         result = JOBS[job](mesh, args)
         if rank == 0:
             torch.save(result, out)
@@ -52,8 +56,13 @@ def _rank_main(rank: int, job: str, args: dict, out: str, port: int) -> None:
         dist.destroy_process_group()
 
 
-def run_ranks(job: str, args: dict, out: Path):
-    """Runs ``job`` on 8 gloo ranks in a subprocess; returns rank 0's result."""
+def run_ranks(job: str, args: dict, out: Path, shape=(2, 2, 2),
+              axes=("pod", "data", "model")):
+    """Runs ``job`` on the gloo ranks of a ``shape`` mesh (8 by default) in a
+    subprocess; returns rank 0's result."""
+    n = 1
+    for k in shape:
+        n *= k
     script = textwrap.dedent(f"""
         import sys, warnings
         warnings.simplefilter("ignore")
@@ -62,7 +71,8 @@ def run_ranks(job: str, args: dict, out: Path):
         import torch_mesh_harness as h
         if __name__ == "__main__":
             mp.spawn(h._rank_main, args=({job!r}, h.load_args({str(out)!r}), {str(out)!r},
-                                         h._free_port()), nprocs=h.WORLD)
+                                         h._free_port(), {tuple(shape)!r}, {tuple(axes)!r}),
+                     nprocs={n})
     """)
     torch.save(args, str(out) + ".args")
     _run([sys.executable, "-c", script])
@@ -168,7 +178,8 @@ def job_all(mesh, args: dict) -> dict:
 
 def job_train(mesh, args: dict) -> dict:
     """One ``make_train_step`` step per arch on the mesh, from the given
-    weights and batch: {arch: {"metrics", "params"}} (the full params)."""
+    weights and batch: {arch: {"metrics", "params"}} (the params gathered
+    whole from the ranks' shards)."""
     from repro_torch.config import ParallelConfig, TrainConfig
     from repro_torch.models import build_model
     from repro_torch.train.train_step import make_train_step
@@ -185,7 +196,7 @@ def job_train(mesh, args: dict) -> dict:
         params, opt = step.place(params, init_adam(params))
         params, opt, metrics = step(params, opt, batch)
         out[arch] = {"metrics": {k: float(v) for k, v in metrics.items()},
-                     "params": {k: p.detach().clone() for k, p in model.named_parameters()}}
+                     "params": {k: p.clone() for k, p in step.full(params).items()}}
     return out
 
 
@@ -200,7 +211,7 @@ def job_record_step(mesh, args: dict) -> dict:
     from repro_torch.train.train_step import make_train_step
 
     dev = args["device"]
-    par = ParallelConfig(multi_pod=True, pods=2, data=2, model=2)
+    par = ParallelConfig(multi_pod=True, pods=2, data=2, model=2, **args.get("par", {}))
     model = build_model(args["cfg"], device=dev)
     _, _, jit_step, _ = make_train_step(model, par, TrainConfig(), mesh)
     params = dict(model.named_parameters())
@@ -242,5 +253,215 @@ def job_synthetic(mesh, args: dict) -> dict:
     return {mp: collective_summary(rec, mp) for mp in (True, False)}
 
 
+# ---------------------------------------------------------------------------
+# Tensor-parallel compute: each split layer against itself whole, and the
+# split train step
+# ---------------------------------------------------------------------------
+
+def _f32_config(arch: str, **kw):
+    from repro_torch.config import get_model_config
+    return dataclasses.replace(get_model_config(arch, smoke=True), act_dtype="float32",
+                               param_dtype="float32", **kw)
+
+
+def tp_layer_cases() -> dict:
+    """name -> (config, attribute, make(cfg), run(module, x, ids, labels)):
+    one layer under the attribute name that its parameters' rules read,
+    and the output (or loss) whose gradient the check takes."""
+    from repro_torch.config.base import ATTN, LOCAL_ATTN
+    from repro_torch.models.layers import MLP, Embed
+    from repro_torch.models.model import chunked_ce_loss
+    from repro_torch.models.moe import MoE
+    from repro_torch.models.rglru import RGLRU
+    from repro_torch.models.ssm import SSD
+    from repro_torch.models.transformer import Attention
+    from repro_torch.parallel.tensor import split_of
+
+    def mixer(m, x, ids, labels):
+        return m(x, mode="train", cache=None)[0]
+
+    def moe(m, x, ids, labels):
+        y, aux = m(x)
+        return y * (1.0 + aux["moe_lb_loss"] + aux["moe_z_loss"])
+
+    def embed_ce(m, x, ids, labels):
+        tot, _ = chunked_ce_loss(m(ids) + x, m.weight(), labels, m.cfg.logit_softcap,
+                                 split_of(m))
+        return tot
+
+    internlm = "internlm2-1.8b"
+    return {
+        "mlp swiglu": (_f32_config("qwen1.5-0.5b"), "mlp",
+                       lambda c: MLP(c, "swiglu"), lambda m, x, i, l: m(x)),
+        "mlp relu2": (_f32_config("nemotron-4-340b"), "mlp",
+                      lambda c: MLP(c, "relu2"), lambda m, x, i, l: m(x)),
+        "embed and CE, tied, softcap": (_f32_config("recurrentgemma-2b"), "embed", Embed,
+                                        embed_ce),
+        "embed and CE, untied": (_f32_config("deepseek-67b"), "embed", Embed, embed_ce),
+        "attention, q and kv heads split": (_f32_config("qwen1.5-0.5b"), "attn",
+                                            lambda c: Attention(c, ATTN), mixer),
+        "attention, kv heads whole, one a rank": (
+            _f32_config(internlm, num_kv_heads=1), "attn", lambda c: Attention(c, ATTN), mixer),
+        "attention, kv heads whole, one per q head": (
+            _f32_config(internlm, num_heads=6, num_kv_heads=3, head_dim=16), "attn",
+            lambda c: Attention(c, ATTN), mixer),
+        "attention, q heads do not divide": (
+            _f32_config(internlm, num_heads=3, num_kv_heads=1, head_dim=16), "attn",
+            lambda c: Attention(c, ATTN), mixer),
+        "local attention, kv heads whole": (_f32_config("recurrentgemma-2b"), "attn",
+                                            lambda c: Attention(c, LOCAL_ATTN), mixer),
+        "ssd": (_f32_config("mamba2-370m"), "ssd", SSD, mixer),
+        "rglru": (_f32_config("recurrentgemma-2b"), "rglru", RGLRU, mixer),
+        "moe experts split": (_f32_config("granite-moe-1b-a400m"), "moe", MoE, moe),
+    }
+
+
+# planted faults: each must make its case part from the whole layer
+TP_PLANTED = {
+    "wo all-reduce dropped": "attention, q and kv heads split",
+    "gated-norm sum not reduced over model": "ssd",
+    "RG-LRU gates read the local width only": "rglru",
+}
+
+
+def plant(fault: str):
+    """A context that plants ``fault`` (TP_PLANTED) in the port's modules."""
+    import contextlib
+    from repro_torch.models import rglru, ssm, transformer
+
+    def local_width_only(x, dim, tp):
+        parts = [torch.zeros_like(x)] * tp.size
+        parts[tp.rank] = x
+        return torch.cat(parts, dim=dim)
+
+    target = {"wo all-reduce dropped": (transformer, "reduce_from_model", lambda x, tp: x),
+              "gated-norm sum not reduced over model": (ssm, "sum_over_model",
+                                                        lambda x, tp: x * tp.size),
+              "RG-LRU gates read the local width only": (rglru, "gather_from_model",
+                                                         local_width_only)}[fault]
+
+    @contextlib.contextmanager
+    def ctx():
+        mod, name, fn = target
+        old = getattr(mod, name)
+        setattr(mod, name, fn)
+        try:
+            yield
+        finally:
+            setattr(mod, name, old)
+    return ctx()
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def job_tp_layers(mesh, args: dict) -> dict:
+    """Each case of ``tp_layer_cases`` whole and split over "model" (the
+    rules of a 1 x 2 mesh), on the same weights, input and output gradient:
+    the largest relative error over the ranks of the output, the input's
+    gradient and each parameter's gradient (the split one against its shard
+    of the whole one), and the names of the parameters split; then the
+    planted faults' output errors."""
+    import copy
+    import torch.distributed as dist
+    from repro_torch.config import ParallelConfig
+    from repro_torch.parallel.sharding import ShardingRules, named, shard_of
+    from repro_torch.parallel.tensor import shard_model
+
+    par = ParallelConfig(multi_pod=False, data=1, model=2)
+    cases = tp_layer_cases()
+
+    def run_case(name, fault=None):
+        cfg, attr, make, run = cases[name]
+        whole = torch.nn.Module()
+        setattr(whole, attr, make(cfg))
+        getattr(whole, attr).reset_parameters(torch.Generator().manual_seed(1))
+        split = copy.deepcopy(whole)
+        rules = ShardingRules(cfg, par)
+        shard_model(split, mesh, rules)
+        gen = torch.Generator().manual_seed(2)
+        b, s = 2, 48
+        x = torch.randn((b, s, cfg.d_model), generator=gen)
+        ids = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
+        labels = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
+        labels[0, :5] = -1
+        outs = {}
+        for tag, h in (("whole", whole), ("split", split)):
+            xi = x.clone().requires_grad_(True)
+            if tag == "split" and fault is not None:
+                with plant(fault):
+                    y = run(getattr(h, attr), xi, ids, labels)
+            else:
+                y = run(getattr(h, attr), xi, ids, labels)
+            gy = torch.randn(y.shape, generator=torch.Generator().manual_seed(3))
+            g = torch.autograd.grad((y * gy).sum(), [xi, *h.parameters()])
+            outs[tag] = (y.detach(), g[0], dict(zip([n for n, _ in h.named_parameters()],
+                                                    g[1:])))
+        (yw, xw, gw), (ys, xs, gs) = outs["whole"], outs["split"]
+        pl = {n: named(mesh, rules.param_spec(n, p.dim())).placements
+              for n, p in whole.named_parameters()}
+        errs = [_rel(ys, yw), _rel(xs, xw),
+                max(_rel(gs[n], shard_of(gw[n], mesh, pl[n])) for n in gw)]
+        t = torch.tensor(errs, dtype=torch.float64)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        split_names = sorted(n for n, p in split.named_parameters()
+                             if p.shape != dict(whole.named_parameters())[n].shape)
+        return {"out": float(t[0]), "x_grad": float(t[1]), "param_grad": float(t[2]),
+                "split": split_names}
+
+    out = {name: run_case(name) for name in cases}
+    out["planted"] = {f: run_case(case, f)["out"] for f, case in TP_PLANTED.items()}
+    return out
+
+
+def job_tp_train(mesh, args: dict) -> dict:
+    """Two steps of the split ``make_train_step`` step on the (2, 2, 2)
+    mesh for each case: {name: {"metrics": [step 1, step 2], "params": the
+    params after step 2 gathered whole, "bad_shapes": the (rank, name) of
+    every parameter or moment whose local shape is not the rules' shard
+    shape, over all ranks, "whole_held": every split parameter some rank
+    holds whole}}."""
+    import torch.distributed as dist
+    from repro_torch.config import ParallelConfig, TrainConfig
+    from repro_torch.launch.specs import shard_shape
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import init_adam
+    from repro_torch.train.train_step import make_train_step
+
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    out = {}
+    for name, (cfg, par_kw, state, batches) in args["cases"].items():
+        par = ParallelConfig(multi_pod=True, pods=2, data=2, model=2, **par_kw)
+        model = build_model(cfg, device="cpu")
+        model.load_state_dict(state)
+        _, _, jit_step, rules = make_train_step(model, par, TrainConfig(**args["train"]), mesh)
+        params = dict(model.named_parameters())
+        whole = {k: tuple(p.shape) for k, p in params.items()}
+        step = jit_step(params)
+        params, opt = step.place(params, init_adam(params))
+        bad, held = [], []
+        for k, p in params.items():
+            spec = rules.param_spec(k, p.dim())
+            want = shard_shape(whole[k], spec, sizes)
+            local = [tuple(p.shape), tuple(opt.m[k].to_local().shape),
+                     tuple(opt.v[k].to_local().shape)]
+            if any(sh != want for sh in local):
+                bad.append((dist.get_rank(), k, local, want))
+            if want != whole[k] and tuple(p.shape) == whole[k]:
+                held.append((dist.get_rank(), k))
+        metrics = []
+        for batch in batches:
+            params, opt, m = step(params, opt, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, (bad, held))
+        out[name] = {"metrics": metrics,
+                     "params": {k: p.clone() for k, p in step.full(params).items()},
+                     "bad_shapes": [x for b, _ in every for x in b],
+                     "whole_held": [x for _, h in every for x in h]}
+    return out
+
+
 JOBS = {"all": job_all, "train": job_train, "record_step": job_record_step,
-        "synthetic": job_synthetic}
+        "synthetic": job_synthetic, "tp_layers": job_tp_layers, "tp_train": job_tp_train}

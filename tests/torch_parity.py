@@ -359,3 +359,23 @@ def assert_rows_close(prows, jrows, metrics_mode=False, what=""):
             else:
                 ok = abs(v - r) <= COLUMN_REL * abs(r) + ABS_FLOOR
             assert ok, f"{what} {p['scheme']} d={p['distance_km']} {k}: {v} vs {r}"
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel compute (tests/test_torch_tensor_parallel.py), f32
+# ---------------------------------------------------------------------------
+
+# a split layer against itself whole: the largest error of the output, the
+# input's gradient and each parameter's gradient, relative to the whole
+# one's largest value. The split computes the same sums in another order
+# (a row-parallel matmul's two partial sums added after): ~1e-7 here
+TP_LAYER_TOL = 1e-5
+# two steps of the split step against JAX's under the same rules and the
+# port's one-rank step (tests/test_torch_train_mesh.py's limits on the loss
+# and grad norm; the parameters after two AdamW steps within 2% of the
+# learning rate, each step moving them by at most about lr, with AdamW's
+# eps at 1e-3 as there, so that summation noise in a near-zero gradient
+# moves an update by at most lr/eps times that noise)
+TP_LOSS_TOL = 1e-5
+TP_NORM_REL_TOL = 1e-5
+TP_PARAM_TOL = 0.02          # of the learning rate
