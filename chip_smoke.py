@@ -233,7 +233,23 @@ and builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    phase 7 counts them, each rank's step peak (phase 18 predicts qwen's),
    and the planted faults "wo all-reduce dropped" (qwen), "gated-norm sum not
    reduced over model" (mamba2) and "RG-LRU gates read the local width only"
-   (recurrentgemma), each of which must fail the check.
+   (recurrentgemma), each of which must fail the check; (f) serving split
+   over two ranks of "model" on the one card (two processes again, gloo):
+   qwen1.5-0.5b (its kv heads split), mamba2-370m (its SSD heads; the states
+   kept whole over "model") and recurrentgemma-2b (its RG-LRU width; its
+   ring of 2048 slots split 1024 a rank) at full width each serve a request
+   of 2 x 1020 tokens through ``make_serve_step`` on a (1, 1, 2) mesh: the
+   prefill runs the kernels on each rank's shards (flash on 8 of qwen's 16
+   q heads and 5 of recurrentgemma's 10, the SSD scan on 16 of 32 heads, the
+   RG-LRU scan on 1280 of 2560), with the launches counted, the caches of
+   ``cache_spec``'s local shapes, then 8 eager decode steps
+   (``ServeStep.eager``; positions 1020-1027 cross the ring's slot 1024,
+   rank 1's first), each fed the one-rank captured serve's token, in bf16
+   and with the same weights in f32: against that serve on the same
+   weights and prompt, logits within ``TP_SERVE_TOL`` and greedy tokens
+   equal but at near ties, equal on both ranks; the planted faults
+   "combine dropped (rank-local softmax)" and "wrong sequence offset (every
+   rank at 0)" (recurrentgemma) must fail the f32 check.
 
 18. the dry run (``repro_torch.launch.dryrun``: each cell's step on meta
    tensors as rank 0 of a fake process group of the production mesh, with
@@ -575,13 +591,16 @@ NETSIM_UNITS = {
     "14": (14, "the differentiable engine and the gradient tuner", "phase_netsim_grad"),
     "17": (17, "the parallel layer on the card", "phase_parallel"),
     "17t": (17, "", "phase_tensor_parallel"),
+    "17s": (17, "", "phase_tensor_parallel_serve"),
 }
 # the lanes, balanced on the units' times alone (s, same card): 14 222 + 17
 # 23 + 17t ~50; 12g 184 + 10 66; 13 147 + 11 75; 12 111 + 11g 118 (under
 # the lanes' load the lanes ended at 302, 418, 472 and 348 s with 17t, 97 s
-# there, in the third; NVIDIA H100 80GB HBM3, 700 W). Phase 17's checks are
-# exact or read against limits that load does not move.
-NETSIM_LANES = (("14", "17", "17t"), ("12g", "10"), ("13", "11"), ("12", "11g"))
+# there, in the third; NVIDIA H100 80GB HBM3, 700 W). 17s (~50 s alone, 60 s
+# under the load) went to the fourth: in the first it ended that lane at 463
+# s, the last of the four (443, 423 and 363 s). Phase 17's checks are exact
+# or read against limits that load does not move.
+NETSIM_LANES = (("14", "17", "17t"), ("12g", "10"), ("13", "11"), ("12", "11g", "17s"))
 # the lanes are stopped, and the run fails, this many seconds after the
 # script's start
 NETSIM_DEADLINE_S = 1_140.0
@@ -2137,10 +2156,11 @@ def tp_arch(torch, dist, mesh, arch: str, rank: int) -> dict:
     return out
 
 
-def tp_rank_main(rank: int, port: int, out_dir: Path) -> None:
-    """A rank of phase 17(e) (``chip_smoke.py --tp-rank RANK PORT DIR``):
-    gloo over CUDA tensors, a (1, 1, 2) ("pod", "data", "model") mesh, the
-    readings of each arch into ``DIR/rankRANK.json``."""
+def tp_rank_main(rank: int, port: int, out_dir: Path, job: str = "train") -> None:
+    """A rank of phase 17(e) or, with ``job`` "serve", 17(f) (``chip_smoke.py
+    --tp-rank RANK PORT DIR [serve]``): gloo over CUDA tensors, a (1, 1, 2)
+    ("pod", "data", "model") mesh, the readings of each arch into
+    ``DIR/rankRANK.json``."""
     sys.path.insert(0, str(SRC))
     import torch
     import torch.distributed as dist
@@ -2156,9 +2176,10 @@ def tp_rank_main(rank: int, port: int, out_dir: Path) -> None:
         res = {"staged": tp_stage_refused(torch, dist)}
         mesh = init_device_mesh("cuda", (1, 1, 2), mesh_dim_names=("pod", "data", "model"))
         res["archs"] = {}
-        for arch in TP_FAULTS:
+        run, archs = (tp_arch, TP_FAULTS) if job == "train" else (tp_serve_arch, TP_SERVE_FAULTS)
+        for arch in archs:
             t0 = time.perf_counter()
-            res["archs"][arch] = tp_arch(torch, dist, mesh, arch, rank)
+            res["archs"][arch] = run(torch, dist, mesh, arch, rank)
             res["archs"][arch]["s"] = time.perf_counter() - t0
         (out_dir / f"rank{rank}.json").write_text(json.dumps(res))
         dist.barrier()
@@ -2166,24 +2187,17 @@ def tp_rank_main(rank: int, port: int, out_dir: Path) -> None:
         dist.destroy_process_group()
 
 
-def phase_tensor_parallel(torch, card: str) -> dict:
-    """Phase 17(e): qwen, mamba2 and recurrentgemma at full width on their
-    phase 7-9 workloads, each split over two ranks of "model" on the one card
-    (two processes, gloo over CUDA tensors: NCCL refuses two ranks on one
-    GPU), one step: the loss and grad norm against the one-rank step's on
-    the same batch and weights (TP_TOL), the flash kernel on each rank's
-    heads, the kernels' launches a step on each rank, each rank's step peak
-    (phase 18 predicts qwen's), and a planted fault per arch that must fail
-    the check."""
+def run_tp_ranks(out_dir: Path, job: str, what: str) -> list:
+    """Runs the two ranks of ``job`` (``tp_rank_main``) as processes of this
+    script on the one card, each in a session of its own, within
+    TP_TIMEOUT_S; fails the run (naming ``what``) unless both end well.
+    Returns each rank's readings."""
     import os
     import shutil
     import signal
     import socket
 
-    from repro_torch.config import get_model_config
-
     t0 = time.perf_counter()
-    out_dir = ROOT / "build" / "chip_smoke_tp"
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
     with socket.socket() as sock:
@@ -2195,8 +2209,8 @@ def phase_tensor_parallel(torch, card: str) -> dict:
             with open(out_dir / f"rank{rank}.out", "w") as log:
                 procs.append(subprocess.Popen(
                     [sys.executable, str(ROOT / "chip_smoke.py"), "--tp-rank", str(rank),
-                     str(port), str(out_dir)], stdout=log, stderr=subprocess.STDOUT, cwd=ROOT,
-                    start_new_session=True))
+                     str(port), str(out_dir), job], stdout=log, stderr=subprocess.STDOUT,
+                    cwd=ROOT, start_new_session=True))
         for proc in procs:
             proc.wait(timeout=max(TP_TIMEOUT_S - (time.perf_counter() - t0), 1.0))
     except subprocess.TimeoutExpired:
@@ -2209,8 +2223,23 @@ def phase_tensor_parallel(torch, card: str) -> dict:
     if any(p.returncode != 0 for p in procs):
         for rank in range(2):
             print((out_dir / f"rank{rank}.out").read_text()[-3000:], file=sys.stderr)
-        fail(f"phase 17(e): the ranks exited with {[p.returncode for p in procs]}")
-    ranks = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(2)]
+        fail(f"{what}: the ranks exited with {[p.returncode for p in procs]}")
+    return [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(2)]
+
+
+def phase_tensor_parallel(torch, card: str) -> dict:
+    """Phase 17(e): qwen, mamba2 and recurrentgemma at full width on their
+    phase 7-9 workloads, each split over two ranks of "model" on the one card
+    (two processes, gloo over CUDA tensors: NCCL refuses two ranks on one
+    GPU), one step: the loss and grad norm against the one-rank step's on
+    the same batch and weights (TP_TOL), the flash kernel on each rank's
+    heads, the kernels' launches a step on each rank, each rank's step peak
+    (phase 18 predicts qwen's), and a planted fault per arch that must fail
+    the check."""
+    from repro_torch.config import get_model_config
+
+    t0 = time.perf_counter()
+    ranks = run_tp_ranks(ROOT / "build" / "chip_smoke_tp", "train", "phase 17(e)")
     staged = ranks[0]["staged"]
     print("  (e) two ranks of \"model\" on the one card, gloo over CUDA tensors; "
           + (f"gloo refused {sorted(staged)}, staged through host memory in this phase "
@@ -2261,6 +2290,272 @@ def phase_tensor_parallel(torch, card: str) -> dict:
                               "planted": {fault: planted}}
     out["seconds"] = time.perf_counter() - t0
     print(f"  (e) {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 17(f): serving split over two ranks of "model" on the one card
+# ---------------------------------------------------------------------------
+
+# (batch, prompt, decode steps) of each arch's request: recurrentgemma's
+# decode (positions 1020-1027) crosses slot 1024 of its 2048-slot ring, the
+# first slot of rank 1's half
+TP_SERVE_SHAPE = (2, 1020, 8)
+# arch -> the planted faults that must fail its check (the sequence split
+# exists for recurrentgemma's ring only: qwen's kv heads divide over 2, and
+# mamba2 has no attention)
+TP_SERVE_FAULTS = {QWEN: (), MAMBA: (),
+                   RG: ("combine dropped (rank-local softmax)",
+                        "wrong sequence offset (every rank at 0)")}
+# The two-rank serve against the one-rank captured serve on the same weights
+# and prompt, each decode step of the split fed the one-rank serve's token:
+# the largest logit difference over the prefill and every step within the
+# limit of the dtype, and the greedy tokens equal but where the one-rank's
+# top-2 margin is within twice it (a near tie, which a difference within the
+# limit can flip; free-running greedy decodes part at the first near tie:
+# qwen's least top-2 margin read 0.004, mamba2's 0.0007). In bf16 the split
+# rounds each row-parallel output as two bf16 partials and their bf16 sum
+# where one GEMM rounds once: on an NVIDIA H100 80GB HBM3 at 700 W the
+# prefill's logits moved by 6.0e-2 (qwen) and 1.4e-1 (mamba2), the decode's
+# by up to 6.9e-2 and 1.6e-1, over the 2 x 151,936 / 50,280 logits a step
+# (PERF.md §6, the first runs; the bf16 limit was set from those). The
+# same weights in f32 (cast up; TF32 off) are where the split is held
+# tight, and where the planted faults must fail: set before their first
+# run, for a split that sums the same f32 products in another order.
+TP_SERVE_TOL = {"bfloat16": 3e-1, "float32": 2e-3}
+
+
+def tp_serve_plant(fault: str):
+    """A context that plants ``fault`` (TP_SERVE_FAULTS) in the decode path."""
+    import contextlib
+    from repro_torch.models import attention
+
+    name, fn = {
+        "combine dropped (rank-local softmax)": (
+            "combine_partials", lambda m, l, acc, split: acc / l.clamp_min(1e-30)),
+        "wrong sequence offset (every rank at 0)": ("seq_part", lambda split, rows: (0, rows)),
+    }[fault]
+
+    @contextlib.contextmanager
+    def ctx():
+        old = getattr(attention, name)
+        setattr(attention, name, fn)
+        try:
+            yield
+        finally:
+            setattr(attention, name, old)
+    return ctx()
+
+
+def tp_serve_arch(torch, dist, mesh, arch: str, rank: int) -> dict:
+    """One rank's readings of ``arch``'s serve split over two ranks of
+    "model" (phase 17(f)), in bf16 and with the same weights in f32; rank 0
+    first serves the same request on the whole model through the captured
+    step."""
+    from repro_torch.launch import serve as launch_serve
+
+    dev = torch.device("cuda", 0)
+    model = launch_serve.build(arch, device=dev, seed=0)
+    prompt = launch_serve.random_prompt(model, TP_SERVE_SHAPE[0], TP_SERVE_SHAPE[1], seed=1)
+    out = {"bfloat16": tp_serve_dtype(torch, dist, mesh, model, prompt, rank, ())}
+    del model                                  # it holds its shards now: build it again
+    torch.cuda.empty_cache()
+    model = f32_copy(torch, launch_serve.build(arch, device=dev, seed=0), dev)
+    torch.cuda.empty_cache()
+    out["float32"] = tp_serve_dtype(torch, dist, mesh, model, prompt, rank,
+                                    TP_SERVE_FAULTS[arch])
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_serve_dtype(torch, dist, mesh, model, prompt, rank: int, faults) -> dict:
+    """The request ``prompt`` through the one-rank captured serve (rank 0),
+    then through the model split over the mesh's "model" (it stays split),
+    sound and with each of ``faults`` planted."""
+    from repro_torch.config.base import ParallelConfig
+    from repro_torch.kernels import ops
+    from repro_torch.parallel import use_mesh
+    from repro_torch.serve.decode import make_serve_step
+
+    dev = model.device
+    b, s, steps = TP_SERVE_SHAPE
+    max_len = s + steps + 1
+    out = {"batch": b, "prompt": s, "steps": steps}
+    ref = torch.zeros((steps + 1, b), dtype=torch.int64)
+    if rank == 0:
+        step, _, _ = make_serve_step(model, ParallelConfig(), None, b, max_len)
+        t0 = time.perf_counter()
+        caches, logits = model.prefill(prompt, max_len)
+        token = torch.argmax(logits, -1)
+        toks, logs = [token], [logits]
+        for t in range(steps):
+            caches, token = step(caches, token, s + t)
+            toks.append(token)
+            logs.append(step.logits.clone())
+        torch.cuda.synchronize()
+        top2 = torch.stack(logs).topk(2, dim=-1).values
+        margin = top2[..., 0] - top2[..., 1]                     # [steps + 1, B]
+        ref_logits, ref = torch.stack(logs), torch.stack(toks).cpu()
+        out["one_rank"] = {"tokens": ref.tolist(), "captures": step.captures,
+                           "ms": (time.perf_counter() - t0) * 1e3,
+                           "top2_margin": margin.tolist()}
+        del step, caches
+    torch.cuda.empty_cache()
+    dist.broadcast(ref, 0)          # the one-rank serve's tokens, fed to both ranks
+    ref = ref.to(dev)
+    step, _, _ = make_serve_step(model, ParallelConfig(multi_pod=True, pods=1, data=1, model=2),
+                                 mesh, b, max_len)
+    torch.cuda.empty_cache()
+    out["shards"] = {"parameters": sum(p.numel() for p in model.parameters()),
+                     "whole": sum(math.prod(sh) for sh in model.whole_shapes.values())}
+    fwd = {k: getattr(ops, k) for k in ("flash_attention_fwd", "ssd_scan_fwd",
+                                         "rglru_scan_fwd")}
+    dims = {"flash_attention_fwd": lambda q, *a: int(q.shape[2]),        # q heads
+            "ssd_scan_fwd": lambda x, *a: int(x.shape[2]),               # SSD heads
+            "rglru_scan_fwd": lambda a, *r: int(a.shape[-1])}            # RG-LRU width
+    seen = {k: [] for k in fwd}
+
+    def counted(k):
+        def fn(*args, **kw):
+            seen[k].append(dims[k](*args))
+            return fwd[k](*args, **kw)
+        return fn
+
+    def serve_split(fault=None) -> dict:
+        """The request on the split model, each decode step fed the one-rank
+        serve's token of the step before (so both sides read the same
+        inputs): each step's argmax and logits."""
+        import contextlib
+        planted = tp_serve_plant(fault) if fault else contextlib.nullcontext()
+        for v in seen.values():
+            v.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reset_counts()
+        for k in fwd:
+            setattr(ops, k, counted(k))
+        try:
+            with use_mesh(mesh):
+                caches, logits = model.prefill(prompt, max_len)
+        finally:
+            for k, f in fwd.items():
+                setattr(ops, k, f)
+        launches = read_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        toks, logs = [torch.argmax(logits, -1)], [logits]
+        with planted:
+            for t in range(steps):
+                caches, token, lg = step.eager(caches, ref[t], s + t)
+                toks.append(token)
+                logs.append(lg)
+        torch.cuda.synchronize()
+        toks, logs = torch.stack(toks), torch.stack(logs)
+        r = {"tokens": toks.tolist(), "launches": launches,
+             "dims": {k: sorted(set(v)) for k, v in seen.items()},
+             "prefill_ms": (t1 - t0) * 1e3, "decode_ms": (time.perf_counter() - t1) * 1e3,
+             "logits_sum": float(logs.double().sum()),
+             "caches": sorted({(k, tuple(t.shape)) for c in caches for k, t in c.items()})}
+        if rank == 0:
+            err = (logs - ref_logits).abs().amax(dim=-1)                # [steps + 1, B]
+            r["logits_err_by_step"] = err.amax(dim=-1).tolist()
+            r["logits_err"] = float(err.max())
+            r["tokens_equal"] = bool(torch.equal(toks, ref))
+            r["tokens_differ_at"] = [[int(i), int(j), float(margin[i, j])]
+                                     for i, j in (toks != ref).nonzero().tolist()]
+        return r
+
+    out["split"] = serve_split()
+    out["captures"] = step.captures
+    out["planted"] = {f: serve_split(f) for f in faults}
+    return out
+
+
+def phase_tensor_parallel_serve(torch, card: str) -> dict:
+    """Phase 17(f): qwen, mamba2 and recurrentgemma at full width each
+    serve a request of TP_SERVE_SHAPE split over two ranks of "model" on the
+    one card (two processes, gloo over CUDA tensors), in bf16 and with the
+    same weights in f32: the prefill runs the kernels on each rank's shards
+    (flash on its q heads, the SSD scan on its heads, the RG-LRU scan on its
+    width), the caches take ``cache_spec``'s layout, and the decode steps
+    eagerly (``ServeStep.eager``; the step does not capture). Against the
+    one-rank captured serve: logits within TP_SERVE_TOL and greedy tokens
+    equal but at near ties; recurrentgemma's planted faults must fail the
+    f32 check."""
+    from repro_torch.config import get_model_config
+    from repro_torch.config.base import ParallelConfig
+    from repro_torch.parallel.sharding import ShardingRules
+    from repro_torch.serve.kvcache import cache_shape_specs
+
+    t0 = time.perf_counter()
+    ranks = run_tp_ranks(ROOT / "build" / "chip_smoke_tp_serve", "serve", "phase 17(f)")
+    b, s, steps = TP_SERVE_SHAPE
+    out = {"shape": {"batch": b, "prompt": s, "steps": steps}, "tol": TP_SERVE_TOL,
+           "staged": ranks[0]["staged"], "archs": {}}
+
+    def parts(r, tol) -> bool:
+        """Whether a split serve parts from the one-rank serve: logits over
+        ``tol``, or a token that differs where the one-rank's top-2 margin
+        is over twice it."""
+        return (not r["logits_err"] <= tol
+                or any(m > 2 * tol for *_, m in r["tokens_differ_at"]))
+
+    for arch in TP_SERVE_FAULTS:
+        cfg = get_model_config(arch)
+        rules = ShardingRules(cfg, ParallelConfig(multi_pod=True, pods=1, data=1, model=2))
+        want = sorted({(k, tuple(t.shape)) for c in cache_shape_specs(
+            cfg, b, s + steps + 1, rules=rules) for k, t in c.items()})
+        expected = expected_launches(cfg)
+        # each rank's half: of the q heads, the SSD heads, the RG-LRU width
+        dims = {"flash_attention_fwd": cfg.num_heads // 2,
+                "ssd_scan_fwd": cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim // 2,
+                "rglru_scan_fwd": (cfg.rglru_width or cfg.d_model) // 2}
+        out["archs"][arch] = {}
+        for dtype, tol in TP_SERVE_TOL.items():
+            r0, r1 = (ranks[i]["archs"][arch][dtype] for i in range(2))
+            one, split = r0["one_rank"], r0["split"]
+            for rank, r in enumerate((r0, r1)):
+                sp = r["split"]
+                print(f"  (f) {arch} ({b} x {s} + {steps}, {dtype}) rank {rank}: prefill "
+                      f"{sp['prefill_ms']:.1f} ms, {steps} eager steps {sp['decode_ms']:.1f} ms; "
+                      f"shards {r['shards']['parameters']} of {r['shards']['whole']} "
+                      f"parameters; launches {sp['launches']}, on {sp['dims']} (q heads / SSD "
+                      f"heads / RG-LRU width); caches {sp['caches']} [{card}]", flush=True)
+            least = min(min(m) for m in one["top2_margin"])
+            print(f"  (f) {arch} {dtype}: one rank captured ({one['ms']:.1f} ms, least top-2 "
+                  f"logit margin {least:.4g}); two ranks, each step fed the one-rank token: "
+                  f"logits {split['logits_err']:.4e} (limit {tol:g}; by step "
+                  f"{', '.join(f'{e:.3e}' for e in split['logits_err_by_step'])}), tokens "
+                  f"equal {split['tokens_equal']} (differ at [step, row, one-rank top-2 "
+                  f"margin] {split['tokens_differ_at']})"
+                  + "".join(f"; control, {f}: logits {p['logits_err']:.4e}, tokens differ at "
+                            f"{len(p['tokens_differ_at'])} of {(steps + 1) * b}"
+                            for f, p in r0["planted"].items()), flush=True)
+            check(r0["split"]["tokens"] == r1["split"]["tokens"]
+                  and r0["split"]["logits_sum"] == r1["split"]["logits_sum"],
+                  f"{arch} {dtype}: the two ranks' tokens or logits differ")
+            check(not parts(split, tol), f"{arch} {dtype}: the two-rank serve parts from the "
+                  f"one-rank serve: logits {split['logits_err']}, tokens differ at "
+                  f"{split['tokens_differ_at']}")
+            for f, p in r0["planted"].items():
+                check(parts(p, tol), f"{arch} {dtype}: the two-rank check does not catch: {f}")
+            for r in (r0, r1):
+                sp = r["split"]
+                check(sp["launches"] == expected,
+                      f"{arch}: split prefill launches {sp['launches']}, expected {expected}")
+                check(r["captures"] == 0, f"{arch}: the split step captured a graph")
+                check(r["shards"]["parameters"] < r["shards"]["whole"],
+                      f"{arch}: a rank holds every parameter whole")
+                check(sorted((k, tuple(sh)) for k, sh in sp["caches"]) == want,
+                      f"{arch}: caches {sp['caches']}, expected cache_spec's {want}")
+                for k, n in dims.items():
+                    check(sp["dims"][k] in ([], [n]),
+                          f"{arch}: {k} ran on {sp['dims'][k]} a rank, expected {n}")
+            out["archs"][arch][dtype] = {"one_rank": one, "ranks": [r0, r1]}
+        print(f"  (f) {arch}: {ranks[0]['archs'][arch]['s']:.1f} s", flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  (f) {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -3364,7 +3659,8 @@ def main() -> None:
     if len(sys.argv) > 2 and sys.argv[1] == "--dryrun":
         return dryrun_main(Path(sys.argv[2]))
     if len(sys.argv) > 4 and sys.argv[1] == "--tp-rank":
-        return tp_rank_main(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))
+        return tp_rank_main(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]),
+                            *sys.argv[5:6])
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run chip_smoke.py from a checkout")
     sys.path.insert(0, str(SRC))
@@ -3458,7 +3754,7 @@ def main() -> None:
     netsim_links = {**units["11"], **units["11g"]}
     netsim_channel = {**units["12"], **units["12g"]}
     obs, netsim_grad = units["13"], units["14"]
-    parallel = dict(units["17"], tensor_parallel=units["17t"])
+    parallel = dict(units["17"], tensor_parallel=units["17t"], serve_split=units["17s"])
     print("[18/18] the dry run on fake groups of the production mesh", flush=True)
     dry = phase_dryrun(torch, card, dryrun_child, trained, units["17t"], t_start)
     print(f"  (total {time.perf_counter() - t_start:.1f} s)", flush=True)
@@ -3479,9 +3775,14 @@ def main() -> None:
         per_split_step = {arch: r["ranks"][0]["split"]["launches"][kernel]
                           for arch, r in units["17t"]["archs"].items()
                           if r["ranks"][0]["split"]["launches"][kernel]}
+        # phase 17(f): a prefill split over two ranks of "model", each rank's count
+        per_split_prefill = {arch: r["bfloat16"]["ranks"][0]["split"]["launches"][kernel]
+                             for arch, r in units["17s"]["archs"].items()
+                             if r["bfloat16"]["ranks"][0]["split"]["launches"][kernel]}
         return {"launches": sum(by_arch.values()), "launches_by_arch": by_arch,
                 "launches_per_train_step": per_train_step,
-                "launches_per_split_train_step_a_rank": per_split_step}
+                "launches_per_split_train_step_a_rank": per_split_step,
+                "launches_per_split_prefill_a_rank": per_split_prefill}
 
     record = {"kernels": [{
         "name": "flash_attention", "route": "cuda",

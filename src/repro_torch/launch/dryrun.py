@@ -26,11 +26,16 @@ measures the port's own step:
     width);
   * prefill cells run ``model.prefill(inputs, max_len=S)``, decode and
     long_decode cells one ``decode_step`` at position S - 1 (a Python int)
-    and the argmax. Serving in the port runs on no mesh: a serve cell is
+    and the argmax, on the model that ``parallel.tensor.shard_model`` split
+    by the same rules, as the JAX package jits them with the parameters in
+    the rules' shardings and the caches in ``cache_spec``'s: a serve cell is
     one rank's rows (the batch split over the batch axes where it divides,
-    else replicated, as ``specs._batch_axes_or_none``), with the parameters
-    and caches whole for those rows and no collective
-    (``"tensor_parallel": false``).
+    else replicated, as ``specs._batch_axes_or_none``; under ``use_mesh``
+    when split, so that the MoE routes every rank's rows together), its
+    shards of the parameters, and its caches in ``cache_spec``'s layout (K/V
+    split by kv heads, or along the sequence over "model"; the SSD and
+    RG-LRU states whole over "model"). Every cell is ``"tensor_parallel":
+    true``.
 
 Each cell's record keeps JAX's keys and adds ``argument_size_in_bytes_under_
 rules`` (what the shards of the rules' specs hold, as GSPMD would place
@@ -46,6 +51,7 @@ peak). The roofline constants are one H100's.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -67,6 +73,8 @@ from repro_torch.launch.specs import (
     prefill_input_specs, shard_shape, train_input_specs, tree_bytes,
 )
 from repro_torch.models.model import build_model
+from repro_torch.parallel.sharding import ShardingRules, use_mesh
+from repro_torch.parallel.tensor import shard_model
 from repro_torch.serve.kvcache import cache_shape_specs
 from repro_torch.train.train_step import lower_train_step
 
@@ -119,37 +127,44 @@ def run_train(model_cfg: ModelConfig, par: ParallelConfig, shape: ShapeSpec, mes
 
 
 def run_serve(model_cfg: ModelConfig, par: ParallelConfig, shape: ShapeSpec, mesh) -> dict:
-    """One rank's prefill, or decode step and argmax: its rows, the
-    parameters and caches whole, no collective."""
+    """One rank's prefill, or decode step and argmax, on the split model:
+    its rows of the batch, its shards of the parameters and of the caches
+    (``cache_spec``'s layout), and the collectives the split makes."""
     model = build_model(model_cfg, device=META, remat=par.remat)
     params_s, params_p, _, _ = params_and_opt_specs(model, par, with_opt=False)
     sizes = mesh_sizes(par)
     axes = _batch_axes_or_none(par, shape.global_batch)
     b = shape.global_batch // math.prod(sizes[a] for a in axes or ())
-    params = tree_bytes(params_s)
     under_rules = tree_bytes(params_s, params_p, sizes)
+    n_params = _count(model)
+    rules = ShardingRules(model_cfg, par)
+    shard_model(model, mesh, rules)                 # the model now holds its shards
+    params = tree_bytes(dict(model.named_parameters()))
+    # the MoE routes every rank's rows together when the batch is split
+    ambient = use_mesh(mesh) if axes else contextlib.nullcontext()
     if shape.kind == "prefill":
         inp_s, inp_p = prefill_input_specs(model_cfg, par, shape)
         inp = _rows(inp_s, inp_p, sizes)
         under_rules += tree_bytes(inp_s, inp_p, sizes)
         t0 = time.perf_counter()
-        with record(mesh, (model, inp)) as rec:
+        with record(mesh, (model, inp)) as rec, ambient:
             caches, logits = model.prefill(inp, max_len=shape.seq_len)
         outputs, alias = tree_bytes(caches) + tree_bytes(logits), 0
         args = params + tree_bytes(inp)
     else:
         cache_s, cache_p, inp_s, inp_p, _ = decode_input_specs(model_cfg, par, shape)
-        caches = cache_shape_specs(model_cfg, b, shape.seq_len, dtype_of(model_cfg.act_dtype))
+        caches = cache_shape_specs(model_cfg, b, shape.seq_len, dtype_of(model_cfg.act_dtype),
+                                   rules=rules)
         inp = _rows(inp_s, inp_p, sizes)
         under_rules += tree_bytes(cache_s, cache_p, sizes) + tree_bytes(inp_s, inp_p, sizes)
         cache_leaves = [t for c in caches for t in c.values()]
         t0 = time.perf_counter()
-        with record(mesh, (model, inp, *cache_leaves)) as rec:
+        with record(mesh, (model, inp, *cache_leaves)) as rec, ambient:
             caches, logits = model.decode_step(caches, inp, shape.seq_len - 1)
             tokens = torch.argmax(logits, -1)
         alias = tree_bytes(caches)
         outputs, args = alias + tree_bytes(tokens), params + alias + tree_bytes(inp)
-    return {"rec": rec, "run_s": time.perf_counter() - t0, "params_init": _count(model),
+    return {"rec": rec, "run_s": time.perf_counter() - t0, "params_init": n_params,
             "argument_size_in_bytes_under_rules": under_rules,
             **_memory(rec, args, outputs, alias)}
 
@@ -172,7 +187,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, device: DeviceLike = N
         "kind": shape.kind,
         "params": model_cfg.param_count(),
         "active_params": model_cfg.active_param_count(),
-        "tensor_parallel": shape.kind == "train",
+        "tensor_parallel": True,
     }
     if not shape_applicable(model_cfg, shape):
         result["status"] = "SKIP(full-attention)"

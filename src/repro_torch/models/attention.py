@@ -18,18 +18,21 @@ attention; ``model_path_attention`` picks between them, and the flash op's
 backward takes the gradient of that recompute, as the JAX package's
 ``_fa_bwd`` does. Both round p to v's dtype before P.V, where the f32 kernel
 keeps f32. Decode attention is plain PyTorch: the JAX package has no kernel
-there.
+there. Decode over a cache split along its sequence over "model" (the rules'
+``cache_spec`` where the kv heads do not divide) attends each rank's slice
+and combines the partial softmaxes (``combine_partials``).
 """
 from __future__ import annotations
 
 import math
-from typing import Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ops import flash_attention
 from repro_torch.kernels.ref import attention_ref
+from repro_torch.parallel.tensor import Split, max_over_model, reduce_from_model
 
 NEG_INF = -1e30
 PosLike = Union[int, torch.Tensor]   # a decode position: an int or a 0-d int tensor
@@ -161,63 +164,119 @@ def model_path_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                     softcap=softcap)
 
 
+def seq_part(split: Split, rows: int) -> Tuple[int, int]:
+    """(the global index of this rank's first row, its rows) of a cache
+    split along its sequence (or a ring's slots) over "model", ``rows`` rows
+    a rank: ceil(length / ranks), the last rank's padded (``init_attn_cache``,
+    GSPMD's layout)."""
+    return split.rank * rows, rows
+
+
+def write_at(t: torch.Tensor, dim: int, index: torch.Tensor, new: torch.Tensor,
+             split: Optional[Split] = None) -> None:
+    """Writes ``new`` (``t``'s shape, 1 along ``dim``) at the global ``index``
+    (a 0-d int tensor) of ``dim``, in place. With ``split``, ``t`` is this
+    rank's slice of a sequence split over "model": the rank that owns
+    ``index`` writes it, the others keep their rows, by a mask on the device
+    (``index`` is never read on the host, so the step can be captured)."""
+    if split is None:
+        t.index_copy_(dim, index.reshape(1), new)
+        return
+    off, rows = seq_part(split, t.shape[dim])
+    at = index - off
+    own = (at >= 0) & (at < rows)
+    at = at.clamp(0, rows - 1).reshape(1)
+    t.index_copy_(dim, at, torch.where(own, new, t.index_select(dim, at)))
+
+
+def combine_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                     split: Split) -> torch.Tensor:
+    """softmax(s) @ V from each rank's partial over its slice of the
+    sequence: its max ``m`` and sum ``l`` of exp(s - m) [..., 1] and its
+    unnormalised ``acc`` [..., Dh], in f32. An all-reduce (MAX) of m over
+    "model", each rank rescaling l and acc by exp(m - max), an all-reduce
+    (SUM) of both, then acc / l: what GSPMD makes of a softmax over a
+    sharded axis (flash decoding's combine). A rank with no valid row has
+    m = NEG_INF and l = acc = 0, so it adds nothing."""
+    scale = torch.exp(m - max_over_model(m, split))
+    la = reduce_from_model(torch.cat([l * scale, acc * scale], dim=-1), split)
+    return la[..., 1:] / la[..., :1]
+
+
 def _attend_one(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                valid: torch.Tensor, softcap: float) -> torch.Tensor:
-    """q [B, Hq, Dh] against the cache rows where ``valid`` [Smax] holds."""
-    b, smax, hk, dh = k_cache.shape
+                valid: torch.Tensor, softcap: float, split: Optional[Split] = None,
+                time_minor: bool = False) -> torch.Tensor:
+    """q [B, Hq, Dh] against the cache rows where ``valid`` [Smax] holds
+    (K time-minor [B, Hk, Dh, Smax] with ``time_minor``). With ``split`` the
+    rows are this rank's slice of the sequence, every rank holds all q
+    heads, and the partial softmaxes are combined over "model"
+    (``combine_partials``)."""
+    b, smax, hk, dh = v_cache.shape
     hq = q.shape[1]
-    g = hq // hk
-    qg = q.reshape(b, hk, g, dh)
-    s = torch.einsum("bhgd,bshd->bhgs", qg.float(), k_cache.float()) * dh ** -0.5
+    qg = q.reshape(b, hk, hq // hk, dh)
+    eq = "bhgd,bhds->bhgs" if time_minor else "bhgd,bshd->bhgs"
+    s = torch.einsum(eq, qg.float(), k_cache.float()) * dh ** -0.5
     if softcap > 0:
         s = softcap * torch.tanh(s / softcap)
     s = s.masked_fill(~valid, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype).float(), v_cache.float())
+    if split is None:
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype).float(), v_cache.float())
+    else:
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m).masked_fill(~valid, 0.0)
+        acc = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype).float(), v_cache.float())
+        o = combine_partials(m, p.sum(dim=-1, keepdim=True), acc, split)
     return o.reshape(b, hq, dh).to(q.dtype)
 
 
+def _rows(smax: int, device, split: Optional[Split]) -> torch.Tensor:
+    """The global positions of the cache's ``smax`` rows."""
+    off = seq_part(split, smax)[0] if split is not None else 0
+    return off + torch.arange(smax, device=device)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     pos: PosLike, *, softcap: float = 0.0) -> torch.Tensor:
+                     pos: PosLike, *, softcap: float = 0.0,
+                     split: Optional[Split] = None) -> torch.Tensor:
     """One new token against the cache.
 
     q [B, Hq, Dh] (rope applied at pos); k/v cache [B, Smax, Hk, Dh] with the
     new token already written at ``pos``. Returns [B, Hq, Dh] in q's dtype.
-    """
-    valid = torch.arange(k_cache.shape[1], device=q.device) <= pos
-    return _attend_one(q, k_cache, v_cache, valid, softcap)
+    With ``split`` the cache is this rank's slice of the sequence over
+    "model" and q holds every head."""
+    valid = _rows(k_cache.shape[1], q.device, split) <= pos
+    return _attend_one(q, k_cache, v_cache, valid, softcap, split)
 
 
 def decode_attention_tm(q: torch.Tensor, k_cache_tm: torch.Tensor, v_cache: torch.Tensor,
-                        pos: PosLike, *, softcap: float = 0.0) -> torch.Tensor:
+                        pos: PosLike, *, softcap: float = 0.0,
+                        split: Optional[Split] = None) -> torch.Tensor:
     """One new token against a time-minor K cache: q.K contracts Dh with S
     free, so no step transposes the whole cache.
 
     q [B, Hq, Dh] (rope applied at pos); K [B, Hk, Dh, Smax] and V
     [B, Smax, Hk, Dh] with the new token already written at ``pos``.
-    Returns [B, Hq, Dh] in q's dtype."""
-    b, hk, dh, smax = k_cache_tm.shape
-    hq = q.shape[1]
-    qg = q.reshape(b, hk, hq // hk, dh)
-    s = torch.einsum("bhgd,bhds->bhgs", qg.float(), k_cache_tm.float()) * dh ** -0.5
-    if softcap > 0:
-        s = softcap * torch.tanh(s / softcap)
-    s = s.masked_fill(~(torch.arange(smax, device=q.device) <= pos), NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype).float(), v_cache.float())
-    return o.reshape(b, hq, dh).to(q.dtype)
+    Returns [B, Hq, Dh] in q's dtype. ``split`` as ``decode_attention``'s."""
+    valid = _rows(k_cache_tm.shape[3], q.device, split) <= pos
+    return _attend_one(q, k_cache_tm, v_cache, valid, softcap, split, time_minor=True)
 
 
 def decode_local_attention(q: torch.Tensor, k_ring: torch.Tensor, v_ring: torch.Tensor,
-                           pos: PosLike, *, softcap: float = 0.0) -> torch.Tensor:
+                           pos: PosLike, *, softcap: float = 0.0,
+                           split: Optional[Split] = None, window: int = 0) -> torch.Tensor:
     """One new token against a ring of the last W positions.
 
     q [B, Hq, Dh] (rope applied at pos); k/v ring [B, W, Hk, Dh] with slot
     j holding position pos - ((pos - j) mod W) and the new token already
-    written at slot pos % W. Returns [B, Hq, Dh] in q's dtype."""
-    w = k_ring.shape[1]
-    valid = pos - torch.remainder(pos - torch.arange(w, device=q.device), w) >= 0
-    return _attend_one(q, k_ring, v_ring, valid, softcap)
+    written at slot pos % W. Returns [B, Hq, Dh] in q's dtype. With
+    ``split`` the ring is this rank's slice of the W = ``window`` slots over
+    "model" (each slot's validity read at its global index) and q holds
+    every head."""
+    w = window or k_ring.shape[1]
+    slot = _rows(k_ring.shape[1], q.device, split)
+    valid = (slot < w) & (pos - torch.remainder(pos - slot, w) >= 0)
+    return _attend_one(q, k_ring, v_ring, valid, softcap, split)
 
 
 def naive_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

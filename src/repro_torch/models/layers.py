@@ -17,7 +17,9 @@ from torch import nn
 
 from repro_torch.config.base import MLP_GELU, MLP_RELU2, MLP_SWIGLU, ModelConfig
 from repro_torch.device import dtype_of
-from repro_torch.parallel.tensor import copy_to_model, reduce_from_model, split_of, weight
+from repro_torch.parallel.tensor import (
+    copy_to_model, gather_from_model, reduce_from_model, split_of, weight,
+)
 
 
 def normal_(p: torch.Tensor, std: float, generator: torch.Generator) -> None:
@@ -231,7 +233,9 @@ class Embed(nn.Module):
         of the table in f32 (``weight_blocks``; a step holds one block's
         cast, not the whole table's), or against the exact f32 copies of
         those blocks that the serve step installs (``f32_copies["weight"]``):
-        vocab blocks side by side, d_model blocks summed in order."""
+        vocab blocks side by side, d_model blocks summed in order. Split
+        over "model", each rank computes its slice of the vocab and the
+        slices are gathered: every rank returns the whole [B, V]."""
         copies = getattr(self, "f32_copies", None)
         dim, blocks = self.weight_blocks()
         if copies and "weight" in copies:
@@ -248,6 +252,7 @@ class Embed(nn.Module):
                 logits = (part @ w.float() if logits is None
                           else torch.addmm(logits, part, w.float()))
                 i += w.shape[0]
+        logits = gather_from_model(logits, -1, split_of(self))
         c = self.cfg.logit_softcap
         if c > 0:
             logits = c * torch.tanh(logits / c)

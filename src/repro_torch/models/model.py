@@ -150,22 +150,25 @@ class Model(nn.Module):
                 m.reset_parameters(generator)
 
     def init_cache(self, batch: int, max_len: int) -> List[Cache]:
+        """Zeroed caches; on a split model this rank's shards of them
+        (``init_caches`` under the rules that ``shard_model`` kept)."""
         return init_caches(self.cfg, batch, max_len, dtype_of(self.cfg.act_dtype),
-                           device=self.device)
-
-    def _check_whole(self) -> None:
-        """Serving computes on whole parameters: a model whose parameters
-        ``parallel.tensor.shard_model`` split trains only."""
-        if getattr(self, "sharded", False):
-            raise ValueError("this model holds shards of its parameters (a mesh train step "
-                             "placed them); serving needs the whole parameters")
+                           device=self.device, rules=getattr(self, "rules", None))
 
     @torch.no_grad()
     def prefill(self, inputs: torch.Tensor, max_len: int
                 ) -> Tuple[List[Cache], torch.Tensor]:
         """inputs: tokens [B, S] or embeds [B, S, d]. Returns (caches of
-        max_len, last-position logits f32 [B, V])."""
-        self._check_whole()
+        max_len, last-position logits f32 [B, V]).
+
+        On a model that ``parallel.tensor.shard_model`` split, every rank of a
+        "model" group gives the same rows (this rank's rows of a batch split
+        over the batch dims; under ``parallel.use_mesh`` when they are split,
+        so that the MoE routes every rank's rows together): each layer
+        computes on its shards, the row-parallel outputs are summed over
+        "model", the vocab-parallel logits gathered to the whole [B, V],
+        ZeRO-3's parameters gathered over "data", and the caches are this
+        rank's shards in the rules' ``cache_spec`` layout."""
         h, _, caches = self.backbone(self.embed(inputs), mode="prefill", max_len=max_len)
         return caches, self.embed.logits(h[:, -1])
 
@@ -175,8 +178,8 @@ class Model(nn.Module):
         """inputs: tokens [B] or embeds [B, 1, d] at position ``pos``, an int
         or a 0-d int tensor on the model's device (never read on the host, so
         the step can be captured in a CUDA graph); updates ``caches`` in
-        place. Returns (caches, logits f32 [B, V])."""
-        self._check_whole()
+        place. Returns (caches, logits f32 [B, V]). On a split model as
+        ``prefill``: ``caches`` are this rank's shards."""
         pos = torch.as_tensor(pos, dtype=torch.int64, device=self.device)
         x = self.embed(inputs[:, None] if self.cfg.embed_inputs else inputs)
         h, _, caches = self.backbone(x, mode="decode", caches=caches, pos=pos)

@@ -90,7 +90,9 @@ class RGLRU(nn.Module):
     Split over "model" (``rglru_shardable``), a rank computes its slice of
     the width: w_x and w_gate are column-parallel, the conv, lam, b_a and
     b_i are its slices, w_a and w_i their output columns (``_gates``), w_out
-    is row-parallel. Split layers train only.
+    is row-parallel. Serving, the cache stays whole over "model" (the rules'
+    ``cache_spec``): a rank steps its width's part of the state and conv
+    window, and the new parts are gathered over "model".
     """
 
     def __init__(self, cfg: ModelConfig, device=None):
@@ -134,18 +136,25 @@ class RGLRU(nn.Module):
         xr = xc @ weight(self, "w_x")
         if mode == "decode":
             # cache: the last K-1 conv inputs and the f32 state, updated in
-            # place here, where the JAX package returns new arrays.
-            window = torch.cat([cache["conv"], xr[:, :1]], dim=1)
+            # place here, where the JAX package returns new arrays. Split, a
+            # rank steps its width's part and the new parts are gathered over
+            # "model" into the whole cache, the rules' layout.
+            conv, h = cache["conv"], cache["h"]
+            if tp is not None:
+                conv = conv.narrow(-1, *tp.part(conv.shape[-1]))
+                h = h.narrow(-1, *tp.part(h.shape[-1]))
+            window = torch.cat([conv, xr[:, :1]], dim=1)
             conv_out = (torch.einsum("bkw,kw->bw", window.float(), self.conv_w.float())
                         + self.conv_b.float()).to(x.dtype)
-            h_new = rglru_step(self, conv_out, cache["h"])
+            h_new = rglru_step(self, conv_out, h)
             y = h_new.to(x.dtype)[:, None, :]
-            cache["conv"].copy_(window[:, 1:])
-            cache["h"].copy_(h_new)
+            cache["conv"].copy_(gather_from_model(window[:, 1:], -1, tp))
+            cache["h"].copy_(gather_from_model(h_new, -1, tp))
         elif mode in ("train", "prefill"):
             y, h_last = rglru_scan(self, _causal_conv(xr, self.conv_w, self.conv_b))
             cache = None if mode == "train" else {
-                "conv": conv_window(xr, self.cfg.rglru_conv - 1), "h": h_last}
+                "conv": gather_from_model(conv_window(xr, self.cfg.rglru_conv - 1), -1, tp),
+                "h": gather_from_model(h_last, -1, tp)}
         else:
             raise ValueError(f"unknown mode {mode!r}; expected train, prefill or decode")
         return reduce_from_model((y * gate) @ weight(self, "w_out"), tp), cache

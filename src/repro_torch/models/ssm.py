@@ -27,7 +27,8 @@ from repro_torch.device import dtype_of
 from repro_torch.kernels.ops import ssd_scan
 from repro_torch.models.layers import conv_window, normal_
 from repro_torch.parallel.tensor import (
-    copy_to_model, reduce_from_model, scatter_to_model, split_of, sum_over_model, weight,
+    copy_to_model, gather_from_model, reduce_from_model, scatter_to_model, split_of,
+    sum_over_model, weight,
 )
 
 SsdCache = dict  # {"conv_x" [B,K-1,d_in], "conv_bc" [B,K-1,2gn], "ssm" [B,h,n,p] f32}
@@ -185,7 +186,10 @@ class SSD(nn.Module):
     w_x (column-parallel), conv_x, A_log, D, dt_bias and the norm's scale
     are its slices; w_bc, w_dt and conv_bc are whole (B and C feed every
     head; the rank takes its heads of dt); the gated norm's mean of squares
-    is summed over "model"; w_out is row-parallel. Split layers train only.
+    is summed over "model"; w_out is row-parallel. Serving, the cache
+    stays whole over "model" (the rules' ``cache_spec``): prefill gathers
+    the heads' final states and conv_x's channels, and decode steps the
+    rank's part and gathers the new parts.
     """
 
     def __init__(self, cfg: ModelConfig, device=None):
@@ -247,8 +251,15 @@ class SSD(nn.Module):
 
         if mode == "decode":
             # cache: the last K-1 conv inputs and the f32 state, updated in
-            # place here, where the JAX package returns new arrays.
-            win_x = torch.cat([cache["conv_x"], xr[:, :1]], dim=1)
+            # place here, where the JAX package returns new arrays. Split, a
+            # rank steps its heads' part of the whole state (and its channels
+            # of conv_x), and the new parts are gathered over "model" into
+            # the whole cache, the rules' layout.
+            conv_x, state = cache["conv_x"], cache["ssm"]
+            if tp is not None:
+                conv_x = conv_x.narrow(-1, *tp.part(conv_x.shape[-1]))
+                state = state.narrow(1, *tp.part(state.shape[1]))
+            win_x = torch.cat([conv_x, xr[:, :1]], dim=1)
             win_bc = torch.cat([cache["conv_bc"], bc[:, :1]], dim=1)
             cx = F.silu(torch.einsum("bkc,kc->bc", win_x.float(), self.conv_x_w.float())
                         + self.conv_x_b.float()).to(x.dtype)
@@ -257,12 +268,12 @@ class SSD(nn.Module):
             x_t = cx.reshape(b, nheads, hp)
             B_t, C_t = (t.reshape(b, g, n) for t in cbc.split(g * n, dim=-1))
             dt_t = F.softplus(dt_raw[:, 0].float() + self.dt_bias[None, :])
-            new_state, y = ssd_decode_step(cache["ssm"], x_t, dt_t, A, B_t, C_t)
+            new_state, y = ssd_decode_step(state, x_t, dt_t, A, B_t, C_t)
             y = y + self.D.float()[None, :, None] * x_t.float()
             y = y.reshape(b, 1, d_in).to(x.dtype)
-            cache["conv_x"].copy_(win_x[:, 1:])
+            cache["conv_x"].copy_(gather_from_model(win_x[:, 1:], -1, tp))
             cache["conv_bc"].copy_(win_bc[:, 1:])
-            cache["ssm"].copy_(new_state)
+            cache["ssm"].copy_(gather_from_model(new_state, 1, tp))
         elif mode in ("train", "prefill"):
             cx = _causal_conv(xr, self.conv_x_w, self.conv_x_b)
             cbc = copy_to_model(_causal_conv(bc, self.conv_bc_w, self.conv_bc_b), tp)
@@ -274,8 +285,9 @@ class SSD(nn.Module):
             y = y.reshape(b, s, d_in).to(x.dtype)
             k = cfg.ssm_conv
             cache = None if mode == "train" else {
-                "conv_x": conv_window(xr, k - 1), "conv_bc": conv_window(bc, k - 1),
-                "ssm": final_state}
+                "conv_x": gather_from_model(conv_window(xr, k - 1), -1, tp),
+                "conv_bc": conv_window(bc, k - 1),
+                "ssm": gather_from_model(final_state, 1, tp)}
         else:
             raise ValueError(f"unknown mode {mode!r}; expected train, prefill or decode")
         return reduce_from_model(

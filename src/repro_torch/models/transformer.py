@@ -49,7 +49,8 @@ from repro_torch.config.base import (
 from repro_torch.device import dtype_of
 from repro_torch.kernels.ops import flash_attention
 from repro_torch.models.attention import (
-    decode_attention, decode_attention_tm, decode_local_attention, local_attention,
+    decode_attention, decode_attention_tm, decode_local_attention, local_attention, seq_part,
+    write_at,
 )
 from repro_torch.models.layers import MLP, Norm, apply_rope, normal_
 from repro_torch.models.moe import AUX_KEYS, MoE, Aux, aux_zero
@@ -57,11 +58,15 @@ from repro_torch.models.rglru import RGLRU as RGLRUMixer
 from repro_torch.models.rglru import init_rglru_cache
 from repro_torch.models.ssm import SSD as SSDMixer
 from repro_torch.models.ssm import init_ssd_cache
-from repro_torch.parallel.tensor import copy_to_model, reduce_from_model, split_of, weight
+from repro_torch.parallel.sharding import ShardingRules
+from repro_torch.parallel.tensor import (
+    copy_to_model, gather_from_model, reduce_from_model, split_of, weight,
+)
 
 # attention: {"k": [B, Smax, Hk, hd], "v": [B, Smax, Hk, hd]} (Smax = local_window
 # for local attention, a ring: position p in slot p % W; "k" [B, Hk, hd, Smax]
-# for a global layer under decode_k_time_minor);
+# for a global layer under decode_k_time_minor; on a split model a rank's
+# shard of them, init_caches);
 # SSD: {"conv_x": [B, K-1, d_in], "conv_bc": [B, K-1, 2gn], "ssm": [B, h, n, p] f32};
 # RG-LRU: {"conv": [B, K-1, W], "h": [B, W] f32}
 Cache = dict
@@ -80,7 +85,12 @@ class Attention(nn.Module):
     rank keeps the kv heads that its q heads read (one a rank when its q
     heads share a group, else one per q head). ``wo`` is row-parallel. When
     the q heads do not divide, nothing is split and the attention runs whole
-    on every rank. Split layers train only."""
+    on every rank.
+
+    Serving on a split model keeps the caches in the rules' ``cache_spec``
+    layout: this rank's kv heads where they divide, else (``seq_split``,
+    the default) every kv head at this rank's slice of the positions, or of
+    a ring's slots (``_prefill_cache``, ``_decode``)."""
 
     def __init__(self, cfg: ModelConfig, mixer: str = ATTN, device=None):
         super().__init__()
@@ -111,12 +121,12 @@ class Attention(nn.Module):
                 for bias in (self.bq, self.bk, self.bv):
                     bias.zero_()
 
-    def _qkv(self, x: torch.Tensor):
+    def _qkv(self, x: torch.Tensor, whole_kv: bool = False):
         cfg = self.cfg
         hd = cfg.resolved_head_dim
         tp = split_of(self)
         if tp is not None:
-            return self._qkv_split(x, tp)
+            return self._qkv_split(x, tp, whole_kv)
         q, k, v = (x @ weight(self, w) for w in ("wq", "wk", "wv"))
         if self.bq is not None:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
@@ -125,10 +135,11 @@ class Attention(nn.Module):
                 k.reshape(*shp, cfg.num_kv_heads, hd),
                 v.reshape(*shp, cfg.num_kv_heads, hd))
 
-    def _qkv_split(self, x: torch.Tensor, tp):
-        """This rank's q heads and the kv heads they read."""
+    def _qkv_split(self, x: torch.Tensor, tp, whole_kv: bool = False):
+        """This rank's q heads and the kv heads they read (with
+        ``whole_kv``, every kv head where the kv heads are whole)."""
         cfg = self.cfg
-        hd, hq, hk = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+        hd, hk = cfg.resolved_head_dim, cfg.num_kv_heads
         shp = x.shape[:-1]
         xc = copy_to_model(x, tp)
         q = xc @ weight(self, "wq")
@@ -142,82 +153,127 @@ class Attention(nn.Module):
                 t = t + b
             kv.append(t.reshape(*shp, -1, hd))
         k, v = kv
-        if k.shape[-2] == hk:
+        if k.shape[-2] == hk and not whole_kv:
             # whole kv heads on every rank (whole compute, whole gradients):
             # keep the ones this rank's q heads read, their gradient summed
             # over "model" where the kept heads are used
-            first, n = tp.part(hq)
-            used = [(first + i) // (hq // hk) for i in range(n)]
-            keep = sorted(set(used))
-            k, v = copy_to_model(k, tp), copy_to_model(v, tp)
-            if used == [h for h in keep for _ in range(n // len(keep))]:
-                k, v = k.narrow(-2, keep[0], len(keep)), v.narrow(-2, keep[0], len(keep))
-            else:       # one kv head per q head
-                idx = torch.tensor(used, device=x.device)
-                k, v = k.index_select(-2, idx), v.index_select(-2, idx)
+            k, v = (self._heads_read(copy_to_model(t, tp), tp, -2) for t in (k, v))
         return q, k, v
+
+    def _heads_read(self, t: torch.Tensor, tp, dim: int) -> torch.Tensor:
+        """Of ``t``'s whole kv heads (along ``dim``), the ones this rank's q
+        heads read: one a rank when its q heads share a group (a view), else
+        one per q head."""
+        hq, hk = self.cfg.num_heads, self.cfg.num_kv_heads
+        first, n = tp.part(hq)
+        used = [(first + i) // (hq // hk) for i in range(n)]
+        keep = sorted(set(used))
+        if used == [h for h in keep for _ in range(n // len(keep))]:
+            return t.narrow(dim, keep[0], len(keep))
+        return t.index_select(dim, torch.tensor(used, device=t.device))
 
     def forward(self, x: torch.Tensor, *, mode: str, cache: Optional[Cache],
                 pos=None, max_len: int = 0) -> Tuple[torch.Tensor, Cache]:
         theta = self.cfg.rope_theta
         b, s, _ = x.shape
+        tp = split_of(self)
         if mode == "decode":
-            q, k, v = self._qkv(x[:, 0])                         # [B,H,hd]
-            # pos: an int, or a 0-d int tensor on x's device that no host
-            # code reads, so that the step can be captured in a CUDA graph
-            pos = torch.as_tensor(pos, dtype=torch.int64, device=x.device)
-            positions = pos.to(torch.int32).expand(b, 1)
-            q = apply_rope(q[:, None], positions, theta)[:, 0]
-            k = apply_rope(k[:, None], positions, theta)[:, 0]
-            # The cache was preallocated at max_len, or at the window for a
-            # ring (by prefill or init_cache), and is updated in place here,
-            # where the JAX package returns an updated copy of it.
-            local = self.mixer == LOCAL_ATTN
-            slot = (pos % cache["v"].shape[1] if local else pos).reshape(1)
-            if self.time_minor:
-                cache["k"].index_copy_(3, slot, k.to(cache["k"].dtype)[..., None])
-            else:
-                cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype)[:, None])
-            cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype)[:, None])
-            attend = (decode_local_attention if local else
-                      decode_attention_tm if self.time_minor else decode_attention)
-            o = attend(q, cache["k"], cache["v"], pos)[:, None]
+            o = self._decode(x[:, 0], cache, pos)[:, None]
         elif mode in ("train", "prefill"):
             if mode == "prefill" and self.mixer == ATTN and max_len < s:
                 raise ValueError(f"max_len {max_len} < prompt length {s}")
-            q, k, v = self._qkv(x)
+            q, k, v = self._qkv(x, whole_kv=mode == "prefill")
             positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
             q = apply_rope(q, positions, theta)
             k = apply_rope(k, positions, theta)
+            if mode == "prefill":
+                cache = self._prefill_cache(k, v, max_len)
+                if tp is not None and k.shape[-2] == self.cfg.num_kv_heads:
+                    k, v = (self._heads_read(t, tp, -2) for t in (k, v))
             local, w = self.mixer == LOCAL_ATTN, self.cfg.local_window
             o = local_attention(q, k, v, window=w) if local else flash_attention(q, k, v)
-            if mode == "prefill":
-                cache = init_attn_cache(self.cfg, b, max_len, k.dtype, x.device, self.mixer)
-                if local:
-                    # the last W positions, position p in slot p % W (zeros past
-                    # s when s < W), the layout of the JAX package's roll
-                    n = min(s, w)
-                    cache["k"][:, :n] = torch.roll(k[:, s - n:], s % w, 1)
-                    cache["v"][:, :n] = torch.roll(v[:, s - n:], s % w, 1)
-                else:
-                    if self.time_minor:
-                        cache["k"][..., :s] = k.permute(0, 2, 3, 1)
-                    else:
-                        cache["k"][:, :s] = k
-                    cache["v"][:, :s] = v
         else:
             raise ValueError(f"unknown mode {mode!r}; expected train, prefill or decode")
         o = o.reshape(b, o.shape[1], -1)
-        return reduce_from_model(o @ weight(self, "wo"), split_of(self)), cache
+        return reduce_from_model(o @ weight(self, "wo"), tp), cache
+
+    def _prefill_cache(self, k: torch.Tensor, v: torch.Tensor, max_len: int) -> Cache:
+        """The cache a prefill leaves: K/V [B, S, Hk', hd] (rope applied; this
+        rank's kv heads, or every kv head where they are whole) written at
+        their positions, into this rank's slice of the sequence under a
+        sequence split (``seq_split``)."""
+        b, s = k.shape[:2]
+        seq = getattr(self, "seq_split", None)
+        cache = init_attn_cache(self.cfg, b, max_len, k.dtype, k.device, self.mixer,
+                                kv_heads=k.shape[2], seq_parts=seq.size if seq else 1)
+        if self.mixer == LOCAL_ATTN:
+            # the last W positions, position p in slot p % W (zeros past s when
+            # s < W), the layout of the JAX package's roll
+            w = self.cfg.local_window
+            n = min(s, w)
+            k, v = (torch.roll(t[:, s - n:], s % w, 1) for t in (k, v))
+        rows = cache["v"].shape[1]
+        off = seq_part(seq, rows)[0] if seq is not None else 0
+        n = max(0, min(k.shape[1] - off, rows))
+        if self.time_minor:
+            cache["k"][..., :n] = k[:, off:off + n].permute(0, 2, 3, 1)
+        else:
+            cache["k"][:, :n] = k[:, off:off + n]
+        cache["v"][:, :n] = v[:, off:off + n]
+        return cache
+
+    def _decode(self, x: torch.Tensor, cache: Cache, pos) -> torch.Tensor:
+        """One token x [B, d] at ``pos`` against ``cache``, which it updates in
+        place. Returns this rank's q heads' output [B, Hq', hd].
+
+        Under a sequence split (``seq_split``) the rank that owns the new
+        token's row writes it, every rank attends all q heads (gathered over
+        "model" where wq is split) to its slice, and the partial softmaxes
+        are combined over "model"; with whole kv heads and no sequence split
+        the rank reads the kv heads its q heads use."""
+        cfg, theta = self.cfg, self.cfg.rope_theta
+        tp, seq = split_of(self), getattr(self, "seq_split", None)
+        q, k, v = self._qkv(x, whole_kv=True)                     # [B,H,hd]
+        # pos: an int, or a 0-d int tensor on x's device that no host
+        # code reads, so that the step can be captured in a CUDA graph
+        pos = torch.as_tensor(pos, dtype=torch.int64, device=x.device)
+        positions = pos.to(torch.int32).expand(x.shape[0], 1)
+        q = apply_rope(q[:, None], positions, theta)[:, 0]
+        k = apply_rope(k[:, None], positions, theta)[:, 0]
+        # The cache was preallocated at max_len, or at the window for a ring
+        # (by prefill or init_cache), and is updated in place here, where the
+        # JAX package returns an updated copy of it.
+        local = self.mixer == LOCAL_ATTN
+        slot = pos % cfg.local_window if local else pos
+        kc, vc = cache["k"], cache["v"]
+        if self.time_minor:
+            write_at(kc, 3, slot, k.to(kc.dtype)[..., None], seq)
+        else:
+            write_at(kc, 1, slot, k.to(kc.dtype)[:, None], seq)
+        write_at(vc, 1, slot, v.to(vc.dtype)[:, None], seq)
+        attend = (decode_local_attention if local else
+                  decode_attention_tm if self.time_minor else decode_attention)
+        if seq is not None:
+            kw = {"window": cfg.local_window} if local else {}
+            o = attend(gather_from_model(q, 1, tp), kc, vc, pos, split=seq, **kw)
+            return o if tp is None else o.narrow(1, *tp.part(cfg.num_heads))
+        if tp is not None and vc.shape[2] == cfg.num_kv_heads:
+            kc = self._heads_read(kc, tp, 1 if self.time_minor else 2)
+            vc = self._heads_read(vc, tp, 2)
+        return attend(q, kc, vc, pos)
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
-                    dtype: torch.dtype, device=None, mixer: str = ATTN) -> Cache:
+                    dtype: torch.dtype, device=None, mixer: str = ATTN,
+                    kv_heads: int = 0, seq_parts: int = 1) -> Cache:
     """Zeroed K/V of ``max_len`` rows, or of ``local_window`` for a local
     layer; a global layer's K time-minor [B, Hk, hd, max_len] under
-    ``decode_k_time_minor``."""
+    ``decode_k_time_minor``. A rank's shard of a split cache: ``kv_heads``
+    of them (default all), or of a sequence (a ring's slots) split into
+    ``seq_parts``, ceil(rows / seq_parts) rows (the rules' ``cache_spec``)."""
     length = cfg.local_window if mixer == LOCAL_ATTN else max_len
-    hk, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    length = -(-length // seq_parts)
+    hk, hd = kv_heads or cfg.num_kv_heads, cfg.resolved_head_dim
     shape = (batch, length, hk, hd)
     k_shape = ((batch, hk, hd, length) if cfg.decode_k_time_minor and mixer != LOCAL_ATTN
                else shape)
@@ -338,13 +394,20 @@ _save_matmuls = partial(create_selective_checkpoint_contexts, _matmul_policy)
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype,
-                device=None) -> List[Cache]:
+                device=None, rules: Optional[ShardingRules] = None) -> List[Cache]:
     """One zeroed cache per layer, in layer order (only a global attention
-    layer's depends on max_len)."""
+    layer's depends on max_len). With ``rules`` (of a mesh whose "model" dim
+    has ``rules.n_model`` ranks), one rank's shards over "model" under
+    ``rules.cache_spec``: K/V of its kv heads, or of its slice of the
+    sequence; the SSD and RG-LRU states whole (split over the batch only)."""
+    n = rules.n_model if rules is not None else 1
+    kv_heads = cfg.num_kv_heads // n if n > 1 and rules.kv_shardable else 0
+    parts = n if n > 1 and rules.cache_seq_split else 1
+
     def one(mixer: str) -> Cache:
         if mixer == SSD:
             return init_ssd_cache(cfg, batch, dtype, device)
         if mixer == RGLRU:
             return init_rglru_cache(cfg, batch, dtype, device)
-        return init_attn_cache(cfg, batch, max_len, dtype, device, mixer)
+        return init_attn_cache(cfg, batch, max_len, dtype, device, mixer, kv_heads, parts)
     return [one(mixer) for mixer, _ in cfg.layer_blocks()]

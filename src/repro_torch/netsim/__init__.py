@@ -35,8 +35,10 @@ PyTorch: the JAX package's ``netsim``.
                form (``WorkloadParams``).
   * convert  - the JAX package's state, as numpy, into the port's.
 
-Multi-device sharding (``devices=``) raises ``NotImplementedError`` naming
-the ROADMAP item that brings it.
+Multi-device runs: the runner's ``devices=`` pads each launch to a multiple
+of the devices and runs each device's equal share of its cells, one device
+after another from the calling thread (``runner._run_launch``); the rows
+come back in cell order.
 """
 from repro_torch.netsim.channel import (
     CHANNEL_MODELS, ChannelModel, available_channel_models,

@@ -72,6 +72,9 @@ class ShardingRules:
             d_in // max(model.ssm_headdim, 1), self.n_model)
         w = model.rglru_width or model.d_model
         self.rglru_shardable = _div(w, self.n_model)
+        # decode caches split along the sequence over "model" (cache_spec)
+        self.cache_seq_split = (self.n_model > 1 and not self.kv_shardable
+                                and par.shard_cache_seq)
 
     # -- param rules -------------------------------------------------------
     def param_spec(self, path: str, ndim: int) -> P:

@@ -13,6 +13,11 @@ the modules that own them (and sets ``model.sharded`` and ``model.whole_shapes``
   matmul takes ``copy_to_model(x)`` and a row-parallel one ends in
   ``reduce_from_model``. A module left unmarked computes whole, as on one
   device (recurrentgemma's 10 attention heads on 16 ranks);
+* ``module.seq_split`` (a ``Split`` of "model") on each module holding a
+  K/V cache (``wk``) when the rules keep the kv heads whole and split the
+  cache along its sequence instead (``ShardingRules.cache_spec``): its
+  prefill and decode keep this rank's slice of the positions (of a ring's
+  slots) and combine their partial softmaxes over "model";
 * ``module.zero`` (name -> (tensor dim, "data" group)) for each parameter
   that the rules split over "data" (``fsdp``). ``weight(module, name)``
   gives the tensor a layer computes with: the parameter itself, or under
@@ -192,6 +197,19 @@ def split_of(module: nn.Module) -> Optional[Split]:
     return getattr(module, "tp", None)
 
 
+def groups_of(model: nn.Module) -> list:
+    """The process groups that a split model's collectives run over."""
+    out = []
+    for m in model.modules():
+        for split in (getattr(m, "tp", None), getattr(m, "seq_split", None)):
+            if split is not None and split.group not in out:
+                out.append(split.group)
+        for _, group in (getattr(m, "zero", None) or {}).values():
+            if group not in out:
+                out.append(group)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Placing a model's shards
 # ---------------------------------------------------------------------------
@@ -205,8 +223,10 @@ def _owner(root: nn.Module, name: str) -> tuple:
 def shard_model(model: nn.Module, mesh, rules: ShardingRules) -> dict:
     """Replaces each parameter of ``model`` that the rules split over a mesh
     dim of more than one rank by this rank's shard and marks the modules
-    that own them (module docstring). Returns the whole shapes of the
-    parameters it split, by name. On a mesh of one rank it changes nothing."""
+    that own them (module docstring), and keeps ``rules`` as
+    ``model.rules`` (the cache shapes ``init_caches`` gives). Returns the
+    whole shapes of the parameters it split, by name. On a mesh of one rank
+    it changes nothing."""
     names = tuple(mesh.mesh_dim_names)
     whole = {}
     shapes = {name: p.shape for name, p in model.named_parameters()}
@@ -232,8 +252,13 @@ def shard_model(model: nn.Module, mesh, rules: ShardingRules) -> dict:
                 raise ValueError(f"{name}: the rules split it over {axis!r}")
         whole[name] = p.shape
         p.data = shard_of(p.data, mesh, pl).clone()
-    if whole:
-        model.sharded, model.whole_shapes = True, shapes
+    seq = "model" in names and mesh.size(names.index("model")) > 1 and rules.cache_seq_split
+    for m in model.modules() if seq else ():
+        if isinstance(getattr(m, "wk", None), nn.Parameter):
+            m.seq_split = Split(mesh.get_group("model"), mesh.get_local_rank("model"),
+                                mesh.size(names.index("model")))
+    if whole or seq:
+        model.sharded, model.whole_shapes, model.rules = True, shapes, rules
     return whole
 
 
@@ -245,6 +270,6 @@ def unshard_model(model: nn.Module, full: dict) -> None:
     for name, t in full.items():
         params[name].data = t
     for m in model.modules():
-        for attr in ("tp", "zero", "sharded", "whole_shapes"):
+        for attr in ("tp", "seq_split", "zero", "sharded", "whole_shapes", "rules"):
             if attr in m.__dict__:
                 delattr(m, attr)

@@ -8,7 +8,12 @@ step, as ``repro.launch.serve`` feeds it, and its argmax tokens are the
 output.
 
 ``make_serve_step`` is the port of the JAX package's jitted single-token
-step (``decode_step`` plus argmax, the caches donated): on the card it is one
+step (``decode_step`` plus argmax, the caches donated). On a mesh it splits
+the model by the rules (``parallel.tensor.shard_model``) and the step holds
+each rank's caches in ``cache_spec``'s layout; a model split over "model"
+steps eagerly, by ``ServeStep.eager`` (``greedy_decode(graph=False)``):
+collectives over gloo cannot be captured in a CUDA graph, and the step
+refuses to capture them. Unsplit, on the card it is one
 captured CUDA graph over static input and position buffers and its own
 caches, written in place, replayed once per token; on the CPU the same
 function runs eagerly. As a jitted step compiles once per shape, the graph
@@ -30,16 +35,19 @@ device's free memory.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Iterator, List, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.config.base import ParallelConfig
 from repro_torch.device import dtype_of
 from repro_torch.models.model import Model
 from repro_torch.models.rglru import RGLRU
 from repro_torch.models.transformer import Cache
-from repro_torch.parallel.sharding import ShardingRules
+from repro_torch.parallel.sharding import ShardingRules, batch_dims, use_mesh
+from repro_torch.parallel.tensor import groups_of, shard_model
 from repro_torch.serve.kvcache import cache_shardings
 
 
@@ -89,10 +97,16 @@ class ServeStep:
     token: pass those caches to the next call. The kernel launch counters of
     ``repro_torch.kernels`` tick at capture, not at replay; the decode step
     launches none of the three kernels (its attention is plain PyTorch, as in
-    the JAX package)."""
+    the JAX package).
 
-    def __init__(self, model: Model):
+    With ``mesh`` the steps run under it (``parallel.use_mesh``): each rank
+    gives its rows of a batch split over the mesh's batch dims. A model
+    that ``shard_model`` split refuses to capture unless every group its
+    collectives run over is NCCL's: call ``eager``."""
+
+    def __init__(self, model: Model, mesh=None):
         self.model = model
+        self.mesh = mesh
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.captures = 0
         self.caches: Optional[List[Cache]] = None   # the graph's caches
@@ -114,7 +128,8 @@ class ServeStep:
               ) -> Tuple[List[Cache], torch.Tensor, torch.Tensor]:
         """The step without a graph, on ``caches`` in place: (caches, token,
         logits f32 [B, V])."""
-        with self._installed():
+        ambient = use_mesh(self.mesh) if self.mesh is not None else contextlib.nullcontext()
+        with self._installed(), ambient:
             caches, logits = self.model.decode_step(caches, inp, pos)
         return caches, torch.argmax(logits, dim=-1), logits
 
@@ -156,6 +171,11 @@ class ServeStep:
 
     def _capture(self, caches: List[Cache], inp: torch.Tensor) -> None:
         model = self.model
+        other = sorted({dist.get_backend(g) for g in groups_of(model)} - {"nccl"})
+        if other:
+            raise RuntimeError(f"this model is split over {other} process groups, whose "
+                               "collectives cannot be captured in a CUDA graph: step it "
+                               "with ServeStep.eager (greedy_decode(graph=False))")
         self.graph = self.caches = None
         if self.copies is None:
             self.copies = f32_copies(model)
@@ -181,13 +201,23 @@ class ServeStep:
 def make_serve_step(model: Model, par: ParallelConfig, mesh, batch: int, max_len: int):
     """Returns (step, cache placements, rules): ``step`` a ``ServeStep``,
     the placements of the caches on ``mesh`` (None without a mesh: one
-    device) and the ``ShardingRules`` of (model, par)."""
+    device) and the ``ShardingRules`` of (model, par).
+
+    On a mesh the model is split by the rules (``shard_model``, unless it
+    holds shards already), so that its prefill and the step keep each
+    rank's caches in those placements (``cache_spec``'s layout; the SSD and
+    RG-LRU states whole). The step runs under the mesh when ``batch``
+    divides over its batch dims (each rank then gives its rows), else on
+    the whole batch on every rank, as the JAX package's specs replicate it."""
     rules = ShardingRules(model.cfg, par)
-    cache_sh = None
-    if mesh is not None:
-        cache_sh, _ = cache_shardings(model.cfg, par, mesh, batch, max_len,
-                                      dtype_of(model.cfg.act_dtype))
-    return ServeStep(model), cache_sh, rules
+    if mesh is None:
+        return ServeStep(model), None, rules
+    if not getattr(model, "sharded", False):
+        shard_model(model, mesh, rules)
+    cache_sh, _ = cache_shardings(model.cfg, par, mesh, batch, max_len,
+                                  dtype_of(model.cfg.act_dtype))
+    n = math.prod(mesh.size(mesh.mesh_dim_names.index(a)) for a in batch_dims(mesh))
+    return ServeStep(model, mesh if batch % n == 0 else None), cache_sh, rules
 
 
 def greedy_decode(model: Model, caches: List[Cache], token: torch.Tensor,

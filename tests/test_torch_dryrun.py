@@ -196,7 +196,8 @@ _RUN_CELLS = """
 import json, sys
 from repro_torch.launch.dryrun import run_cell
 cells = [("qwen1.5-0.5b", "train_4k", True), ("mamba2-370m", "long_500k", False),
-         ("qwen1.5-0.5b", "long_500k", False)]
+         ("qwen1.5-0.5b", "long_500k", False), ("qwen1.5-0.5b", "decode_32k", False),
+         ("deepseek-67b", "decode_32k", True)]
 print(json.dumps([run_cell(a, s, mp, "cpu") for a, s, mp in cells]))
 """
 
@@ -256,15 +257,49 @@ def test_run_cell_train_multi_pod(cells):
 
 
 def test_run_cell_long_decode(cells):
+    """mamba2 long_500k on 16 x 16 (one row, replicated over "data"): the
+    decode step on the split model, its collectives over "model" counted
+    exactly: per layer the gated norm's sum of squares and the row-parallel
+    output all-reduced, and the conv window's channels and the SSD state's
+    heads all-gathered into the whole state (the rules' layout). The vocab
+    (50,280) does not divide over 16, so the table is whole."""
     c = cells[1]
     assert c["status"] == "OK" and set(c) == OK_KEYS, set(c) ^ OK_KEYS
-    assert c["num_collectives"] == 0 and c["collective_bytes_per_device"] == 0.0
+    assert c["tensor_parallel"] is True
+    assert c["argument_size_in_bytes"] == c["argument_size_in_bytes_under_rules"]
     assert _finite_positive(c["hlo_dot_flops_per_device"], c["hlo_hbm_bytes_per_device"],
                             c["peak_bytes"])
     # mamba2's config counts a parameter set of its own (the init's differs)
     assert c["params"] == get_model_config("mamba2-370m").param_count() != c["params_init"]
     assert c["model_flops"] == 2.0 * c["active_params"]
     assert "ssd_scan" not in c["kernel_ops"]      # decode is the recurrent step
+    cfg, m = get_model_config("mamba2-370m"), 16
+    d_in = cfg.ssm_expand * cfg.d_model
+    heads = d_in // cfg.ssm_headdim
+    reduce = 4 + cfg.d_model * 2                 # f32 [1, 1, 1], bf16 [1, 1, d]
+    gather = (cfg.ssm_conv - 1) * d_in * 2 + heads * cfg.ssm_state * cfg.ssm_headdim * 4
+    assert c["by_kind"] == pytest.approx({
+        "all-reduce": cfg.num_layers * 2 * reduce * (m - 1) / m,
+        "all-gather": cfg.num_layers * gather * (m - 1) / m}, rel=1e-12)
+    assert c["inter_pod_bytes_per_device"] == 0.0
+
+
+@pytest.mark.parametrize("i", [3, 4], ids=["qwen decode_32k 16x16",
+                                            "deepseek decode_32k 2x16x16"])
+def test_run_cell_serve_runs_on_the_split_model(cells, i):
+    """A serve cell runs on the model split by the rules: each rank's
+    arguments are exactly the rules' shards of the parameters, the caches
+    (qwen's kv heads split over "model"; deepseek's 8 kv heads do not divide
+    16, so its K/V are split along the sequence) and the inputs; deepseek's
+    parameters are gathered over "data" (``fsdp``); each rank needs under
+    80 GB."""
+    c = cells[i]
+    assert c["status"] == "OK" and set(c) == OK_KEYS, set(c) ^ OK_KEYS
+    assert c["tensor_parallel"] is True
+    assert c["argument_size_in_bytes"] == c["argument_size_in_bytes_under_rules"]
+    assert _finite_positive(c["peak_bytes"], c["intra_pod_bytes_per_device"])
+    assert c["peak_bytes"] < 80e9
+    assert "all-gather" in c["by_kind"] and "all-reduce" in c["by_kind"]
 
 
 def test_run_cell_skips_full_attention_at_500k(cells):

@@ -463,5 +463,268 @@ def job_tp_train(mesh, args: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Serving on a mesh: each split mixer's prefill and decode against itself
+# whole, and the split serve of whole models
+# ---------------------------------------------------------------------------
+
+def tp_serve_layer_cases() -> dict:
+    """name -> (config, ParallelConfig changes, attribute, make(cfg)): one
+    mixer whose prefill and decode the split-serve check runs."""
+    from repro_torch.config.base import ATTN, LOCAL_ATTN
+    from repro_torch.models.rglru import RGLRU
+    from repro_torch.models.ssm import SSD
+    from repro_torch.models.transformer import Attention
+
+    internlm = "internlm2-1.8b"
+    return {
+        "attention, kv heads split": (_f32_config("qwen1.5-0.5b"), {}, "attn",
+                                      lambda c: Attention(c, ATTN)),
+        "attention, sequence split": (_f32_config(internlm, num_kv_heads=1), {}, "attn",
+                                      lambda c: Attention(c, ATTN)),
+        "attention, sequence split, time-minor K": (
+            _f32_config(internlm, num_kv_heads=1, decode_k_time_minor=True), {}, "attn",
+            lambda c: Attention(c, ATTN)),
+        "attention, kv heads split, time-minor K": (
+            _f32_config("qwen1.5-0.5b", decode_k_time_minor=True), {}, "attn",
+            lambda c: Attention(c, ATTN)),
+        "attention, kv heads whole, cache whole": (
+            _f32_config(internlm, num_heads=6, num_kv_heads=3, head_dim=16),
+            {"shard_cache_seq": False}, "attn", lambda c: Attention(c, ATTN)),
+        "attention, kv heads whole, cache whole, time-minor K": (
+            _f32_config(internlm, num_kv_heads=1, decode_k_time_minor=True),
+            {"shard_cache_seq": False}, "attn", lambda c: Attention(c, ATTN)),
+        "attention, q heads do not divide, sequence split": (
+            _f32_config(internlm, num_heads=3, num_kv_heads=1, head_dim=16), {}, "attn",
+            lambda c: Attention(c, ATTN)),
+        "local attention, ring sequence split": (_f32_config("recurrentgemma-2b"), {}, "attn",
+                                                 lambda c: Attention(c, LOCAL_ATTN)),
+        "ssd": (_f32_config("mamba2-370m"), {}, "ssd", SSD),
+        "rglru": (_f32_config("recurrentgemma-2b"), {}, "rglru", RGLRU),
+    }
+
+
+# planted faults of the split serve: each must make its case part from the
+# whole mixer (its outputs, or its cache)
+SERVE_PLANTED = {
+    "combine dropped (rank-local softmax)": "attention, sequence split",
+    "wrong sequence offset (every rank at 0)": "local attention, ring sequence split",
+    "SSD state not gathered over model": "ssd",
+}
+SERVE_S0, SERVE_MAXLEN, SERVE_STEPS = 30, 64, 6   # decode crosses row 32, rank 1's first
+
+
+def plant_serve(fault: str):
+    """A context that plants ``fault`` (SERVE_PLANTED) in the port's modules."""
+    import contextlib
+    from repro_torch.models import attention, ssm
+
+    def local_part_only(x, dim, tp):
+        parts = [torch.zeros_like(x)] * tp.size
+        parts[tp.rank] = x
+        return torch.cat(parts, dim=dim)
+
+    mod, name, fn = {
+        "combine dropped (rank-local softmax)": (
+            attention, "combine_partials", lambda m, l, acc, split: acc / l.clamp_min(1e-30)),
+        "wrong sequence offset (every rank at 0)": (attention, "seq_part",
+                                                    lambda split, rows: (0, rows)),
+        "SSD state not gathered over model": (ssm, "gather_from_model", local_part_only),
+    }[fault]
+
+    @contextlib.contextmanager
+    def ctx():
+        old = getattr(mod, name)
+        setattr(mod, name, fn)
+        try:
+            yield
+        finally:
+            setattr(mod, name, old)
+    return ctx()
+
+
+def local_shard(t: torch.Tensor, spec, sizes: dict, coords: dict) -> torch.Tensor:
+    """This rank's shard of ``t`` under ``spec`` as the port's caches hold it:
+    each split dim cut into parts of ceil(n / ranks), the last zero-padded."""
+    import torch.nn.functional as F
+    for d, entry in enumerate(spec):
+        axes = entry if isinstance(entry, tuple) else (() if entry is None else (entry,))
+        for a in axes:
+            n, c = t.shape[d], -(-t.shape[d] // sizes[a])
+            off = coords[a] * c
+            part = t.narrow(d, min(off, n), max(0, min(c, n - off)))
+            pad = [0, 0] * (t.dim() - d - 1) + [0, c - part.shape[d]]
+            t = F.pad(part, pad)
+    return t
+
+
+def job_tp_serve_layers(mesh, args: dict) -> dict:
+    """Each case of ``tp_serve_layer_cases`` whole and split over "model"
+    (the rules of a 1 x 2 mesh) on the same weights: a prefill of
+    ``SERVE_S0`` positions into caches of ``SERVE_MAXLEN``, then
+    ``SERVE_STEPS`` decode steps (pos as a 0-d tensor). The largest relative
+    error over the ranks of the outputs, and of each rank's cache against
+    its shard of the whole cache under ``cache_spec`` after prefill and after
+    the last step; whether every cache has the spec's local shape; then the
+    planted faults' largest errors."""
+    import copy
+    import torch.distributed as dist
+    from repro_torch.config import ParallelConfig
+    from repro_torch.launch.specs import shard_shape
+    from repro_torch.parallel.sharding import ShardingRules
+    from repro_torch.parallel.tensor import shard_model
+
+    cases = tp_serve_layer_cases()
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    coords = {a: mesh.get_local_rank(a) for a in mesh.mesh_dim_names}
+
+    def run_case(name, fault=None):
+        cfg, par_kw, attr, make = cases[name]
+        par = ParallelConfig(multi_pod=False, data=1, model=2, **par_kw)
+        rules = ShardingRules(cfg, par)
+        whole = torch.nn.Module()
+        setattr(whole, attr, make(cfg))
+        getattr(whole, attr).reset_parameters(torch.Generator().manual_seed(1))
+        split = copy.deepcopy(whole)
+        shard_model(split, mesh, rules)
+        gen = torch.Generator().manual_seed(2)
+        b = 2
+        xs = torch.randn((b, SERVE_S0 + SERVE_STEPS, cfg.d_model), generator=gen)
+        outs, caches = {}, {}
+        with torch.no_grad():
+            for tag, h in (("whole", whole), ("split", split)):
+                layer = getattr(h, attr)
+
+                kw = ({"max_len": SERVE_MAXLEN} if attr == "attn" else {},
+                      lambda t: {"pos": torch.tensor(SERVE_S0 + t)} if attr == "attn" else {})
+
+                def go():
+                    y, c = layer(xs[:, :SERVE_S0], mode="prefill", cache=None, **kw[0])
+                    first = {k: t.clone() for k, t in c.items()}
+                    ys = [y]
+                    for t in range(SERVE_STEPS):
+                        y, c = layer(xs[:, SERVE_S0 + t:SERVE_S0 + t + 1], mode="decode",
+                                     cache=c, **kw[1](t))
+                        ys.append(y)
+                    return torch.cat(ys, dim=1), first, c
+                if tag == "split" and fault is not None:
+                    with plant_serve(fault):
+                        outs[tag], first, last = go()
+                else:
+                    outs[tag], first, last = go()
+                caches[tag] = (first, last)
+        errs = [_rel(outs["split"], outs["whole"])]
+        shapes_ok = True
+        for i in range(2):
+            for k, t in caches["split"][i].items():
+                spec = rules.cache_spec(k, t.dim())
+                ref = local_shard(caches["whole"][i][k], spec, sizes, coords)
+                shapes_ok &= (tuple(t.shape) == shard_shape(tuple(caches["whole"][i][k].shape),
+                                                              spec, sizes) == tuple(ref.shape))
+                errs.append(_rel(t, ref) if t.shape == ref.shape else float("inf"))
+        t = torch.tensor([errs[0], max(errs[1:]), float(not shapes_ok)], dtype=torch.float64)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        layer = getattr(split, attr)
+        return {"out": float(t[0]), "cache": float(t[1]), "shapes_ok": not bool(t[2]),
+                "layout": ("seq" if getattr(layer, "seq_split", None) is not None else
+                           "split" if getattr(layer, "tp", None) is not None else "whole")}
+
+    out = {name: run_case(name) for name in cases}
+    out["planted"] = {f: run_case(case, f) for f, case in SERVE_PLANTED.items()}
+    return out
+
+
+def job_tp_serve(mesh, args: dict) -> dict:
+    """For each case ({name: (config, ParallelConfig changes, state, prompt
+    [B, S0] int64)}): ``make_serve_step`` on the (2, 2, 2) mesh (which
+    splits the model by the rules), a prefill of every rank's rows under
+    ``use_mesh`` into caches of ``SERVE_MAXLEN``, then ``SERVE_STEPS`` greedy
+    steps through ``step.eager``, each rank fed its own tokens. Returns
+    {name: {"prefill": logits [B, V] of all rows, "logits": [steps, B, V],
+    "tokens": [steps + 1, B], "bad_shapes": every (rank, layer, leaf, shape,
+    want) whose cache is not ``cache_spec``'s local shape after prefill or
+    decode, or whose ``model.init_cache`` is not the prefill's shape,
+    "ranks_differ": whether the ranks of a "model" group returned different
+    logits, "layouts": the set of each attention's cache layout, "refused":
+    the error of the step's graph capture (rank 0's)}}."""
+    import torch.distributed as dist
+    from repro_torch.config import ParallelConfig
+    from repro_torch.launch.specs import shard_shape
+    from repro_torch.models import build_model
+    from repro_torch.models.moe import _row_block
+    from repro_torch.parallel import use_mesh
+    from repro_torch.parallel.sharding import batch_dims
+    from repro_torch.serve.decode import make_serve_step
+    from repro_torch.serve.kvcache import cache_shape_specs
+
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    dims = batch_dims(mesh)
+    r = _row_block(mesh, dims)
+    out = {}
+    for name, (cfg, par_kw, state, prompt) in args["cases"].items():
+        par = ParallelConfig(multi_pod=True, pods=2, data=2, model=2, **par_kw)
+        model = build_model(cfg, device="cpu")
+        model.load_state_dict(state)
+        b = prompt.shape[0] // 4
+        step, cache_sh, rules = make_serve_step(model, par, mesh, prompt.shape[0], SERVE_MAXLEN)
+        rows = prompt[r * b:(r + 1) * b]
+        with use_mesh(mesh):
+            caches, logits = model.prefill(rows, max_len=SERVE_MAXLEN)
+        bad = []
+
+        def check_shapes(tag):
+            whole = cache_shape_specs(cfg, prompt.shape[0], SERVE_MAXLEN, torch.float32)
+            for i, (c, w) in enumerate(zip(caches, whole)):
+                for k, t in c.items():
+                    want = shard_shape(tuple(w[k].shape), rules.cache_spec(k, t.dim()), sizes)
+                    if tuple(t.shape) != want:
+                        bad.append((dist.get_rank(), tag, i, k, tuple(t.shape), want))
+        check_shapes("prefill")
+        fresh = model.init_cache(b, SERVE_MAXLEN)       # this rank's shards, zeroed
+        for i, (c, f) in enumerate(zip(caches, fresh)):
+            for k, t in c.items():
+                if f[k].shape != t.shape:
+                    bad.append((dist.get_rank(), "init_cache", i, k, tuple(f[k].shape),
+                                tuple(t.shape)))
+        token = torch.argmax(logits, -1)
+        toks, step_logits = [token], []
+        for t in range(SERVE_STEPS):
+            caches, token, lg = step.eager(caches, token, SERVE_S0 + t)
+            toks.append(token)
+            step_logits.append(lg)
+        check_shapes("decode")
+        try:            # the capture a CUDA model's step would make: refused over gloo
+            step._capture(caches, token)
+            refused = ""
+        except RuntimeError as e:
+            refused = str(e)
+        mine = (r, mesh.get_local_rank("model"), logits, torch.stack(step_logits),
+                torch.stack(toks), bad)
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, mine)
+        by_row = {}
+        differ = False
+        for rb, mr, lg, sl, tk, _ in every:
+            if rb in by_row:
+                differ |= not (torch.equal(lg, by_row[rb][0]) and torch.equal(sl, by_row[rb][1]))
+            else:
+                by_row[rb] = (lg, sl, tk)
+        blocks = [by_row[i] for i in sorted(by_row)]
+        attn = [m for m in model.modules() if hasattr(m, "time_minor")]
+        out[name] = {"prefill": torch.cat([x[0] for x in blocks]),
+                     "logits": torch.cat([x[1] for x in blocks], dim=1),
+                     "tokens": torch.cat([x[2] for x in blocks], dim=1),
+                     "bad_shapes": [x for e in every for x in e[5]],
+                     "ranks_differ": differ,
+                     "layouts": sorted({"seq" if getattr(m, "seq_split", None) is not None else
+                                        "heads" if (getattr(m, "tp", None) is not None and
+                                                    m.wk.shape[-1] < cfg.num_kv_heads
+                                                    * cfg.resolved_head_dim)
+                                        else "whole" for m in attn}),
+                     "captures": step.captures, "refused": refused}
+    return out
+
+
 JOBS = {"all": job_all, "train": job_train, "record_step": job_record_step,
-        "synthetic": job_synthetic, "tp_layers": job_tp_layers, "tp_train": job_tp_train}
+        "synthetic": job_synthetic, "tp_layers": job_tp_layers, "tp_train": job_tp_train,
+        "tp_serve_layers": job_tp_serve_layers, "tp_serve": job_tp_serve}

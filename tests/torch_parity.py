@@ -379,3 +379,13 @@ TP_LAYER_TOL = 1e-5
 TP_LOSS_TOL = 1e-5
 TP_NORM_REL_TOL = 1e-5
 TP_PARAM_TOL = 0.02          # of the learning rate
+
+# Serving on a mesh (tests/test_torch_serve_mesh.py), f32. A split mixer's
+# prefill and decode against itself whole, relative to the whole one's
+# largest value, and each rank's cache against its shard of the whole cache:
+# the split sums the same products in another order (the row-parallel
+# outputs, the partial softmaxes combined over "model"): ~2e-7 here
+TP_SERVE_LAYER_TOL = 1e-5
+# logits of the split serve against JAX's sharded serve and the one-rank
+# serve (tests/test_torch_serve_step.py's DECODE_TOL)
+TP_SERVE_LOGITS_TOL = 1e-4
