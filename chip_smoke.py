@@ -24,10 +24,16 @@ and builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    ``attention_ref(window=)`` at recurrentgemma-2b's serving shape (B=4,
    S=4096, Hq=10, Hk=1, D=256, W=2048), ragged S=1000 with W=100, W=1, W >= S
    (which must equal causal) and D=192; then timed there, with SDPA on the
-   band as a boolean mask as the library call. The SSD scan (y and final
+   band as a boolean mask as the library call. Each bf16 case also in bf16
+   steps against the plain version of the kernel's own roundings
+   (``attention_tiled_ref``: each 64-key tile's unnormalised p rounded),
+   under ``FLASH_TILED_TOL``, which P kept in f32 and P normalised before
+   rounding must fail. The SSD scan (y and final
    state) against the step-by-step oracle at the mamba2 serving shape, ragged
    S=1000, two groups, chunk 64 and the smoke shape, and in bf16 also against
-   its plain version with the same roundings (``ssd_scan_plain(round_to=)``);
+   its plain version with the same roundings (``ssd_scan_plain(round_to=)``),
+   also in bf16 steps (``SSD_ROUNDED_ULP_TOL``, which its f32 arithmetic must
+   fail);
    then kernel, plain version and bound timed at the serving shape. The
    RG-LRU scan (two kernels a call) against the step-by-step oracle at the
    recurrentgemma-2b serving shape [4, 4096, 2560], ragged S=1000 with W=200
@@ -50,24 +56,34 @@ and builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    capture, the second, and prefill plus eager decode) printed (so in phases
    5, 6 and 15); the flash kernel's launch count over the measured request must be one per
    attention layer, and the card's prefill logits must agree with the same
-   weights' f32 prefill on the CPU (plain path) at B=1, S=128. As a control,
-   the same check is read with the plain path in place of the kernel, with
-   P rounded to bf16 (as the bf16 kernel rounds it; read for comparison)
-   and with the causal mask dropped, which must fail it;
+   weights' f32 prefill on the CPU (plain path) at B=1, S=128, and the
+   model's first attention op of that run replayed on the CPU in bf16 on the
+   card's own inputs of that call (the bf16 reference: each op's plain
+   version rounds as its bf16 kernel does) under ``CARD_VS_BF16_TOL`` (the
+   share of outputs not bit-equal), with cuBLAS's bf16 reduced-precision
+   reductions as served (printed).
+   As controls, the same checks are read with the plain path in place of
+   the kernel, with P kept in f32 and with P normalised before rounding
+   (which must fail the bf16 check), and with the causal mask dropped
+   (which must fail both);
 5. serve mamba2-370m the same way (its default workload: batch 4, prompt
    2048, 32 new tokens): one SSD-scan launch per SSD layer (48) per prefill,
    and the card-vs-CPU check at B=1, S=300 (two chunks of 128 and a ragged
-   third), on the logits and on the first layer's final SSD state, with the
-   controls "state not carried across chunks", which must fail it, and "xdt
-   and C B^T L rounded to bf16" (the JAX model path's rounding), which is
-   read;
+   third), on the logits and on the first layer's final SSD state, and the
+   bf16 check (its first SSD scan replayed), with the controls "state not
+   carried across chunks", which must fail both, and "xdt and C B^T L
+   rounded to bf16" (the JAX model path's rounding, in the states too),
+   which must fail the bf16 check;
 6. serve recurrentgemma-2b the same way (its default workload: batch 4,
    prompt 4096, two windows of its local attention, 32 new tokens): one
    flash launch per local-attention layer (8) and one RG-LRU launch per
    RG-LRU layer (18) per prefill, and the card-vs-CPU check at B=1, S=300 on
-   the logits and on the first layer's final RG-LRU state, with the control
-   "recurrence restarted every 256 steps" (the TPU kernel's state carry
-   across sequence blocks dropped), which must fail it;
+   the logits and on the first layer's final RG-LRU state, and the bf16
+   check (its first RG-LRU scan and first attention op replayed), with the
+   controls "recurrence restarted every 256 steps" (the TPU
+   kernel's state carry across sequence blocks dropped), which must fail
+   both, and "the 256-step carry rounded to bf16", which must fail the bf16
+   check;
 7-9. train qwen1.5-0.5b, mamba2-370m and recurrentgemma-2b at full width
    through ``repro_torch.launch.train`` (each arch's default workload: batch
    8 x 2048 tokens for 5 steps, 4 x 2048 for 3, 1 x 4096 for 3; bf16, AdamW,
@@ -187,11 +203,14 @@ and builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    layer, tokens in range, finite logits; the card's bf16 prefill (B=1,
    S=128) and one decode step against the same weights' f32 on the CPU
    (``CHECK_DEPTH``: phi3.5 at 2 layers, deepseek at 1, nemotron one block
-   alone on a [1, 128, 18432] input); for granite and phi3.5 the routing
+   alone on a [1, 128, 18432] input), and its first attention op replayed
+   in bf16 on the CPU (``CARD_VS_BF16_TOL``); for granite and phi3.5 the routing
    check of the first MoE layer on one bf16 input on both sides (``MOE_TOL``:
    top-k sets, drop fractions, the output of the tokens routed alike) at the
-   config's capacity factor, which drops slots there. Planted faults that
-   must fail: "causal mask dropped" (every arch; deepseek's check reads its
+   config's capacity factor, which drops slots there, and against its bf16
+   copy (``MOE_BF16_TOL``, the router's probabilities as the layer's
+   forward computes them), which "router logits in bf16" must fail. Planted
+   faults that must fail: "causal mask dropped" (every arch, both checks; deepseek's check reads its
    one layer's hidden states at every position), "gates not renormalised
    over the top-k" and "tokens over capacity kept" (granite, on the routing
    check, whose drop fraction is printed), "unembed read in the tied
@@ -249,7 +268,11 @@ and builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    weights and prompt, logits within ``TP_SERVE_TOL`` and greedy tokens
    equal but at near ties, equal on both ranks; the planted faults
    "combine dropped (rank-local softmax)" and "wrong sequence offset (every
-   rank at 0)" (recurrentgemma) must fail the f32 check.
+   rank at 0)" (recurrentgemma) must fail the f32 check. In bf16 each
+   decode step's first attention op is also replayed on the CPU on the
+   card's inputs (the split's collectives over the same group), within
+   ``TP_SERVE_BF16_REF_TOL``, which the control "the combine rounds the
+   normalised p" (recurrentgemma) must fail.
 
 18. the dry run (``repro_torch.launch.dryrun``: each cell's step on meta
    tensors as rank 0 of a fake process group of the production mesh, with
@@ -287,6 +310,7 @@ differentiable-engine, parallel-layer and dry-run JSON records, the card's
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -327,6 +351,26 @@ STATE_TOL = 1e-4
 # (2^-9 of |y|) plus products that another f32 summation order rounds to the
 # neighbouring bf16 value.
 SSD_ROUNDED_TOL = 5e-3
+# The bf16 kernels against the plain versions of their own roundings, in
+# bf16 steps (how many representable bf16 values apart): flash attention
+# against ``attention_tiled_ref`` (each 64-key tile's unnormalised p rounded
+# to bf16), the SSD scan against ``ssd_scan_plain(round_to=bf16)`` with y in
+# bf16. Readings: the share of outputs not bit-equal ("differ") and the
+# share more than one step apart ("over 1"). A sound kernel parts from its
+# plain version where its f32 summation order (and ex2.approx, the SSD
+# state's hi/lo split) flips a rounding; the other roundings must read
+# over: P in f32 or normalised before rounding (0.37-0.40 and 0.47-0.50 of
+# the outputs differ, 0.10-0.12 and 0.16-0.18 over 1 step, on an H100),
+# and the SSD's f32 arithmetic. Set before their first card run (PERF.md
+# §6), but flash's "over 1", first 1e-3: at S=4096, D=192 the kernel
+# read 1.033e-3. The scores' summation order flips the bf16 rounding of a
+# few p of a row, and each flipped p moves every output of its row by one
+# step of that p's share, many steps of an output that cancellation made
+# small; a sound change of the scores' order moves the plain version
+# itself so, more at longer S and wider D
+# (tests/test_torch_bf16_reference.py).
+FLASH_TILED_TOL = {"differ": 2e-2, "over 1": 1e-2}
+SSD_ROUNDED_ULP_TOL = {"over 1": 2e-2}
 # RG-LRU scan, max abs error against the step-by-step oracle in f32 on the
 # same input values (tests/test_kernels.py holds the Pallas kernel to 1e-5).
 RGLRU_TOL = 1e-5
@@ -342,10 +386,12 @@ GQA_TIMED = ((4, 2048, 16, 8, 128), (1, 4096, 96, 8, 192))
 SSD_SERVING = (4, 2048, 32, 64, 1, 128, 128)
 # Card (bf16 activations, kernels) vs CPU (f32, plain path) prefill of the
 # same weights (see PERF.md), each reading relative to the largest value of
-# its reference: bf16 rounds the residual stream at every layer.
-# qwen, the last position's logits: sound runs read 1.6e-2 to 1.7e-2
-# (1.653e-2 since the bf16 kernel rounds P to bf16); a dropped causal mask
-# must read above the limit.
+# its reference: bf16 rounds the residual stream at every layer, so these
+# limits sit above bf16's own rounding and cannot see a fault of that size
+# (the plain roundings of P read 1.5e-2 here against qwen's sound 1.65e-2);
+# CARD_VS_BF16_TOL's check against the bf16 reference is the one that does.
+# qwen, the last position's logits: sound runs read 1.6e-2 to 1.7e-2; a
+# dropped causal mask must read above the limit.
 # mamba2, the logits and the first layer's final SSD state: the SSD part of a
 # random-weight block is small beside its D * x skip, so the last position's
 # logits barely see a state that is not carried across chunks, while the
@@ -423,6 +469,49 @@ CARD_VS_CPU_TOL.update({
     DEEPSEEK: {"logits": 3e-2, "decode logits": 3e-2, "hidden, every position": 3e-2},
     NEMOTRON: {"block out": 2e-2},
 })
+SHARE = ", share not bit-equal"   # a reading key's suffix: see ``reading``
+# The faults each of whose readings must go over a CARD_VS_CPU_TOL limit
+# (phases 4-6 and 15; default: every planted fault of the arch).
+MUST_FAIL = {QWEN: ("causal mask dropped",), MAMBA: ("state not carried across chunks",),
+             RG: ("recurrence restarted every 256 steps",)}
+# Card (bf16) vs the bf16 reference, whose ops' plain versions round as the
+# kernels do (the flash op each key tile's unnormalised p, the SSD scan
+# x * dt and C B^T L, the RG-LRU its 256-step carry fold): the model's first
+# call of each kernel op (attention, SSD scan, RG-LRU scan) in the card's
+# check run, replayed on the CPU in bf16 on the card's own inputs of that
+# call. Readings: the share of outputs not bit-equal (the RG-LRU's f32 h:
+# max abs err / max|ref|). The replay reads the op's rounding alone, in the
+# served model, where a bf16-size fault flips a third or more of the
+# outputs. The whole model is not read against a CPU bf16 copy: the card's
+# bf16 GEMMs depart from one rounding of the f32 sum on 5.8e-4 to 9.9e-3 of
+# their outputs, 5 to 33 times as often as a sound change of summation
+# order on the host, and the random-weight models carry those flips to the
+# logits at the size of bf16's whole rounding, where the f32 check already
+# reads (PERF.md §6). Limits as phase 3's on the same inputs
+# (FLASH_TILED_TOL's differ; the SSD's; the RG-LRU kernel is its plain
+# version bit for bit), set before their first card reading.
+REPLAYED = ", replayed"
+_FA = "first attention op" + REPLAYED + SHARE
+_SSD = "first SSD scan" + REPLAYED + SHARE
+_RGLRU = "first RG-LRU scan" + REPLAYED
+REPLAY_TOL = {_FA: FLASH_TILED_TOL["differ"], _SSD: 2e-2, _RGLRU: 1e-6}
+CARD_VS_BF16_TOL = {
+    QWEN: {_FA: REPLAY_TOL[_FA]},
+    MAMBA: {_SSD: REPLAY_TOL[_SSD]},
+    RG: {_RGLRU: REPLAY_TOL[_RGLRU], _FA: REPLAY_TOL[_FA]},
+    **{arch: {_FA: REPLAY_TOL[_FA]} for arch in NEW_ARCHS},
+}
+# The planted faults each of which must read over a CARD_VS_BF16_TOL limit:
+# the plain roundings of P that are not the bf16 flash kernel's; the JAX
+# model path's SSD roundings, which the kernel does not make in its state
+# path; the RG-LRU's carry rounded to bf16; and each arch's fault in an op
+# ("router logits in bf16" on the MoE check, MOE_BF16_TOL).
+BF16_MUST_FAIL = {
+    QWEN: ("P kept in f32", "P normalised before rounding", "causal mask dropped"),
+    MAMBA: ("xdt and C B^T L rounded to bf16", "state not carried across chunks"),
+    RG: ("the 256-step carry rounded to bf16", "recurrence restarted every 256 steps"),
+    **{arch: ("causal mask dropped",) for arch in NEW_ARCHS},
+}
 # The MoE routing check: the first MoE layer on the card (bf16) and its f32
 # copy on the CPU, on the same bf16 input (that layer's input in the card's
 # prefill of the workload's first row, T = prompt_len tokens), at the
@@ -436,6 +525,21 @@ CARD_VS_CPU_TOL.update({
 # granite, 7.1e-3 phi3.5). A fault in the gates or the capacity must read
 # above a limit (granite's controls).
 MOE_TOL = {"topk_set_differs": 1e-3, "drop_frac_diff": 1e-3, "layer_out": 2e-2}
+# The same readings against the layer's bf16 copy on the CPU, which routes
+# in f32 from the same bf16 input: a top-k set differs only at an f32 tie,
+# the router's probabilities as the layer's forward computes them (max abs
+# err / max|ref|) by f32 summation order, and the output over tokens routed
+# alike by the order of the bf16 expert products. The last two limits are
+# four times the larger reading of the layer's bf16 copy against itself
+# under a sound change of its matmuls' summation order (K summed in 2 and
+# in 4 parts) on the card machine's host, set before the first card
+# reading (PERF.md §6). "router logits in bf16" must read over (its top-k
+# sets need not differ: phi3.5's 16 experts kept every top-2 set on the
+# host).
+MOE_BF16_TOL = {GRANITE: {"topk_set_differs": 1e-3, "drop_frac_diff": 1e-3, "layer_out": 9.4e-3,
+                          "router_probs": 4e-5},
+                PHI: {"topk_set_differs": 1e-3, "drop_frac_diff": 1e-3, "layer_out": 1.4e-2,
+                      "router_probs": 4e-5}}
 # Phases 4-6 and 15: the captured decode graph against the eager steps from
 # a copy of the same prefill's caches. The graph replays the eager step's
 # kernels, so the tokens must be equal and the last step's logits bit-equal;
@@ -597,10 +701,13 @@ NETSIM_UNITS = {
 # 23 + 17t ~50; 12g 184 + 10 66; 13 147 + 11 75; 12 111 + 11g 118 (under
 # the lanes' load the lanes ended at 302, 418, 472 and 348 s with 17t, 97 s
 # there, in the third; NVIDIA H100 80GB HBM3, 700 W). 17s (~50 s alone, 60 s
-# under the load) went to the fourth: in the first it ended that lane at 463
-# s, the last of the four (443, 423 and 363 s). Phase 17's checks are exact
-# or read against limits that load does not move.
-NETSIM_LANES = (("14", "17", "17t"), ("12g", "10"), ("13", "11"), ("12", "11g", "17s"))
+# under the load) runs after 17t in the first lane, which it then ends last
+# (463 s against 443, 423 and 363 s): the two hold whole models on the one
+# card, and beside one another they do not fit in its 80 GB (17t's rank 0
+# steps recurrentgemma unsplit, ~46 GB, while 17s's two ranks each build
+# it in bf16 and again in f32). Phase 17's checks are exact or read against
+# limits that load does not move.
+NETSIM_LANES = (("14", "17", "17t", "17s"), ("12g", "10"), ("13", "11"), ("12", "11g"))
 # the lanes are stopped, and the run fails, this many seconds after the
 # script's start
 NETSIM_DEADLINE_S = 1_140.0
@@ -721,6 +828,45 @@ def top_kernel(torch, fn) -> str:
     return max(kernels, key=lambda e: e.self_device_time_total).key[:120] if kernels else "?"
 
 
+def bf16_steps(torch, a, b):
+    """How many bf16 values apart each element of ``a`` is from ``b`` (bf16)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def step_readings(torch, a, b) -> dict:
+    """FLASH_TILED_TOL's readings of ``a`` against ``b`` (bf16, same shape)."""
+    u = bf16_steps(torch, a, b)
+    return {"differ": float((u > 0).float().mean()), "over 1": float((u > 1).float().mean())}
+
+
+def tiled_check(torch, name: str, out, q, k, v, softcap: float, window: int, p_f32) -> dict:
+    """The bf16 flash kernel's output ``out`` against the plain version of its
+    roundings, under FLASH_TILED_TOL; P kept in f32 (``p_f32``,
+    attention_ref's output in bf16) and P normalised before rounding must
+    read over the limits, but with a window of 1."""
+    from repro_torch.kernels.ref import attention_ref, attention_tiled_ref
+    tiled = attention_tiled_ref(q, k, v, softcap=softcap, window=window)
+    r = {"kernel": step_readings(torch, out, tiled),
+         "P kept in f32": step_readings(torch, p_f32, tiled),
+         "P normalised before rounding": step_readings(torch, attention_ref(
+             q, k, v, softcap=softcap, window=window, p_dtype=torch.bfloat16), tiled)}
+    ok = all(r["kernel"][key] <= lim for key, lim in FLASH_TILED_TOL.items())
+    caught = [c for c in ("P kept in f32", "P normalised before rounding")
+              if any(r[c][key] > lim for key, lim in FLASH_TILED_TOL.items())]
+    # (with W = 1 a row's one p is exactly 1 however it is rounded)
+    told = len(caught) == 2 or window == 1
+    print("    against its roundings (attention_tiled_ref), share of outputs: " + "; ".join(
+        f"{c} differ {x['differ']:.3e}, over 1 step {x['over 1']:.3e}" for c, x in r.items())
+          + f" (tolerance {FLASH_TILED_TOL}) {'ok' if ok and told else 'FAIL'}", flush=True)
+    check(ok, f"bf16 flash_attention parts from the plain version of its roundings at {name}")
+    check(told, f"the tiled check at {name} does not tell the kernel's rounding of P from "
+                f"{caught}")
+    return r
+
+
 def phase_flash(torch, card: str) -> dict:
     import torch.nn.functional as F
 
@@ -783,6 +929,10 @@ def phase_flash(torch, card: str) -> dict:
         check(ok, f"flash_attention disagrees with attention_ref at {name} {dtype}")
         checks.append({"case": f"{name} {dtype} softcap={softcap}", "max_abs_err": err,
                        "atol": atol, "rtol": rtol})
+        if dtype == "bfloat16":
+            del diff
+            checks[-1]["tiled"] = tiled_check(torch, name, out, q, k, v, softcap, 0,
+                                              ref.to(q.dtype))
 
     b, s, hq, hk, d, w = WINDOWED_SERVING
     windowed_cases = [  # name, B, S, Hq, Hk, D, window
@@ -805,6 +955,7 @@ def phase_flash(torch, card: str) -> dict:
             ok = bool((diff <= atol + rtol * ref.abs()).all()) and out.dtype == q.dtype
             if w >= s:   # the window covers every key: causal attention exactly
                 ok = ok and bool(torch.equal(out, ops.flash_attention(q, k, v)))
+            p_f32 = ref.to(q.dtype)
             del ref, diff
             print(f"  flash_attention {name:16s} B={b} S={s} Hq={hq} Hk={hk} D={d} W={w} "
                   f"{dtype:8s}: max_abs_err={err:.3e} (tolerance |err| <= {atol:g} + "
@@ -812,6 +963,9 @@ def phase_flash(torch, card: str) -> dict:
             check(ok, f"windowed flash_attention disagrees with attention_ref at {name} {dtype}")
             checks.append({"case": f"{name} {dtype} window={w}", "max_abs_err": err,
                            "atol": atol, "rtol": rtol})
+            if dtype == "bfloat16":
+                checks[-1]["tiled"] = tiled_check(torch, name, out, q, k, v, 0.0, w, p_f32)
+            del p_f32
 
     timings = {}
     for s in (prompt_len, 4096):
@@ -917,8 +1071,22 @@ def phase_ssd(torch, card: str) -> dict:
                                               round_to=torch.bfloat16)
                 err_rnd = rel(y, y_rnd)
                 ok = ok and err_rnd <= SSD_ROUNDED_TOL
-                rounded = f", y vs rounded plain rel={err_rnd:.3e} (tolerance {SSD_ROUNDED_TOL:g})"
-                del y_rnd
+                # in bf16 steps from it (y rounded once to bf16), the kernel
+                # and the f32 arithmetic (no rounding before the products)
+                y_rnd, y_f32 = y_rnd.to(x.dtype), ops.ssd_scan_plain(x, dt, A, B, C,
+                                                                      chunk=chunk)[0]
+                steps = {"kernel": step_readings(torch, y, y_rnd),
+                         "f32 arithmetic": step_readings(torch, y_f32, y_rnd)}
+                ok = ok and steps["kernel"]["over 1"] <= SSD_ROUNDED_ULP_TOL["over 1"]
+                told = steps["f32 arithmetic"]["over 1"] > SSD_ROUNDED_ULP_TOL["over 1"]
+                rounded = (f", y vs rounded plain rel={err_rnd:.3e} (tolerance "
+                           f"{SSD_ROUNDED_TOL:g}); in bf16 steps from it, share of outputs: "
+                           + "; ".join(f"{c} differ {r['differ']:.3e}, over 1 step "
+                                       f"{r['over 1']:.3e}" for c, r in steps.items())
+                           + f" (tolerance {SSD_ROUNDED_ULP_TOL}; the f32 arithmetic told "
+                             f"apart: {told})")
+                check(told, f"the SSD step reading at {name} cannot tell the f32 arithmetic")
+                del y_rnd, y_f32
             print(f"  ssd_scan {name:15s} b={b} s={s} h={h} p={p} g={g} n={n} L={chunk} "
                   f"{dtype:8s}: y max_abs_err={abs_err:.3e} rel={err_y:.3e} (tolerance "
                   f"{SSD_TOL[dtype]:g}), state rel={err_state:.3e} (tolerance "
@@ -927,8 +1095,8 @@ def phase_ssd(torch, card: str) -> dict:
             checks.append({"case": f"{name} {dtype}", "max_abs_err": abs_err,
                            "rel_err": err_y, "state_rel_err": err_state,
                            "rel_tol": SSD_TOL[dtype], "state_rel_tol": STATE_TOL,
-                           **({"rounded_rel_err": err_rnd, "rounded_rel_tol": SSD_ROUNDED_TOL}
-                              if rounded else {})})
+                           **({"rounded_rel_err": err_rnd, "rounded_rel_tol": SSD_ROUNDED_TOL,
+                               "rounded_steps": steps} if rounded else {})})
 
     b, s, h, p, g, n, chunk = SSD_SERVING
     x, dt, A, B, C = inputs(b, s, h, p, g, n, torch.bfloat16)
@@ -1226,35 +1394,22 @@ def graph_vs_eager(torch, model, res, prompt, prompt_len: int, max_new: int) -> 
             "tokens_equal": same_tokens, "last_logits_diff": diff}
 
 
-def phase_serve(torch, card: str, arch: str, planted: dict, must_fail=None,
-                moe_planted=None) -> dict:
-    """Serves ``arch`` through launch.serve at its default workload and checks
-    it: launches, tokens, logits (``serve_workload``); then the card's bf16
-    prefill at B=1 (REF_LEN, else NEW_REF_LEN tokens), with one decode step
-    where the limits read "decode logits", against the same weights' f32 on
-    the CPU (plain path), at CHECK_DEPTH where the whole model's f32 copy
-    would not fit; a model of embedding inputs is fed f32 embeddings, which
-    it casts; for an MoE arch the routing check of its first MoE layer
-    (``moe_check``, each fault of ``moe_planted`` must fail it).
-
-    ``planted`` maps a fault's name to (module, attribute, replacement): the
-    card-vs-CPU check is read again with each in place, and each fault named
-    in ``must_fail`` (default: every one) must read above a limit, or make
-    the card's bf16 path refuse its input for a dtype mismatch (no other
-    error counts)."""
+def check_setup(torch, model, arch: str):
+    """The pieces of ``arch``'s card-vs-CPU check on ``model`` (the card's in
+    ``phase_serve``): (view, run, counted, what, copy). ``view`` is what the
+    check reads of the model (CHECK_DEPTH of its layers, or its first block
+    alone); ``run(m)`` maps each reading
+    key of the arch to its value on ``m`` (``view`` or a copy of it) at B=1
+    (REF_LEN, else NEW_REF_LEN tokens), with one decode step where the
+    limits read "decode logits"; a model of embedding inputs is fed f32
+    embeddings, which it casts; ``counted`` is one run's kernel launches on
+    the card, ``what`` says what it reads and ``copy()`` makes an f32 copy
+    of ``view`` on the CPU."""
     from repro_torch.device import dtype_of
     from repro_torch.launch import serve as launch_serve
 
-    batch, prompt_len, max_new = WORKLOADS[arch]
-    model, res, launches, _, prompt = serve_workload(torch, card, arch)
     cfg, limits = model.cfg, CARD_VS_CPU_TOL[arch]
     n, depth = REF_LEN.get(arch, NEW_REF_LEN), CHECK_DEPTH.get(arch)
-    out = {"arch": arch, "layers": cfg.num_layers, "batch": batch, "prompt_len": prompt_len,
-           "max_new": max_new, "launches": launches, "prefill_ms": res.prefill_ms,
-           "decode_ms": res.decode_ms, "decode_tok_s": res.decode_tok_s,
-           "decode_graph_vs_eager": res.eager,
-           "card_vs_cpu_tol": limits, "ref_len": n, "check_depth": depth}
-    t0 = time.perf_counter()
     if depth == 0:
         # the first block alone on the embeddings of n random tokens, read on
         # its own contribution (output less input)
@@ -1268,11 +1423,12 @@ def phase_serve(torch, card: str, arch: str, planted: dict, must_fail=None,
 
         def run(m):
             xd = x if m is view else x.float().cpu()
-            with torch.no_grad():
+            with torch.no_grad(), first_op_calls() as calls:
                 y = m(xd, mode="prefill", cache=None, pos=None, max_len=n)[0]
-            return {"block out": y - xd}
+            return {"block out": y - xd, "layers": [y], **replayed(torch, calls)}
 
-        cpu_model = f32_block(torch, view, cfg)
+        def copy():
+            return f32_block(torch, view, cfg)
     else:
         view = first_layers(torch, model, depth) if depth else model
         decode = int("decode logits" in limits)
@@ -1286,19 +1442,23 @@ def phase_serve(torch, card: str, arch: str, planted: dict, must_fail=None,
 
         def run(m):
             # the first layer's input must be in the model's act dtype; the
-            # final norm's output is every position's hidden state
-            seen = []
+            # final norm's output is every position's hidden state; each
+            # layer's output is kept ("layers")
+            seen, layers = [], []
             hooks = [m.backbone.layers[0].register_forward_pre_hook(
                 lambda mod, args, want=dtype_of(m.cfg.act_dtype): first_layer_dtype(args[0],
                                                                                      want)),
                 m.backbone.final_norm.register_forward_hook(
                     lambda mod, args, y: seen.append(y))]
+            hooks += [layer.register_forward_hook(lambda mod, args, y: layers.append(y[0]))
+                      for layer in m.backbone.layers]
             try:
-                caches, logits = m.prefill(inputs.to(m.device), max_len=n + decode)
+                with first_op_calls() as calls:
+                    caches, logits = m.prefill(inputs.to(m.device), max_len=n + decode)
             finally:
                 for hook in hooks:
                     hook.remove()
-            got = {"logits": logits}
+            got = {"logits": logits, "layers": layers, **replayed(torch, calls)}
             if "hidden, every position" in limits:
                 got["hidden, every position"] = seen[0]
             if "layer-0 state" in limits:
@@ -1307,58 +1467,205 @@ def phase_serve(torch, card: str, arch: str, planted: dict, must_fail=None,
                 got["decode logits"] = m.decode_step(caches, step.to(m.device), n)[1]
             return got
 
-        cpu_model = f32_copy(torch, view)
+        def copy():
+            return f32_copy(torch, view)
+    what = ("block 0 alone" if depth == 0 else
+            f"first {depth} layers" if depth else f"all {cfg.num_layers} layers")
+    then = ", then a decode step" if "decode logits" in limits else ""
+    return view, run, counted, f"{what}; B=1, S={n}{then}", copy
+
+
+@contextlib.contextmanager
+def first_op_calls():
+    """Inside the context the model's first call of each kernel op (its
+    attention, global or local; its SSD scan; its RG-LRU scan) is kept:
+    yields a dict of (the sound op, its arguments, its output) under the
+    replayed key's name. The ops are wrapped as the model's modules hold
+    them when the context opens, a planted fault included; the sound op is
+    the port's own."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention, rglru, ssm, transformer
+    calls = {}
+    sites = {(transformer, "flash_attention"): (_FA, ops.flash_attention),
+             (transformer, "local_attention"): (_FA, attention.local_attention),
+             (ssm, "ssd_scan"): (_SSD, ops.ssd_scan),
+             (rglru, "rglru_recurrence"): (_RGLRU, ops.rglru_recurrence)}
+    kept = {site: getattr(*site) for site in sites}
+
+    def wrap(site):
+        key, sound = sites[site]
+        key = key.removesuffix(SHARE)
+
+        def op(*args, **kwargs):
+            out = kept[site](*args, **kwargs)
+            if key not in calls:
+                calls[key] = (sound, [a.detach().to("cpu", copy=True)
+                                      if torch.is_tensor(a) else a for a in args],
+                              kwargs, (out[0] if isinstance(out, tuple) else out).detach())
+            return out
+        return op
+
+    for site in sites:
+        setattr(*site, wrap(site))
+    try:
+        yield calls
+    finally:
+        for site, fn in kept.items():
+            setattr(*site, fn)
+
+
+def replayed(torch, calls: dict) -> dict:
+    """Each kept call's (output on the CPU, the sound op's output on the same
+    inputs on the CPU)."""
+    out = {}
+    with torch.no_grad():
+        for key, (sound, args, kwargs, got) in calls.items():
+            again = sound(*args, **kwargs)
+            out[key] = (got.cpu(), again[0] if isinstance(again, tuple) else again)
+    return out
+
+
+def reading(key: str, got: dict, ref: dict) -> float:
+    """A reading of ``got`` against ``ref`` (``run``'s values). A replayed
+    key reads ``got``'s kept op call against its replay (``ref`` unused).
+    For a key "X, share not bit-equal" the share of X's elements (bf16) that
+    differ, else max_abs_err / max|ref| of the key."""
+    if REPLAYED in key:
+        a, b = got[key.removesuffix(SHARE)]
+    else:
+        a, b = got[key.removesuffix(SHARE)], ref[key.removesuffix(SHARE)]
+    if key.endswith(SHARE):
+        return float((a.cpu() != b.cpu()).float().mean())
+    return rel_err(a, b.float().cpu())
+
+
+def readings_of(got, refs, keys) -> dict:
+    return {k: reading(k, got, refs) for k in keys}
+
+
+@contextlib.contextmanager
+def planted_fault(module, attr: str, fn):
+    """``module.attr`` replaced by ``fn`` inside the context."""
+    kept = getattr(module, attr)
+    setattr(module, attr, fn)
+    try:
+        yield
+    finally:
+        setattr(module, attr, kept)
+
+
+def run_refused(run, m):
+    """``run(m)``, or {"refused": ...} where the bf16 path refuses its input
+    for a dtype mismatch (no other error counts)."""
+    try:
+        return run(m)
+    except RuntimeError as err:
+        if "dtype" not in str(err):
+            raise
+        return {"refused": f"{type(err).__name__}: {str(err)[:160]}"}
+
+
+def control_readings(got, refs, keys) -> dict:
+    return dict(got) if "refused" in got else readings_of(got, refs, keys)
+
+
+def over_bf16(readings: dict, limits: dict) -> list:
+    """The reading keys over their limits; a refusal counts as over."""
+    if "refused" in readings:
+        return ["refused"]
+    return [k for k in readings if readings[k] > limits[k]]
+
+
+def phase_serve(torch, card: str, arch: str, planted: dict, must_fail=None,
+                moe_planted=None) -> dict:
+    """Serves ``arch`` through launch.serve at its default workload and checks
+    it: launches, tokens, logits (``serve_workload``); then the card's bf16
+    prefill at B=1 (``check_setup``) against the same weights' f32 on the
+    CPU (plain path), at CHECK_DEPTH where the whole model's f32 copy would
+    not fit, under CARD_VS_CPU_TOL; and each kernel op's first call of that
+    run replayed on the CPU in bf16 (the bf16 reference: the plain versions
+    with the kernels' roundings) under CARD_VS_BF16_TOL, with cuBLAS's bf16
+    reduced-precision reductions as the serve path runs them (printed); for
+    an MoE arch the routing check of its first MoE layer (``moe_check``,
+    against its f32 and bf16 copies).
+
+    ``planted`` maps a fault's name to (module, attribute, replacement): the
+    card's check is read again with each in place. Each fault named in
+    ``must_fail`` (default: every one) must read above a CARD_VS_CPU_TOL
+    limit, and each of BF16_MUST_FAIL[arch] above a CARD_VS_BF16_TOL one;
+    or make the card's bf16 path refuse its input for a dtype mismatch (no
+    other error counts)."""
+    batch, prompt_len, max_new = WORKLOADS[arch]
+    model, res, launches, _, prompt = serve_workload(torch, card, arch)
+    cfg, limits, limits16 = model.cfg, CARD_VS_CPU_TOL[arch], CARD_VS_BF16_TOL[arch]
+    n, depth = REF_LEN.get(arch, NEW_REF_LEN), CHECK_DEPTH.get(arch)
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    out = {"arch": arch, "layers": cfg.num_layers, "batch": batch, "prompt_len": prompt_len,
+           "max_new": max_new, "launches": launches, "prefill_ms": res.prefill_ms,
+           "decode_ms": res.decode_ms, "decode_tok_s": res.decode_tok_s,
+           "decode_graph_vs_eager": res.eager, "card_vs_cpu_tol": limits,
+           "card_vs_bf16_tol": limits16, "ref_len": n, "check_depth": depth,
+           "bf16_reduced_precision_reduction": reduced}
+    t0 = time.perf_counter()
+    view, run, counted, what, copy = check_setup(torch, model, arch)
     reset_counts()
     card_out = run(view)
     check(read_counts() == counted, f"the card-vs-CPU check's launches {read_counts()}, "
                                     f"expected {counted}")
+    cpu_model = copy()
     refs = run(cpu_model)
     cpu_moe = next((m for m in cpu_model.modules() if type(m).__name__ == "MoE"), None)
     del cpu_model
 
-    def readings_of(got) -> dict:
-        return {k: rel_err(got[k], ref) for k, ref in refs.items()}
-
-    sound = readings_of(card_out)
-    what = ("block 0 alone" if depth == 0 else
-            f"first {depth} layers" if depth else f"all {cfg.num_layers} layers")
-    then = ", then a decode step" if "decode logits" in limits else ""
+    sound = readings_of(card_out, refs, limits)
     same = ""
     if "logits" in refs:
         out["same_argmax"] = bool((card_out["logits"].argmax(-1).cpu()
                                    == refs["logits"].argmax(-1)).all())
         same = f"; same argmax={out['same_argmax']}"
-    print(f"  card bf16 vs CPU f32 ({what}; B=1, S={n}{then}; "
-          f"{time.perf_counter() - t0:.1f} s), max_abs_err / max|ref|: "
+    print(f"  card bf16 vs CPU f32 ({what}; {time.perf_counter() - t0:.1f} s), "
+          f"max_abs_err / max|ref|: "
           + ", ".join(f"{k} {v:.3e} (tolerance {limits[k]:g})" for k, v in sound.items())
           + same, flush=True)
     check(all(v <= limits[k] for k, v in sound.items()),
           f"{arch}: the card disagrees with the CPU f32 path")
     out["card_vs_cpu"] = sound
 
+    sound16 = readings_of(card_out, None, limits16)
+    print(f"  card bf16 vs the CPU bf16 reference (each kernel op's first call replayed on "
+          f"the card's inputs; cuBLAS bf16 reduced-precision reductions {reduced}, as "
+          f"served): " + ", ".join(f"{k} {v:.3e} (tolerance {limits16[k]:g})"
+                                   for k, v in sound16.items()), flush=True)
+    check(all(v <= limits16[k] for k, v in sound16.items()),
+          f"{arch}: the card disagrees with the CPU bf16 reference")
+    out["card_vs_bf16"] = sound16
+
     # Controls: the same readings with a fault planted in place of the path.
-    controls = {}
+    controls, controls16 = {}, {}
     for fault, (module, attr, fn) in planted.items():
-        kept = getattr(module, attr)
-        setattr(module, attr, fn)
-        try:
-            controls[fault] = readings_of(run(view))
-        except RuntimeError as err:
-            if "dtype" not in str(err):
-                raise
-            controls[fault] = {"refused": f"{type(err).__name__}: {str(err)[:160]}"}
-        finally:
-            setattr(module, attr, kept)
-        print(f"  control, {fault}: " + ", ".join(
-            f"{k} {v:.3e}" if isinstance(v, float) else f"{k}, {v}"
-            for k, v in controls[fault].items()), flush=True)
+        with planted_fault(module, attr, fn):
+            got = run_refused(run, view)
+        controls[fault], controls16[fault] = (control_readings(got, refs, limits),
+                                              control_readings(got, None, limits16))
+        shown = {ref: ", ".join(f"{k} {v:.3e}" if isinstance(v, float) else f"{k}, {v}"
+                                for k, v in r[fault].items())
+                 for ref, r in (("f32", controls), ("bf16", controls16))}
+        print(f"  control, {fault}: vs CPU f32 {shown['f32']}; vs the CPU bf16 reference "
+              f"{shown['bf16']}; over the bf16 limits: {over_bf16(controls16[fault], limits16)}",
+              flush=True)
     for fault in planted if must_fail is None else must_fail:
         check("refused" in controls[fault] or any(
             v > limits[k] for k, v in controls[fault].items()),
             f"the card-vs-CPU check does not catch: {fault}")
-    out["planted"] = controls
+    for fault in BF16_MUST_FAIL[arch]:
+        check(bool(over_bf16(controls16[fault], limits16)),
+              f"the card-vs-bf16 check does not catch: {fault}")
+    out["planted"], out["planted_vs_bf16"] = controls, controls16
     if cfg.num_experts:
-        out["moe"] = moe_check(torch, model, cpu_moe, prompt, moe_planted or {})
+        out["moe"] = moe_check(torch, model, cpu_moe, prompt, moe_planted or {},
+                               MOE_BF16_TOL[arch])
     return out
 
 
@@ -1386,13 +1693,20 @@ def causal_mask_dropped(torch) -> dict:
 
 
 def qwen_faults(torch) -> dict:
+    """qwen's controls: the two plain roundings of P that are not the bf16
+    kernel's (each key tile's unnormalised p rounded), and a dropped causal
+    mask."""
     from repro_torch.kernels.ref import attention_ref
     from repro_torch.models import transformer
 
-    def p_bf16(q, k, v):
+    def p_f32(q, k, v):
+        return attention_ref(q, k, v)
+
+    def p_normalised(q, k, v):
         return attention_ref(q, k, v, p_dtype=torch.bfloat16)
 
-    return {"P rounded to bf16": (transformer, "flash_attention", p_bf16),
+    return {"P kept in f32": (transformer, "flash_attention", p_f32),
+            "P normalised before rounding": (transformer, "flash_attention", p_normalised),
             **causal_mask_dropped(torch)}
 
 
@@ -1401,15 +1715,19 @@ def mamba_faults(torch) -> dict:
     from repro_torch.models import ssm
 
     def state_not_carried(x, dt, A, B, C, *, chunk):
-        """Each chunk scanned from a zero state: y_off dropped."""
+        """Each chunk scanned from a zero state: y_off dropped (each chunk
+        with the roundings of x's dtype's kernel, as the sound path)."""
         s = x.shape[1]
         step = min(chunk, s)
+        rnd = torch.bfloat16 if x.dtype == torch.bfloat16 else None
         parts = [ssd_scan_plain(x[:, i:i + step], dt[:, i:i + step], A, B[:, i:i + step],
-                                C[:, i:i + step], chunk=step) for i in range(0, s, step)]
+                                C[:, i:i + step], chunk=step, round_to=rnd)
+                 for i in range(0, s, step)]
         return torch.cat([y for y, _ in parts], dim=1), parts[-1][1]
 
     def model_path_rounding(x, dt, A, B, C, *, chunk):
-        """ssd_chunked in x's dtype, as the JAX model path runs it."""
+        """ssd_chunked in x's dtype, as the JAX model path runs it: dt and
+        x * dt rounded to bf16, and the states read the rounded x * dt."""
         return ssm.ssd_chunked(x, dt, A, B, C, chunk=chunk)
 
     return {"state not carried across chunks": (ssm, "ssd_scan", state_not_carried),
@@ -1418,6 +1736,7 @@ def mamba_faults(torch) -> dict:
 
 def rglru_faults(torch) -> dict:
     from repro_torch.kernels.ops import rglru_recurrence
+    from repro_torch.kernels.rglru_scan import CHUNK
     from repro_torch.models import rglru
 
     def restarted(a, b):
@@ -1426,7 +1745,36 @@ def rglru_faults(torch) -> dict:
         return torch.cat([rglru_recurrence(a[:, i:i + 256], b[:, i:i + 256])
                           for i in range(0, a.shape[1], 256)], dim=1)
 
-    return {"recurrence restarted every 256 steps": (rglru, "rglru_recurrence", restarted)}
+    def carry_bf16(a, b):
+        """The kernel's association (``rglru_chunked_ref``) with the carry
+        into each CHUNK-step chunk rounded to bf16."""
+        af, bf = a.float(), b.float()
+        carry = af.new_zeros((a.shape[0], a.shape[2]))
+        hs = []
+        for c0 in range(0, a.shape[1], CHUNK):
+            h, prod, h_end = carry, torch.ones_like(carry), torch.zeros_like(carry)
+            for t in range(c0, min(c0 + CHUNK, a.shape[1])):
+                h = af[:, t] * h + bf[:, t]
+                hs.append(h)
+                prod = prod * af[:, t]
+                h_end = af[:, t] * h_end + bf[:, t]
+            carry = (prod * carry + h_end).bfloat16().float()
+        return torch.stack(hs, dim=1)
+
+    return {"recurrence restarted every 256 steps": (rglru, "rglru_recurrence", restarted),
+            "the 256-step carry rounded to bf16": (rglru, "rglru_recurrence", carry_bf16)}
+
+
+def moe_bf16_faults(torch) -> dict:
+    """The router's logits rounded to bf16 (a bf16 router product) where the
+    path routes in f32."""
+    from repro_torch.models import moe
+    route = moe.route
+
+    def bf16_logits(logits, k):
+        return route(logits.bfloat16().float(), k)
+
+    return {"router logits in bf16": (moe, "route", bf16_logits)}
 
 
 def first_layers(torch, model, n: int):
@@ -1456,45 +1804,65 @@ def rel_err(got, ref) -> float:
 def moe_routing(torch, moe_layer, x, factor: float):
     """The layer's output on x at capacity factor ``factor``, with its routing:
     (y, aux, top-k sets [T, k] sorted, kept sets [T, k]: the expert where the
-    slot is kept, -1 where dropped, sorted)."""
+    slot is kept, -1 where dropped, sorted, the router's probabilities [T, E]
+    as the layer's forward passed them to ``moe.route``)."""
     from repro_torch.models import moe
     cfg = dataclasses.replace(moe_layer.cfg, moe_capacity_factor=factor)
     kept_cfg, moe_layer.cfg = moe_layer.cfg, cfg
+    route, routed = moe.route, []
+
+    def kept_route(logits, k):
+        out = route(logits, k)
+        routed.append(out)
+        return out
+
+    moe.route = kept_route
     try:
         with torch.no_grad():
             y, aux = moe_layer(x)
-            xt = x.reshape(-1, x.shape[-1])
-            _, _, idx = moe.route(xt.float() @ moe_layer.router, cfg.num_experts_per_tok)
-            _, keep = moe.slots(idx.reshape(-1), cfg.num_experts,
-                                moe.capacity(cfg, xt.shape[0]))
     finally:
-        moe_layer.cfg = kept_cfg
+        moe_layer.cfg, moe.route = kept_cfg, route
+    probs, _, idx = (torch.cat(t) for t in zip(*routed))
+    _, keep = moe.slots(idx.reshape(-1), cfg.num_experts, moe.capacity(cfg, idx.shape[0]))
     kept = torch.where(keep.reshape(idx.shape), idx, -1)
     return (y, {k: float(v) for k, v in aux.items()}, idx.sort(-1).values.cpu(),
-            kept.sort(-1).values.cpu())
+            kept.sort(-1).values.cpu(), probs.cpu())
 
 
 def moe_readings(torch, card_run, cpu_run) -> dict:
     """MOE_TOL's readings of a card run against a CPU run (``moe_routing``)."""
-    y, aux, sets, kept = card_run
-    y_ref, aux_ref, sets_ref, kept_ref = cpu_run
+    y, aux, sets, kept, probs = card_run
+    y_ref, aux_ref, sets_ref, kept_ref, probs_ref = cpu_run
     alike = (sets == sets_ref).all(-1) & (kept == kept_ref).all(-1)
     d = y.shape[-1]
     yc, yr = y.reshape(-1, d).float().cpu()[alike], y_ref.reshape(-1, d)[alike]
     return {"topk_set_differs": 1.0 - float((sets == sets_ref).all(-1).float().mean()),
             "drop_frac_diff": abs(aux["moe_drop_frac"] - aux_ref["moe_drop_frac"]),
             "layer_out": rel_err(yc, yr) if bool(alike.any()) else math.inf,
+            "router_probs": rel_err(probs, probs_ref),
             "alike_share": float(alike.float().mean()),
             "drop_frac_card": aux["moe_drop_frac"], "drop_frac_cpu": aux_ref["moe_drop_frac"]}
 
 
-def over_moe(r: dict) -> list:
-    return [k for k, lim in MOE_TOL.items() if r[k] > lim]
+def over_moe(r: dict, tol: dict) -> list:
+    return [k for k, lim in tol.items() if r[k] > lim]
 
 
-def moe_check(torch, model, cpu_moe, prompt, planted: dict) -> dict:
-    """The routing check of MOE_TOL on the first MoE layer (see above); each
-    fault of ``planted`` must read above a limit."""
+def cpu_moe_copy(torch, layer):
+    """A copy of the MoE layer ``layer`` on the CPU, its parameters in their
+    dtypes (the card's bf16 experts, the f32 router)."""
+    from repro_torch.models.moe import MoE
+    copy = MoE(layer.cfg, device="meta").to_empty(device="cpu")
+    copy.load_state_dict(layer.state_dict())
+    return copy.eval()
+
+
+def moe_check(torch, model, cpu_moe, prompt, planted: dict, tol16: dict) -> dict:
+    """The routing check of MOE_TOL on the first MoE layer (see above) against
+    its f32 copy ``cpu_moe``, and the same readings against its bf16 copy on
+    the CPU under ``tol16`` (the arch's MOE_BF16_TOL); each fault of
+    ``planted`` must read above a MOE_TOL limit but those of
+    ``moe_bf16_faults``, and every one above a ``tol16`` limit."""
     layer = next(m for m in model.modules() if type(m).__name__ == "MoE")
     seen = []
     hook = layer.register_forward_pre_hook(lambda mod, args: seen.append(args[0]))
@@ -1504,26 +1872,36 @@ def moe_check(torch, model, cpu_moe, prompt, planted: dict) -> dict:
         hook.remove()
     x = seen[0]                                 # [1, S, d] bf16, that layer's input
     factor = layer.cfg.moe_capacity_factor
-    cpu_run = moe_routing(torch, cpu_moe, x.float().cpu(), factor)
-    r = moe_readings(torch, moe_routing(torch, layer, x, factor), cpu_run)
-    print(f"  MoE layer 0 card bf16 vs CPU f32, T={x.shape[1]}, capacity factor "
-          f"{factor:g}: " + ", ".join(f"{k} {v:.3e}" for k, v in r.items())
-          + f" (tolerance {MOE_TOL})", flush=True)
-    check(not over_moe(r), f"the MoE layer disagrees with the CPU f32 path: {over_moe(r)}")
-    check(not planted or r["drop_frac_cpu"] > 0,
+    cpu_runs = {"f32": moe_routing(torch, cpu_moe, x.float().cpu(), factor),
+                "bf16": moe_routing(torch, cpu_moe_copy(torch, layer), x.cpu(), factor)}
+    tols = {"f32": MOE_TOL, "bf16": tol16}
+    card_run = moe_routing(torch, layer, x, factor)
+    r = {ref: moe_readings(torch, card_run, run) for ref, run in cpu_runs.items()}
+    for ref, tol in tols.items():
+        print(f"  MoE layer 0 card bf16 vs CPU {ref}, T={x.shape[1]}, capacity factor "
+              f"{factor:g}: " + ", ".join(f"{k} {v:.3e}" for k, v in r[ref].items())
+              + f" (tolerance {tol})", flush=True)
+        check(not over_moe(r[ref], tol),
+              f"the MoE layer disagrees with the CPU {ref} copy: {over_moe(r[ref], tol)}")
+    check(not planted or r["f32"]["drop_frac_cpu"] > 0,
           f"no slot dropped at capacity factor {factor:g}: the capacity control cannot show")
-    out = {"tokens": x.shape[1], "capacity_factor": factor, "readings": r, "planted": {}}
+    out = {"tokens": x.shape[1], "capacity_factor": factor, "readings": r["f32"],
+           "readings_vs_bf16": r["bf16"], "planted": {}, "planted_vs_bf16": {}}
     for fault, (module, attr, fn) in planted.items():
-        kept = getattr(module, attr)
-        setattr(module, attr, fn)
-        try:
-            rf = moe_readings(torch, moe_routing(torch, layer, x, factor), cpu_run)
-        finally:
-            setattr(module, attr, kept)
-        out["planted"][fault] = rf
-        print(f"  control, {fault}: " + ", ".join(f"{k} {v:.3e}" for k, v in rf.items())
-              + f"; over the limits: {over_moe(rf)}", flush=True)
-        check(bool(over_moe(rf)), f"the MoE routing check does not catch: {fault}")
+        with planted_fault(module, attr, fn):
+            card_f = moe_routing(torch, layer, x, factor)
+        rf = {ref: moe_readings(torch, card_f, run) for ref, run in cpu_runs.items()}
+        out["planted"][fault], out["planted_vs_bf16"][fault] = rf["f32"], rf["bf16"]
+        print(f"  control, {fault}: vs CPU f32 " + ", ".join(
+            f"{k} {v:.3e}" for k, v in rf["f32"].items())
+            + f"; over the limits: {over_moe(rf['f32'], MOE_TOL)}; over the bf16 limits: "
+            f"{over_moe(rf['bf16'], tol16)} (vs CPU bf16 " + ", ".join(
+                f"{k} {rf['bf16'][k]:.3e}" for k in tol16) + ")", flush=True)
+        if fault not in moe_bf16_faults(torch):
+            check(bool(over_moe(rf["f32"], MOE_TOL)),
+                  f"the MoE routing check does not catch: {fault}")
+        check(bool(over_moe(rf["bf16"], tol16)),
+              f"the MoE routing check against the bf16 copy does not catch: {fault}")
     return out
 
 
@@ -1546,8 +1924,8 @@ def new_arch_faults(torch) -> dict:
     card-vs-CPU check (deepseek's on its one layer's hidden states at every
     position)."""
     mask = causal_mask_dropped(torch)
-    return {INTERNLM: mask, INTERNVL: embed_faults(torch), MUSICGEN: mask, GRANITE: mask,
-            PHI: mask, DEEPSEEK: mask, NEMOTRON: mask}
+    return {INTERNLM: mask, INTERNVL: {**mask, **embed_faults(torch)}, MUSICGEN: mask,
+            GRANITE: mask, PHI: mask, DEEPSEEK: mask, NEMOTRON: mask}
 
 
 def moe_faults(torch) -> dict:
@@ -2323,17 +2701,56 @@ TP_SERVE_FAULTS = {QWEN: (), MAMBA: (),
 # tight, and where the planted faults must fail: set before their first
 # run, for a split that sums the same f32 products in another order.
 TP_SERVE_TOL = {"bfloat16": 3e-1, "float32": 2e-3}
+# The bf16 split on the card against the bf16 reference: where the model
+# attends (qwen, recurrentgemma), each decode step's first attention op
+# call (each rank's partial softmax over its kv heads or slots, and their
+# combine) replayed on the CPU in bf16 on the card's inputs, the split's
+# collectives over the same gloo group. Reading: the share of its outputs
+# not bit-equal, over the steps. The control "the combine rounds the
+# normalised p" (the whole decode's rounding in place of each rank's
+# exp(s - m)) must read over, on recurrentgemma, whose ring is split along
+# its slots. Set before its first run (PERF.md §6): phase 3's
+# kernel-vs-plain shares (up to 8e-3 differ) with room for the replayed
+# op's own exp and score order.
+TP_REPLAYED = "decode attention op, replayed" + SHARE
+TP_SERVE_BF16_REF_TOL = {TP_REPLAYED: 5e-2}
+TP_SERVE_BF16_FAULTS = {QWEN: (), MAMBA: (), RG: ("the combine rounds the normalised p",)}
 
 
 def tp_serve_plant(fault: str):
-    """A context that plants ``fault`` (TP_SERVE_FAULTS) in the decode path."""
-    import contextlib
+    """A context that plants ``fault`` (TP_SERVE_FAULTS, TP_SERVE_BF16_FAULTS)
+    in the decode path."""
+    import torch as torch_mod
+
     from repro_torch.models import attention
+
+    attend_one = attention._attend_one
+
+    def normalised(q, k_cache, v_cache, valid, softcap, split=None, time_minor=False):
+        """Under a sequence split: the softmax normalised over every rank's
+        rows before p is rounded to V's dtype (the whole decode's rounding),
+        then each rank's P.V summed over "model"."""
+        if split is None:
+            return attend_one(q, k_cache, v_cache, valid, softcap, split, time_minor)
+        b, _, hk, dh = v_cache.shape
+        hq = q.shape[1]
+        qg = q.reshape(b, hk, hq // hk, dh)
+        eq = "bhgd,bhds->bhgs" if time_minor else "bhgd,bshd->bhgs"
+        sc = torch_mod.einsum(eq, qg.float(), k_cache.float()) * dh ** -0.5
+        if softcap > 0:
+            sc = softcap * torch_mod.tanh(sc / softcap)
+        sc = sc.masked_fill(~valid, attention.NEG_INF)
+        m = attention.max_over_model(sc.amax(dim=-1, keepdim=True), split)
+        e = torch_mod.exp(sc - m).masked_fill(~valid, 0.0)
+        p = e / attention.reduce_from_model(e.sum(dim=-1, keepdim=True), split)
+        o = torch_mod.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype).float(), v_cache.float())
+        return attention.reduce_from_model(o, split).reshape(b, hq, dh).to(q.dtype)
 
     name, fn = {
         "combine dropped (rank-local softmax)": (
             "combine_partials", lambda m, l, acc, split: acc / l.clamp_min(1e-30)),
         "wrong sequence offset (every rank at 0)": ("seq_part", lambda split, rows: (0, rows)),
+        "the combine rounds the normalised p": ("_attend_one", normalised),
     }[fault]
 
     @contextlib.contextmanager
@@ -2349,15 +2766,16 @@ def tp_serve_plant(fault: str):
 
 def tp_serve_arch(torch, dist, mesh, arch: str, rank: int) -> dict:
     """One rank's readings of ``arch``'s serve split over two ranks of
-    "model" (phase 17(f)), in bf16 and with the same weights in f32; rank 0
-    first serves the same request on the whole model through the captured
-    step."""
+    "model" (phase 17(f)), in bf16 (also each decode step's first attention
+    op replayed on the CPU) and with the same weights in f32; rank 0 first
+    serves the same request on the whole model through the captured step."""
     from repro_torch.launch import serve as launch_serve
 
     dev = torch.device("cuda", 0)
     model = launch_serve.build(arch, device=dev, seed=0)
     prompt = launch_serve.random_prompt(model, TP_SERVE_SHAPE[0], TP_SERVE_SHAPE[1], seed=1)
-    out = {"bfloat16": tp_serve_dtype(torch, dist, mesh, model, prompt, rank, ())}
+    out = {"bfloat16": tp_serve_dtype(torch, dist, mesh, model, prompt, rank, (),
+                                      TP_SERVE_BF16_FAULTS[arch])}
     del model                                  # it holds its shards now: build it again
     torch.cuda.empty_cache()
     model = f32_copy(torch, launch_serve.build(arch, device=dev, seed=0), dev)
@@ -2369,18 +2787,25 @@ def tp_serve_arch(torch, dist, mesh, arch: str, rank: int) -> dict:
     return out
 
 
-def tp_serve_dtype(torch, dist, mesh, model, prompt, rank: int, faults) -> dict:
+def tp_serve_dtype(torch, dist, mesh, model, prompt, rank: int, faults,
+                   replay_faults=None) -> dict:
     """The request ``prompt`` through the one-rank captured serve (rank 0),
     then through the model split over the mesh's "model" (it stays split),
-    sound and with each of ``faults`` planted."""
+    sound and with each of ``faults`` planted. With ``replay_faults`` (bf16:
+    TP_SERVE_BF16_FAULTS), each decode step's first attention op call is
+    replayed on the CPU on the card's inputs, sound and with each of those
+    faults planted."""
     from repro_torch.config.base import ParallelConfig
     from repro_torch.kernels import ops
+    from repro_torch.models import attention
     from repro_torch.parallel import use_mesh
     from repro_torch.serve.decode import make_serve_step
 
     dev = model.device
     b, s, steps = TP_SERVE_SHAPE
     max_len = s + steps + 1
+    par = ParallelConfig(multi_pod=True, pods=1, data=1, model=2)
+    attend_one = attention._attend_one       # the sound op, for the CPU replay
     out = {"batch": b, "prompt": s, "steps": steps}
     ref = torch.zeros((steps + 1, b), dtype=torch.int64)
     if rank == 0:
@@ -2404,8 +2829,7 @@ def tp_serve_dtype(torch, dist, mesh, model, prompt, rank: int, faults) -> dict:
     torch.cuda.empty_cache()
     dist.broadcast(ref, 0)          # the one-rank serve's tokens, fed to both ranks
     ref = ref.to(dev)
-    step, _, _ = make_serve_step(model, ParallelConfig(multi_pod=True, pods=1, data=1, model=2),
-                                 mesh, b, max_len)
+    step, _, _ = make_serve_step(model, par, mesh, b, max_len)
     torch.cuda.empty_cache()
     out["shards"] = {"parameters": sum(p.numel() for p in model.parameters()),
                      "whole": sum(math.prod(sh) for sh in model.whole_shapes.values())}
@@ -2422,11 +2846,36 @@ def tp_serve_dtype(torch, dist, mesh, model, prompt, rank: int, faults) -> dict:
             return fwd[k](*args, **kw)
         return fn
 
+    def decode(caches, planted):
+        """The steps on ``caches``, each fed the one-rank serve's token:
+        (logits [steps, B, V], with ``replay_faults`` each step's first
+        attention op call (its inputs and output, on the CPU))."""
+        calls, logs = [], []
+        with planted:
+            attend = attention._attend_one
+
+            def first_call(*args):
+                out = attend(*args)
+                if len(calls) < len(logs) + 1:
+                    calls.append(([a.to("cpu", copy=True) if torch.is_tensor(a) else a
+                                   for a in args], out.cpu()))
+                return out
+
+            if replay_faults is not None:
+                attention._attend_one = first_call
+            try:
+                for t in range(steps):
+                    caches, _, lg = step.eager(caches, ref[t], s + t)
+                    logs.append(lg)
+            finally:
+                attention._attend_one = attend
+        return torch.stack(logs), calls
+
     def serve_split(fault=None) -> dict:
         """The request on the split model, each decode step fed the one-rank
         serve's token of the step before (so both sides read the same
-        inputs): each step's argmax and logits."""
-        import contextlib
+        inputs): each step's argmax and logits, and each decode step's first
+        attention op call (under "_calls")."""
         planted = tp_serve_plant(fault) if fault else contextlib.nullcontext()
         for v in seen.values():
             v.clear()
@@ -2444,19 +2893,16 @@ def tp_serve_dtype(torch, dist, mesh, model, prompt, rank: int, faults) -> dict:
         launches = read_counts()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        toks, logs = [torch.argmax(logits, -1)], [logits]
-        with planted:
-            for t in range(steps):
-                caches, token, lg = step.eager(caches, ref[t], s + t)
-                toks.append(token)
-                logs.append(lg)
+        dec_logits, dec_calls = decode(caches, planted)
         torch.cuda.synchronize()
-        toks, logs = torch.stack(toks), torch.stack(logs)
+        toks = torch.cat([torch.argmax(logits, -1)[None], torch.argmax(dec_logits, -1)])
+        logs = torch.cat([logits[None], dec_logits])
         r = {"tokens": toks.tolist(), "launches": launches,
              "dims": {k: sorted(set(v)) for k, v in seen.items()},
              "prefill_ms": (t1 - t0) * 1e3, "decode_ms": (time.perf_counter() - t1) * 1e3,
              "logits_sum": float(logs.double().sum()),
-             "caches": sorted({(k, tuple(t.shape)) for c in caches for k, t in c.items()})}
+             "caches": sorted({(k, tuple(t.shape)) for c in caches for k, t in c.items()}),
+             "_calls": dec_calls}
         if rank == 0:
             err = (logs - ref_logits).abs().amax(dim=-1)                # [steps + 1, B]
             r["logits_err_by_step"] = err.amax(dim=-1).tolist()
@@ -2466,9 +2912,28 @@ def tp_serve_dtype(torch, dist, mesh, model, prompt, rank: int, faults) -> dict:
                                      for i, j in (toks != ref).nonzero().tolist()]
         return r
 
-    out["split"] = serve_split()
+    def public(r: dict) -> dict:
+        return {k: v for k, v in r.items() if not k.startswith("_")}
+
+    sound = serve_split()
+    out["split"] = public(sound)
     out["captures"] = step.captures
-    out["planted"] = {f: serve_split(f) for f in faults}
+    out["planted"] = {f: public(serve_split(f)) for f in faults}
+    if replay_faults is not None and sound["_calls"]:
+
+        def replayed_share(r) -> dict:
+            """The share of the outputs of each decode step's first
+            attention op call not bit-equal to the sound op replayed on the
+            CPU on the card's inputs (the split's collectives over the same
+            gloo group)."""
+            same = [(out == attend_one(*args)).float().mean() for args, out in r["_calls"]]
+            return {TP_REPLAYED: 1.0 - float(torch.stack(same).mean())}
+
+        t0 = time.perf_counter()
+        out["vs_cpu_bf16"] = {"split": replayed_share(sound),
+                              "planted": {f: replayed_share(serve_split(f))
+                                          for f in replay_faults}}
+        out["vs_cpu_bf16"]["s"] = time.perf_counter() - t0
     return out
 
 
@@ -2492,6 +2957,7 @@ def phase_tensor_parallel_serve(torch, card: str) -> dict:
     ranks = run_tp_ranks(ROOT / "build" / "chip_smoke_tp_serve", "serve", "phase 17(f)")
     b, s, steps = TP_SERVE_SHAPE
     out = {"shape": {"batch": b, "prompt": s, "steps": steps}, "tol": TP_SERVE_TOL,
+           "bf16_ref_tol": TP_SERVE_BF16_REF_TOL,
            "staged": ranks[0]["staged"], "archs": {}}
 
     def parts(r, tol) -> bool:
@@ -2540,6 +3006,20 @@ def phase_tensor_parallel_serve(torch, card: str) -> dict:
                   f"{split['tokens_differ_at']}")
             for f, p in r0["planted"].items():
                 check(parts(p, tol), f"{arch} {dtype}: the two-rank check does not catch: {f}")
+            if "vs_cpu_bf16" in r0:
+                vs, lim = r0["vs_cpu_bf16"], TP_SERVE_BF16_REF_TOL
+                print(f"  (f) {arch} bf16: the split against the CPU bf16 reference, {steps} "
+                      f"decode steps ({vs['s']:.1f} s): " + ", ".join(
+                          f"{k} {v:.4e} (limit {lim[k]:g})" for k, v in vs["split"].items())
+                      + "".join(f"; control, {f}: " + ", ".join(
+                          f"{k} {v:.4e}" for k, v in c.items())
+                          for f, c in vs["planted"].items()), flush=True)
+                check(all(v <= lim[k] for k, v in vs["split"].items()),
+                      f"{arch}: the bf16 split parts from the CPU bf16 reference: "
+                      f"{vs['split']}")
+                for f, c in vs["planted"].items():
+                    check(any(v > lim[k] for k, v in c.items()),
+                          f"{arch}: the bf16 split's check against the CPU does not catch: {f}")
             for r in (r0, r1):
                 sp = r["split"]
                 check(sp["launches"] == expected,
@@ -3595,11 +4075,13 @@ def lane_main(out_dir: Path, units) -> None:
         torch.cuda.empty_cache()
 
 
-def run_lanes(t_start: float) -> dict:
+def run_lanes(torch, t_start: float) -> dict:
     """Phases 10-14 and 17: the NETSIM_LANES as child processes (each in a session
     of its own, so that stopping it stops its CPU workers too), their logs
-    printed in phase order once all have ended; fails the run if a lane
-    fails or NETSIM_DEADLINE_S passes. Returns each unit's record."""
+    printed in phase order once all have ended, with the most card memory
+    that all processes held at once while they ran (read each second) and
+    the units then running; fails the run if a lane fails or
+    NETSIM_DEADLINE_S passes. Returns each unit's record."""
     import os
     import shutil
     import signal
@@ -3609,6 +4091,8 @@ def run_lanes(t_start: float) -> dict:
     out_dir.mkdir(parents=True)
     t0 = time.perf_counter()
     lanes, ended = [], {}
+    free, total = torch.cuda.mem_get_info()
+    start_used = peak = (total - free, 0.0, ())
     try:
         for i, units in enumerate(NETSIM_LANES):
             with open(out_dir / f"lane{i}.out", "w") as out:
@@ -3624,6 +4108,11 @@ def run_lanes(t_start: float) -> dict:
                     ended[i] = time.perf_counter() - t0
                     if proc.returncode != 0:
                         bad = f"lane {NETSIM_LANES[i]} exited with {proc.returncode}"
+            free, _ = torch.cuda.mem_get_info()
+            if total - free > peak[0]:
+                peak = (total - free, time.perf_counter() - t0, tuple(
+                    next((u for u in units if not (out_dir / f"{u}.json").exists()), "")
+                    for i, units in enumerate(NETSIM_LANES) if i not in ended))
             if time.perf_counter() - t_start > NETSIM_DEADLINE_S:
                 bad = f"the lanes were still running {NETSIM_DEADLINE_S:.0f} s after the start"
     finally:
@@ -3641,6 +4130,9 @@ def run_lanes(t_start: float) -> dict:
     for i, units in enumerate(NETSIM_LANES):
         print(f"  lane {i} ({', '.join(units)}): "
               + (f"ended after {ended[i]:.1f} s" if i in ended else "stopped"), flush=True)
+    print(f"  card memory in use: {start_used[0] / 1e9:.2f} GB at the lanes' start, at most "
+          f"{peak[0] / 1e9:.2f} GB of {total / 1e9:.2f} GB ({peak[1]:.0f} s in, units "
+          f"{', '.join(u for u in peak[2] if u)} running)", flush=True)
     if bad is not None:
         for i in range(len(lanes)):
             tail = (out_dir / f"lane{i}.out").read_text()[-4000:]
@@ -3712,13 +4204,12 @@ def main() -> None:
     print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     served = {}
-    for i, (arch, faults, must_fail) in enumerate((
-            (QWEN, qwen_faults(torch), ("causal mask dropped",)),
-            (MAMBA, mamba_faults(torch), ("state not carried across chunks",)),
-            (RG, rglru_faults(torch), ("recurrence restarted every 256 steps",))), start=4):
+    for i, (arch, faults) in enumerate(((QWEN, qwen_faults(torch)),
+                                        (MAMBA, mamba_faults(torch)),
+                                        (RG, rglru_faults(torch))), start=4):
         t0 = time.perf_counter()
         print(f"[{i}/18] serve {arch} at full width", flush=True)
-        served[arch] = phase_serve(torch, card, arch, faults, must_fail)
+        served[arch] = phase_serve(torch, card, arch, faults, MUST_FAIL[arch])
         print(f"  ({time.perf_counter() - t0:.1f} s; total "
               f"{time.perf_counter() - t_start:.1f} s)", flush=True)
         torch.cuda.empty_cache()
@@ -3737,7 +4228,10 @@ def main() -> None:
         t0 = time.perf_counter()
         torch.cuda.empty_cache()
         served[arch] = phase_serve(torch, card, arch, new_arch_faults(torch).get(arch, {}),
-                                   moe_planted=moe_faults(torch) if arch == GRANITE else {})
+                                   moe_planted={
+                                       **(moe_faults(torch) if arch == GRANITE else {}),
+                                       **(moe_bf16_faults(torch) if arch in (GRANITE, PHI)
+                                          else {})})
         print(f"  ({arch}: {time.perf_counter() - t0:.1f} s; total "
               f"{time.perf_counter() - t_start:.1f} s)", flush=True)
     print("[16/18] train four of them at full width", flush=True)
@@ -3749,7 +4243,7 @@ def main() -> None:
               f"{time.perf_counter() - t_start:.1f} s)", flush=True)
 
     torch.cuda.empty_cache()
-    units = run_lanes(t_start)
+    units = run_lanes(torch, t_start)
     netsim = units["10"]
     netsim_links = {**units["11"], **units["11g"]}
     netsim_channel = {**units["12"], **units["12g"]}

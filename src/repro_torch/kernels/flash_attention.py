@@ -13,8 +13,10 @@ of the tensor cores, runs the D = 16 instantiation on copies zero-padded to
 back. This launcher is the forward alone and raises if an input requires
 grad: ``ops.flash_attention`` is the autograd Function around it.
 
-bfloat16 runs on the tensor cores (wgmma) and rounds the probabilities P to
-bf16 before P.V, as the JAX model path does; its 16-byte copies need each
+bfloat16 runs on the tensor cores (wgmma) and rounds each 64-key tile's
+unnormalised probabilities to bf16 before P.V, as the JAX model path's
+chunked attention does (``ref.attention_tiled_ref`` repeats it, and is the
+op's CPU path in bf16); its 16-byte copies need each
 tensor's start on 16 bytes and its batch, sequence and head strides in
 multiples of 8 elements, which ``check_inputs`` demands (a padded copy
 meets it by construction). float32 runs the scalar kernel, with P in f32 as

@@ -36,8 +36,8 @@ import torch
 
 from repro_torch.kernels import cost
 from repro_torch.kernels.flash_attention import flash_attention_fwd
-from repro_torch.kernels.ref import attention_ref, rglru_ref
-from repro_torch.kernels.rglru_scan import rglru_scan_fwd
+from repro_torch.kernels.ref import attention_ref, attention_tiled_ref, rglru_chunked_ref
+from repro_torch.kernels.rglru_scan import CHUNK as RGLRU_CHUNK, rglru_scan_fwd
 from repro_torch.kernels.ssd_scan import ssd_scan_fwd
 
 
@@ -69,7 +69,11 @@ class FlashAttention(torch.autograd.Function):
             cost.record("flash_attention", cost.attention_cost(
                 b, s, hq, k.shape[2], d, q.element_size(), window))
             return torch.empty_like(q)
-        if _all_cpu(q, k, v):   # the plain version: P in f32, as the kernel keeps it
+        if _all_cpu(q, k, v):
+            # the plain version of the kernel that dtype launches: bf16 rounds
+            # each key tile's unnormalised p, f32 keeps P in f32
+            if q.dtype == torch.bfloat16:
+                return attention_tiled_ref(q, k, v, softcap=softcap, window=window)
             return attention_ref(q, k, v, softcap=softcap, window=window)
         return flash_attention_fwd(q, k, v, softcap=softcap, window=window)
 
@@ -122,8 +126,9 @@ class SSDScan(torch.autograd.Function):
             cost.record("ssd_scan", cost.ssd_cost(b, s, h, p, g, n, chunk, x.element_size()))
             return (torch.empty_like(x),
                     torch.empty((b, h, n, p), dtype=torch.float32, device=x.device))
-        if _all_cpu(*args):
-            return ssd_scan_plain(*args, chunk=chunk)
+        if _all_cpu(*args):   # with the bf16 kernel's two roundings in bf16
+            return ssd_scan_plain(*args, chunk=chunk, round_to=(
+                torch.bfloat16 if x.dtype == torch.bfloat16 else None))
         return ssd_scan_fwd(*args, chunk=chunk)
 
     @staticmethod
@@ -152,14 +157,17 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor
 # ---------------------------------------------------------------------------
 
 def _recurrence(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """h_t = a_t h_{t-1} + b_t from h = 0: the kernel on the card, the
-    step-by-step plain version on the CPU; on meta, an empty h and the
+    """h_t = a_t h_{t-1} + b_t from h = 0: the kernel on the card, its
+    association in plain PyTorch on the CPU (``rglru_chunked_ref``: the
+    carry folded over chunks of RGLRU_CHUNK steps, bit-equal to the
+    step-by-step recurrence while S <= 2 * RGLRU_CHUNK, since the first
+    carry is the first chunk's last h); on meta, an empty h and the
     kernel's cost recorded."""
     if _all_meta(a, b):
         cost.record("rglru_scan", cost.rglru_cost(*a.shape, a.element_size()))
         return torch.empty(a.shape, dtype=torch.float32, device=a.device)
     if _all_cpu(a, b):
-        return rglru_ref(a, b)
+        return rglru_chunked_ref(a, b, RGLRU_CHUNK)
     return rglru_scan_fwd(a, b)
 
 

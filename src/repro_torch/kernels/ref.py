@@ -2,11 +2,14 @@
 
 Direct formulations (materialised scores, step-by-step recurrences): slow,
 obviously correct. The card's checks hold each kernel against them on the
-same inputs. The CPU path of flash attention runs ``attention_ref`` and that
-of the RG-LRU scan ``rglru_ref``; that of the SSD scan runs the chunked
-algorithm in f32 (``ops.ssd_scan_plain``), since the recurrence here is one
-step at a time. ``ssd_ref(round_to=, chunk=)`` and ``rglru_chunked_ref``
-repeat the kernels' own roundings and association.
+same inputs. The CPU path of each op (``kernels.ops``) runs the version that
+repeats what its kernel computes for that dtype: flash attention
+``attention_tiled_ref`` in bf16 (the bf16 kernel's tiles and roundings) and
+``attention_ref`` in f32; the SSD scan the chunked algorithm
+(``ops.ssd_scan_plain``, with the bf16 kernel's roundings in bf16), since the
+recurrence here is one step at a time; the RG-LRU scan
+``rglru_chunked_ref``, the kernel's association. ``ssd_ref(round_to=,
+chunk=)`` repeats the bf16 SSD kernel's roundings step by step.
 """
 from __future__ import annotations
 
@@ -15,6 +18,9 @@ from typing import Optional, Tuple
 import torch
 
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634   # the kernel's constant, an f32
+FLASH_TILE = 64              # keys a tile of the bf16 flash kernel (TC_BK)
+_F32_TINY = 2.0 ** -126      # below it ex2.approx.ftz returns 0
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -23,10 +29,14 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   scale: Optional[float] = None) -> torch.Tensor:
     """Naive causal GQA attention. q [B,S,Hq,D]; k,v [B,S,Hk,D].
 
-    Scores, softmax and P.V in f32; the output is cast to q's dtype. With
-    ``p_dtype``, P is rounded to that dtype before P.V, as the JAX model
-    path rounds it to v's dtype (the kernel keeps it in f32). ``scale``
-    multiplies the scores (default D^-0.5).
+    Scores, softmax and P.V in f32; the output is cast to q's dtype. P is
+    the softmax over the whole row: without ``p_dtype`` it stays f32 (the
+    f32 kernel's arithmetic, and the TPU kernel's); with ``p_dtype`` the
+    normalised P is rounded to that dtype before P.V, as the JAX model
+    path's banded attention and decode round it. The bf16 kernel rounds
+    neither: it rounds the unnormalised p of each key tile
+    (``attention_tiled_ref``). ``scale`` multiplies the scores (default
+    D^-0.5).
     """
     b, s, hq, d = q.shape
     hk = k.shape[2]
@@ -47,6 +57,66 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         p = p.to(p_dtype).float()
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return o.reshape(b, s, hq, d).to(q.dtype)
+
+
+def _exp2_ftz(x: torch.Tensor) -> torch.Tensor:
+    """2^x in f32 with results under 2^-126 flushed to 0, as ex2.approx.ftz."""
+    y = torch.exp2(x)
+    return y.masked_fill(y < _F32_TINY, 0.0)
+
+
+def attention_tiled_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        softcap: float = 0.0, window: int = 0) -> torch.Tensor:
+    """The bf16 flash kernel's arithmetic in plain PyTorch. q [B,S,Hq,D];
+    k,v [B,S,Hk,D] (query head h reads kv head h // (Hq / Hk)).
+
+    The keys are walked in tiles of FLASH_TILE, in order. Per tile the f32
+    scores are multiplied by the scale D^-0.5 before the softcap; the causal
+    mask and the window (query t attends keys [t-W+1, t]) set a masked score
+    to -1e30 and its probability to exactly 0. The running max m and the
+    rescale corr = 2^(m_old - m) stay in f32; p = 2^(x - m) is left
+    unnormalised, rounded to q's dtype before P.V, and P.V accumulates in
+    f32; l sums the f32 p. The output is acc / max(l, 1e-30), rounded once
+    to q's dtype. The exponent is in log2 units, as the kernel's (the scale
+    carries log2(e), or the softcap's output does), and results under
+    2^-126 flush to 0, as its ex2.approx.ftz; its approximation itself (a
+    few f32 ulps) is not repeated.
+
+    The kernel skips a tile with no key in its rows' bands; a fully masked
+    tile adds p = 0 and rescales by 1, so walking it here is exact.
+    """
+    b, s, hq, d = q.shape
+    hk = k.shape[2]
+    g = hq // hk
+    f32 = torch.float32
+    unit = torch.tensor(LOG2E, dtype=f32)
+    sc = torch.tensor(d ** -0.5, dtype=f32)
+    qk_scale = sc if softcap > 0 else sc * unit
+    cap = torch.tensor(softcap, dtype=f32)
+    qg = q.reshape(b, s, hk, g, d).float()
+    qpos = torch.arange(s, device=q.device)[:, None]
+    m = torch.full((b, hk, g, s), NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((b, hk, g, s), dtype=f32, device=q.device)
+    acc = torch.zeros((b, hk, g, s, d), dtype=f32, device=q.device)
+    for k0 in range(0, s, FLASH_TILE):
+        kt, vt = k[:, k0:k0 + FLASH_TILE].float(), v[:, k0:k0 + FLASH_TILE].float()
+        x = torch.einsum("bqhgd,bkhd->bhgqk", qg, kt) * qk_scale
+        if softcap > 0:
+            x = cap * torch.tanh(x / cap) * unit
+        kpos = torch.arange(k0, k0 + kt.shape[1], device=q.device)[None, :]
+        mask = kpos <= qpos
+        if window:
+            mask = mask & (qpos - kpos < window)
+        x = x.masked_fill(~mask, NEG_INF)
+        m_new = torch.maximum(m, x.amax(dim=-1))
+        corr = _exp2_ftz(m - m_new)
+        p = _exp2_ftz(x - m_new[..., None]).masked_fill(~mask, 0.0)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd",
+                                                   p.to(q.dtype).float(), vt)
+        m = m_new
+    o = acc / l.clamp_min(1e-30)[..., None]                  # [b,hk,g,s,d]
+    return o.permute(0, 3, 1, 2, 4).reshape(b, s, hq, d).to(q.dtype)
 
 
 def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,

@@ -1,7 +1,8 @@
 """The port's RG-LRU scan against the JAX package's kernel and oracle.
 
 On the CPU, ``repro_torch.kernels.ops.rglru_recurrence`` takes the plain
-version (``ref.rglru_ref``, step by step in f32); it and the plain version
+version of the kernel's association (``ref.rglru_chunked_ref``, which for
+S <= 512 is ``ref.rglru_ref``, step by step in f32); it and the plain version
 are held against the Pallas kernel in interpret mode (as tests/test_kernels.py
 runs it, through ``repro.kernels.ops.rglru_recurrence``) over the shape grid
 of ``test_rglru_scan_sweep``, and against the JAX oracle. The CUDA kernel

@@ -1,7 +1,8 @@
 """The port's SSD scan against the JAX package's kernel, oracle and model path.
 
 On the CPU, ``repro_torch.kernels.ops.ssd_scan`` takes the plain version
-(``ssd_chunked`` in f32); it is held against the Pallas kernel in interpret
+(``ssd_chunked`` in f32, with the bf16 kernel's roundings of xdt and
+C B^T * L for bf16 inputs); it is held against the Pallas kernel in interpret
 mode (as tests/test_kernels.py runs it) over the shape grid of
 ``test_ssd_scan_sweep`` plus a ragged S, against the step-by-step oracle,
 and, with its final state, against the model path's ``ssd_chunked``. The
@@ -116,7 +117,9 @@ def test_init_state_carries_into_the_scan():
 
 
 def test_bf16_inputs_match_pallas_kernel():
-    """bf16 x, B, C: both wrappers compute in f32 and round y once to bf16."""
+    """bf16 x, B, C: the Pallas wrapper computes in f32, the port's plain
+    version also rounds xdt and C B^T * L to bf16 as its bf16 kernel does;
+    both round y once to bf16."""
     jargs, targs = _inputs(2, 100, 4, 32, 2, 16, seed=5, dtype="bfloat16")
     y, state = ops.ssd_scan(*targs, chunk=32)
     assert y.dtype == torch.bfloat16 and state.dtype == torch.float32
