@@ -97,6 +97,8 @@ from repro_torch.netsim.obs import (
 )
 
 PROFILE_STEPS = 100
+# step_profile takes a trace again if it holds no kernel, at most this often
+PROFILE_TRIES = 3
 
 # scheme_compare.py's asserts: the streamed columns of each scheme's rows,
 # and rdmacell's columns on every multi-link row
@@ -223,9 +225,25 @@ def step_profile(cfgs, workload, scheme: str, device: torch.device,
     share over the replay, 1 - the kernels' summed time / the span from the
     first kernel's start to the last one's end. Only device activity is
     recorded; a replay of 8,600 kernels (20 matchrdma steps) ran twice as
-    long under the profiler as without it, so the replay is kept short."""
+    long under the profiler as without it, so the replay is kept short. A
+    trace that holds no kernel (CUPTI has dropped a whole trace while other
+    processes used the card) is taken again, up to ``PROFILE_TRIES`` times;
+    if every try is empty, what it would have read is None ("not
+    measured")."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    def traced(fn):
+        """The device events of fn() under the profiler, the first trace
+        of ``PROFILE_TRIES`` that holds any, and how many were empty."""
+        for empty in range(PROFILE_TRIES):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize(device)
+            events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            if events:
+                return events, empty
+        return [], PROFILE_TRIES
 
     _, state, step = build_batch(cfgs, workload, scheme, device=device,
                                  channel=channel)
@@ -239,10 +257,13 @@ def step_profile(cfgs, workload, scheme: str, device: torch.device,
 
     state, t = run(state, t, 3)                   # warm-up
     torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        state, t = run(state, t, n_steps)
-        torch.cuda.synchronize(device)
-    eager = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    carry = [state, t]
+
+    def eager_steps():
+        carry[:] = run(*carry, n_steps)
+
+    eager, eager_empty = traced(eager_steps)
+    state, t = carry
     by_name: dict = {}
     for e in eager:
         n, us = by_name.get(e.name, (0, 0.0))
@@ -253,25 +274,32 @@ def step_profile(cfgs, workload, scheme: str, device: torch.device,
         run(state, t, graph_steps)
     graph.replay()
     torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        graph.replay()
-        torch.cuda.synchronize(device)
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels, graph_empty = traced(graph.replay)
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     span_us = (max(e.time_range.end for e in kernels)
                - min(e.time_range.start for e in kernels)) if kernels else 0.0
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
+
+    def per_step(x, n, seen):
+        return x / n if seen else None
+
     return {"profiled_steps": n_steps,
-            "kernels_per_step": len(eager) / n_steps,
-            "kernel_ms_per_step": sum(e.time_range.elapsed_us() for e in eager)
-            / 1e3 / n_steps,
+            "empty_traces": eager_empty + graph_empty,
+            "kernels_per_step": per_step(len(eager), n_steps, eager),
+            "kernel_ms_per_step": per_step(
+                sum(e.time_range.elapsed_us() for e in eager) / 1e3, n_steps, eager),
             "graph_steps": graph_steps,
-            "graph_kernels_per_step": len(kernels) / graph_steps,
-            "graph_kernel_ms_per_step": busy_us / 1e3 / graph_steps,
-            "graph_span_ms_per_step": span_us / 1e3 / graph_steps,
+            "graph_kernels_per_step": per_step(len(kernels), graph_steps, kernels),
+            "graph_kernel_ms_per_step": per_step(busy_us / 1e3, graph_steps, kernels),
+            "graph_span_ms_per_step": per_step(span_us / 1e3, graph_steps, kernels),
             "idle_share": (1.0 - busy_us / span_us) if span_us else None,
             "top_kernels": [{"name": k[:80], "count": n, "ms": us / 1e3}
                             for k, (n, us) in top]}
+
+
+def fmt(x, spec: str) -> str:
+    """``x`` in ``spec``, or "not measured" where a profile saw no kernel."""
+    return "not measured" if x is None else format(x, spec)
 
 
 def fig3b_throughput(fig: Figure, full: bool = False):
@@ -895,9 +923,9 @@ def main(argv=None) -> dict:
                 f"{r['cell_steps_per_s']:.0f} cell-steps/s")
         if "idle_share" in r:
             line += (f", device {r['device_ms_per_step']:.4f} ms/step, "
-                     f"{r['kernels_per_step']:.0f} kernels/step "
-                     f"({r['kernel_ms_per_step']:.4f} ms), idle "
-                     f"{100 * r['idle_share']:.1f}%")
+                     f"{fmt(r['kernels_per_step'], '.0f')} kernels/step "
+                     f"({fmt(r['kernel_ms_per_step'], '.4f')} ms), idle "
+                     f"{fmt(r['idle_share'], '.1%')}")
         print(line + f" [{kind}]", flush=True)
     out = {"figure": args.figure, "full": args.full, "device": kind,
            "horizon_us": args.horizon_us, "rows": rows, "schemes": fig.records}

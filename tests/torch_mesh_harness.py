@@ -258,21 +258,25 @@ def job_synthetic(mesh, args: dict) -> dict:
 # split train step
 # ---------------------------------------------------------------------------
 
-def _f32_config(arch: str, **kw):
+def _f32_config(arch: str, smoke: bool = True, **kw):
     from repro_torch.config import get_model_config
-    return dataclasses.replace(get_model_config(arch, smoke=True), act_dtype="float32",
+    return dataclasses.replace(get_model_config(arch, smoke=smoke), act_dtype="float32",
                                param_dtype="float32", **kw)
 
 
-def tp_layer_cases() -> dict:
+def tp_layer_cases(arch=None, smoke: bool = True) -> dict:
     """name -> (config, attribute, make(cfg), run(module, x, ids, labels)):
     one layer under the attribute name that its parameters' rules read,
-    and the output (or loss) whose gradient the check takes."""
-    from repro_torch.config.base import ATTN, LOCAL_ATTN
+    and the output (or loss) whose gradient the check takes. Without
+    ``arch``, the smoke table of layer cases; with it, each layer that
+    ``arch``'s blocks and embedding hold (its MLP, embedding and CE, its
+    attention in the case that it takes, its SSD, its RG-LRU), in f32 at
+    its published widths unless ``smoke``."""
+    from repro_torch.config.base import ATTN, LOCAL_ATTN, MLP_MOE, MLP_NONE, RGLRU, SSD as SSD_
     from repro_torch.models.layers import MLP, Embed
     from repro_torch.models.model import chunked_ce_loss
     from repro_torch.models.moe import MoE
-    from repro_torch.models.rglru import RGLRU
+    from repro_torch.models.rglru import RGLRU as RGLRUMixer
     from repro_torch.models.ssm import SSD
     from repro_torch.models.transformer import Attention
     from repro_torch.parallel.tensor import split_of
@@ -289,30 +293,44 @@ def tp_layer_cases() -> dict:
                                  split_of(m))
         return tot
 
+    kinds = {"mlp": ("mlp", lambda c: MLP(c, next(k for _, k in c.layer_blocks()
+                                                  if k not in (MLP_NONE, MLP_MOE))),
+                     lambda m, x, i, l: m(x)),
+             "embed": ("embed", Embed, embed_ce),
+             "attn": ("attn", lambda c: Attention(c, ATTN), mixer),
+             "local attn": ("attn", lambda c: Attention(c, LOCAL_ATTN), mixer),
+             "ssd": ("ssd", SSD, mixer),
+             "rglru": ("rglru", RGLRUMixer, mixer),
+             "moe": ("moe", MoE, moe)}
+
+    def case(cfg, kind):
+        attr, make, run = kinds[kind]
+        return cfg, attr, make, run
+
+    if arch is not None:
+        cfg = _f32_config(arch, smoke=smoke)
+        mixers, mlps = zip(*cfg.layer_blocks())
+        names = {"mlp": any(k not in (MLP_NONE, MLP_MOE) for k in mlps), "embed": True,
+                 "attn": ATTN in mixers, "local attn": LOCAL_ATTN in mixers,
+                 "ssd": SSD_ in mixers, "rglru": RGLRU in mixers}
+        return {kind: case(cfg, kind) for kind, held in names.items() if held}
     internlm = "internlm2-1.8b"
     return {
-        "mlp swiglu": (_f32_config("qwen1.5-0.5b"), "mlp",
-                       lambda c: MLP(c, "swiglu"), lambda m, x, i, l: m(x)),
-        "mlp relu2": (_f32_config("nemotron-4-340b"), "mlp",
-                      lambda c: MLP(c, "relu2"), lambda m, x, i, l: m(x)),
-        "embed and CE, tied, softcap": (_f32_config("recurrentgemma-2b"), "embed", Embed,
-                                        embed_ce),
-        "embed and CE, untied": (_f32_config("deepseek-67b"), "embed", Embed, embed_ce),
-        "attention, q and kv heads split": (_f32_config("qwen1.5-0.5b"), "attn",
-                                            lambda c: Attention(c, ATTN), mixer),
-        "attention, kv heads whole, one a rank": (
-            _f32_config(internlm, num_kv_heads=1), "attn", lambda c: Attention(c, ATTN), mixer),
-        "attention, kv heads whole, one per q head": (
-            _f32_config(internlm, num_heads=6, num_kv_heads=3, head_dim=16), "attn",
-            lambda c: Attention(c, ATTN), mixer),
-        "attention, q heads do not divide": (
-            _f32_config(internlm, num_heads=3, num_kv_heads=1, head_dim=16), "attn",
-            lambda c: Attention(c, ATTN), mixer),
-        "local attention, kv heads whole": (_f32_config("recurrentgemma-2b"), "attn",
-                                            lambda c: Attention(c, LOCAL_ATTN), mixer),
-        "ssd": (_f32_config("mamba2-370m"), "ssd", SSD, mixer),
-        "rglru": (_f32_config("recurrentgemma-2b"), "rglru", RGLRU, mixer),
-        "moe experts split": (_f32_config("granite-moe-1b-a400m"), "moe", MoE, moe),
+        "mlp swiglu": case(_f32_config("qwen1.5-0.5b"), "mlp"),
+        "mlp relu2": case(_f32_config("nemotron-4-340b"), "mlp"),
+        "embed and CE, tied, softcap": case(_f32_config("recurrentgemma-2b"), "embed"),
+        "embed and CE, untied": case(_f32_config("deepseek-67b"), "embed"),
+        "attention, q and kv heads split": case(_f32_config("qwen1.5-0.5b"), "attn"),
+        "attention, kv heads whole, one a rank": case(
+            _f32_config(internlm, num_kv_heads=1), "attn"),
+        "attention, kv heads whole, one per q head": case(
+            _f32_config(internlm, num_heads=6, num_kv_heads=3, head_dim=16), "attn"),
+        "attention, q heads do not divide": case(
+            _f32_config(internlm, num_heads=3, num_kv_heads=1, head_dim=16), "attn"),
+        "local attention, kv heads whole": case(_f32_config("recurrentgemma-2b"), "local attn"),
+        "ssd": case(_f32_config("mamba2-370m"), "ssd"),
+        "rglru": case(_f32_config("recurrentgemma-2b"), "rglru"),
+        "moe experts split": case(_f32_config("granite-moe-1b-a400m"), "moe"),
     }
 
 
@@ -321,34 +339,61 @@ TP_PLANTED = {
     "wo all-reduce dropped": "attention, q and kv heads split",
     "gated-norm sum not reduced over model": "ssd",
     "RG-LRU gates read the local width only": "rglru",
+    "MLP row-parallel all-reduce dropped": "mlp swiglu",
+    "vocab-parallel CE sums not reduced over model": "embed and CE, tied, softcap",
+    "SSD out_proj all-reduce dropped": "ssd",
+}
+# the layer kind (``tp_layer_cases(arch)``'s key) that each fault breaks
+TP_PLANTED_KIND = {
+    "wo all-reduce dropped": "attn",
+    "gated-norm sum not reduced over model": "ssd",
+    "RG-LRU gates read the local width only": "rglru",
+    "MLP row-parallel all-reduce dropped": "mlp",
+    "vocab-parallel CE sums not reduced over model": "embed",
+    "SSD out_proj all-reduce dropped": "ssd",
 }
 
 
 def plant(fault: str):
     """A context that plants ``fault`` (TP_PLANTED) in the port's modules."""
-    import contextlib
-    from repro_torch.models import rglru, ssm, transformer
+    from repro_torch.models import layers, model, rglru, ssm, transformer
 
     def local_width_only(x, dim, tp):
         parts = [torch.zeros_like(x)] * tp.size
         parts[tp.rank] = x
         return torch.cat(parts, dim=dim)
 
+    mlp_forward = layers.MLP.forward
+
+    def mlp_unreduced(self, x):
+        with patched(layers, "reduce_from_model", lambda x, tp: x):
+            return mlp_forward(self, x)
+
     target = {"wo all-reduce dropped": (transformer, "reduce_from_model", lambda x, tp: x),
               "gated-norm sum not reduced over model": (ssm, "sum_over_model",
                                                         lambda x, tp: x * tp.size),
               "RG-LRU gates read the local width only": (rglru, "gather_from_model",
-                                                         local_width_only)}[fault]
+                                                         local_width_only),
+              "MLP row-parallel all-reduce dropped": (layers.MLP, "forward", mlp_unreduced),
+              "vocab-parallel CE sums not reduced over model": (
+                  model, "reduce_from_model", lambda x, tp: x),
+              "SSD out_proj all-reduce dropped": (ssm, "reduce_from_model",
+                                                  lambda x, tp: x)}[fault]
+    return patched(*target)
+
+
+def patched(owner, name: str, fn):
+    """A context in which ``owner.name`` is ``fn``."""
+    import contextlib
 
     @contextlib.contextmanager
     def ctx():
-        mod, name, fn = target
-        old = getattr(mod, name)
-        setattr(mod, name, fn)
+        old = getattr(owner, name)
+        setattr(owner, name, fn)
         try:
             yield
         finally:
-            setattr(mod, name, old)
+            setattr(owner, name, old)
     return ctx()
 
 
@@ -358,60 +403,57 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def job_tp_layers(mesh, args: dict) -> dict:
     """Each case of ``tp_layer_cases`` whole and split over "model" (the
-    rules of a 1 x 2 mesh), on the same weights, input and output gradient:
-    the largest relative error over the ranks of the output, the input's
-    gradient and each parameter's gradient (the split one against its shard
-    of the whole one), and the names of the parameters split; then the
-    planted faults' output errors."""
-    import copy
-    import torch.distributed as dist
+    rules of a 1 x 2 mesh), on the same weights, input and output gradient
+    (``readings.split_vs_whole``): the largest relative error over the
+    ranks of the output, the input's gradient and each parameter's gradient
+    (the split one against its shard of the whole one), and the names of
+    the parameters split; then the planted faults' output errors. With
+    ``args["archs"]``, also each of those archs' layer cases
+    (``tp_layer_cases(arch)``, smoke) under "archs", and each fault of
+    TP_PLANTED_KIND on the arch's layer of that kind under "arch_planted"."""
     from repro_torch.config import ParallelConfig
-    from repro_torch.parallel.sharding import ShardingRules, named, shard_of
-    from repro_torch.parallel.tensor import shard_model
+    from repro_torch.readings import split_vs_whole
 
     par = ParallelConfig(multi_pod=False, data=1, model=2)
-    cases = tp_layer_cases()
+    seeds = args.get("seeds", (1,))
 
-    def run_case(name, fault=None):
-        cfg, attr, make, run = cases[name]
-        whole = torch.nn.Module()
-        setattr(whole, attr, make(cfg))
-        getattr(whole, attr).reset_parameters(torch.Generator().manual_seed(1))
-        split = copy.deepcopy(whole)
-        rules = ShardingRules(cfg, par)
-        shard_model(split, mesh, rules)
-        gen = torch.Generator().manual_seed(2)
-        b, s = 2, 48
-        x = torch.randn((b, s, cfg.d_model), generator=gen)
-        ids = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
-        labels = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
-        labels[0, :5] = -1
-        outs = {}
-        for tag, h in (("whole", whole), ("split", split)):
-            xi = x.clone().requires_grad_(True)
-            if tag == "split" and fault is not None:
-                with plant(fault):
-                    y = run(getattr(h, attr), xi, ids, labels)
-            else:
-                y = run(getattr(h, attr), xi, ids, labels)
-            gy = torch.randn(y.shape, generator=torch.Generator().manual_seed(3))
-            g = torch.autograd.grad((y * gy).sum(), [xi, *h.parameters()])
-            outs[tag] = (y.detach(), g[0], dict(zip([n for n, _ in h.named_parameters()],
-                                                    g[1:])))
-        (yw, xw, gw), (ys, xs, gs) = outs["whole"], outs["split"]
-        pl = {n: named(mesh, rules.param_spec(n, p.dim())).placements
-              for n, p in whole.named_parameters()}
-        errs = [_rel(ys, yw), _rel(xs, xw),
-                max(_rel(gs[n], shard_of(gw[n], mesh, pl[n])) for n in gw)]
-        t = torch.tensor(errs, dtype=torch.float64)
-        dist.all_reduce(t, op=dist.ReduceOp.MAX)
-        split_names = sorted(n for n, p in split.named_parameters()
-                             if p.shape != dict(whole.named_parameters())[n].shape)
-        return {"out": float(t[0]), "x_grad": float(t[1]), "param_grad": float(t[2]),
-                "split": split_names}
+    def run_case(case, fault=None, seed=seeds[0]):
+        return split_vs_whole(*case, mesh, par, seed=seed,
+                              fault=fault and (lambda: plant(fault)))
 
-    out = {name: run_case(name) for name in cases}
-    out["planted"] = {f: run_case(case, f)["out"] for f, case in TP_PLANTED.items()}
+    out = {}
+    if args.get("table", True):
+        cases = tp_layer_cases()
+        out = {name: run_case(case) for name, case in cases.items()}
+        out["planted"] = {f: run_case(cases[name], f)["out"] for f, name in TP_PLANTED.items()}
+    for arch in args.get("archs", ()):
+        arch_cases = tp_layer_cases(arch)
+        out.setdefault("archs", {})[arch] = {
+            k: {seed: run_case(c, seed=seed) for seed in seeds} for k, c in arch_cases.items()}
+        out.setdefault("arch_planted", {})[arch] = {
+            f: (k, run_case(arch_cases[k], f)) for f, k in TP_PLANTED_KIND.items()
+            if k in arch_cases}
+    return out
+
+
+def job_layer_readings(mesh, args: dict) -> dict:
+    """``chip_smoke.py``'s split readers at the smoke configs of
+    ``args["archs"]`` on this mesh's two ranks of "model": the per-layer
+    split readings (``job_tp_layers`` with ``args``, under "layers") and the
+    bf16 split prefill's layer replays (``chip_smoke.split_layer_replays``
+    on a smoke model split by ``make_serve_step``, under "serve")."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from repro_torch.config import ParallelConfig
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve.decode import make_serve_step
+
+    out = {"layers": job_tp_layers(mesh, dict(args, table=False)), "serve": {}}
+    par = ParallelConfig(multi_pod=False, data=1, model=2)
+    for arch in args["archs"]:
+        model = launch_serve.build(arch, smoke=True, device="cpu", seed=0)
+        make_serve_step(model, par, mesh, 1, chip_smoke.TP_LAYER_LEN)
+        out["serve"][arch] = chip_smoke.split_layer_replays(torch, model, mesh, arch)
     return out
 
 
@@ -727,4 +769,5 @@ def job_tp_serve(mesh, args: dict) -> dict:
 
 JOBS = {"all": job_all, "train": job_train, "record_step": job_record_step,
         "synthetic": job_synthetic, "tp_layers": job_tp_layers, "tp_train": job_tp_train,
-        "tp_serve_layers": job_tp_serve_layers, "tp_serve": job_tp_serve}
+        "tp_serve_layers": job_tp_serve_layers, "tp_serve": job_tp_serve,
+        "layer_readings": job_layer_readings}
