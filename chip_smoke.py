@@ -126,14 +126,24 @@ and builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    for bit; two planted faults in the card's run, each of which must read
    over a limit ("ring wraps at delay_pad instead of each scenario's
    d_steps" on the batch that mixes distances, "MatchRDMA's source-OTN
-   release ignores the budget gate"); then Fig. 3b at full width through
-   ``launch.netsim``: 7 distances x 6 message sizes = 42 cells of 4 flows at
-   22 ms (4,400 steps; a tenth of the paper's 220 ms, so that phases 11-13
-   fit),
-   one [B=42] batch per scheme, with its wall time, cell-steps per second,
-   device ms per step (CUDA events), kernels per step (100 eager steps under
-   the profiler), the device's idle share (a profiled graph replay), the
-   rows and the max speedup vs DCQCN.
+   release ignores the budget gate"); then (unit 10f) the paper's Fig. 3 at
+   its horizons through ``launch.netsim``: Fig. 3b's 7 distances x 6
+   message sizes = 42 cells of 4 flows at 220 ms (44,000 steps, one [B=42]
+   batch a scheme), Fig. 3c/d's 4 distances at 100 ms and Fig. 3e's 3
+   message sizes at 200 ms, with each scheme's wall time, cell-steps per
+   second, device ms per step (CUDA events), for Fig. 3b kernels per step
+   (100 eager steps under the profiler) and the device's idle share (a
+   profiled graph replay); every row, the derived ones (max speedup vs
+   DCQCN, buffer and pause reduction, FCT improvement) included, held
+   against the JAX package's row for the same cell
+   (tests/torch_figure_reference.json): inside JAX's envelope over its base
+   run and eight runs with link_gbps moved by 1-4 f32 ulps, widened by the
+   port's row limits and one printed digit, or named in ``FIGURE_PARTS``;
+   printed per figure: rows held, inside, ``FIGURE_PARTS`` rows and the
+   largest reading against its limit. Two controls must fall outside:
+   "MatchRDMA's source-OTN release ignores the budget gate" on Fig. 3c/d's
+   matchrdma batch and "ring wraps at delay_pad instead of each scenario's
+   d_steps" on Fig. 3b's dcqcn batch.
 11. the seven schemes over the multi-link and multi-site long haul (the
    related-work pack geopipe / sdr_rdma / rdmacell, the [L] link axis, site
    graphs; again no kernel of its own): card vs CPU with phase 10's limits
@@ -147,7 +157,7 @@ and builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    tenth of its 220 ms, so that phases 12-13 fit; one [B=7] batch a scheme) and
    ``topology`` (3 x 3 unequal three-link cells, 20 ms, [B=9]) grids with
    their row asserts, wall, cell-steps per second, device ms and kernels per
-   step for each scheme.
+   step for each scheme, every row held against JAX's as in phase 10.
 12. the impaired, replayed and failing long haul (the channel models, the
    threefry PRNG, the loss-repair path, failure schedules, the hardened
    runner; again no kernel of its own): the threefry draws on the card bit
@@ -165,7 +175,8 @@ and builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    then ``launch.netsim``'s ``impairment`` (6 cells), ``sites`` (9) and
    ``failover`` (6) grids at full width (20 ms, one batch a scheme) with
    their asserts, rows, wall, capture, cell-steps per second, device ms and
-   kernels per step for each scheme.
+   kernels per step for each scheme, every row held against JAX's as in
+   phase 10.
 13. observability and training traffic (window mode, event rings, run
    manifests, Perfetto timelines, the AICB traffic model; again no kernel
    of its own): ``launch.netsim``'s ``obs`` smoke (a window-mode sweep of
@@ -185,7 +196,8 @@ and builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    (deepseek-67b's traffic on the 2 x 16 x 16 mesh, 120 ms = 24,000 steps,
    both compressions, and the 3-link lossy grid of 6 cells for dcqcn and
    sdr_rdma): rows complete and finite, the two compressions' rows equal,
-   and the "repairs Nx faster" lines.
+   the "repairs Nx faster" lines, and every row held against JAX's as in
+   phase 10.
 14. the differentiable engine and the gradient tuner (the soft step,
    autograd through the whole run, ``netsim.grad_tune``, ``launch.grad_tune``;
    eager on the card, no kernel of its own): tests/test_grad.py's base point
@@ -326,7 +338,7 @@ and builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
 
 Phases 1-9 and then 15-16 run alone. Phases 10-14 (no kernel of the port's
 three) and 17 (whose checks are exact or read against limits set with room
-for the other lanes' load) then run as units in four child
+for the other lanes' load) then run as units in five child
 processes of this script beside one another on the card (``NETSIM_LANES``),
 so that their wall and device times are read beside the other lanes' load;
 each unit's output is printed in phase order once all have ended. Their card-vs-CPU checks run the CPU side in three spawned worker
@@ -680,10 +692,17 @@ NETSIM_TOL = {"throughput": 1e-3, "peak_buffer": 1e-3, "mean_buffer": 1e-3,
 NETSIM_FLOOR = {"throughput": 1e-4 * 1e9 / 8.0, "peak_buffer": 100.0,
                 "mean_buffer": 100.0, "p99_buffer": 100.0}
 NETSIM_GRAPH_STEPS = 512   # graph vs eager on the card, the golden batch
-# Fig. 3b's horizon here: a tenth of the paper's 220 ms (4,400 steps), so
-# that phases 10 to 13 together fit the script's time; the full depth runs
-# through `python -m repro_torch.launch.netsim --figure fig3b --full`.
-NETSIM_FIG3B_H_US = 22_000.0
+# Unit 10f: the paper's Fig. 3 at its horizons (benchmarks/figures.py), name ->
+# (full grid, horizon us, cells a scheme): 3b 7 distances x 6 message sizes at
+# 220 ms, 3c/d 4 distances at 100 ms, 3e 3 message sizes at 200 ms; each
+# scheme's grid one batch. Every row of these and of phases 11g, 12g and 13's
+# figures is held against the JAX package's rows for the same cells, recorded
+# with JAX's spread over one-ulp moves of link_gbps
+# (tests/torch_figure_reference.py, its .json; the card machine has no JAX).
+NETSIM_FIG3 = {"fig3b": (True, 220_000.0, 42), "fig3cd": (True, 100_000.0, 4),
+               "fig3e": (False, 200_000.0, 3)}
+# eager steps profiled a scheme there (kernels a step, idle share): Fig. 3b's
+NETSIM_FIG3_PROFILE_STEPS = {"fig3b": 100, "fig3cd": 0, "fig3e": 0}
 # Phase 11, the seven schemes over the multi-link and multi-site long haul:
 # the related-work pack, and two multi-link scenarios: one
 # delay-spread cell of benchmarks/scheme_compare.py's topology grid (100 km,
@@ -777,6 +796,7 @@ TUNE_ITERS, TUNE_STEPS = 2, 4
 # is a phase or a part of one: (phase, title, function).
 NETSIM_UNITS = {
     "10": (10, "netsim Fig. 3 path", "phase_netsim"),
+    "10f": (10, "", "phase_netsim_figures"),
     "11": (11, "netsim: seven schemes over the multi-link and multi-site long haul",
            "phase_netsim_links"),
     "11g": (11, "", "phase_netsim_links_grids"),
@@ -791,15 +811,17 @@ NETSIM_UNITS = {
 }
 # the lanes, balanced on the units' times alone (s, same card; NVIDIA H100
 # 80GB HBM3, 700 W): 17 23 + 17t ~215 (each split layer against
-# itself whole, two seeds of two steps) + 17s ~100; 14 222 + 10 66; 12g 184
-# + 11g 118; 13 147 + 12 111; 11 75 after 10, where lane 1 ended ~175 s
-# before the last lane (under the lanes' load a unit takes 1.3-1.8x its
-# time alone). 17t and 17s share a lane: the two hold whole
+# itself whole, two seeds of two steps) + 17s ~100; 14 222 + 10 ~45; 12g 229
+# + 11g 145; 13 147 + 12 111; 11 75 after 10, where lane 1 ended ~175 s
+# before the last lane; 10f 226 (Fig. 3 at the paper's horizons, GPU-bound
+# graph replays) in a lane of its own (under the lanes' load a unit takes
+# 1.3-1.8x its time alone). 17t and 17s share a lane: the two hold whole
 # models on the one card, and beside one another they do not fit in its
 # 80 GB (17t's rank 0 steps recurrentgemma unsplit, ~46 GB, while 17s's two
 # ranks each build it in bf16 and again in f32). Phase 17's checks are
 # exact or read against limits that load does not move.
-NETSIM_LANES = (("17", "17t", "17s"), ("14", "10", "11"), ("12g", "11g"), ("13", "12"))
+NETSIM_LANES = (("17", "17t", "17s"), ("14", "10", "11"), ("12g", "11g"), ("13", "12"),
+                ("10f",))
 # the lanes are stopped, and the run fails, this many seconds after the
 # script's start
 NETSIM_DEADLINE_S = 1_140.0
@@ -3729,12 +3751,8 @@ def over_netsim(readings: dict) -> list:
 
 def phase_netsim(torch, card: str) -> dict:
     """The netsim Fig. 3 path on the card (phase 10): card vs CPU on the
-    golden scenarios, graph vs eager bit for bit, two planted faults, and
-    Fig. 3b at full width (7 distances x 6 message sizes = 42 cells, 4 flows
-    each; 22 ms, a tenth of the paper's 220 ms) for the four schemes, one
-    [B=42] batch a scheme."""
-    from repro_torch.launch import netsim as launch_netsim
-    from repro_torch.launch.netsim import fmt
+    golden scenarios, graph vs eager bit for bit and two planted faults; the
+    figures at the paper's horizons are unit 10f (``phase_netsim_figures``)."""
     from repro_torch.netsim import fluid
     from repro_torch.netsim.schemes.base import Scheme
     from repro_torch.netsim.schemes.matchrdma import MatchRdmaScheme
@@ -3752,9 +3770,6 @@ def phase_netsim(torch, card: str) -> dict:
     netsim_graph_vs_eager(torch, [("batch", s) for s in NETSIM_SCHEMES], dev)
 
     # 3. planted faults, in the card's run only; each must read over a limit
-    def wrap_at_pad(t, d_steps, delay_pad):
-        return torch.remainder(t, torch.full_like(d_steps, delay_pad))
-
     out["planted"] = netsim_planted(torch, (
         ("ring wraps at delay_pad instead of each scenario's d_steps",
          "batch/dcqcn", (fluid, "ring_row", wrap_at_pad)),
@@ -3764,36 +3779,130 @@ def phase_netsim(torch, card: str) -> dict:
     print(f"  peak buffer (seq, card), MB: " + ", ".join(
         f"{s} {cards['seq/' + s]['peak_buffer'][0] / 1e6:.3f}" for s in NETSIM_SCHEMES),
         flush=True)
+    return out
 
-    # 4. Fig. 3b at full width (at NETSIM_FIG3B_H_US), each scheme's 42
-    # cells as one batch
-    t0 = time.perf_counter()
-    fig = launch_netsim.Figure("fig3b", dev, horizon_us=NETSIM_FIG3B_H_US)
-    rows = launch_netsim.fig3b_throughput(fig, full=True)
-    for r in fig.records:
-        check(r["cells"] == 42 and r["launches"] == 1,
-              f"fig3b {r['scheme']}: {r['cells']} cells in {r['launches']} launches")
-        print(f"  fig3b {r['scheme']}: {r['cells']} cells x {r['steps']} steps, wall "
-              f"{r['wall_s']:.2f} s (capture {r['capture_s']:.2f} s), "
-              f"{r['cell_steps_per_s']:.0f} cell-steps/s, device "
-              f"{r['device_ms_per_step']:.4f} ms/step, {fmt(r['kernels_per_step'], '.0f')} "
-              f"kernels/step; profiled graph of {r['graph_steps']} steps: "
-              f"{fmt(r['graph_kernel_ms_per_step'], '.4f')} ms of kernels in "
-              f"{fmt(r['graph_span_ms_per_step'], '.4f')} ms a step, idle "
-              f"{fmt(r['idle_share'], '.1%')}; empty traces taken again "
-              f"{r['empty_traces']} [{card}]", flush=True)
-    for name, _, note in rows:
-        print(f"  {name}: {note}")
-    speedup = rows[-1][2]
-    check(rows[-1][0] == "fig3b/max_speedup_vs_dcqcn", "no max-speedup row")
-    thr = [float(note[:-4]) for name, _, note in rows[:-1]]
-    check(len(thr) == 168 and all(math.isfinite(x) and x >= 0.0 for x in thr),
-          f"fig3b rows: {len(thr)} throughputs, finite and >= 0 expected")
-    print(f"  fig3b max speedup vs dcqcn: {speedup} ({time.perf_counter() - t0:.1f} s)",
-          flush=True)
-    out["fig3b_full"] = {"schemes": [{k: v for k, v in r.items() if k != "top_kernels"}
-                                     for r in fig.records],
-                         "max_speedup_vs_dcqcn": speedup}
+
+def wrap_at_pad(t, d_steps, delay_pad):
+    """Planted in ``fluid.ring_row``: the delay ring wraps at the batch's
+    delay_pad instead of each scenario's d_steps."""
+    return t % d_steps.new_full(d_steps.shape, delay_pad)
+
+
+def figure_reference():
+    """tests/torch_figure_reference.py (the holding rule; it imports no JAX)
+    and the JAX package's rows it recorded."""
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tests"))
+    import torch_figure_reference as ref
+    global _FIGURE_DOC
+    if _FIGURE_DOC is None:
+        _FIGURE_DOC = ref.load()
+    return ref, _FIGURE_DOC
+
+
+_FIGURE_DOC = None
+
+
+def record_line(name: str, r: dict, card: str) -> str:
+    """One scheme's batch of a figure: wall, capture, cell-steps/s, device ms
+    a step and, where it was profiled, kernels a step and the idle share."""
+    from repro_torch.launch.netsim import fmt
+
+    line = (f"  {name} {r['scheme']}: {r['cells']} cells x {r['steps']} steps, wall "
+            f"{r['wall_s']:.2f} s (capture {r['capture_s']:.2f} s), "
+            f"{r['cell_steps_per_s']:.0f} cell-steps/s, device "
+            f"{r['device_ms_per_step']:.4f} ms/step")
+    if "idle_share" in r:
+        line += (f", {fmt(r['kernels_per_step'], '.0f')} kernels/step; profiled graph "
+                 f"of {r['graph_steps']} steps: {fmt(r['graph_kernel_ms_per_step'], '.4f')} "
+                 f"ms of kernels in {fmt(r['graph_span_ms_per_step'], '.4f')} ms a step, "
+                 f"idle {fmt(r['idle_share'], '.1%')}; empty traces taken again "
+                 f"{r['empty_traces']}")
+    return line + f" [{card}]"
+
+
+def held_rows(name: str, values: dict, label: str = "") -> dict:
+    """A figure's kept rows (``Figure.values``) held against JAX's recorded
+    rows of figure ``name`` (``torch_figure_reference.hold``): prints the
+    count line, the ``FIGURE_PARTS`` rows and the first rows outside;
+    returns the reading without the per-row readings."""
+    ref, doc = figure_reference()
+    held = ref.hold(values, doc["figures"][name])
+    print(f"  {label}{ref.summary(name, held)}", flush=True)
+    for row in held["parts"]:
+        print(f"    FIGURE_PARTS {row}: {ref.FIGURE_PARTS.get(row, 'derived from a named row')}",
+              flush=True)
+    for row in held["outside"][:12]:
+        print(f"    outside: {json.dumps(row)}", flush=True)
+    return {k: v for k, v in held.items() if k != "readings"}
+
+
+def phase_netsim_figures(torch, card: str) -> dict:
+    """Unit 10f: the paper's Fig. 3b, 3c/d and 3e at its horizons
+    (NETSIM_FIG3) through launch.netsim, each scheme's grid one batch, every
+    row held against JAX's recorded row for the same cell; then two planted
+    faults, each in one scheme's batch (the other schemes' batches kept from
+    the sound run), whose rows must fall outside."""
+    from repro_torch.launch import netsim as launch_netsim
+    from repro_torch.netsim import fluid
+    from repro_torch.netsim.schemes.base import Scheme
+    from repro_torch.netsim.schemes.matchrdma import MatchRdmaScheme
+
+    dev = torch.device("cuda")
+    out, sound = {}, {}
+    for name, (full, horizon, n_cells) in NETSIM_FIG3.items():
+        t0 = time.perf_counter()
+        fig = launch_netsim.Figure(name, dev, horizon,
+                                   profile_steps=NETSIM_FIG3_PROFILE_STEPS[name])
+        rows = launch_netsim.FIGURES[name](fig, full=full)
+        for r in fig.records:
+            check(r["cells"] == n_cells and r["launches"] == 1,
+                  f"{name} {r['scheme']}: {r['cells']} cells in {r['launches']} launches")
+            print(record_line(name, r, card), flush=True)
+        for row, _, note in rows:
+            print(f"  {row}: {note}")
+        out[name] = {"schemes": [{k: v for k, v in r.items() if k != "top_kernels"}
+                                 for r in fig.records],
+                     "held": held_rows(name, fig.values), "rows": rows,
+                     "s": time.perf_counter() - t0}
+        print(f"  ({name}: {out[name]['s']:.1f} s)", flush=True)
+        sound[name] = fig
+
+    class Replaying(launch_netsim.Figure):
+        """Runs ``scheme``'s batch; the others are the sound run's rows."""
+
+        def __init__(self, kept, scheme):
+            super().__init__(kept.name, dev, kept.horizon_us, profile_steps=0)
+            self.kept, self.scheme = kept, scheme
+
+        def run(self, cfgs, workload, scheme, horizon_us, **kw):
+            if scheme != self.scheme:
+                return self.kept.batches[scheme], 0.0
+            return super().run(cfgs, workload, scheme, horizon_us, **kw)
+
+    controls = {}
+    for fault, name, scheme, (owner, attr, repl) in (
+            ("MatchRDMA's source-OTN release ignores the budget gate", "fig3cd",
+             "matchrdma", (MatchRdmaScheme, "src_otn_release", Scheme.src_otn_release)),
+            ("ring wraps at delay_pad instead of each scenario's d_steps", "fig3b",
+             "dcqcn", (fluid, "ring_row", wrap_at_pad))):
+        t0 = time.perf_counter()
+        fig = Replaying(sound[name], scheme)
+        kept = owner.__dict__[attr]
+        setattr(owner, attr, repl)
+        try:
+            launch_netsim.FIGURES[name](fig, full=NETSIM_FIG3[name][0])
+        finally:
+            setattr(owner, attr, kept)
+        controls[fault] = {"figure": name, "scheme": scheme,
+                           "held": held_rows(name, fig.values, f"control, {fault}: "),
+                           "s": time.perf_counter() - t0}
+    out["controls"] = controls
+    bad = {n: out[n]["held"]["outside"] for n in NETSIM_FIG3 if out[n]["held"]["outside"]}
+    check(not bad, f"Fig. 3 rows outside JAX's envelope and not in FIGURE_PARTS: "
+                   f"{json.dumps(bad)[:4000]}")
+    for fault, c in controls.items():
+        check(bool(c["held"]["outside"]), f"the rows held against JAX's do not catch: {fault}")
     return out
 
 
@@ -3900,9 +4009,8 @@ def netsim_figure(torch, card: str, name: str, n_cells: int,
     grid, at ``horizon_us`` if given), each scheme's grid one batch: rows,
     wall, capture, cell-steps/s, device ms a step, kernels a step
     (``profile_steps`` eager steps profiled; None = launch.netsim's
-    default)."""
+    default); every row held against JAX's (``held_rows``)."""
     from repro_torch.launch import netsim as launch_netsim
-    from repro_torch.launch.netsim import fmt
 
     t0 = time.perf_counter()
     kw = {} if profile_steps is None else {"profile_steps": profile_steps}
@@ -3913,23 +4021,18 @@ def netsim_figure(torch, card: str, name: str, n_cells: int,
     for r in fig.records:
         check(r["cells"] == n_cells and r["launches"] == 1,
               f"{name} {r['scheme']}: {r['cells']} cells in {r['launches']} launches")
-        print(f"  {name} {r['scheme']}: {r['cells']} cells x {r['steps']} steps, wall "
-              f"{r['wall_s']:.2f} s (capture {r['capture_s']:.2f} s), "
-              f"{r['cell_steps_per_s']:.0f} cell-steps/s, device "
-              f"{r['device_ms_per_step']:.4f} ms/step, {fmt(r['kernels_per_step'], '.0f')} "
-              f"kernels/step; profiled graph of {r['graph_steps']} steps: "
-              f"{fmt(r['graph_kernel_ms_per_step'], '.4f')} ms of kernels in "
-              f"{fmt(r['graph_span_ms_per_step'], '.4f')} ms a step, idle "
-              f"{fmt(r['idle_share'], '.1%')}; empty traces taken again "
-              f"{r['empty_traces']} [{card}]", flush=True)
+        print(record_line(name, r, card), flush=True)
     for row, _, note in rows:
         if "/summary/" in row:
             print(f"  {row}: {note}", flush=True)
     check(len(rows) == 7 * n_cells + 7, f"{name}: {len(rows)} rows")
+    held = held_rows(name, fig.values)
+    check(not held["outside"], f"{name}: rows outside JAX's envelope and not in "
+                               f"FIGURE_PARTS: {json.dumps(held['outside'])[:4000]}")
     print(f"  ({name}: {time.perf_counter() - t0:.1f} s)", flush=True)
     return {"schemes": [{k: v for k, v in r.items() if k != "top_kernels"}
                         for r in fig.records],
-            "rows": rows}
+            "rows": rows, "held": held}
 
 
 def phase_netsim_links(torch, card: str) -> dict:
@@ -4295,8 +4398,12 @@ def phase_obs(torch, card: str) -> dict:
                                        "p99_repair_latency_us")),
               f"geo_training lossy {scheme}: rows {rs}")
     check(bool(geo["lossy"]["repair_speedup"]), "geo_training: no 'repairs Nx faster' line")
+    ref, _ = figure_reference()
+    held = held_rows(ref.GEO, ref.geo_values(geo))
+    check(not held["outside"], f"geo_training: rows outside JAX's envelope and not in "
+                               f"FIGURE_PARTS: {json.dumps(held['outside'])[:4000]}")
     out["geo_training"] = {"runs": geo["runs"], "repair_speedup": geo["lossy"]["repair_speedup"],
-                           "s": time.perf_counter() - t0}
+                           "held": held, "s": time.perf_counter() - t0}
     print(f"  geo_training: {len(geo['runs'])} runs ({time.perf_counter() - t0:.1f} s)",
           flush=True)
     return out
@@ -4848,7 +4955,7 @@ def main() -> None:
 
     torch.cuda.empty_cache()
     units = run_lanes(torch, t_start)
-    netsim = units["10"]
+    netsim = dict(units["10"], figures=units["10f"])
     netsim_links = {**units["11"], **units["11g"]}
     netsim_channel = {**units["12"], **units["12g"]}
     obs, netsim_grad = units["13"], units["14"]

@@ -74,6 +74,7 @@ import hashlib
 import json
 import math
 import os
+import string
 import subprocess
 import sys
 import time
@@ -121,6 +122,15 @@ FAILOVER_COLS = ("failover_collapse_frac", "failover_recovery_us")
 IDEAL_ROW_REL = 1e-6
 
 
+def kept(template: str, **values) -> tuple:
+    """A row's note, ``template`` filled from ``values``, and the numbers it
+    prints: ``(note, {field: value}, {field: format spec})`` for each field
+    the template names (the other ``values`` are ignored)."""
+    fields = [(f, spec) for _, f, spec, _ in string.Formatter().parse(template) if f]
+    return (template.format(**values), {f: float(values[f]) for f, _ in fields},
+            dict(fields))
+
+
 class Figure:
     """Runs one figure's batches and keeps each scheme's timing record; with
     ``manifest_out`` each runner call writes a run manifest, merged into one
@@ -136,6 +146,16 @@ class Figure:
         self.manifest_out = manifest_out
         self.manifests: List[str] = []
         self.records: List[dict] = []
+        # each printed row's numbers, by row name: {"values", "specs"}, and
+        # each scheme's rows as the runner gave them
+        self.values: dict = {}
+        self.batches: dict = {}
+
+    def keep(self, row: str, template: str, **values) -> str:
+        """The note of ``row`` (``kept``), its numbers kept in ``values``."""
+        note, nums, specs = kept(template, **values)
+        self.values[row] = {"values": nums, "specs": specs}
+        return note
 
     def horizon(self, paper_us: float) -> float:
         return paper_us if self.horizon_us is None else self.horizon_us
@@ -188,6 +208,7 @@ class Figure:
                                     manifest_path=self.manifest_part(), **kw)
         wall_s = time.perf_counter() - t0
         self.record(scheme, len(cfgs), launches, wall_s, cfgs, workload, channel)
+        self.batches[scheme] = rows
         return rows, wall_s * 1e6 / len(cfgs)
 
     def record(self, scheme: str, n_cells: int, launches: list, wall_s: float,
@@ -324,15 +345,17 @@ def fig3b_throughput(fig: Figure, full: bool = False):
         part = {s: res[s][j * len(dists):(j + 1) * len(dists)] for s in SCHEMES}
         for s in SCHEMES:
             for r in part[s]:
-                rows.append((f"fig3b/thr_gbps/{s}/d{int(r['distance_km'])}km/"
-                             f"msg{msg >> 10}KB", us[s],
-                             f"{r['throughput_gbps']:.2f}Gbps"))
+                name = (f"fig3b/thr_gbps/{s}/d{int(r['distance_km'])}km/"
+                        f"msg{msg >> 10}KB")
+                rows.append((name, us[s], fig.keep(name, "{throughput_gbps:.2f}Gbps",
+                                                   **r)))
         for i, _ in enumerate(dists):
             sp = (part["matchrdma"][i]["throughput_gbps"]
                   / max(part["dcqcn"][i]["throughput_gbps"], 1e-9))
             best_speedup = max(best_speedup, sp)
-    rows.append(("fig3b/max_speedup_vs_dcqcn", 0.0,
-                 f"{best_speedup:.1f}x (paper: up to 20x)"))
+    name = "fig3b/max_speedup_vs_dcqcn"
+    rows.append((name, 0.0, fig.keep(name, "{speedup:.1f}x (paper: up to 20x)",
+                                      speedup=best_speedup)))
     return rows
 
 
@@ -346,20 +369,25 @@ def fig3cd_buffer_pause(fig: Figure, full: bool = False):
     for s in SCHEMES:
         batch, us = fig.run(cfgs, wl, s, fig.horizon(100_000.0))
         for d, r in zip(dists, batch):
-            rows.append((f"fig3c/peak_buffer_mb/{s}/d{int(d)}km", us,
-                         f"{r['peak_buffer_mb']:.1f}MB p99={r['p99_buffer_mb']:.1f}"))
-            rows.append((f"fig3d/pause_ratio/{s}/d{int(d)}km", us,
-                         f"{r['pause_ratio']:.4f}"))
+            name = f"fig3c/peak_buffer_mb/{s}/d{int(d)}km"
+            rows.append((name, us, fig.keep(
+                name, "{peak_buffer_mb:.1f}MB p99={p99_buffer_mb:.1f}", **r)))
+            name = f"fig3d/pause_ratio/{s}/d{int(d)}km"
+            rows.append((name, us, fig.keep(name, "{pause_ratio:.4f}", **r)))
             base[(s, d)] = r
     for d in dists:
         m, dq = base[("matchrdma", d)], base[("dcqcn", d)]
-        rows.append((f"fig3c/buffer_reduction/d{int(d)}km", 0.0,
-                     f"peak {-100 * (1 - m['peak_buffer_mb'] / max(dq['peak_buffer_mb'], 1e-9)):+.1f}% "
-                     f"p99 {-100 * (1 - m['p99_buffer_mb'] / max(dq['p99_buffer_mb'], 1e-9)):+.1f}% "
-                     f"(paper: -62.7% peak)"))
-        rows.append((f"fig3d/pause_reduction/d{int(d)}km", 0.0,
-                     f"{-100 * (1 - m['pause_ratio'] / max(dq['pause_ratio'], 1e-9)):+.1f}% "
-                     f"(paper: -94.1%)"))
+
+        def reduction(col):
+            return -100 * (1 - m[col] / max(dq[col], 1e-9))
+
+        name = f"fig3c/buffer_reduction/d{int(d)}km"
+        rows.append((name, 0.0, fig.keep(
+            name, "peak {peak_pct:+.1f}% p99 {p99_pct:+.1f}% (paper: -62.7% peak)",
+            peak_pct=reduction("peak_buffer_mb"), p99_pct=reduction("p99_buffer_mb"))))
+        name = f"fig3d/pause_reduction/d{int(d)}km"
+        rows.append((name, 0.0, fig.keep(name, "{pause_pct:+.1f}% (paper: -94.1%)",
+                                          pause_pct=reduction("pause_ratio"))))
     return rows
 
 
@@ -375,12 +403,13 @@ def fig3e_fct(fig: Figure, full: bool = False):
         batch, us = fig.run(cfgs, wls, s, fig.horizon(200_000.0))
         res[s] = [r["avg_fct_us"] for r in batch]
         for msg, r in zip(msgs, batch):
-            rows.append((f"fig3e/avg_fct_us/{s}/msg{msg >> 10}KB", us,
-                         f"{r['avg_fct_us']:.0f}us"))
+            name = f"fig3e/avg_fct_us/{s}/msg{msg >> 10}KB"
+            rows.append((name, us, fig.keep(name, "{avg_fct_us:.0f}us", **r)))
     for i, msg in enumerate(msgs):
         imp = 100 * (1 - res["matchrdma"][i] / max(res["dcqcn"][i], 1e-9))
-        rows.append((f"fig3e/fct_improvement/msg{msg >> 10}KB", 0.0,
-                     f"{imp:+.1f}% vs dcqcn (paper: +31.5..43.9%)"))
+        name = f"fig3e/fct_improvement/msg{msg >> 10}KB"
+        rows.append((name, 0.0, fig.keep(
+            name, "{fct_pct:+.1f}% vs dcqcn (paper: +31.5..43.9%)", fct_pct=imp)))
     return rows
 
 
@@ -433,20 +462,21 @@ def scheme_compare(fig: Figure, full: bool = False):
     for s in ALL_SCHEMES:
         res[s], us = fig.run(cfgs, wl, s, h, trace_mode="metrics")
         for r in res[s]:
-            out.append((f"scheme_compare/{s}/d{r['distance_km']:g}km", us,
-                        f"thr={r['throughput_gbps']:.4g}Gbps "
-                        f"peak={r['peak_buffer_mb']:.4g}MB "
-                        f"mean={r['mean_buffer_mb']:.4g}MB "
-                        f"p99={r['p99_buffer_mb']:.4g}MB "
-                        f"pause={r['pause_ratio']:.4g} "
-                        f"intra={r['intra_thr_gbps']:.4g}Gbps"))
+            name = f"scheme_compare/{s}/d{r['distance_km']:g}km"
+            out.append((name, us, fig.keep(
+                name, "thr={throughput_gbps:.4g}Gbps peak={peak_buffer_mb:.4g}MB "
+                "mean={mean_buffer_mb:.4g}MB p99={p99_buffer_mb:.4g}MB "
+                "pause={pause_ratio:.4g} intra={intra_thr_gbps:.4g}Gbps", **r)))
     _check_streamed("scheme_compare", res, len(cfgs))
     far = max(dists)
     for s, rs in res.items():
-        out.append((f"scheme_compare/summary/{s}", 0.0,
-                    f"thr@far={next(r for r in rs if r['distance_km'] == far)['throughput_gbps']:.2f}Gbps "
-                    f"worst_peak={max(r['peak_buffer_mb'] for r in rs):.2f}MB "
-                    f"mean_pause={sum(r['pause_ratio'] for r in rs) / len(rs):.4f}"))
+        name = f"scheme_compare/summary/{s}"
+        out.append((name, 0.0, fig.keep(
+            name, "thr@far={thr_far_gbps:.2f}Gbps worst_peak={worst_peak_mb:.2f}MB "
+            "mean_pause={mean_pause:.4f}",
+            thr_far_gbps=next(r for r in rs if r["distance_km"] == far)["throughput_gbps"],
+            worst_peak_mb=max(r["peak_buffer_mb"] for r in rs),
+            mean_pause=sum(r["pause_ratio"] for r in rs) / len(rs))))
     return out
 
 
@@ -471,21 +501,22 @@ def topology(fig: Figure, full: bool = False):
         for (sp, sk), r in zip(cells, res[s]):
             cell = ("x".join(f"{x:g}" for x in sp) + "/"
                     + "x".join(f"{x:.2g}" for x in sk))
-            extra = (f" rob={r['mean_reorder_buf_mb']:.4g}MB "
-                     f"entropy={r['spray_entropy']:.4f}"
+            extra = (" rob={mean_reorder_buf_mb:.4g}MB entropy={spray_entropy:.4f}"
                      if "spray_entropy" in r else "")
-            out.append((f"topology/{s}/{cell}", us,
-                        f"thr={r['throughput_gbps']:.4g}Gbps "
-                        f"peak={r['peak_buffer_mb']:.4g}MB "
-                        f"pause={r['pause_ratio']:.4g}{extra}"))
+            name = f"topology/{s}/{cell}"
+            out.append((name, us, fig.keep(
+                name, "thr={throughput_gbps:.4g}Gbps peak={peak_buffer_mb:.4g}MB "
+                "pause={pause_ratio:.4g}" + extra, **r)))
     _check_streamed("topology", res, len(cfgs), links=True)
     for s, rs in res.items():
-        extra = (f" spray_entropy={sum(r['spray_entropy'] for r in rs) / len(rs):.4f}"
-                 if s == "rdmacell" else "")
-        out.append((f"topology/summary/{s}", 0.0,
-                    f"mean_thr={sum(r['throughput_gbps'] for r in rs) / len(rs):.2f}Gbps "
-                    f"worst_peak={max(r['peak_buffer_mb'] for r in rs):.2f}MB"
-                    + extra))
+        extra = {"spray_entropy": sum(r["spray_entropy"] for r in rs) / len(rs)} \
+            if s == "rdmacell" else {}
+        name = f"topology/summary/{s}"
+        out.append((name, 0.0, fig.keep(
+            name, "mean_thr={mean_thr_gbps:.2f}Gbps worst_peak={worst_peak_mb:.2f}MB"
+            + (" spray_entropy={spray_entropy:.4f}" if extra else ""),
+            mean_thr_gbps=sum(r["throughput_gbps"] for r in rs) / len(rs),
+            worst_peak_mb=max(r["peak_buffer_mb"] for r in rs), **extra)))
     return out
 
 
@@ -501,10 +532,11 @@ def _by_scheme(fig: Figure, cfgs, wl, horizon_us: float, cells, label,
         if len(res[s]) != len(cells):
             raise AssertionError(f"{fig.name} {s}: {len(res[s])} rows, "
                                  f"{len(cells)} cells")
+        template = " ".join(f"{k}={{{k}:.4g}}" for k in (
+            "throughput_gbps", "peak_buffer_mb", "pause_ratio") + cols)
         for cell, r in zip(cells, res[s]):
-            out.append((f"{fig.name}/{s}/{label(cell)}", us, " ".join(
-                f"{k}={r[k]:.4g}" for k in ("throughput_gbps", "peak_buffer_mb",
-                                           "pause_ratio") + cols)))
+            name = f"{fig.name}/{s}/{label(cell)}"
+            out.append((name, us, fig.keep(name, template, **r)))
     return res, out
 
 
@@ -568,10 +600,13 @@ def impairment(fig: Figure, full: bool = False):
                                          f"{a[m]} vs the ideal channel's {b[m]}")
     for s, rs in res.items():
         w = max(rs, key=lambda r: r["retx_frac"])
-        out.append((f"impairment/summary/{s}", 0.0,
-                    f"goodput_worst={w['goodput_gbps']:.2f}Gbps "
-                    f"retx_frac_worst={w['retx_frac']:.4f} "
-                    f"p99_repair_worst={w['p99_repair_latency_us']:.1f}us"))
+        name = f"impairment/summary/{s}"
+        out.append((name, 0.0, fig.keep(
+            name, "goodput_worst={goodput_worst_gbps:.2f}Gbps "
+            "retx_frac_worst={retx_frac_worst:.4f} "
+            "p99_repair_worst={p99_repair_worst_us:.1f}us",
+            goodput_worst_gbps=w["goodput_gbps"], retx_frac_worst=w["retx_frac"],
+            p99_repair_worst_us=w["p99_repair_latency_us"])))
     return out
 
 
@@ -644,10 +679,12 @@ def sites(fig: Figure, full: bool = False):
                                  f"{retx}")
     for s, rs in res.items():
         w = max(rs, key=lambda r: r["retx_frac"])
-        out.append((f"sites/summary/{s}", 0.0,
-                    f"mean_thr={sum(r['throughput_gbps'] for r in rs) / len(rs):.2f}Gbps "
-                    f"goodput_worst={w['goodput_gbps']:.2f}Gbps "
-                    f"retx_frac_worst={w['retx_frac']:.4f}"))
+        name = f"sites/summary/{s}"
+        out.append((name, 0.0, fig.keep(
+            name, "mean_thr={mean_thr_gbps:.2f}Gbps goodput_worst={goodput_worst_gbps:.2f}Gbps "
+            "retx_frac_worst={retx_frac_worst:.4f}",
+            mean_thr_gbps=sum(r["throughput_gbps"] for r in rs) / len(rs),
+            goodput_worst_gbps=w["goodput_gbps"], retx_frac_worst=w["retx_frac"])))
     return out
 
 
@@ -708,10 +745,13 @@ def failover(fig: Figure, full: bool = False, checkpoint_dir=None,
                                      f"link 0's {link}")
     for s, rs in res.items():
         down = [r for r, (k, _) in zip(rs, cells) if k != "none"]
-        out.append((f"failover/summary/{s}", 0.0,
-                    f"collapse_worst={max(r['failover_collapse_frac'] for r in down):.4f} "
-                    f"recovery_worst={max(r['failover_recovery_us'] for r in down):.1f}us "
-                    f"mean_thr={sum(r['throughput_gbps'] for r in rs) / len(rs):.2f}Gbps"))
+        name = f"failover/summary/{s}"
+        out.append((name, 0.0, fig.keep(
+            name, "collapse_worst={collapse_worst:.4f} "
+            "recovery_worst={recovery_worst_us:.1f}us mean_thr={mean_thr_gbps:.2f}Gbps",
+            collapse_worst=max(r["failover_collapse_frac"] for r in down),
+            recovery_worst_us=max(r["failover_recovery_us"] for r in down),
+            mean_thr_gbps=sum(r["throughput_gbps"] for r in rs) / len(rs))))
     return out
 
 
@@ -928,7 +968,8 @@ def main(argv=None) -> dict:
                      f"{fmt(r['idle_share'], '.1%')}")
         print(line + f" [{kind}]", flush=True)
     out = {"figure": args.figure, "full": args.full, "device": kind,
-           "horizon_us": args.horizon_us, "rows": rows, "schemes": fig.records}
+           "horizon_us": args.horizon_us, "rows": rows, "schemes": fig.records,
+           "values": fig.values}
     print(json.dumps(out))
     return out
 
