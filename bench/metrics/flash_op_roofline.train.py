@@ -1,0 +1,27 @@
+"""The flash attention op's share of its roofline in the traced window: the
+least time of its forward and backward work at the cell's shapes (causal,
+GQA; the larger of operations at 989 TFLOP/s and bytes at 3.35 TB/s,
+``bench.yardstick.cost``) for every backward in the window, over the device
+time of every kernel launched under the op's forwards (a recompute's
+included) and backwards."""
+from bench.yardstick.cost import attention_bwd_cost, attention_cost, least_s
+
+UNIT, BETTER, SOURCE = "%", "higher", "device_trace"
+LAYER, MOVES = "kernels", "train_tokens_per_s"
+FORWARD = "FlashAttention"
+BACKWARD = "autograd::engine::evaluate_function: FlashAttentionBackward"
+
+
+def read(run):
+    t = run.trace
+    if run.kind != "train" or t is None:
+        return None
+    pairs = t.count(BACKWARD)
+    device_s = t.device_s_under((FORWARD, BACKWARD))
+    if not pairs or not device_s:
+        return None
+    c = run.cfg
+    shape = (run.mix["batch"], run.mix["seq"], c["num_heads"], c["num_kv_heads"],
+             c["d_model"] // c["num_heads"], 2)
+    (f1, b1), (f2, b2) = attention_cost(*shape), attention_bwd_cost(*shape)
+    return 100.0 * pairs * least_s(f1 + f2, b1 + b2) / device_s
